@@ -1,0 +1,10 @@
+"""PyTorch/CUDA port of the FedELMY engine (see ``src/repro`` for the JAX
+reference it mirrors).
+
+The port keeps the reference's module names, layouts (NHWC activations,
+HWIO conv weights) and parameter leaf names, so parameters convert between
+the two packages by plain copy (`repro_torch.convert`). Entry points run on
+the CUDA device unless the caller passes ``device="cpu"``; the one hot
+kernel on this path, the f32 GEMM behind every convolution of the paper
+CNN's training step, is hand-written CUDA C++ for Hopper
+(`repro_torch.kernels.csrc.gemm_f32`)."""

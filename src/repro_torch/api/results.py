@@ -1,0 +1,45 @@
+"""Typed run results (port of ``repro/api/results.py``)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional
+
+from repro_torch.configs.base import FedConfig
+
+
+@dataclasses.dataclass
+class ModelRecord:
+    """One pool model trained inside a client's local procedure."""
+    index: int                       # j ∈ [0, S)
+    task_loss: float                 # last-step task loss ℓ(m_j)
+    val_metric: Optional[float] = None
+
+
+@dataclasses.dataclass
+class ClientRecord:
+    """One client visit in a sequential chain."""
+    client: int                      # dataset index
+    rank: int                        # position in the visit order
+    models: List[ModelRecord] = dataclasses.field(default_factory=list)
+    global_metric: Optional[float] = None   # eval_fn(m) after this client
+
+
+@dataclasses.dataclass
+class RunResult:
+    """Everything a federated run produced."""
+    strategy: str
+    params: Any                      # final global model (name → tensor)
+    fed: FedConfig
+    clients: List[ClientRecord] = dataclasses.field(default_factory=list)
+    final_metric: Optional[float] = None
+    wall_time_s: float = 0.0
+    final_pool: Any = None           # last client's pool, if kept
+
+
+@dataclasses.dataclass
+class StrategyOutput:
+    """What a strategy hands back to the engine (the engine adds timing
+    and the final metric to build the RunResult)."""
+    params: Any
+    clients: List[ClientRecord] = dataclasses.field(default_factory=list)
+    final_pool: Any = None

@@ -1,0 +1,87 @@
+"""Run configuration dataclasses (port of ``repro/configs/base.py``).
+
+`ArchConfig` keeps the fields the paper CNN's config sets and reads (f32
+throughout); `FedConfig` is the full
+FedELMY hyper-parameter set with the reference's validation, error
+messages included."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str                   # "cnn" is the only family of this port
+    n_layers: int                 # cnn: conv blocks
+    d_model: int                  # cnn: base conv width
+    d_ff: int
+    vocab_size: int               # cnn: number of classes
+    source: str = ""              # citation
+
+
+# Valid FedConfig string knobs (the reference's lists, verbatim).
+DISTANCE_MEASURES = ("l2", "l1", "cosine", "squared_l2")
+OPTIMIZERS = ("sgd", "momentum", "adam", "adamw")
+
+
+@dataclasses.dataclass(frozen=True)
+class FedConfig:
+    """FedELMY hyper-parameters (paper Alg. 1 notation)."""
+    n_clients: int = 10
+    pool_size: int = 5            # S
+    e_local: int = 200            # E_local (steps in the step-based trainer)
+    e_warmup: int = 30            # E_w
+    alpha: float = 0.06           # d1 scale
+    beta: float = 1.0             # d2 scale
+    learning_rate: float = 5e-5
+    weight_decay: float = 1e-4
+    optimizer: str = "adam"
+    distance_measure: str = "l2"  # l2 | l1 | cosine | squared_l2
+    use_d1: bool = True
+    use_d2: bool = True
+    use_pool: bool = True         # ablation: pool vs single model
+    log_scale_distances: bool = True
+    moment_form: bool = False     # legacy alias for pool_backend="moment"
+    pool_backend: Optional[str] = None
+    pool_rank: int = 8
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.distance_measure not in DISTANCE_MEASURES:
+            raise ValueError(
+                f"unknown distance_measure {self.distance_measure!r}; "
+                f"expected one of {DISTANCE_MEASURES}")
+        if self.optimizer not in OPTIMIZERS:
+            raise ValueError(
+                f"unknown optimizer {self.optimizer!r}; "
+                f"expected one of {OPTIMIZERS}")
+        if self.moment_form and self.pool_backend not in (None, "moment"):
+            raise ValueError(
+                f"moment_form=True conflicts with "
+                f"pool_backend={self.pool_backend!r}; drop moment_form and "
+                f"set pool_backend explicitly")
+        if self.pool_rank < 1:
+            raise ValueError(f"pool_rank must be >= 1, got {self.pool_rank}")
+        if self.resolved_pool_backend == "lowrank" and \
+                self.distance_measure not in ("l2", "squared_l2"):
+            raise ValueError(
+                "the low-rank delta pool computes distances from factor "
+                "Grams, which is exact for l2/squared_l2 only; got "
+                f"{self.distance_measure!r}. Use pool_backend='stacked' "
+                "for l1/cosine.")
+        if self.resolved_pool_backend == "moment" and \
+                self.distance_measure != "squared_l2":
+            raise ValueError(
+                "the moment-form pool keeps only (μ, q) statistics and "
+                "supports distance_measure='squared_l2' exactly; got "
+                f"{self.distance_measure!r}. Use pool_backend='stacked' for "
+                "l2/l1/cosine, or set distance_measure='squared_l2'.")
+
+    @property
+    def resolved_pool_backend(self) -> str:
+        """Backend name for the pool registry."""
+        if self.pool_backend is not None:
+            return self.pool_backend
+        return "moment" if self.moment_form else "stacked"

@@ -1,0 +1,179 @@
+"""The paper CNN's training-step layer: convolution as im2col + GEMM
+(port of ``repro/kernels/local_step.py``).
+
+* `im2col` — SAME stride-1 patch extraction by pad + slice + concat, in
+  the reference's (kh, kw, c) order, so a (kh, kw, C_in, C_out) filter
+  reshapes to the matching (kh·kw·C_in, C_out) matrix.
+* `gemm` — the f32 matrix product of every conv, forward and backward.
+  On a CUDA tensor it launches the hand-written kernel
+  ``csrc/gemm_f32.cu`` (see its header for what it replaces and what
+  bounds it); its gradient is a `torch.autograd.Function` whose backward
+  runs the same kernel for dA = G·Bᵀ and dB = Aᵀ·G through transpose
+  flags, as the reference's custom VJP runs its Pallas kernel. On a CPU
+  tensor it takes the plain version `ref.gemm_ref`. Any other device
+  raises; nothing falls back.
+* `maxpool2x2` — reshape + amax. `amax` splits the gradient evenly over
+  ties, as the reference's `max` reduction does; `F.max_pool2d` would
+  route it to one element.
+* `fused_loss_for` — the capability probe the trainer consults: a model
+  whose native loss is not the training formulation attaches its
+  im2col + GEMM twin under `FUSED_LOSS_ATTR`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+from repro_torch.kernels.ref import gemm_ref
+
+# Attribute under which a model registers its training-loss twin.
+FUSED_LOSS_ATTR = "fused_step_loss"
+
+_BLOCK_M = 64          # the kernel's output tile rows (csrc/gemm_f32.cu)
+_MAX_GRID_Y = 65535    # CUDA's limit on gridDim.y
+
+
+def fused_loss_for(loss_fn: Callable) -> Callable:
+    """The loss the training steps are built over: the model's registered
+    twin under `FUSED_LOSS_ATTR`, else the loss itself."""
+    return getattr(loss_fn, FUSED_LOSS_ATTR, None) or loss_fn
+
+
+# ---------------------------------------------------------------------------
+# im2col
+# ---------------------------------------------------------------------------
+
+def im2col(x: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """(B, H, W, C) → (B, H, W, k·k·C) SAME stride-1 patches ordered
+    (kh, kw, c)."""
+    b, h, w, c = x.shape
+    lo = (k - 1) // 2
+    hi = k - 1 - lo
+    xp = F.pad(x, (0, 0, lo, hi, lo, hi))
+    cols = [xp[:, i:i + h, j:j + w, :] for i in range(k) for j in range(k)]
+    return torch.cat(cols, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# The GEMM kernel's wrapper
+# ---------------------------------------------------------------------------
+
+def bind_gemm(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signature of `lib.gemm_f32` (csrc/gemm_f32.cu)."""
+    fn = lib.gemm_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _gemm_lib() -> ctypes.CDLL:
+    return bind_gemm(build.load("gemm_f32"))
+
+
+def gemm_f32(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
+             trans_b: bool = False) -> torch.Tensor:
+    """Launch the CUDA kernel: op(a) @ op(b) in f32, where op transposes
+    when its flag is set. `a` is stored (M, K), or (K, M) with `trans_a`;
+    `b` is stored (K, N), or (N, K) with `trans_b`. Both must be
+    contiguous f32 CUDA tensors on one device. `gemm_f32.launches` counts
+    the launches."""
+    for name, t in (("a", a), ("b", b)):
+        if t.device.type != "cuda":
+            raise ValueError(f"gemm_f32: {name} is on {t.device}, not CUDA")
+        if t.dtype != torch.float32:
+            raise TypeError(f"gemm_f32: {name} is {t.dtype}, not float32")
+        if t.dim() != 2:
+            raise ValueError(f"gemm_f32: {name} must be 2-D, got "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"gemm_f32: {name} must be contiguous")
+    if a.device != b.device:
+        raise ValueError(f"gemm_f32: operands on {a.device} and {b.device}")
+    m, k = (a.shape[1], a.shape[0]) if trans_a else a.shape
+    k2, n = (b.shape[1], b.shape[0]) if trans_b else b.shape
+    if k != k2:
+        raise ValueError(f"gemm_f32: inner dimensions differ: op(a) is "
+                         f"({m}, {k}), op(b) is ({k2}, {n})")
+    if min(m, n, k) == 0:
+        raise ValueError(f"gemm_f32: empty product ({m}, {k}) @ ({k}, {n})")
+    if (m + _BLOCK_M - 1) // _BLOCK_M > _MAX_GRID_Y:
+        raise ValueError(f"gemm_f32: M={m} exceeds the kernel's grid")
+    lib = _gemm_lib()
+    c = torch.empty((m, n), device=a.device, dtype=torch.float32)
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = lib.gemm_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
+                           int(trans_a), int(trans_b), stream)
+    if err != 0:
+        raise RuntimeError(f"gemm_f32: launch failed with CUDA error {err}")
+    gemm_f32.launches += 1
+    return c
+
+
+gemm_f32.launches = 0
+
+
+def _product(a: torch.Tensor, b: torch.Tensor, trans_a: bool = False,
+             trans_b: bool = False) -> torch.Tensor:
+    """Route one product by the operands' device: the kernel on CUDA, the
+    plain version on the CPU."""
+    if a.device.type == "cuda":
+        return gemm_f32(a, b, trans_a=trans_a, trans_b=trans_b)
+    if a.device.type == "cpu":
+        return gemm_ref(a.t() if trans_a else a, b.t() if trans_b else b)
+    raise ValueError(f"gemm: no route for tensors on {a.device}")
+
+
+class GemmF32Function(torch.autograd.Function):
+    """f32 (M, K) @ (K, N) whose backward runs the same product route for
+    dA = G·Bᵀ and dB = Aᵀ·G (skipping the ones not needed)."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return _product(a, b)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        g = g.contiguous()
+        da = _product(g, b, trans_b=True) if ctx.needs_input_grad[0] else None
+        db = _product(a, g, trans_a=True) if ctx.needs_input_grad[1] else None
+        return da, db
+
+
+def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Differentiable f32 matmul: the CUDA kernel for CUDA tensors (forward
+    and both gradients), the plain version for CPU tensors."""
+    return GemmF32Function.apply(a.float().contiguous(),
+                                 b.float().contiguous())
+
+
+# ---------------------------------------------------------------------------
+# Conv + pooling in GEMM form
+# ---------------------------------------------------------------------------
+
+def conv2d_gemm(x: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """SAME stride-1 NHWC conv as im2col + GEMM; w is (kh, kw, C_in, C_out).
+    Forward and both gradients go through `gemm`."""
+    k = w.shape[0]
+    cols = im2col(x, k)
+    bsz, h, wd, kk = cols.shape
+    y = gemm(cols.reshape(-1, kk), w.reshape(kk, -1))
+    return y.reshape(bsz, h, wd, -1) + b
+
+
+def maxpool2x2(x: torch.Tensor) -> torch.Tensor:
+    """Non-overlapping 2×2 max pool (NHWC) as reshape + amax; the gradient
+    splits evenly over tied maxima, as in the reference."""
+    b, h, w, c = x.shape
+    return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))

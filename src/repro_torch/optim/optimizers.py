@@ -1,0 +1,77 @@
+"""Optimizers over name → tensor dicts (port of
+``repro/optim/optimizers.py``).
+
+Each optimizer is an ``Optimizer(init, update)`` pair:
+    state = init(params)
+    new_params, new_state = update(params, grads, state, step)
+Updates are functional, as in the reference: they return new tensors and
+leave their inputs unchanged. All arithmetic is f32. Adam is the
+reference's rule — coupled (L2) weight decay, bias correction from the
+runtime `step` — and deliberately not `torch.optim.Adam`."""
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple
+
+import torch
+
+Params = Dict[str, torch.Tensor]
+F32 = torch.float32
+
+
+class Optimizer(NamedTuple):
+    name: str
+    init: Callable[[Params], dict]
+    update: Callable[[Params, Params, dict, int], tuple]
+
+
+def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+         weight_decay: float = 0.0, name: str = "adam") -> Optimizer:
+    """Adam with L2 (coupled) weight decay — the paper's setup (Adam,
+    weight decay 1e-4); ``name="adamw"`` decouples the decay instead."""
+    def init(params):
+        return {"m": {k: torch.zeros(p.shape, dtype=F32, device=p.device)
+                      for k, p in params.items()},
+                "v": {k: torch.zeros(p.shape, dtype=F32, device=p.device)
+                      for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(params, grads, state, step):
+        t = torch.tensor(step, dtype=F32) + 1.0
+        c1 = 1.0 - b1 ** t
+        c2 = 1.0 - b2 ** t
+        new_p, new_m, new_v = {}, {}, {}
+        for k, p in params.items():
+            g = grads[k].to(F32)
+            if name == "adam" and weight_decay:
+                g = g + weight_decay * p.to(F32)
+            m = b1 * state["m"][k] + (1 - b1) * g
+            v = b2 * state["v"][k] + (1 - b2) * g * g
+            u = (m / c1) / (torch.sqrt(v / c2) + eps)
+            pn = p.to(F32) - lr * u
+            if name == "adamw" and weight_decay:
+                pn = pn - lr * weight_decay * p.to(F32)
+            new_p[k], new_m[k], new_v[k] = pn.to(p.dtype), m, v
+        return new_p, {"m": new_m, "v": new_v}
+
+    return Optimizer(name, init, update)
+
+
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          weight_decay: float = 0.0) -> Optimizer:
+    return adam(lr, b1, b2, eps, weight_decay, name="adamw")
+
+
+def _not_ported(name: str, slice_: str):
+    def make(lr: float, weight_decay: float = 0.0, **kw) -> Optimizer:
+        raise NotImplementedError(
+            f"optimizer {name!r} is not ported yet; it arrives with the "
+            f"{slice_} slice")
+    return make
+
+
+def make_optimizer(name: str, lr: float, weight_decay: float = 0.0,
+                   **kw) -> Optimizer:
+    return {"sgd": _not_ported("sgd", "dfedsam (fused SGD sweep kernel)"),
+            "momentum": _not_ported("momentum", "dfedavgm"),
+            "adam": adam, "adamw": adamw}[name](
+                lr, weight_decay=weight_decay, **kw)
