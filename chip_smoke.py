@@ -9,7 +9,8 @@ the CUDA toolkit's nvcc. It imports nothing of JAX or of the JAX package.
 Phases, each failing the run with a nonzero exit:
 
 1. device  — the card's name and power limit; TF32 off for cuBLAS and cuDNN
-2. build   — compile the path's kernel from the checkout's sources
+2. build   — compile the kernels from the checkout's sources, one nvcc
+             per source, all started together
 3. kernels — the f32 GEMM kernel against its plain version at the shapes
              the paper CNN's training step gives it (forward, dA = G·Bᵀ,
              dB = Aᵀ·G) and one ragged shape; errors, times (L2 flushed
@@ -20,7 +21,17 @@ Phases, each failing the run with a nonzero exit:
 5. card vs CPU — each conv, one step (with the forward's decisions
              pinned) and a 5-step slice agree between the card (kernel)
              and the CPU (plain versions) from the same init
-6. profile — where a training step's time goes (measured, not gated)
+6. profile — where a training step's time goes, fedelmy's pool step and
+             dfedsam's SAM step (measured, not gated)
+7. sgd     — the fused SGD kernel against its plain version, bitwise, on
+             the paper CNN's leaves and on ragged and misaligned leaves;
+             times beside the bound and `torch._fused_sgd_`
+8. table 1 — the paper's Table 1 methods (and the other registered
+             strategies) through `launch` on the full-width paper CNN,
+             on label-skew and on domain-shift data, each run with its
+             exact GEMM and SGD launch counts
+9. dfedsam card vs CPU — 5 SAM steps from one init on both devices,
+             with the native forward's decisions pinned and without
 
 Before the last lines it prints every measurement as one JSON object on
 a line starting "details: "; then the kernels' JSON record and the card's
@@ -32,6 +43,7 @@ f64 check of phase 3 with each, beside the correct kernel: which check
 sees which fault, and where SLICE_RATIO_TOL lies between them.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -56,6 +68,22 @@ CARD = "cuda"
 # distance moved apart. `--planted-faults` read 0.0653 for the correct
 # kernel and 0.125, 0.178 and 1.16 for the planted faults (H100, PERF.md).
 SLICE_RATIO_TOL = 0.1
+# phase 7: the SGD kernel's inputs (dfedsam's lr = 10 × 1e-3, FedConfig's
+# weight decay)
+SGD_LR, SGD_WD = 1e-2, 1e-4
+RAGGED_LEAVES = (1, 3, 65_537)
+# phase 9: dfedsam's 5-step end points, card against CPU, may lie at most
+# these shares of the distance moved apart. With the native forward's
+# decisions pinned to the CPU's on both devices, the two compute one
+# continuous function, and SGD passes a gradient difference on linearly
+# (no Adam-like g/|g| that turns rounding noise into ±lr): the f32 sums of
+# cuDNN and of the CPU's conv differ by ~1e-7 relative, so 1e-5. Through
+# the model's own loss each max-pool argmax or ReLU sign that falls the
+# other way at a near-tie moves a whole gradient term; 5 SAM steps make
+# 10 forwards. On an H100 this reads 5.5e-3 (PERF.md); 5e-2 keeps a
+# tenfold margin on it, the pinned check holds the rest.
+SAM_PINNED_TOL = 1e-5
+SAM_RATIO_TOL = 5e-2
 
 
 def fail(msg):
@@ -66,7 +94,10 @@ def fail(msg):
 def median_ms(fn, reps=25, warmup=3):
     """Median of per-launch CUDA-event times. L2 is flushed before each
     launch (a 256 MiB write; the H100's L2 holds 50 MB), so every launch
-    reads its operands from HBM, as the byte bound assumes."""
+    reads its operands from HBM, as the byte bound assumes. Then the card
+    spins for ~0.5 ms (`torch.cuda._sleep`) while the host enqueues the
+    start event, `fn`'s launches and the end event, so the time is the
+    device's alone: no gap where the card waits for the host's Python."""
     import torch
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
@@ -75,6 +106,7 @@ def median_ms(fn, reps=25, warmup=3):
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -252,19 +284,21 @@ def _windows(y):
         0, 1, 3, 5, 2, 4).reshape(b, h // 2, w // 2, c, 4)
 
 
-def cnn_decisions(torch, params, images):
-    """The discontinuous decisions of the CNN's training forward (im2col +
-    GEMM) on one batch: per conv, the ReLU signs, each pooling window's
-    argmax and whether the window's max is positive (only those carry
-    gradient); fc1's ReLU signs."""
+def cnn_decisions(torch, params, images, conv=None):
+    """The discontinuous decisions of the CNN's forward on one batch: per
+    conv, the ReLU signs, each pooling window's argmax and whether the
+    window's max is positive (only those carry gradient); fc1's ReLU
+    signs. `conv` is the training forward's im2col + GEMM by default, or
+    `ref.conv2d_ref` for the native forward (F.conv2d)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.local_step import conv2d_gemm, maxpool2x2
+    conv = conv or conv2d_gemm
     out = {}
     with torch.no_grad():
         x = images.float()
         for name in CONVS:
-            y = conv2d_gemm(x, params[f"{name}.w"], params[f"{name}.b"])
+            y = conv(x, params[f"{name}.w"], params[f"{name}.b"])
             win = _windows(F.relu(y))
             out[name] = (y > 0, win.argmax(-1), win.amax(-1) > 0)
             x = maxpool2x2(F.relu(y))
@@ -285,21 +319,23 @@ def count_flips(card, cpu):
     return flips
 
 
-def pinned_loss(torch, decisions):
-    """The CNN's training loss with its decisions fixed to `decisions`:
-    ReLU as a product with the given signs, max-pool as a gather of the
-    given argmax. Where the decisions are the input's own it computes the
-    model's fused loss; with one device's decisions on both devices the
-    two compute one continuous function of the parameters."""
+def pinned_loss(torch, decisions, conv=None):
+    """The CNN's loss with its decisions fixed to `decisions`: ReLU as a
+    product with the given signs, max-pool as a gather of the given
+    argmax. Where the decisions are the input's own it computes the
+    model's loss (the fused one with the default `conv`, the native one
+    with `ref.conv2d_ref`); with one device's decisions on both devices
+    the two compute one continuous function of the parameters."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.local_step import conv2d_gemm
+    conv = conv or conv2d_gemm
 
     def loss(params, batch):
         x = batch["images"].float()
         for name in CONVS:
             signs, argmax, _ = decisions[name]
-            y = conv2d_gemm(x, params[f"{name}.w"], params[f"{name}.b"])
+            y = conv(x, params[f"{name}.w"], params[f"{name}.b"])
             x = torch.gather(_windows(y * signs), -1,
                              argmax.unsqueeze(-1)).squeeze(-1)
         h = x.reshape(x.shape[0], -1) @ params["fc1.w"] + params["fc1.b"]
@@ -567,33 +603,18 @@ def planted_faults(torch, local_step):
     return readings
 
 
-def profile_steps(torch, n_steps=20):
-    """Where a training step's time goes: `torch.profiler` over
-    `n_steps` Eq. 9 steps of the full-width CNN at batch 64 (after 3
-    warm-up steps): host time per step, device busy time per step (the
-    kernels' summed device time), the device's idle share, kernels
-    launched per step and the five kernels with the most device time."""
+def _profile(torch, run, n_steps, label):
+    """`torch.profiler` over `run(n_steps)`: host time per step, device
+    busy time per step (the kernels' summed device time), the device's
+    idle share, kernels launched per step and the five kernels with the
+    most device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.api.trainer import LocalTrainer
-    from repro_torch.configs import FedConfig, get_arch
-    from repro_torch.data import batch_iterator
-    from repro_torch.models import build_model
-
-    arrays, _ = quickstart_data()
-    model = build_model(get_arch("paper-cnn"))
-    fed = FedConfig(n_clients=4, pool_size=3, e_local=25, e_warmup=10,
-                    learning_rate=1e-3)
-    trainer = LocalTrainer(model.loss_fn, fed)
-    params = model.init(3)
-    pool = trainer.backend.create(params, fed).append(model.init(4))
-    it = batch_iterator(arrays[0], 64, seed=0)
-    trainer.train(pool.average(), it, 3, pool=pool)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        trainer.train(pool.average(), it, n_steps, pool=pool)
+        run(n_steps)
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
     kernels = [e for e in prof.events()
@@ -608,12 +629,407 @@ def profile_steps(torch, n_steps=20):
                idle_share=1.0 - busy_us / 1e6 / host_s if host_s else None,
                kernels_per_step=len(kernels) / n_steps,
                top=[(name, us / 1e3 / n_steps) for name, us in top])
-    print(f"  {out['host_ms_per_step']:.3f} ms/step on the host clock "
-          f"(profiler on), device busy {out['device_busy_ms_per_step']:.3f}"
-          f" ms/step, idle share {out['idle_share']:.3f}, "
-          f"{out['kernels_per_step']:.1f} kernels/step")
+    print(f"  {label}: {out['host_ms_per_step']:.3f} ms/step on the host "
+          f"clock (profiler on), device busy "
+          f"{out['device_busy_ms_per_step']:.3f} ms/step, idle share "
+          f"{out['idle_share']:.3f}, {out['kernels_per_step']:.1f} "
+          "kernels/step")
     for name, ms in out["top"]:
         print(f"    {ms:8.4f} ms/step  {name[:90]}")
+    return out
+
+
+def profile_steps(torch, n_steps=20):
+    """Where a training step's time goes, over `n_steps` steps of the
+    full-width CNN at batch 64 after 3 warm-up steps: the Eq. 9 pool step
+    (fedelmy's) and dfedsam's SAM step (the plan's own step factory and
+    trainer overrides: SGD at 10 × lr)."""
+    from repro_torch.api import Experiment, get_plan
+    from repro_torch.api.trainer import LocalTrainer
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.data import batch_iterator
+    from repro_torch.models import build_model
+
+    arrays, _ = quickstart_data()
+    model = build_model(get_arch("paper-cnn"))
+    fed = FedConfig(n_clients=4, pool_size=3, e_local=25, e_warmup=10,
+                    learning_rate=1e-3)
+    trainer = LocalTrainer(model.loss_fn, fed)
+    params = model.init(3)
+    pool = trainer.backend.create(params, fed).append(model.init(4))
+    it = batch_iterator(arrays[0], 64, seed=0)
+    trainer.train(pool.average(), it, 3, pool=pool)
+    out = {"pool": _profile(
+        torch, lambda n: trainer.train(pool.average(), it, n, pool=pool),
+        n_steps, "Eq. 9 pool step")}
+
+    plan = get_plan("dfedsam")
+    sam_trainer = LocalTrainer(model.loss_fn, fed,
+                               **plan.trainer_overrides(fed))
+    exp = Experiment(model=model, client_iters=[it], fed=fed,
+                     strategy="dfedsam")
+    sam_step = plan.phases[0].step_factory(sam_trainer, exp, None)
+    sam_trainer.train(params, it, 3, step_fn=sam_step)
+    out["sam"] = _profile(
+        torch, lambda n: sam_trainer.train(params, it, n, step_fn=sam_step),
+        n_steps, "dfedsam SAM step")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the SGD kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def _ulps(a, b):
+    """Largest distance in units in the last place between two f32
+    tensors of one sign pattern (their bit patterns as integers)."""
+    import torch
+    ia = a.contiguous().view(torch.int32).long()
+    ib = b.contiguous().view(torch.int32).long()
+    return int((ia - ib).abs().max()) if a.numel() else 0
+
+
+def check_sgd(torch, local_step, ref):
+    """Kernel against plain version on three sets of leaves, bitwise:
+    the paper CNN's 10 leaves (one launch), ragged leaves of 1, 3 and
+    65,537 elements plus one whose pointers are not 16-byte aligned (a
+    slice at offset 1, so the kernel's scalar path), and 100 small leaves
+    (three launches: the kernel's table holds 48). Times on the CNN's
+    leaves: kernel, plain version and `torch._fused_sgd_` (the library
+    yardstick, on copies; the port never calls it)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(n):
+        return torch.randn(n, device="cuda", generator=gen)
+
+    cnn = build_model(get_arch("paper-cnn")).init(0)
+    sets = {
+        "cnn": ([v for v in cnn.values()],
+                [randn(v.shape) for v in cnn.values()]),
+        "ragged": ([randn(n) for n in RAGGED_LEAVES] + [randn(10_001)[1:]],
+                   [randn(n) for n in RAGGED_LEAVES] + [randn(10_002)[2:]]),
+        "many": ([randn(5 + i) for i in range(100)],
+                 [randn(5 + i) for i in range(100)]),
+    }
+    rows = {}
+    for name, (ps, gs) in sets.items():
+        before = [p.clone() for p in ps]
+        launches = local_step.sgd_f32.launches
+        out = local_step.sgd_f32(ps, gs, lr=SGD_LR, wd=SGD_WD)
+        torch.cuda.synchronize()
+        n_launch = local_step.sgd_f32.launches - launches
+        want = [ref.sgd_update_ref(p, g, lr=SGD_LR, wd=SGD_WD)
+                for p, g in zip(ps, gs)]
+        n_diff = sum(int((o != w).sum()) for o, w in zip(out, want))
+        rows[name] = dict(
+            leaves=len(ps), elements=sum(p.numel() for p in ps),
+            launches=n_launch, n_diff=n_diff,
+            max_abs_err=max(float((o - w).abs().max())
+                            for o, w in zip(out, want)),
+            max_ulps=max(_ulps(o, w) for o, w in zip(out, want)),
+            inputs_unchanged=all(torch.equal(p, b)
+                                 for p, b in zip(ps, before)))
+        print(f"  sgd {name:6s} {rows[name]['leaves']} leaves, "
+              f"{rows[name]['elements']} elements, {n_launch} launch(es): "
+              f"{n_diff} elements differ from the plain version (max "
+              f"{rows[name]['max_ulps']} ulp)")
+        if n_diff or not rows[name]["inputs_unchanged"]:
+            fail(f"sgd_f32 on the {name} leaves is not bitwise equal to its "
+                 "plain version, or changed its inputs")
+        want_launches = -(-len(ps) // 48)
+        if n_launch != want_launches:
+            fail(f"sgd_f32 on the {name} leaves made {n_launch} launches; "
+                 f"expected {want_launches}")
+
+    ps, gs = sets["cnn"]
+    lib_p = [p.clone() for p in ps]
+    lib_g = [g.clone() for g in gs]
+    n_el = sum(p.numel() for p in ps)
+    byte_s = 3 * n_el * 4 / PEAK_BYTES
+    flop_s = 4 * n_el / PEAK_F32_FLOPS
+    timing = dict(
+        ms=median_ms(lambda: local_step.sgd_f32(ps, gs, lr=SGD_LR,
+                                                wd=SGD_WD)),
+        plain_ms=median_ms(lambda: [ref.sgd_update_ref(p, g, lr=SGD_LR,
+                                                       wd=SGD_WD)
+                                    for p, g in zip(ps, gs)]),
+        library_ms=median_ms(lambda: torch._fused_sgd_(
+            lib_p, lib_g, [], weight_decay=SGD_WD, momentum=0.0, lr=SGD_LR,
+            dampening=0.0, nesterov=False, maximize=False,
+            is_first_step=False)),
+        bound_ms=max(byte_s, flop_s) * 1e3,
+        bound_by="bytes" if byte_s >= flop_s else "operations",
+        bytes=3 * n_el * 4)
+    print(f"  sgd cnn: kernel {timing['ms']:.4f} ms, plain "
+          f"{timing['plain_ms']:.4f} ms, torch._fused_sgd_ "
+          f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} "
+          f"ms ({timing['bound_by']}: {timing['bytes']} bytes)")
+    return rows, timing
+
+
+# ---------------------------------------------------------------------------
+# phase 8: Table 1 on the card
+# ---------------------------------------------------------------------------
+
+TABLE1_FED = dict(n_clients=4, pool_size=3, e_local=25, e_warmup=10,
+                  learning_rate=1e-3, alpha=0.06, beta=1.0)
+# (data family, strategy, Experiment fields): Table 1's five methods on
+# both families (benchmarks/table1_accuracy.py METHODS), the other
+# registered strategies on label skew
+TABLE1_RUNS = (
+    [("label-skew", s, {}) for s in ("fedseq", "dfedavgm", "dfedsam",
+                                     "metafed", "fedelmy_pfl")] +
+    [("label-skew", "fedelmy_fewshot", {"shots": 2}),
+     ("label-skew", "local_only", {})] +
+    [("domain-shift", s, {}) for s in ("dfedavgm", "dfedsam", "metafed",
+                                       "fedseq", "fedelmy")])
+
+# Label-skew runs whose aggregate the JAX reference itself leaves at chance
+# on this data (tests/table1_reference_accuracy.py: its CPU run at full
+# width, same data and seeds, reads 0.095 for dfedavgm and 0.101 for
+# fedelmy_pfl): the mean of models that each collapsed onto their client's
+# few classes (Dirichlet 0.3), or that started from four different inits.
+# Their final accuracy is printed, not held above chance. dfedavgm's code
+# is held above chance on domain-shift data, where its aggregate learns;
+# fedelmy_pfl's local training is held through its records: every pool
+# model's task loss below ln 10, a uniform guess's.
+AT_CHANCE = {("label-skew", "dfedavgm"), ("label-skew", "fedelmy_pfl")}
+
+
+def expected_run(strategy, fed, shots=1):
+    """What a run of `strategy` must show: training steps over the fused
+    loss (8 GEMM launches each), custom steps over the native loss (no
+    GEMM launch), SGD launches (one per dfedsam step), client records and
+    pool models per record, round records, final pool members."""
+    n, s, e, w = fed.n_clients, fed.pool_size, fed.e_local, fed.e_warmup
+    plain = dict(fused=n * e, custom=0, sgd=0, clients=0, models=0,
+                 rounds=0, pool=None)
+    return {
+        "fedseq": dict(plain, clients=n),
+        "dfedavgm": plain,
+        "dfedsam": dict(plain, fused=0, custom=n * e, sgd=n * e),
+        "metafed": dict(plain, fused=n * (e // 2), custom=n * (e // 2)),
+        "fedelmy": dict(plain, fused=w + n * s * e, clients=n, models=s,
+                        pool=s + 1),
+        "fedelmy_fewshot": dict(plain, fused=w + shots * n * s * e,
+                                rounds=shots, pool=s + 1),
+        "fedelmy_pfl": dict(plain, fused=n * (w + s * e), clients=n,
+                            models=s, pool=s + 1),
+        "local_only": dict(plain, fused=e),
+    }[strategy]
+
+
+def domain_shift_data():
+    """PACS stand-in: one domain per client in the order photo, art,
+    cartoon, sketch (1000 samples each, noise 2.0); a held-out set of 250
+    per domain over all four (seed 91)."""
+    import numpy as np
+
+    from repro_torch.data import domain_shift_partition, make_domain_datasets
+    doms = make_domain_datasets(1000, noise=2.0, seed=0)
+    clients = domain_shift_partition(doms, 4, seed=0)
+    arrays = [{"images": c.images, "labels": c.labels} for c in clients]
+    test = make_domain_datasets(250, noise=2.0, seed=91)
+    images = np.concatenate([d.images for d in test.values()])
+    labels = np.concatenate([d.labels for d in test.values()])
+    return arrays, (images, labels)
+
+
+def table1_on_card(torch, local_step):
+    """Every run of TABLE1_RUNS through `launch` on the card: steps, wall
+    time, steps/s, final accuracy; asserts finite parameters on the card,
+    accuracy above chance, the plan's record structure and the exact
+    GEMM and SGD launch counts. Returns the rows and, for the SGD kernel's
+    JSON line, the label-skew dfedsam run's SGD launches."""
+    from repro_torch.api import Experiment, launch
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.data import batch_iterator
+    from repro_torch.models import build_model
+
+    model = build_model(get_arch("paper-cnn"))
+    fed = FedConfig(**TABLE1_FED)
+    label_arrays, label_test = quickstart_data()
+    data = {"label-skew": (label_arrays, (label_test.images,
+                                          label_test.labels)),
+            "domain-shift": domain_shift_data()}
+    rows = []
+    for family, strategy, fields in TABLE1_RUNS:
+        arrays, (test_x, test_y) = data[family]
+        test_images = torch.from_numpy(test_x).to(model.device)
+        test_labels = torch.from_numpy(test_y).to(model.device)
+
+        def accuracy(params):
+            with torch.no_grad():
+                logits = model.forward(params, {"images": test_images})
+            return (logits.argmax(-1) == test_labels).float().mean()
+
+        iters = [batch_iterator(a, 64, seed=i) for i, a in enumerate(arrays)]
+        want = expected_run(strategy, fed, fields.get("shots", 1))
+        local_step.gemm_f32.launches = 0
+        local_step.sgd_f32.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = launch(Experiment(model=model, client_iters=iters, fed=fed,
+                                strategy=strategy, seed=0, eval_fn=accuracy,
+                                **fields))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gemm, sgd = local_step.gemm_f32.launches, local_step.sgd_f32.launches
+        steps = want["fused"] + want["custom"]
+        row = dict(family=family, strategy=strategy, steps=steps,
+                   wall_s=wall, steps_per_s=steps / wall,
+                   final_accuracy=res.final_metric, gemm_launches=gemm,
+                   sgd_launches=sgd)
+        rows.append(row)
+        print(f"  {family:12s} {strategy:16s} {steps:4d} steps in "
+              f"{wall:7.3f} s ({steps / wall:6.2f} steps/s, evaluations "
+              f"included); final accuracy {res.final_metric:.4f}; "
+              f"gemm_f32 {gemm}, sgd_f32 {sgd} launches")
+        what = f"{family} {strategy}"
+        if gemm != 8 * want["fused"] or sgd != want["sgd"]:
+            fail(f"{what}: gemm_f32 {gemm} and sgd_f32 {sgd} launches; "
+                 f"expected {8 * want['fused']} (8 x {want['fused']} "
+                 f"fused-loss steps) and {want['sgd']}")
+        models = [len(c.models) for c in res.clients]
+        if len(res.clients) != want["clients"] or \
+                any(m != want["models"] for m in models) or \
+                [r.round for r in res.rounds] != list(range(want["rounds"])):
+            fail(f"{what}: {len(res.clients)} client records with "
+                 f"{models} pool models and {len(res.rounds)} round "
+                 f"records; expected {want['clients']} x {want['models']} "
+                 f"and {want['rounds']}")
+        pool = None if res.final_pool is None else res.final_pool.count
+        if pool != want["pool"]:
+            fail(f"{what}: final pool {pool}; expected {want['pool']}")
+        for k, v in res.params.items():
+            if v.device.type != "cuda" or not bool(torch.isfinite(v).all()):
+                fail(f"{what}: final parameter {k} is not a finite tensor "
+                     "on the card")
+        losses = [m.task_loss for c in res.clients for m in c.models]
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"{what}: a pool model's task loss is not finite")
+        if (family, strategy) not in AT_CHANCE:
+            if not res.final_metric > 0.1:
+                fail(f"{what}: final accuracy {res.final_metric:.4f} is not "
+                     "above chance (0.1)")
+        elif strategy == "fedelmy_pfl" and not max(losses) < math.log(10):
+            fail(f"{what}: a pool model's task loss {max(losses):.4f} is "
+                 "not below ln 10 (a uniform guess's)")
+    print("  final accuracy (steps/s):")
+    for family in ("label-skew", "domain-shift"):
+        print(f"    {family:12s} " + ", ".join(
+            f"{r['strategy']} {r['final_accuracy']:.3f} "
+            f"({r['steps_per_s']:.1f})" for r in rows
+            if r["family"] == family))
+    dfedsam = next(r for r in rows if r["strategy"] == "dfedsam")
+    return rows, dfedsam["sgd_launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase 9: dfedsam, the card (kernels) against the CPU (plain versions)
+# ---------------------------------------------------------------------------
+
+def _sam_run(torch, local_step, env, dev, loss_fn=None):
+    """`dfedsam` for env's 5 steps on `dev` through `launch`, with the
+    model's loss or `loss_fn`; returns (final params, sgd_f32 launches,
+    gemm_f32 launches)."""
+    from repro_torch.api import Experiment, launch
+    from repro_torch.data import batch_iterator
+
+    model = env["models"][dev]
+    if loss_fn is not None:
+        model = model._replace(loss_fn=loss_fn)
+    local_step.sgd_f32.launches = 0
+    local_step.gemm_f32.launches = 0
+    params = launch(Experiment(
+        model=model, fed=env["fed"], strategy="dfedsam",
+        client_iters=[batch_iterator(env["arrays"][0], 64, seed=0,
+                                     device=dev)],
+        init_params={k: v.to(dev) for k, v in env["init"].items()})).params
+    return params, local_step.sgd_f32.launches, local_step.gemm_f32.launches
+
+
+def dfedsam_card_vs_cpu(torch, local_step, ref):
+    """5 SAM steps of `dfedsam` (one client, e_local 5, batch 64) from one
+    init on the same batches, on the card (SGD kernel, cuDNN convs with
+    TF32 off) and on the CPU (plain versions), through `launch`:
+
+    (a) with the native forward's decisions pinned: the CPU run records
+        its own decisions at every forward (10: two per SAM step) and
+        computes the pinned loss with them, which is its model's loss;
+        the card replays them. End points within SAM_PINNED_TOL of the
+        distance moved. The card also counts how many of its own
+        decisions at its parameters differ from the CPU's.
+    (b) through the model's own loss on both: within SAM_RATIO_TOL."""
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.models import build_model
+
+    arrays, _ = quickstart_data()
+    env = dict(arrays=arrays,
+               models={d: build_model(get_arch("paper-cnn"), device=d)
+                       for d in (CARD, "cpu")},
+               fed=FedConfig(n_clients=1, e_local=5, learning_rate=1e-3))
+    env["init"] = env["models"]["cpu"].init(1)
+    native = ref.conv2d_ref
+    recorded, flips = [], []
+
+    def recording(params, batch):
+        dec = cnn_decisions(torch, params, batch["images"], native)
+        recorded.append(dec)
+        return pinned_loss(torch, dec, native)(params, batch)
+
+    def replaying(params, batch):
+        cpu = recorded[len(flips)]
+        own = cnn_decisions(torch, params, batch["images"], native)
+        flips.append(sum(count_flips(own, cpu).values()))
+        dec = {k: tuple(t.to(CARD) for t in v) for k, v in cpu.items()}
+        return pinned_loss(torch, dec, native)(params, batch)
+
+    def compare(card, cpu):
+        apart = sum(float((card[k].cpu() - v).square().sum())
+                    for k, v in cpu.items()) ** 0.5
+        moved = sum(float((v - env["init"][k]).square().sum())
+                    for k, v in cpu.items()) ** 0.5
+        per_leaf = {k: float((card[k].cpu() - v).norm()) /
+                    max(float((v - env["init"][k]).norm()), 1e-30)
+                    for k, v in cpu.items()}
+        return dict(apart=apart, moved=moved, ratio=apart / moved,
+                    per_leaf=per_leaf)
+
+    cpu_pinned, cpu_sgd, _ = _sam_run(torch, local_step, env, "cpu",
+                                      recording)
+    card_pinned, pinned_sgd, pinned_gemm = _sam_run(torch, local_step, env,
+                                                    CARD, replaying)
+    cpu_model, _, _ = _sam_run(torch, local_step, env, "cpu")
+    card_model, card_sgd, card_gemm = _sam_run(torch, local_step, env, CARD)
+    out = dict(pinned=compare(card_pinned, cpu_pinned),
+               model=compare(card_model, cpu_model),
+               forwards=len(recorded), decisions_flipped=flips,
+               sgd_launches_card=card_sgd, gemm_launches_card=card_gemm,
+               sgd_launches_cpu=cpu_sgd)
+    for name, tol in (("pinned", SAM_PINNED_TOL), ("model", SAM_RATIO_TOL)):
+        r = out[name]
+        print(f"  ({'a' if name == 'pinned' else 'b'}) {name}: end points "
+              f"{r['apart']:.4e} apart after moving {r['moved']:.4e}: ratio "
+              f"{r['ratio']:.3e} (tolerance {tol}); per leaf " +
+              ", ".join(f"{k} {v:.1e}" for k, v in r["per_leaf"].items()))
+    print(f"      {len(recorded)} forwards; decisions of the card's own "
+          f"forward that differ from the CPU's: {flips}; launches on the "
+          f"card: sgd_f32 {card_sgd}, gemm_f32 {card_gemm}; on the CPU: "
+          f"sgd_f32 {cpu_sgd}")
+    if (card_sgd, card_gemm) != (5, 0) or (pinned_sgd, pinned_gemm) != (5, 0) \
+            or cpu_sgd != 0 or len(recorded) != 10 or len(flips) != 10:
+        fail("dfedsam did not launch sgd_f32 once per step on the card "
+             "(and never on the CPU), launched gemm_f32, or did not run 10 "
+             "forwards")
+    if not out["pinned"]["ratio"] <= SAM_PINNED_TOL:
+        fail("card and CPU runs of dfedsam disagree with the decisions "
+             "pinned")
+    if not out["model"]["ratio"] <= SAM_RATIO_TOL:
+        fail("card and CPU runs of dfedsam disagree")
     return out
 
 
@@ -648,15 +1064,16 @@ def main(argv):
           f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}, "
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
-    # phase 2: build the path's kernel
+    # phase 2: build the kernels, one nvcc each, in parallel
     from repro_torch.kernels import build, local_step, ref
     t0 = time.perf_counter()
-    log = build.build("gemm_f32")
+    logs = build.build_all()
     build_s = time.perf_counter() - t0
-    print(f"[2] build: {build_s:.3f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  gemm_f32: {line.strip()}")
+    print(f"[2] build: {build_s:.3f} s ({', '.join(sorted(logs))})")
+    for name, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
 
     if planted:
         print("[5] every agreement check with each planted fault")
@@ -682,6 +1099,19 @@ def main(argv):
     print("[6] profile of the training step")
     step_profile = profile_steps(torch)
 
+    # phase 7: the SGD kernel against its plain version
+    print("[7] sgd_f32 against its plain version")
+    sgd_rows, sgd_timing = check_sgd(torch, local_step, ref)
+
+    # phase 8: Table 1 on the card
+    print("[8] Table 1 on the card: launch(Experiment(strategy=...)), "
+          "full-width paper CNN, label skew and domain shift")
+    table1, sgd_launches = table1_on_card(torch, local_step)
+
+    # phase 9: dfedsam card against CPU
+    print("[9] dfedsam: card (kernels) against CPU (plain versions)")
+    sam_agreement = dfedsam_card_vs_cpu(torch, local_step, ref)
+
     step_rows = [r for r in rows if r["main_path"]]
     byte_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[0] for r in step_rows)
     flop_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[1] for r in step_rows)
@@ -696,11 +1126,23 @@ def main(argv):
         "plain_ms": sum(r["plain_ms"] for r in step_rows),
         "bound_ms": max(byte_s, flop_s) * 1e3,
         "bound_by": "bytes" if byte_s >= flop_s else "operations",
-        "library_ms": sum(r["library_ms"] for r in step_rows)}]}
+        "library_ms": sum(r["library_ms"] for r in step_rows)}, {
+        "name": "sgd_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/sgd_f32.cu",
+        "replaces": "src/repro/kernels/local_step.py:214",
+        "launches": sgd_launches,       # label-skew dfedsam, phase 8
+        "max_abs_err": max(r["max_abs_err"] for r in sgd_rows.values()),
+        # one update of the paper CNN's 10 leaves
+        "ms": sgd_timing["ms"], "plain_ms": sgd_timing["plain_ms"],
+        "bound_ms": sgd_timing["bound_ms"],
+        "bound_by": sgd_timing["bound_by"],
+        "library_ms": sgd_timing["library_ms"]}]}
     print("details: " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), nvidia_smi=smi_line,
         build_s=build_s, gemm=rows, main_path=main_path,
-        card_vs_cpu=agreement, profile=step_profile,
+        card_vs_cpu=agreement, profile=step_profile, sgd=sgd_rows,
+        sgd_timing=sgd_timing, table1=table1,
+        dfedsam_card_vs_cpu=sam_agreement,
         total_s=time.perf_counter() - t_start)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

@@ -4,7 +4,7 @@ reference it mirrors).
 The port keeps the reference's module names, layouts (NHWC activations,
 HWIO conv weights) and parameter leaf names, so parameters convert between
 the two packages by plain copy (`repro_torch.convert`). Entry points run on
-the CUDA device unless the caller passes ``device="cpu"``; the one hot
-kernel on this path, the f32 GEMM behind every convolution of the paper
-CNN's training step, is hand-written CUDA C++ for Hopper
-(`repro_torch.kernels.csrc.gemm_f32`)."""
+the CUDA device unless the caller passes ``device="cpu"``. The kernels on
+its paths are hand-written CUDA C++ for Hopper: the f32 GEMM behind every
+convolution of the paper CNN's training step (``kernels/csrc/gemm_f32.cu``)
+and the fused SGD update (``kernels/csrc/sgd_f32.cu``)."""

@@ -1,105 +1,333 @@
 """The strategy-plan IR and its sequential interpreter (port of the
-sequential backend of ``repro/api/plan.py``, as far as paper Algorithm 1
-uses it).
+sequential backend of ``repro/api/plan.py``).
 
-A ``StrategyPlan`` states a federated method as data: a client
-``Topology`` and one ``LocalBlock`` per phase. This slice registers one
-plan, ``fedelmy``, and the IR holds what that plan uses: a ``chain``
-topology that threads one model through ``Experiment.order``, ``pool``
-blocks (the paper's diversity procedure), a warm-up on the first client,
-one record per client visit and the last pool kept. The reference's ring
-and independent topologies, plain and custom blocks, optional warm-up,
-tree-mean aggregation and init broadcasts arrive with the strategies that
-use them."""
+A ``StrategyPlan`` states a federated method as data:
+
+* ``Topology``   — how clients are visited: ``chain`` (one model threads
+  through ``order``), ``ring`` (cycles × all clients; ``cycles="shots"``
+  reads ``Experiment.shots``), or ``independent`` (clients train from
+  broadcast inits, then aggregate).
+* ``LocalBlock`` — what one visit does: ``plain`` steps for a FedConfig
+  epoch budget, the ``pool`` diversity procedure (Alg. 1 lines 3–17), or a
+  ``custom`` step factory (DFedSAM's SAM step, MetaFed's anchored
+  penalty). A plan holds one block per *phase*; a phase is a full pass
+  over the topology.
+* ``aggregate``  — ``last`` (the threaded model) or ``tree_mean``.
+* ``broadcast``  — how params reach a visit: ``handoff`` (sequential),
+  ``shared_init`` (same init to every client), ``per_client_init``
+  (independent inits, one seed per client from `per_client_seeds`).
+
+`interpret` runs a plan sequentially. The reference's vmapped backend
+(``interpret_batched``) is not ported, so a ``custom`` block needs only
+its ``step_factory``."""
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
-from repro_torch.api.results import ClientRecord, StrategyOutput
+import numpy as np
+import torch
+
+from repro_torch.api.results import ClientRecord, RoundRecord, StrategyOutput
 from repro_torch.api.trainer import LocalTrainer
 
-_TOPOLOGIES = ("chain",)
-_BLOCK_KINDS = ("pool",)
+Params = Dict[str, torch.Tensor]
+
+_TOPOLOGIES = ("chain", "ring", "independent")
+_BLOCK_KINDS = ("plain", "pool", "custom")
+_AGGREGATES = ("last", "tree_mean")
+_BROADCASTS = ("handoff", "shared_init", "per_client_init")
+_RECORDS = ("none", "clients", "clients_noeval", "rounds")
+
+
+def tree_mean(trees: Sequence[Params]) -> Params:
+    """Leaf-wise mean of parameter dicts — the one-shot averaging
+    aggregate: a running left-to-right f32 sum divided by the count, as
+    the reference defines it (bitwise equal to it)."""
+    out = {}
+    for k, first in trees[0].items():
+        acc = first.to(torch.float32)
+        for t in trees[1:]:
+            acc = acc + t[k].to(torch.float32)
+        out[k] = (acc / len(trees)).to(first.dtype)
+    return out
+
+
+def per_client_seeds(seed: int, n_clients: int) -> List[int]:
+    """One init seed per client for ``per_client_init``, a deterministic
+    function of the experiment's seed (the reference splits its PRNG key
+    instead, so the inits match it in distribution only)."""
+    state = np.random.SeedSequence(seed).generate_state(n_clients)
+    return [int(s) for s in state]
 
 
 @dataclasses.dataclass(frozen=True)
 class Topology:
-    """Client-visit structure of one phase pass: ``chain`` visits
-    ``Experiment.order`` (default 0..N-1) with one model."""
+    """Client-visit structure of one phase pass.
+
+    kind         — "chain" | "ring" | "independent"
+    honors_order — chain only: visit ``Experiment.order`` instead of
+                   0..N-1 (ring/independent always use the natural order)
+    cycles       — passes per phase: an int, or the string "shots" to
+                   read ``Experiment.shots`` at run time (ring topology)
+    """
     kind: str
+    honors_order: bool = False
+    cycles: Any = 1
 
     def __post_init__(self):
         if self.kind not in _TOPOLOGIES:
             raise ValueError(f"unknown topology kind {self.kind!r}; "
                              f"expected one of {_TOPOLOGIES}")
 
+    def resolved_cycles(self, exp) -> int:
+        return exp.shots if self.cycles == "shots" else int(self.cycles)
+
     def schedule(self, exp) -> List[int]:
-        return exp.resolved_order()
+        return (exp.resolved_order() if self.honors_order
+                else list(range(len(exp.client_iters))))
+
+    def label(self) -> str:
+        if self.cycles == "shots":
+            return f"{self.kind}×shots"
+        if self.cycles != 1:
+            return f"{self.kind}×{self.cycles}"
+        return self.kind
 
 
 @dataclasses.dataclass(frozen=True)
 class LocalBlock:
-    """What one client visit executes: ``pool`` — S diversity-regularized
-    models of fed.e_local steps each, handing off the pool average."""
+    """What one client visit executes.
+
+    kind       — "plain" (steps on the task loss), "pool" (the paper's
+                 diversity procedure: S regularized models, pool average
+                 handoff), or "custom" (the step factory below)
+    epochs     — FedConfig field naming the step budget ("e_local")
+    epochs_div — integer divisor of that budget (MetaFed: e_local // 2)
+    anchored   — custom only: the factory receives the params at phase
+                 entry (MetaFed's common model) as its anchor
+    step_factory(trainer, exp, anchor) -> step_fn
+    label      — human name for `describe_strategies`
+    """
     kind: str
+    epochs: str = "e_local"
+    epochs_div: int = 1
+    anchored: bool = False
+    step_factory: Optional[Callable] = None
+    label: Optional[str] = None
 
     def __post_init__(self):
         if self.kind not in _BLOCK_KINDS:
             raise ValueError(f"unknown local block kind {self.kind!r}; "
                              f"expected one of {_BLOCK_KINDS}")
+        if self.kind == "custom" and self.step_factory is None:
+            raise ValueError("custom local blocks need a step_factory (the "
+                             "batched_step_factory of batched execution "
+                             "is not ported yet)")
+        if self.kind == "pool" and (self.epochs != "e_local" or
+                                    self.epochs_div != 1):
+            raise ValueError(
+                "pool blocks train fed.e_local steps per pool model "
+                "(LocalTrainer.local_client_train owns that budget); "
+                "epochs/epochs_div apply to plain/custom blocks only")
+
+    def n_steps(self, fed) -> int:
+        return getattr(fed, self.epochs) // self.epochs_div
+
+    def describe(self) -> str:
+        if self.label is not None:
+            return self.label
+        return "pool(d1,d2)" if self.kind == "pool" else self.kind
 
 
 @dataclasses.dataclass(frozen=True)
 class StrategyPlan:
-    """A federated strategy as declarative data. Before the phases, the
-    interpreter trains fed.e_warmup plain steps on the first scheduled
-    client (paper Alg. 1's warm-up)."""
+    """A federated strategy as declarative data (see the module docstring
+    for the field semantics). ``supports`` lists the optional Experiment
+    fields the plan honors (the engine warns on the rest)."""
     topology: Topology
     phases: Tuple[LocalBlock, ...]
+    aggregate: str = "last"
+    broadcast: str = "handoff"
+    init_from_experiment: bool = False    # honor Experiment.init_params
+    warmup: Optional[str] = None          # None | "first" | "per_client"
+    init_skips_warmup: bool = False       # resume: init_params ⇒ no warmup
+    records: str = "none"
+    keep_final_pool: bool = False
+    client_selector: Optional[Callable] = None   # exp -> client indices
+    trainer_overrides: Optional[Callable] = None  # fed -> LocalTrainer kw
+    supports: Tuple[str, ...] = ()
 
     def __post_init__(self):
+        if self.aggregate not in _AGGREGATES:
+            raise ValueError(f"unknown aggregate {self.aggregate!r}; "
+                             f"expected one of {_AGGREGATES}")
+        if self.broadcast not in _BROADCASTS:
+            raise ValueError(f"unknown broadcast {self.broadcast!r}; "
+                             f"expected one of {_BROADCASTS}")
+        if self.records not in _RECORDS:
+            raise ValueError(f"unknown records policy {self.records!r}; "
+                             f"expected one of {_RECORDS}")
         if not self.phases:
             raise ValueError("a plan needs at least one phase")
+        if self.topology.kind == "independent":
+            if len(self.phases) != 1:
+                raise ValueError("independent topology is single-phase")
+            if self.broadcast == "handoff":
+                raise ValueError("independent topology broadcasts inits "
+                                 "(shared_init or per_client_init), it "
+                                 "cannot hand off sequentially")
+        elif self.broadcast != "handoff":
+            raise ValueError(f"{self.topology.kind} topology hands off "
+                             "sequentially; broadcast must be 'handoff'")
+
+    def describe(self) -> Dict[str, str]:
+        """Plan metadata for `describe_strategies`."""
+        return {
+            "topology": self.topology.label(),
+            "local_block": " → ".join(b.describe() for b in self.phases),
+            "aggregate": self.aggregate,
+            "broadcast": self.broadcast,
+            "supports": ",".join(self.supports) or "—",
+        }
+
+
+# ---------------------------------------------------------------------------
+# Shared helpers
+# ---------------------------------------------------------------------------
+
+def _make_trainer(loss_fn: Callable, fed, plan: StrategyPlan) -> LocalTrainer:
+    kw = plan.trainer_overrides(fed) if plan.trainer_overrides else {}
+    return LocalTrainer(loss_fn, fed, **kw)
 
 
 def _eval(exp, params) -> Optional[float]:
     return float(exp.eval_fn(params)) if exp.eval_fn is not None else None
 
 
+def _resolved_init(exp, plan: StrategyPlan) -> Params:
+    if plan.init_from_experiment and exp.init_params is not None:
+        return exp.init_params
+    return exp.model.init(exp.resolved_seed())
+
+
+def _wants_warmup(exp, plan: StrategyPlan) -> bool:
+    if plan.warmup is None:
+        return False
+    if plan.init_skips_warmup and plan.init_from_experiment \
+            and exp.init_params is not None:
+        return False                       # resuming: warmup already ran
+    return True
+
+
+def _selected_clients(exp, plan: StrategyPlan) -> List[int]:
+    if plan.client_selector is not None:
+        return list(plan.client_selector(exp))
+    return list(range(len(exp.client_iters)))
+
+
+# ---------------------------------------------------------------------------
+# Sequential backend (behind `launch`)
+# ---------------------------------------------------------------------------
+
 def interpret(experiment, plan: StrategyPlan) -> StrategyOutput:
     """Execute one Experiment through its plan, sequentially."""
-    trainer = LocalTrainer(experiment.model.loss_fn, experiment.fed)
+    trainer = _make_trainer(experiment.model.loss_fn, experiment.fed, plan)
+    if plan.topology.kind == "independent":
+        return _interpret_independent(experiment, plan, trainer)
     return _interpret_sequenced(experiment, plan, trainer)
 
 
-def _train_visit(trainer: LocalTrainer, m, it, n_steps: int):
+def _train_visit(trainer: LocalTrainer, m: Params, it, n_steps: int):
     """Plain training over one client stream (the per-step loop)."""
     m, _ = trainer.train(m, it, n_steps)
     return m
 
 
+def _run_block(trainer: LocalTrainer, block: LocalBlock, m: Params, it,
+               step_fn, exp):
+    """One client visit: returns (params, pool | None, model records)."""
+    if block.kind == "pool":
+        return trainer.local_client_train(
+            m, it, on_model_end=exp.callbacks.on_model_end)
+    m, _ = trainer.train(m, it, block.n_steps(trainer.fed), step_fn=step_fn)
+    return m, None, []
+
+
 def _interpret_sequenced(exp, plan: StrategyPlan,
                          trainer: LocalTrainer) -> StrategyOutput:
-    """chain: one model threads through the schedule, phase by phase,
-    starting from ``Experiment.init_params`` (else ``model.init(seed)``);
-    one record per client visit."""
+    """chain / ring: one model threads through the schedule, phase by
+    phase; records per client (chain) or per cycle (ring)."""
+    fed = exp.fed
     schedule = plan.topology.schedule(exp)
-    m = (exp.init_params if exp.init_params is not None
-         else exp.model.init(exp.resolved_seed()))
-    m = _train_visit(trainer, m, exp.client_iters[schedule[0]],
-                     exp.fed.e_warmup)
+    cycles = plan.topology.resolved_cycles(exp)
+    m = _resolved_init(exp, plan)
+    if _wants_warmup(exp, plan):
+        m = _train_visit(trainer, m, exp.client_iters[schedule[0]],
+                         fed.e_warmup)
 
     clients: List[ClientRecord] = []
+    rounds: List[RoundRecord] = []
     pool = None
-    for _ in plan.phases:                  # every block is a pool block
-        for rank, ci in enumerate(schedule):
-            m, pool, models = trainer.local_client_train(
-                m, exp.client_iters[ci],
-                on_model_end=exp.callbacks.on_model_end)
-            rec = ClientRecord(client=int(ci), rank=rank, models=models,
-                               global_metric=_eval(exp, m))
+    for block in plan.phases:
+        anchor = ({k: v.detach() for k, v in m.items()} if block.anchored
+                  else None)
+        step_fn = (block.step_factory(trainer, exp, anchor)
+                   if block.kind == "custom" else None)
+        for r in range(cycles):
+            for rank, ci in enumerate(schedule):
+                m, block_pool, models = _run_block(
+                    trainer, block, m, exp.client_iters[ci], step_fn, exp)
+                if block.kind == "pool":
+                    pool = block_pool
+                if plan.records == "clients":
+                    rec = ClientRecord(client=int(ci), rank=rank,
+                                       models=models,
+                                       global_metric=_eval(exp, m))
+                    clients.append(rec)
+                    if exp.callbacks.on_client_end is not None:
+                        exp.callbacks.on_client_end(rec, m)
+            if plan.records == "rounds":
+                rec = RoundRecord(round=r, global_metric=_eval(exp, m))
+                rounds.append(rec)
+                if exp.callbacks.on_client_end is not None:
+                    exp.callbacks.on_client_end(rec, m)
+    return StrategyOutput(params=m, clients=clients, rounds=rounds,
+                          final_pool=pool if plan.keep_final_pool else None)
+
+
+def _interpret_independent(exp, plan: StrategyPlan,
+                           trainer: LocalTrainer) -> StrategyOutput:
+    """independent: selected clients train (one after another) from
+    broadcast inits, then aggregate."""
+    fed = exp.fed
+    sel = _selected_clients(exp, plan)
+    if plan.broadcast == "per_client_init":
+        seeds = per_client_seeds(exp.resolved_seed(), len(exp.client_iters))
+        inits = [exp.model.init(seeds[c]) for c in sel]
+    else:
+        m0 = _resolved_init(exp, plan)
+        inits = [m0 for _ in sel]
+
+    block = plan.phases[0]
+    step_fn = (block.step_factory(trainer, exp, None)
+               if block.kind == "custom" else None)
+    outs: List[Params] = []
+    clients: List[ClientRecord] = []
+    pool = None
+    for ci, m0 in zip(sel, inits):
+        it = exp.client_iters[ci]
+        if plan.warmup == "per_client":
+            m0 = _train_visit(trainer, m0, it, fed.e_warmup)
+        m, pool, models = _run_block(trainer, block, m0, it, step_fn, exp)
+        outs.append(m)
+        if plan.records == "clients_noeval":
+            rec = ClientRecord(client=int(ci), rank=int(ci), models=models)
             clients.append(rec)
             if exp.callbacks.on_client_end is not None:
                 exp.callbacks.on_client_end(rec, m)
-    return StrategyOutput(params=m, clients=clients, final_pool=pool)
+    params = tree_mean(outs) if plan.aggregate == "tree_mean" else outs[-1]
+    # "final pool" is the last visited client's pool, as in the sequenced
+    # interpreter
+    return StrategyOutput(params=params, clients=clients,
+                          final_pool=pool if plan.keep_final_pool else None)

@@ -6,7 +6,7 @@ registered (misspelled strategy names are the most common user error).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
 
 class Registry:
@@ -32,3 +32,6 @@ class Registry:
 
     def names(self) -> List[str]:
         return sorted(self._items)
+
+    def items(self) -> List[Tuple[str, Any]]:
+        return sorted(self._items.items())

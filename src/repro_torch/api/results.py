@@ -25,12 +25,20 @@ class ClientRecord:
 
 
 @dataclasses.dataclass
+class RoundRecord:
+    """One full cycle around the ring (few-shot adaptation)."""
+    round: int
+    global_metric: Optional[float] = None
+
+
+@dataclasses.dataclass
 class RunResult:
     """Everything a federated run produced."""
     strategy: str
     params: Any                      # final global model (name → tensor)
     fed: FedConfig
     clients: List[ClientRecord] = dataclasses.field(default_factory=list)
+    rounds: List[RoundRecord] = dataclasses.field(default_factory=list)
     final_metric: Optional[float] = None
     wall_time_s: float = 0.0
     final_pool: Any = None           # last client's pool, if kept
@@ -42,4 +50,5 @@ class StrategyOutput:
     and the final metric to build the RunResult)."""
     params: Any
     clients: List[ClientRecord] = dataclasses.field(default_factory=list)
+    rounds: List[RoundRecord] = dataclasses.field(default_factory=list)
     final_pool: Any = None

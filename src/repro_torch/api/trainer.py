@@ -97,30 +97,45 @@ def make_pool_step(loss_fn: Callable, fed: FedConfig, opt: Optimizer,
 
 class LocalTrainer:
     """Per-run training engine: optimizer + steps + pool procedure, all
-    configured by the FedConfig."""
+    configured by the FedConfig. `optimizer` / `learning_rate` /
+    `weight_decay` override the FedConfig's values (baselines like
+    DFedAvgM train with their own local optimizer while sharing the rest
+    of the config)."""
 
-    def __init__(self, loss_fn: Callable, fed: FedConfig):
+    def __init__(self, loss_fn: Callable, fed: FedConfig, *,
+                 optimizer: Optional[str] = None,
+                 learning_rate: Optional[float] = None,
+                 weight_decay: Optional[float] = None):
         self.loss_fn = loss_fn
         self.fed = fed
         self.backend = backend_for(fed)
-        self.opt = make_optimizer(fed.optimizer, fed.learning_rate,
-                                  weight_decay=fed.weight_decay)
+        self.opt = make_optimizer(
+            optimizer if optimizer is not None else fed.optimizer,
+            learning_rate if learning_rate is not None else fed.learning_rate,
+            weight_decay=(weight_decay if weight_decay is not None
+                          else fed.weight_decay))
         step_loss = fused_loss_for(loss_fn)
         self.plain_step = make_plain_step(step_loss, self.opt)
         self.pool_step = make_pool_step(step_loss, fed, self.opt,
                                         self.backend)
 
     def train(self, params: Params, data_iter, n_steps: int, *,
-              pool: Any = None) -> Tuple[Params, torch.Tensor]:
-        """Run n_steps from a fresh optimizer state; with `pool`, the
-        regularized step. The returned task loss is a device scalar;
-        callers defer `float()` (a sync) to record time."""
+              pool: Any = None, step_fn: Optional[Callable] = None
+              ) -> Tuple[Params, torch.Tensor]:
+        """Run n_steps from a fresh optimizer state. With `pool`, the
+        regularized step; `step_fn` overrides the step entirely (signature
+        (params, opt_state, batch, step), e.g. a SAM step). The returned
+        task loss is a device scalar; callers defer `float()` (a sync) to
+        record time."""
         params = {k: v.detach().clone() for k, v in params.items()}
         opt_state = self.opt.init(params)
         task = torch.zeros(())
         for s in range(n_steps):
             batch = next(data_iter)
-            if pool is None:
+            if step_fn is not None:
+                params, opt_state, task = step_fn(params, opt_state, batch,
+                                                  s)
+            elif pool is None:
                 params, opt_state, task = self.plain_step(
                     params, opt_state, batch, s)
             else:

@@ -1,10 +1,13 @@
-"""Label-skew client partitioning (port of ``dirichlet_partition`` from
-``repro/data/partition.py``). Pure numpy, bitwise equal to the reference."""
+"""Client partitioning (port of ``dirichlet_partition`` and
+``domain_shift_partition`` from ``repro/data/partition.py``). Pure numpy,
+bitwise equal to the reference."""
 from __future__ import annotations
 
-from typing import List
+from typing import Dict, List, Sequence
 
 import numpy as np
+
+from repro_torch.data.synthetic import SyntheticImageDataset
 
 # Bounded resampling for the min_size constraint: an unsatisfiable request
 # raises instead of spinning forever.
@@ -50,3 +53,33 @@ def dirichlet_partition(labels: np.ndarray, n_clients: int, beta: float,
         if min(len(p) for p in parts) >= min_size:
             return [np.sort(p) for p in parts]
     raise _retries_exhausted("dirichlet_partition", min_size)
+
+
+def domain_shift_partition(domains: Dict[str, SyntheticImageDataset],
+                           n_clients: int,
+                           order: Sequence[str] = ("photo", "art", "cartoon",
+                                                   "sketch"),
+                           seed: int = 0) -> List[SyntheticImageDataset]:
+    """One (sub-)domain per client, round-robin in `order` (paper Table 6).
+    Within a domain the split is disjoint (a permutation split). The
+    domains draw their permutations in the iteration order of a set of
+    their names, as the reference does, so the draw follows the process's
+    string hashing: equal to the reference within one process."""
+    rng = np.random.default_rng(seed)
+    n_dom = len(order)
+    reps = [order[i % n_dom] for i in range(n_clients)]
+    counts = {d: reps.count(d) for d in set(reps)}
+    splits: Dict[str, List[np.ndarray]] = {}
+    for d, k in counts.items():
+        n = len(domains[d].labels)
+        perm = rng.permutation(n)
+        splits[d] = np.array_split(perm, k)
+    taken = {d: 0 for d in counts}
+    out = []
+    for d in reps:
+        idx = splits[d][taken[d]]
+        taken[d] += 1
+        ds = domains[d]
+        out.append(SyntheticImageDataset(ds.images[idx], ds.labels[idx],
+                                         ds.n_classes))
+    return out

@@ -1,9 +1,12 @@
-"""Synthetic label-skew image data (port of ``repro/data/synthetic.py``):
-class-conditional Gaussian images over low-frequency class means. Pure
-numpy, bitwise equal to the reference for the same seeds."""
+"""Synthetic image data (port of ``repro/data/synthetic.py``):
+class-conditional Gaussian images over low-frequency class means, for
+label skew, and four feature-shifted domains over the same classes, for
+domain shift (the paper's PACS stand-in). Pure numpy, bitwise equal to the
+reference for the same seeds."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Dict
 
 import numpy as np
 
@@ -32,3 +35,48 @@ def make_image_dataset(n_samples=20000, n_classes=10, side=32, noise=1.0,
     images = means[labels] + noise * rng.normal(
         size=(n_samples, side, side, 3)).astype(np.float32)
     return SyntheticImageDataset(images.astype(np.float32), labels, n_classes)
+
+
+_DOMAIN_TRANSFORMS = ("photo", "art", "cartoon", "sketch")
+
+
+def _full_domain_transform(images: np.ndarray, domain: str) -> np.ndarray:
+    if domain == "photo":
+        return images
+    if domain == "art":                      # partial channel rotation + tint
+        return 0.6 * images + 0.4 * images[..., [2, 0, 1]] + 0.3
+    if domain == "cartoon":                  # quantize (flat regions)
+        return np.round(images * 2.0) / 2.0
+    if domain == "sketch":                   # desaturate toward grayscale
+        g = images.mean(-1, keepdims=True)
+        return 0.4 * images + 0.6 * np.repeat(g, 3, axis=-1)
+    raise ValueError(domain)
+
+
+def apply_domain(images: np.ndarray, domain: str,
+                 severity: float = 1.0) -> np.ndarray:
+    """Feature shift of `domain`, blended with the source images by
+    `severity` (0.0 returns the source images unchanged, 1.0 the full
+    transform)."""
+    if severity == 0.0:
+        return images
+    shifted = _full_domain_transform(images, domain)
+    if severity == 1.0:
+        return shifted
+    return (1.0 - severity) * images + severity * shifted
+
+
+def make_domain_datasets(n_per_domain=4000, n_classes=10, side=32, noise=0.8,
+                         seed=0, means_seed=0
+                         ) -> Dict[str, SyntheticImageDataset]:
+    """Four feature-skewed domains over shared classes (PACS analogue)."""
+    means = _class_means(np.random.default_rng(means_seed), n_classes, side)
+    rng = np.random.default_rng(seed + 1000003 * means_seed + 1)
+    out = {}
+    for d in _DOMAIN_TRANSFORMS:
+        labels = rng.integers(0, n_classes, size=n_per_domain).astype(np.int32)
+        imgs = means[labels] + noise * rng.normal(
+            size=(n_per_domain, side, side, 3)).astype(np.float32)
+        out[d] = SyntheticImageDataset(
+            apply_domain(imgs, d).astype(np.float32), labels, n_classes)
+    return out

@@ -1,11 +1,12 @@
-"""Build and load the port's CUDA kernel.
+"""Build and load the port's CUDA kernels.
 
-``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface, loaded with `ctypes`. The build happens
-at first use, from the package's own sources, into ``build/`` beside this
-file (git-ignored); the library's file name carries a hash of its source,
-so an edited source never loads a stale build. Nothing here runs at import
-time."""
+Each ``csrc/<name>.cu`` compiles with its own ``nvcc`` for ``sm_90a`` into
+a shared library with a plain C interface, loaded with `ctypes`;
+`build_all` starts one compiler per source, all together. The build
+happens at first use, from the package's own sources, into ``build/``
+beside this file (git-ignored); the library's file name carries a hash of
+its source, so an edited source never loads a stale build. Nothing here
+runs at import time."""
 from __future__ import annotations
 
 import ctypes
@@ -15,6 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
@@ -39,28 +41,49 @@ def library_path(source: Path) -> Path:
     return BUILD_DIR / f"lib{source.stem}-{digest}.so"
 
 
+def build_sources(sources: Sequence[Path]) -> Dict[str, str]:
+    """Compile every source not built yet, one `nvcc` each, all started
+    together; returns each source's compiler output by stem (``-Xptxas
+    -v`` register and shared-memory report; empty for a library already
+    built). Raises with the output of every nvcc that failed."""
+    procs = {}
+    for source in sources:
+        out = library_path(source)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        procs[source] = (tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    logs = {source.stem: "" for source in sources}
+    failed = []
+    for source, (tmp, proc) in procs.items():
+        logs[source.stem] = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed for {source.name} (exit "
+                          f"{proc.returncode}):\n{logs[source.stem]}")
+        else:
+            os.replace(tmp, library_path(source))
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return logs
+
+
 def build_source(source: Path) -> str:
-    """Compile `source` unless built already; returns the compiler's
-    output (``-Xptxas -v`` register and shared-memory report; empty for a
-    library already built). Raises with that output if nvcc fails."""
-    out = library_path(source)
-    if out.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {source.name} "
-                           f"(exit {proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)
-    return proc.stdout
+    """Compile `source` unless built already (see `build_sources`)."""
+    return build_sources([source])[source.stem]
 
 
 def build(name: str) -> str:
-    """Compile kernel ``csrc/<name>.cu`` if needed (see `build_source`)."""
+    """Compile kernel ``csrc/<name>.cu`` if needed (see `build_sources`)."""
     return build_source(CSRC / f"{name}.cu")
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every kernel of ``csrc/`` that is not built yet, in
+    parallel (see `build_sources`)."""
+    return build_sources(sorted(CSRC.glob("*.cu")))
 
 
 @functools.cache

@@ -18,18 +18,22 @@
 * `fused_loss_for` — the capability probe the trainer consults: a model
   whose native loss is not the training formulation attaches its
   im2col + GEMM twin under `FUSED_LOSS_ATTR`.
+* `sgd_update_tree` — the SGD update p − lr·(g + wd·p) over every leaf of
+  a parameter dict (`optim.sgd`'s route). On CUDA tensors it launches the
+  hand-written kernel ``csrc/sgd_f32.cu`` once for all leaves; on CPU
+  tensors it takes the plain version `ref.sgd_update_ref` per leaf.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable
+from typing import Callable, Dict, List
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import gemm_ref
+from repro_torch.kernels.ref import gemm_ref, sgd_update_ref
 
 # Attribute under which a model registers its training-loss twin.
 FUSED_LOSS_ATTR = "fused_step_loss"
@@ -177,3 +181,96 @@ def maxpool2x2(x: torch.Tensor) -> torch.Tensor:
     splits evenly over tied maxima, as in the reference."""
     b, h, w, c = x.shape
     return x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+
+
+# ---------------------------------------------------------------------------
+# Fused SGD update sweep
+# ---------------------------------------------------------------------------
+
+def bind_sgd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C signature of `lib.sgd_f32` (csrc/sgd_f32.cu)."""
+    fn = lib.sgd_f32
+    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_void_p),
+                   ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+                   ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                   ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    return lib
+
+
+@functools.cache
+def _sgd_lib() -> ctypes.CDLL:
+    return bind_sgd(build.load("sgd_f32"))
+
+
+def sgd_f32(params: List[torch.Tensor], grads: List[torch.Tensor], *,
+            lr: float, wd: float = 0.0) -> List[torch.Tensor]:
+    """Launch the CUDA kernel: a new tensor p − lr·(g + wd·p) for every
+    (p, g) pair, all leaves in one launch (more only beyond the kernel's
+    table of leaves). Every tensor must be a contiguous f32 CUDA tensor on
+    one device, each g shaped like its p; the inputs are left unchanged.
+    `sgd_f32.launches` counts the launches."""
+    if len(params) != len(grads):
+        raise ValueError(f"sgd_f32: {len(params)} params but "
+                         f"{len(grads)} grads")
+    if not params:
+        return []
+    device = params[0].device
+    for i, (p, g) in enumerate(zip(params, grads)):
+        for name, t in (("param", p), ("grad", g)):
+            if t.device.type != "cuda":
+                raise ValueError(f"sgd_f32: {name} {i} is on {t.device}, "
+                                 "not CUDA")
+            if t.device != device:
+                raise ValueError(f"sgd_f32: {name} {i} is on {t.device}, "
+                                 f"the first param on {device}")
+            if t.dtype != torch.float32:
+                raise TypeError(f"sgd_f32: {name} {i} is {t.dtype}, not "
+                                "float32")
+            if not t.is_contiguous():
+                raise ValueError(f"sgd_f32: {name} {i} must be contiguous")
+        if g.shape != p.shape:
+            raise ValueError(f"sgd_f32: grad {i} is {tuple(g.shape)}, its "
+                             f"param {tuple(p.shape)}")
+    outs = [torch.empty_like(p) for p in params]
+    n = len(params)
+    ptrs = ctypes.c_void_p * n
+    launches = ctypes.c_int(0)
+    lib = _sgd_lib()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.sgd_f32(ptrs(*[p.data_ptr() for p in params]),
+                          ptrs(*[g.data_ptr() for g in grads]),
+                          ptrs(*[o.data_ptr() for o in outs]),
+                          (ctypes.c_int64 * n)(*[p.numel() for p in params]),
+                          n, lr, wd, stream, ctypes.byref(launches))
+    sgd_f32.launches += launches.value
+    if err != 0:
+        raise RuntimeError(f"sgd_f32: launch failed with CUDA error {err}")
+    return outs
+
+
+sgd_f32.launches = 0
+
+
+def sgd_update_tree(params: Dict[str, torch.Tensor],
+                    grads: Dict[str, torch.Tensor], *, lr: float,
+                    wd: float = 0.0) -> Dict[str, torch.Tensor]:
+    """SGD update p − lr·(g + wd·p) of every leaf, as new tensors. Routed
+    by the leaves' device: one kernel launch for CUDA leaves, the plain
+    version per leaf for CPU leaves; other or mixed devices raise."""
+    devices = {p.device.type for p in params.values()}
+    if devices == {"cuda"}:
+        keys = list(params)
+        # autograd may hand back a permuted view (the native forward's
+        # HWIO → OIHW weights); the kernel takes contiguous leaves
+        outs = sgd_f32([params[k].contiguous() for k in keys],
+                       [grads[k].contiguous() for k in keys], lr=lr, wd=wd)
+        return dict(zip(keys, outs))
+    if devices == {"cpu"}:
+        return {k: sgd_update_ref(p, grads[k], lr=lr, wd=wd)
+                for k, p in params.items()}
+    raise ValueError(f"sgd_update_tree: no route for leaves on "
+                     f"{sorted(devices)}")

@@ -31,3 +31,14 @@ def maxpool2x2_ref(x: torch.Tensor) -> torch.Tensor:
     oracle for `local_step.maxpool2x2` (its gradient picks one element on
     ties, so it is a forward-only reference)."""
     return F.max_pool2d(x.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+
+
+def sgd_update_ref(p: torch.Tensor, g: torch.Tensor, *, lr: float,
+                   wd: float = 0.0) -> torch.Tensor:
+    """p − lr·(g + wd·p) in f32 — the SGD kernel's plain version. Written
+    as two `torch.add(…, alpha=)` so each step rounds once, as an FMA:
+    that is how XLA's CPU update and the kernel round (bitwise equal to
+    both; separate multiply and add would differ in the last bit)."""
+    p32 = p.float()
+    return torch.add(p32, torch.add(g.float(), p32, alpha=wd),
+                     alpha=-lr).to(p.dtype)

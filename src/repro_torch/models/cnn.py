@@ -9,8 +9,10 @@ pools stack per leaf exactly as the reference's pytrees do.
 Two formulations of one network:
 
 * ``forward`` — `F.conv2d` + max-pool, the counterpart of the reference's
-  `lax.conv` graph, used for evaluation. It runs with cuDNN's TF32 off so
-  the card evaluates in f32, as the reference does.
+  `lax.conv` graph, used for evaluation and by the steps the strategies
+  build over ``loss_fn`` itself (DFedSAM's SAM step, MetaFed's anchored
+  step), as in the reference. It runs with cuDNN's TF32 off so the card
+  computes in f32, as the reference does.
 * ``fused_forward`` — im2col + the GEMM kernel and reshape-max
   (`kernels/local_step`), attached to ``loss_fn`` under `FUSED_LOSS_ATTR`; the
   trainer builds every step over it, so each conv's forward and both of

@@ -7,12 +7,15 @@ Each optimizer is an ``Optimizer(init, update)`` pair:
 Updates are functional, as in the reference: they return new tensors and
 leave their inputs unchanged. All arithmetic is f32. Adam is the
 reference's rule — coupled (L2) weight decay, bias correction from the
-runtime `step` — and deliberately not `torch.optim.Adam`."""
+runtime `step` — and deliberately not `torch.optim.Adam`; `sgd` and
+`momentum` round bitwise like the reference's updates."""
 from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple
 
 import torch
+
+from repro_torch.kernels.local_step import sgd_update_tree
 
 Params = Dict[str, torch.Tensor]
 F32 = torch.float32
@@ -22,6 +25,43 @@ class Optimizer(NamedTuple):
     name: str
     init: Callable[[Params], dict]
     update: Callable[[Params, Params, dict, int], tuple]
+
+
+def sgd(lr: float, weight_decay: float = 0.0) -> Optimizer:
+    """Plain SGD through the fused sweep `kernels.local_step.sgd_update_tree`
+    (one kernel launch for all leaves on the card, the plain version on
+    the CPU)."""
+    def init(params):
+        return ()
+
+    @torch.no_grad()
+    def update(params, grads, state, step):
+        return sgd_update_tree(params, grads, lr=lr, wd=weight_decay), state
+
+    return Optimizer("sgd", init, update)
+
+
+def momentum(lr: float, beta: float = 0.9,
+             weight_decay: float = 0.0) -> Optimizer:
+    """Heavy-ball momentum (DFedAvgM's local optimizer). Each line is one
+    `torch.add(…, alpha=)`, which rounds like the reference's contracted
+    update: g + wd·p, then g + β·m, then p − lr·m."""
+    def init(params):
+        return {"m": {k: torch.zeros(p.shape, dtype=F32, device=p.device)
+                      for k, p in params.items()}}
+
+    @torch.no_grad()
+    def update(params, grads, state, step):
+        new_p, new_m = {}, {}
+        for k, p in params.items():
+            p32 = p.to(F32)
+            g = torch.add(grads[k].to(F32), p32, alpha=weight_decay)
+            m = torch.add(g, state["m"][k], alpha=beta)
+            new_p[k] = torch.add(p32, m, alpha=-lr).to(p.dtype)
+            new_m[k] = m
+        return new_p, {"m": new_m}
+
+    return Optimizer("momentum", init, update)
 
 
 def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -61,17 +101,7 @@ def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return adam(lr, b1, b2, eps, weight_decay, name="adamw")
 
 
-def _not_ported(name: str, slice_: str):
-    def make(lr: float, weight_decay: float = 0.0, **kw) -> Optimizer:
-        raise NotImplementedError(
-            f"optimizer {name!r} is not ported yet; it arrives with the "
-            f"{slice_} slice")
-    return make
-
-
 def make_optimizer(name: str, lr: float, weight_decay: float = 0.0,
                    **kw) -> Optimizer:
-    return {"sgd": _not_ported("sgd", "dfedsam (fused SGD sweep kernel)"),
-            "momentum": _not_ported("momentum", "dfedavgm"),
-            "adam": adam, "adamw": adamw}[name](
-                lr, weight_decay=weight_decay, **kw)
+    return {"sgd": sgd, "momentum": momentum, "adam": adam,
+            "adamw": adamw}[name](lr, weight_decay=weight_decay, **kw)

@@ -222,12 +222,6 @@ def test_adam_update_is_functional():
     assert all(torch.equal(tp[k], before[k]) for k in tp)
 
 
-@pytest.mark.parametrize("name", ["sgd", "momentum"])
-def test_unported_optimizers_raise(name):
-    with pytest.raises(NotImplementedError, match="slice"):
-        TO.make_optimizer(name, 1e-3)
-
-
 def test_converter_round_trip_of_nested_tree():
     tree = _tree(np.random.default_rng(5))
     back = to_jax_params(from_jax_params(tree, "cpu"))

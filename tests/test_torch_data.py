@@ -1,6 +1,7 @@
 """Port parity: the numpy data plane of `repro_torch.data` is bitwise equal
 to `repro.data` — synthetic images, Dirichlet label-skew partitions (with
-their bounded retry) and the shuffled batch streams — for several seeds.
+their bounded retry), the four shifted domains and their per-client
+partition, and the shuffled batch streams — for several seeds.
 Tolerance: none; every comparison is exact equality."""
 import numpy as np
 import pytest
@@ -9,8 +10,14 @@ import torch
 from repro.data import batch_iterator as jax_batch_iterator
 from repro.data import dirichlet_partition as jax_dirichlet_partition
 from repro.data import make_image_dataset as jax_make_image_dataset
-from repro_torch.data import (batch_iterator, dirichlet_partition,
-                              make_image_dataset)
+from repro.data.partition import \
+    domain_shift_partition as jax_domain_shift_partition
+from repro.data.synthetic import apply_domain as jax_apply_domain
+from repro.data.synthetic import \
+    make_domain_datasets as jax_make_domain_datasets
+from repro_torch.data import (apply_domain, batch_iterator,
+                              dirichlet_partition, domain_shift_partition,
+                              make_domain_datasets, make_image_dataset)
 
 torch.set_num_threads(2)
 
@@ -57,6 +64,45 @@ def test_dirichlet_partition_errors_identical(kwargs):
     with pytest.raises(ValueError) as out:
         dirichlet_partition(labels, **kwargs)
     assert str(out.value) == str(ref.value)
+
+
+def _assert_same_dataset(out, ref):
+    assert out.images.dtype == ref.images.dtype == np.float32
+    assert out.labels.dtype == ref.labels.dtype == np.int32
+    assert np.array_equal(out.images, ref.images)
+    assert np.array_equal(out.labels, ref.labels)
+    assert out.n_classes == ref.n_classes
+
+
+@pytest.mark.parametrize("seed,noise", [(0, 2.0), (91, 2.0), (3, 0.8)])
+def test_make_domain_datasets_bitwise(seed, noise):
+    ref = jax_make_domain_datasets(40, noise=noise, seed=seed)
+    out = make_domain_datasets(40, noise=noise, seed=seed)
+    assert list(out) == list(ref) == ["photo", "art", "cartoon", "sketch"]
+    for d in ref:
+        _assert_same_dataset(out[d], ref[d])
+
+
+@pytest.mark.parametrize("domain", ["photo", "art", "cartoon", "sketch"])
+@pytest.mark.parametrize("severity", [0.0, 0.4, 1.0])
+def test_apply_domain_bitwise(domain, severity):
+    images = jax_make_image_dataset(n_samples=6, seed=2).images
+    out = apply_domain(images, domain, severity)
+    ref = jax_apply_domain(images, domain, severity)
+    assert out.dtype == ref.dtype and np.array_equal(out, ref)
+
+
+@pytest.mark.parametrize("n_clients,order,seed", [
+    (4, ("photo", "art", "cartoon", "sketch"), 0),
+    (6, ("sketch", "photo", "art", "cartoon"), 3),
+    (3, ("cartoon", "art"), 1)])
+def test_domain_shift_partition_bitwise(n_clients, order, seed):
+    doms = jax_make_domain_datasets(30, noise=1.0, seed=seed)
+    ref = jax_domain_shift_partition(doms, n_clients, order=order, seed=seed)
+    out = domain_shift_partition(doms, n_clients, order=order, seed=seed)
+    assert len(out) == len(ref) == n_clients
+    for o, r in zip(out, ref):
+        _assert_same_dataset(o, r)
 
 
 @pytest.mark.parametrize("seed,n,batch_size", [(0, 50, 8), (4, 33, 7),

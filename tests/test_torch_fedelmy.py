@@ -165,9 +165,10 @@ def test_order_is_honored_and_unknown_strategy_rejected():
                                 order=[2, 0, 1], seed=4))
     assert [(c.client, c.rank) for c in res.clients] == [(2, 0), (0, 1),
                                                          (1, 2)]
-    with pytest.raises(ValueError, match="registered: fedelmy"):
+    with pytest.raises(ValueError, match="unknown strategy 'fedsgd'; "
+                       "registered: dfedavgm, dfedsam, fedelmy"):
         T.launch(T.Experiment(model=tm, client_iters=its, fed=fed,
-                              strategy="fedseq"))
+                              strategy="fedsgd"))
     with pytest.raises(TypeError, match="Experiment"):
         T.launch([res])
 
@@ -233,12 +234,47 @@ def test_interpreter_variants_match_reference(name):
     assert (tres.final_pool is None) == (jres.final_pool is None)
 
 
-@pytest.mark.parametrize("bad", [
-    lambda: T.Topology("ring"), lambda: T.LocalBlock("plain"),
-    lambda: T.StrategyPlan(T.Topology("chain"), ())])
-def test_plan_rejects_what_this_slice_does_not_run(bad):
-    with pytest.raises(ValueError):
-        bad()
+# The reference's construction checks (tests/test_plan.py): what each
+# package is given, and what its error says.
+MALFORMED = {
+    "topology": (lambda P: P.Topology("mesh"), "topology"),
+    "block_kind": (lambda P: P.LocalBlock("sam"), "local block"),
+    "custom_without_factory": (lambda P: P.LocalBlock("custom"),
+                               "step_factory"),
+    "pool_epochs_div": (lambda P: P.LocalBlock("pool", epochs_div=2),
+                        "e_local"),
+    "aggregate": (lambda P: P.StrategyPlan(
+        topology=P.Topology("chain"), phases=(P.LocalBlock("plain"),),
+        aggregate="median"), "aggregate"),
+    "no_phase": (lambda P: P.StrategyPlan(topology=P.Topology("chain"),
+                                          phases=()), "at least one phase"),
+    "independent_two_phases": (lambda P: P.StrategyPlan(
+        topology=P.Topology("independent"),
+        phases=(P.LocalBlock("plain"), P.LocalBlock("plain")),
+        broadcast="shared_init"), "single-phase"),
+    "independent_handoff": (lambda P: P.StrategyPlan(
+        topology=P.Topology("independent"), phases=(P.LocalBlock("plain"),)),
+        "hand off"),
+    "chain_shared_init": (lambda P: P.StrategyPlan(
+        topology=P.Topology("chain"), phases=(P.LocalBlock("plain"),),
+        broadcast="shared_init"), "handoff"),
+}
+
+
+@pytest.mark.parametrize("case", list(MALFORMED))
+def test_malformed_plans_fail_at_construction(case):
+    """Both packages refuse the malformed plan with the same message —
+    except a custom block without factories, which the reference refuses
+    for lacking a batched factory too and the port (which has no batched
+    backend) only for lacking its step factory."""
+    make, match = MALFORMED[case]
+    messages = []
+    for pkg in (J, T):
+        with pytest.raises(ValueError, match=match) as err:
+            make(pkg)
+        messages.append(str(err.value))
+    if case != "custom_without_factory":
+        assert messages[1] == messages[0]
 
 
 def test_model_end_callback_sees_every_pool_model():
