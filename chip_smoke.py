@@ -32,6 +32,18 @@ Phases, each failing the run with a nonzero exit:
              exact GEMM and SGD launch counts
 9. dfedsam card vs CPU — 5 SAM steps from one init on both devices,
              with the native forward's decisions pinned and without
+10. serving kernels — BGMV, flash attention and the factor Gram against
+             their plain versions at the full-width llama3.2-1b serving
+             shapes (and long sequences for attention); errors, times
+             beside the bound, the plain version and a library call
+11. llama serving — a full-width llama3.2-1b factor pool (5 members,
+             rank 8) through `PoolServer.from_pool`: f32 factored scores
+             against the densified oracle with exact launch counts, the
+             pool's pairwise distances through the Gram kernel, then a
+             bf16 `serve_trace` replay of both modes (p50/p99/qps,
+             serving bytes, a profile of the ticks)
+12. CNN serving — the paper CNN's stacked, low-rank and moment pools
+             served with poisson_skewed traffic on the card and the CPU
 
 Before the last lines it prints every measurement as one JSON object on
 a line starting "details: "; then the kernels' JSON record and the card's
@@ -265,7 +277,7 @@ def run_main_path(torch, local_step):
              f"(chance is 0.1): the run did not learn")
     return dict(steps=n_steps, wall_s=wall, steps_per_s=n_steps / wall,
                 launches=launches, final_accuracy=res.final_metric,
-                client_accuracy=[c.global_metric for c in res.clients])
+                client_accuracy=[c.global_metric for c in res.clients]), res
 
 
 # ---------------------------------------------------------------------------
@@ -1033,6 +1045,609 @@ def dfedsam_card_vs_cpu(torch, local_step, ref):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 10-12: pool serving (BGMV, flash attention, factor Gram)
+# ---------------------------------------------------------------------------
+
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12
+# full-width llama3.2-1b factored serving: N = B·T = 2·16 rows, S = 5
+# members, rank 8; (site, d_in, d_out, launches per factored forward)
+SERVE_S, SERVE_N, SERVE_R = 5, 32, 8
+BGMV_SITES = [("q", 2048, 2048, 16), ("k", 2048, 512, 16),
+              ("v", 2048, 512, 16), ("o", 2048, 2048, 16),
+              ("gate", 2048, 8192, 16), ("up", 2048, 8192, 16),
+              ("down", 8192, 2048, 16), ("unembed", 2048, 128256, 1)]
+BGMV_PER_FORWARD = sum(c for *_, c in BGMV_SITES)           # 113
+ATTN_PER_FACTORED, ATTN_PER_DENSE = 16, 5 * 16
+# (name, B, Tq, Tk, H, KV, hd, causal, window): the serving shape (S folded
+# into the batch; the config's window 8192 covers the 16 tokens) and long
+# sequences, causal, windowed and with a ragged Tk
+ATTN_SHAPES = [("serve", 10, 16, 16, 32, 8, 64, True, 8192),
+               ("causal2048", 2, 2048, 2048, 32, 8, 64, True, 0),
+               ("window512", 2, 2048, 2048, 32, 8, 64, True, 512),
+               ("ragged2000", 2, 2000, 2000, 32, 8, 64, True, 0)]
+# the factor stacks lowrank_pairwise_sq hands the Gram kernel at full
+# width, C·r = 40 rows: (name, B, P, launches per call)
+GRAM_SHAPES = [("embed.u", 1, 128256, 1), ("embed.v", 1, 2048, 1),
+               ("layer.2048", 16, 2048, 9), ("layer.512", 16, 512, 2),
+               ("layer.8192", 16, 8192, 3), ("ln.u", 1, 16, 2),
+               ("ln.v", 1, 2048, 2)]
+GRAM_M = 40
+GRAM_PER_CALL = sum(c for *_, c in GRAM_SHAPES)             # 20
+# normwise limit of a Gram, and of lowrank_pairwise_sq's distances,
+# against the plain version's: f32 sums in another order read ~3e-7 on an
+# H100 (phase 11's pairwise distances); dropping one of the ~264 chunks
+# of P that the kernel sums for the embedding stack moves its Gram ~4e-3
+GRAM_REL_TOL = 1e-5
+# phase 11: f32 factored scores against the densified oracle's. Set
+# before the first run (PERF.md's prediction for phases 10-12): the two
+# compute the same function with the low-rank products reassociated;
+# over 16 layers of f32 products of length ≤ 8,192 that reads
+# ~1e-6–1e-5 normwise.
+SERVE_F32_REL_TOL = 1e-4
+SERVE_F32_ABS_TOL = 1e-3
+SERVE_ARGMAX_MIN = 0.99
+# phase 12: card against CPU predictions of the same pool on one trace
+CNN_SERVE_AGREE_MIN = 0.98
+
+
+def _bound(bytes_, ops, peak):
+    """(bound ms, what bounds it, its parts) of one launch that moves
+    `bytes_` and does `ops` operations at `peak` per second."""
+    byte_s, op_s = bytes_ / PEAK_BYTES, ops / peak
+    return (max(byte_s, op_s) * 1e3,
+            "bytes" if byte_s >= op_s else "operations",
+            dict(bytes=bytes_, ops=ops, byte_ms=byte_s * 1e3,
+                 op_ms=op_s * 1e3))
+
+
+def check_bgmv(torch, bgmv_mod, ref):
+    """The BGMV kernel at every site of a full-width factored forward
+    (per-member bf16 x, as the forward gives it) and, at q and down, with
+    f32 x and with the shared x of `fdense`. Tolerance: elementwise within
+    (d_in + r)·2⁻²³·((|x|·|u|)·|v|ᵀ) of the plain version (two f32 sums
+    taken in other orders). Times: kernel, plain version, two `torch.bmm`
+    (the library yardstick)."""
+    gen = torch.Generator(device=CARD).manual_seed(1)
+    s, n, r = SERVE_S, SERVE_N, SERVE_R
+    cases = [(site, d_in, d_out, c, torch.bfloat16, False)
+             for site, d_in, d_out, c in BGMV_SITES]
+    cases += [("q", 2048, 2048, 0, torch.float32, False),
+              ("down", 8192, 2048, 0, torch.float32, False),
+              ("q", 2048, 2048, 0, torch.float32, True)]
+    rows, max_abs = [], 0.0
+    for site, d_in, d_out, count, dtype, shared in cases:
+        xs = (n, d_in) if shared else (s, n, d_in)
+        x = torch.randn(xs, device=CARD, generator=gen).to(dtype)
+        u = 0.05 * torch.randn((s, d_in, r), device=CARD, generator=gen)
+        v = 0.05 * torch.randn((s, d_out, r), device=CARD, generator=gen)
+        out = bgmv_mod.bgmv_f32(x, u, v)
+        torch.cuda.synchronize()
+        want = ref.bgmv_ref(x, u, v)
+        xa = x.double().abs()
+        bound = (d_in + r) * 2.0 ** -23 * ((xa @ u.double().abs()) @
+                                           v.double().abs().mT)
+        err = (out.double() - want.double()).abs()
+        ok = bool((err <= bound).all())
+        xf = x.float()
+        vt = v.mT.contiguous()
+
+        def library(xf=xf, u=u, vt=vt, shared=shared):
+            t = torch.bmm(xf.expand(s, n, d_in) if shared else xf, u)
+            return torch.bmm(t, vt)
+        nbytes = x.numel() * x.element_size() + (u.numel() + v.numel() +
+                                                  s * n * d_out) * 4
+        bound_ms, bound_by, parts = _bound(
+            nbytes, 2 * s * n * r * (d_in + d_out), PEAK_F32_FLOPS)
+        row = dict(parts, site=site, d_in=d_in, d_out=d_out, dtype=str(dtype),
+                   shared=shared, per_forward=count,
+                   max_abs_err=float(err.max()),
+                   max_rel_to_bound=float((err / bound.clamp_min(1e-30))
+                                          .max()),
+                   within_tolerance=ok,
+                   ms=median_ms(lambda: bgmv_mod.bgmv_f32(x, u, v)),
+                   plain_ms=median_ms(lambda: ref.bgmv_ref(x, u, v)),
+                   library_ms=median_ms(library), bound_ms=bound_ms,
+                   bound_by=bound_by)
+        rows.append(row)
+        print(f"  bgmv {site:7s} {d_in}->{d_out} x {str(dtype)[6:]:8s}"
+              f"{' shared' if shared else ''}: max abs err "
+              f"{row['max_abs_err']:.3e} ({row['max_rel_to_bound']:.2e} of "
+              f"the bound); kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f}, 2x torch.bmm {row['library_ms']:.4f},"
+              f" bound {bound_ms:.4f} ({bound_by})")
+        if not ok:
+            fail(f"bgmv_f32 {site} disagrees with its plain version beyond "
+                 "the stated bound")
+        max_abs = max(max_abs, row["max_abs_err"])
+    return rows, max_abs
+
+
+def _sdpa(torch, q, k, v, causal, window):
+    """`F.scaled_dot_product_attention` on (B, H, T, hd) with the kv heads
+    repeated, masked like the kernel (the library yardstick)."""
+    import torch.nn.functional as F
+    tq, tk = q.shape[2], k.shape[2]
+    if not window or window >= tk:
+        return lambda: F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+    qp = torch.arange(tq, device=CARD)[:, None]
+    kp = torch.arange(tk, device=CARD)[None, :]
+    mask = (qp >= kp) & (qp - kp < window)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def _pairs(tq, tk, causal, window):
+    """(query, key) pairs the masks leave valid."""
+    total = 0
+    for qpos in range(tq):
+        hi = min(tk, qpos + 1) if causal else tk
+        lo = max(0, qpos - window + 1) if window else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def check_flash_attention(torch, fa_mod, ref):
+    """The flash-attention kernel at the serving shape and at long
+    sequences, bf16 and f32. Tolerance against the plain version (dense
+    softmax, f32 scores): f32 within 1e-5 absolute (outputs are convex
+    combinations of N(0, 1) values); bf16 within one bf16 rounding of the
+    output, 2⁻⁷·|out| + 1e-6 (both round an f32 result once). Times:
+    kernel, plain version, `F.scaled_dot_product_attention` on the heads
+    repeated."""
+    gen = torch.Generator(device=CARD).manual_seed(2)
+    rows, max_abs = [], 0.0
+    for name, b, tq, tk, h, kv, hd, causal, window in ATTN_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((b, tq, h, hd), device=CARD, generator=gen)
+            k = torch.randn((b, tk, kv, hd), device=CARD, generator=gen)
+            v = torch.randn((b, tk, kv, hd), device=CARD, generator=gen)
+            q, k, v = (t.to(dtype) for t in (q, k, v))
+            out = fa_mod.flash_attn_f32(q, k, v, causal=causal,
+                                        window=window)
+            torch.cuda.synchronize()
+            want = ref.attention_ref(q, k, v, causal=causal, window=window)
+            err = (out.float() - want.float()).abs()
+            if dtype == torch.float32:
+                ok = bool(err.max() <= 1e-5)
+            else:
+                ok = bool((err <= 2.0 ** -7 * want.float().abs()
+                           + 1e-6).all())
+            g = h // kv
+            qs = q.transpose(1, 2).contiguous()
+            ks = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+            vs = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous()
+            pairs = _pairs(tq, tk, causal, window) * b * h
+            esz = q.element_size()
+            bound_ms, bound_by, parts = _bound(
+                esz * (2 * q.numel() + k.numel() + v.numel()),
+                4 * hd * pairs,
+                PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                else PEAK_F32_FLOPS)
+            row = dict(parts, shape=name, b=b, tq=tq, tk=tk, h=h, kv=kv,
+                       hd=hd, per_forward=ATTN_PER_FACTORED
+                       if name == "serve" and dtype == torch.bfloat16 else 0,
+                       causal=causal, window=window, dtype=str(dtype),
+                       max_abs_err=float(err.max()), within_tolerance=ok,
+                       ms=median_ms(lambda: fa_mod.flash_attn_f32(
+                           q, k, v, causal=causal, window=window)),
+                       plain_ms=median_ms(lambda: ref.attention_ref(
+                           q, k, v, causal=causal, window=window)),
+                       library_ms=median_ms(_sdpa(torch, qs, ks, vs, causal,
+                                                  window)),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            rows.append(row)
+            print(f"  attn {name:10s} {str(dtype)[6:]:8s}: max abs err "
+                  f"{row['max_abs_err']:.3e}; kernel {row['ms']:.4f} ms, "
+                  f"plain {row['plain_ms']:.4f}, sdpa "
+                  f"{row['library_ms']:.4f}, bound {bound_ms:.4f} "
+                  f"({bound_by})")
+            if not ok:
+                fail(f"flash_attn_f32 {name} {dtype} disagrees with its "
+                     "plain version beyond the stated tolerance")
+            max_abs = max(max_abs, row["max_abs_err"])
+    return rows, max_abs
+
+
+def check_factor_gram(torch, pd_mod, ref):
+    """The factor-Gram kernel at the stacks of a full-width pool's
+    `lowrank_pairwise_sq` and a ragged shape. Tolerance: elementwise
+    within P·2⁻²³·(|A|·|A|ᵀ) of the plain version, and normwise
+    ‖out − want‖/‖want‖ ≤ GRAM_REL_TOL per shape (the elementwise bound
+    alone is loose at P = 128256: it would pass a dropped chunk); two
+    launches on the same input give the same bits. Times: kernel, plain
+    version, `torch.bmm(a, a.mT)`."""
+    gen = torch.Generator(device=CARD).manual_seed(3)
+    rows, max_abs = [], 0.0
+    for name, b, p, count in GRAM_SHAPES + [("ragged", 3, 3001, 0)]:
+        a = 0.05 * torch.randn((b, GRAM_M, p), device=CARD, generator=gen)
+        out = pd_mod.factor_gram_f32(a)
+        again = pd_mod.factor_gram_f32(a)
+        torch.cuda.synchronize()
+        want = ref.factor_gram_ref(a)
+        aa = a.double().abs()
+        bound = p * 2.0 ** -23 * (aa @ aa.mT)
+        err = (out.double() - want.double()).abs()
+        rel = float(torch.linalg.vector_norm(err)
+                    / torch.linalg.vector_norm(want.double()))
+        ok = (bool((err <= bound).all()) and rel <= GRAM_REL_TOL
+              and torch.equal(out, again))
+        bound_ms, bound_by, parts = _bound(
+            4 * (a.numel() + b * GRAM_M ** 2), 2 * b * GRAM_M ** 2 * p,
+            PEAK_F32_FLOPS)
+        row = dict(parts, stack=name, b=b, m=GRAM_M, p=p, per_call=count,
+                   max_abs_err=float(err.max()), rel_err=rel,
+                   within_tolerance=ok,
+                   ms=median_ms(lambda: pd_mod.factor_gram_f32(a)),
+                   plain_ms=median_ms(lambda: ref.factor_gram_ref(a)),
+                   library_ms=median_ms(lambda: torch.bmm(a, a.mT)),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        rows.append(row)
+        print(f"  gram {name:10s} ({b}, {GRAM_M}, {p}): max abs err "
+              f"{row['max_abs_err']:.3e}, rel {rel:.3e}; kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f}, torch.bmm {row['library_ms']:.4f}, "
+              f"bound {bound_ms:.4f} ({bound_by})")
+        if not ok:
+            fail(f"factor_gram_f32 {name} disagrees with its plain version "
+                 "or is not deterministic")
+        max_abs = max(max_abs, row["max_abs_err"])
+    return rows, max_abs
+
+
+def _per_call(rows, key, weight):
+    """Σ rows[key]·rows[weight]: a kernel's time over one call of the
+    path (113 BGMV launches a forward, 20 Gram launches a call)."""
+    return sum(r[key] * r[weight] for r in rows if r[weight])
+
+
+def _counters():
+    from repro_torch.kernels import bgmv, flash_attention, pool_distance
+    return {"bgmv_f32": bgmv.bgmv_f32,
+            "flash_attn_f32": flash_attention.flash_attn_f32,
+            "factor_gram_f32": pool_distance.factor_gram_f32}
+
+
+def _reset_counts():
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def _read_counts():
+    return {name: fn.launches for name, fn in _counters().items()}
+
+
+def _llama_pool(torch, cfg, n_members=5, rank=8):
+    """The full-width llama, a factor pool of `n_members` members from as
+    many inits on the card (seeds 0..n-1), and the build's wall time."""
+    from repro_torch.core.pool import LowRankDeltaPool
+    from repro_torch.models import build_model
+    model = build_model(cfg, device=CARD)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pool = LowRankDeltaPool.create(model.init(0), capacity=n_members,
+                                   rank=rank)
+    for seed in range(1, n_members):
+        pool = pool.append(model.init(seed))
+    torch.cuda.synchronize()
+    return model, pool, time.perf_counter() - t0
+
+
+def serve_llama_f32(torch):
+    """(a) The f32 oracle: the full-width config in f32, factored scores
+    against the densified ones on one (2, 16) batch, with the launch
+    counts of each forward; then `lowrank_pairwise_sq` through the Gram
+    kernel against its plain version (the main path of the Gram kernel:
+    counts reset before, read after)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.distances import lowrank_pairwise_sq
+    from repro_torch.kernels.ref import factor_gram_ref
+    from repro_torch.serve import PoolServer
+
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"), param_dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    model, pool, build_s = _llama_pool(torch, cfg)
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 16))
+    batch = {"tokens": torch.from_numpy(tokens).to(CARD)}
+    out = dict(build_s=build_s)
+    scores = {}
+    for mode in ("factored", "densified"):
+        server = PoolServer.from_pool(model, pool,
+                                      factored=mode == "factored")
+        _reset_counts()
+        sc, _ = server.score_batch(batch)
+        torch.cuda.synchronize()
+        out[f"{mode}_launches"] = _read_counts()
+        scores[mode] = sc
+        if mode == "densified":
+            out["densified_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del server
+        torch.cuda.empty_cache()
+    fac, den = scores["factored"].double(), scores["densified"].double()
+    out.update(
+        rel_err=float((fac - den).norm() / den.norm()),
+        max_abs_err=float((fac - den).abs().max()),
+        max_abs_score=float(den.abs().max()),
+        argmax_equal=float((scores["factored"].argmax(-1) ==
+                            scores["densified"].argmax(-1)).float().mean()))
+    _reset_counts()
+    pair = lowrank_pairwise_sq(pool)
+    torch.cuda.synchronize()
+    out["gram_launches"] = _read_counts()["factor_gram_f32"]
+    plain = lowrank_pairwise_sq(pool, gram_fn=factor_gram_ref)
+    out["pairwise_rel_err"] = float((pair - plain).norm() / plain.norm())
+    out["pairwise_sq"] = pair.tolist()
+    print(f"  f32 pool of 5 built in {build_s:.2f} s; factored vs densified "
+          f"scores: normwise {out['rel_err']:.3e} (tolerance "
+          f"{SERVE_F32_REL_TOL:g}), max abs {out['max_abs_err']:.3e} of "
+          f"|score| ≤ {out['max_abs_score']:.3f} (tolerance "
+          f"{SERVE_F32_ABS_TOL:g}); argmax equal {out['argmax_equal']:.4f}")
+    print(f"  launches per forward: factored {out['factored_launches']}, "
+          f"densified {out['densified_launches']}")
+    print(f"  lowrank_pairwise_sq: {out['gram_launches']} Gram launches, "
+          f"normwise {out['pairwise_rel_err']:.3e} from the plain Grams; "
+          f"member 1's squared distances "
+          f"{[round(x, 2) for x in out['pairwise_sq'][1]]}")
+    want_fac = {"bgmv_f32": BGMV_PER_FORWARD,
+                "flash_attn_f32": ATTN_PER_FACTORED, "factor_gram_f32": 0}
+    want_den = {"bgmv_f32": 0, "flash_attn_f32": ATTN_PER_DENSE,
+                "factor_gram_f32": 0}
+    if out["factored_launches"] != want_fac or \
+            out["densified_launches"] != want_den:
+        fail(f"launch counts {out['factored_launches']} (factored) and "
+             f"{out['densified_launches']} (densified); expected {want_fac} "
+             f"and {want_den}")
+    if not (out["rel_err"] <= SERVE_F32_REL_TOL and
+            out["max_abs_err"] <= SERVE_F32_ABS_TOL and
+            out["argmax_equal"] >= SERVE_ARGMAX_MIN):
+        fail("f32 factored scores disagree with the densified oracle")
+    if out["gram_launches"] != GRAM_PER_CALL or \
+            not out["pairwise_rel_err"] <= GRAM_REL_TOL:
+        fail(f"lowrank_pairwise_sq made {out['gram_launches']} Gram launches "
+             f"(expected {GRAM_PER_CALL}) or disagrees with its plain Grams")
+    del model, pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_llama_bf16(torch):
+    """(b) The config's own bf16 pool replayed through `serve_trace` in
+    both modes, as benchmarks/serving.py's transformer report: a
+    steady_uniform trace of 48 requests, 2 a tick, 16 tokens each, bucket
+    2. Each mode's replay is its main path: the counts are reset before
+    and read after (warm-up included: 1 + 24 forwards). A second replay
+    and a `torch.profiler` pass over 8 ticks follow (where a tick's time
+    goes; the profiler's own cost is in its host time)."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core.pool import pool_nbytes
+    from repro_torch.serve import (PoolServer, get_traffic, materialize_trace,
+                                   serve_trace)
+
+    cfg = get_arch("llama3.2-1b")
+    model, pool, build_s = _llama_pool(torch, cfg)
+    rng = np.random.default_rng(0)
+    clients = [{"tokens": rng.integers(0, cfg.vocab_size, size=(32, 16))
+                .astype(np.int32)} for _ in range(2)]
+    trace = materialize_trace(get_traffic("steady_uniform").replace(
+        n_requests=48, mean_batch=2), clients, seed=0, device=CARD)
+    forwards = 1 + len(trace.ticks)
+    out = dict(build_s=build_s, forwards=forwards, modes={})
+    for mode in ("factored", "densified"):
+        torch.cuda.reset_peak_memory_stats()
+        server = PoolServer.from_pool(model, pool, buckets=(2,),
+                                      factored=mode == "factored")
+        _reset_counts()
+        reports = [serve_trace(server, trace)]
+        counts = _read_counts()
+        reports.append(serve_trace(server, trace))
+        best = max(reports, key=lambda r: r.qps)
+        profile = _profile(
+            torch, lambda k: [server.score(trace.arrays, trace.ticks[i])
+                              for i in range(k)], 8,
+            f"bf16 {mode} tick of 2 requests (8 ticks; 'step' = tick)")
+        out["modes"][mode] = dict(
+            launches=counts, replays=[r.row() for r in reports],
+            p50_ms=best.p50_ms, p99_ms=best.p99_ms, qps=best.qps,
+            pool_nbytes=pool_nbytes(server.members),
+            peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+            profile=profile)
+        print(f"  bf16 {mode:9s}: p50 {best.p50_ms:.3f} ms, p99 "
+              f"{best.p99_ms:.3f} ms, {best.qps:.1f} qps (best of "
+              f"{[round(r.qps, 1) for r in reports]}); serving bytes "
+              f"{out['modes'][mode]['pool_nbytes'] / 1e9:.3f} GB; launches "
+              f"in the first replay {counts}")
+        del server
+        torch.cuda.empty_cache()
+    fac, den = out["modes"]["factored"], out["modes"]["densified"]
+    out["qps_ratio"] = fac["qps"] / den["qps"]
+    out["bytes_ratio"] = den["pool_nbytes"] / fac["pool_nbytes"]
+    print(f"  factored / densified: {out['qps_ratio']:.2f}x qps, "
+          f"{out['bytes_ratio']:.2f}x fewer serving bytes (measured, not "
+          "gated)")
+    want = {"factored": {"bgmv_f32": BGMV_PER_FORWARD * forwards,
+                         "flash_attn_f32": ATTN_PER_FACTORED * forwards,
+                         "factor_gram_f32": 0},
+            "densified": {"bgmv_f32": 0,
+                          "flash_attn_f32": ATTN_PER_DENSE * forwards,
+                          "factor_gram_f32": 0}}
+    for mode, w in want.items():
+        if out["modes"][mode]["launches"] != w:
+            fail(f"{mode} replay launched {out['modes'][mode]['launches']}; "
+                 f"expected {w}")
+        if out["modes"][mode]["replays"][0]["n_requests"] != 48:
+            fail(f"{mode} replay did not serve 48 requests")
+    del model, pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pool_to(pool, device):
+    """A copy of a pool's tensors on `device`."""
+    import torch
+
+    def move(x):
+        if isinstance(x, torch.Tensor):
+            return x.to(device)
+        if isinstance(x, dict):
+            return {k: move(v) for k, v in x.items()}
+        return x
+    return type(pool)(*(move(f) for f in pool))
+
+
+def serve_cnn_pools(torch, local_step, main_result):
+    """The paper CNN's trained pools served with poisson_skewed traffic
+    over the held-out data (split across the 4 clients by the same
+    Dirichlet(0.3) label skew), three ways each — the ensemble, the pool
+    average, the chain's last params — on the card and, from the same
+    pools and trace, on the CPU: phase 4's stacked pool, a
+    pool_backend="lowrank" fedelmy run (its GEMM launches counted; the CNN
+    has no factored hook, so it serves densified) and a moment-form run
+    (squared_l2, the only measure that backend takes; it serves its mean).
+    Card and CPU predictions must agree on ≥ CNN_SERVE_AGREE_MIN of the
+    requests."""
+    from repro_torch.api import Experiment, launch
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.data import batch_iterator, dirichlet_partition
+    from repro_torch.models import build_model
+    from repro_torch.serve import (PoolServer, get_traffic, materialize_trace,
+                                   serve_trace)
+
+    arrays, test = quickstart_data()
+    parts = dirichlet_partition(test.labels, 4, 0.3, seed=1)
+    held_out = [{"images": test.images[p], "labels": test.labels[p]}
+                for p in parts]
+    devices = {"card": CARD, "cpu": "cpu"}
+    models = {k: build_model(get_arch("paper-cnn"), device=d)
+              for k, d in devices.items()}
+    traffic = get_traffic("poisson_skewed").replace(n_requests=256)
+    traces = {k: materialize_trace(traffic, held_out, seed=0, device=d)
+              for k, d in devices.items()}
+    base = dict(n_clients=4, pool_size=3, e_local=25, e_warmup=10,
+                learning_rate=1e-3, alpha=0.06, beta=1.0)
+    runs = {"stacked": (main_result, None)}
+    for name, extra in (("lowrank", dict(pool_backend="lowrank")),
+                        ("moment", dict(pool_backend="moment",
+                                        distance_measure="squared_l2"))):
+        fed = FedConfig(**base, **extra)
+        iters = [batch_iterator(a, 64, seed=i, device=CARD)
+                 for i, a in enumerate(arrays)]
+        local_step.gemm_f32.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = launch(Experiment(model=models["card"], client_iters=iters,
+                                fed=fed, strategy="fedelmy", seed=0))
+        torch.cuda.synchronize()
+        runs[name] = (res, dict(wall_s=time.perf_counter() - t0,
+                                gemm_launches=local_step.gemm_f32.launches))
+    n_steps = base["e_warmup"] + 4 * 3 * 25
+    out = {}
+    for name, (res, run) in runs.items():
+        pool = res.require_final_pool()
+        row = dict(run or {}, pool=type(pool).__name__, pool_count=pool.count)
+        for dev, where in devices.items():
+            p = _pool_to(pool, where)
+            params = {k: v.to(where) for k, v in res.params.items()}
+            servers = {
+                "ensemble": PoolServer.from_pool(models[dev], p),
+                "pool_avg": PoolServer.from_params(models[dev], p.average()),
+                "last": PoolServer.from_params(models[dev], params)}
+            for kind, server in servers.items():
+                report = serve_trace(server, traces[dev])
+                _, preds = server.score(traces[dev].arrays,
+                                        traces[dev].flat_index())
+                row[f"{kind}_{dev}"] = dict(report.row(), preds=preds)
+        for kind in ("ensemble", "pool_avg", "last"):
+            card, cpu = row[f"{kind}_card"], row[f"{kind}_cpu"]
+            agree = float((card.pop("preds") == cpu.pop("preds")).mean())
+            row[f"{kind}_agreement"] = agree
+            if agree < CNN_SERVE_AGREE_MIN:
+                fail(f"{name} {kind}: card and CPU predictions agree on "
+                     f"{agree:.3f} of the requests")
+        out[name] = row
+        run_txt = ("" if run is None else
+                   f"; {n_steps} steps in {run['wall_s']:.2f} s, gemm_f32 "
+                   f"{run['gemm_launches']}")
+        print(f"  {name:8s} ({row['pool']}, {pool.count} members{run_txt}): "
+              + ", ".join(
+                  f"{k} {row[f'{k}_card']['accuracy']:.3f} card / "
+                  f"{row[f'{k}_cpu']['accuracy']:.3f} cpu "
+                  f"(p50 {row[f'{k}_card']['p50_ms']:.2f} ms)"
+                  for k in ("ensemble", "pool_avg", "last")))
+        if run is not None and run["gemm_launches"] != \
+                GEMM_LAUNCHES_PER_STEP * n_steps:
+            fail(f"{name} fedelmy made {run['gemm_launches']} GEMM launches;"
+                 f" expected {GEMM_LAUNCHES_PER_STEP} x {n_steps}")
+        if not row["ensemble_card"]["accuracy"] > 0.5:
+            fail(f"{name}: ensemble accuracy is not above 0.5")
+    return out
+
+
+def serving_phases(torch, local_step, main_result, bgmv, flash_attention,
+                   pool_distance, ref):
+    """Phases 10-12; returns their measurements by name."""
+    print("[10] bgmv_f32, flash_attn_f32 and factor_gram_f32 against their "
+          "plain versions")
+    bgmv_rows, bgmv_err = check_bgmv(torch, bgmv, ref)
+    attn_rows, attn_err = check_flash_attention(torch, flash_attention, ref)
+    gram_rows, gram_err = check_factor_gram(torch, pool_distance, ref)
+    print("[11] full-width llama3.2-1b factor pool (capacity 5, rank 8) "
+          "through PoolServer.from_pool")
+    llama_f32 = serve_llama_f32(torch)
+    llama_bf16 = serve_llama_bf16(torch)
+    print("[12] the paper CNN's pools served with poisson_skewed traffic")
+    cnn = serve_cnn_pools(torch, local_step, main_result)
+    return dict(bgmv=bgmv_rows, bgmv_max_abs_err=bgmv_err,
+                attention=attn_rows, attention_max_abs_err=attn_err,
+                gram=gram_rows, gram_max_abs_err=gram_err,
+                llama_f32=llama_f32, llama_bf16=llama_bf16, cnn_serving=cnn)
+
+
+def serving_kernels(serving):
+    """The kernels line's entries of the three serving kernels. Launches:
+    the bf16 replays of phase 11 (BGMV: the factored one; attention: both)
+    and its `lowrank_pairwise_sq` call (Gram). Times and bounds are those
+    of one factored forward (113 BGMV launches at their sites' shapes, 16
+    attention launches at the serving shape in bf16) and of one pairwise
+    call (20 Gram launches), summed over their shapes; the bound is the
+    larger of the summed bytes over the memory rate and the summed
+    operations over the peak rate."""
+    modes = serving["llama_bf16"]["modes"]
+    entries = []
+    for name, source, replaces, launches, err, rows, weight in (
+            ("bgmv_f32", "bgmv_f32.cu", "bgmv.py:63",
+             modes["factored"]["launches"]["bgmv_f32"],
+             serving["bgmv_max_abs_err"], serving["bgmv"], "per_forward"),
+            ("flash_attn_f32", "flash_attn_f32.cu", "flash_attention.py:70",
+             sum(m["launches"]["flash_attn_f32"] for m in modes.values()),
+             serving["attention_max_abs_err"], serving["attention"],
+             "per_forward"),
+            ("factor_gram_f32", "factor_gram_f32.cu", "pool_distance.py:130",
+             serving["llama_f32"]["gram_launches"],
+             serving["gram_max_abs_err"], serving["gram"], "per_call")):
+        byte_ms = _per_call(rows, "byte_ms", weight)
+        op_ms = _per_call(rows, "op_ms", weight)
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "launches": launches, "max_abs_err": err,
+            "ms": _per_call(rows, "ms", weight),
+            "plain_ms": _per_call(rows, "plain_ms", weight),
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "library_ms": _per_call(rows, "library_ms", weight)})
+    for e in entries:
+        if not e["launches"]:
+            fail(f"{e['name']} was launched no time on its main path")
+    return {"kernels": entries}
+
+
 def main(argv):
     """No arguments: every phase. ``--planted-faults``: phases 1-2, then
     `planted_faults` (a calibration of phase 5's checks; no result line)."""
@@ -1065,7 +1680,8 @@ def main(argv):
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     # phase 2: build the kernels, one nvcc each, in parallel
-    from repro_torch.kernels import build, local_step, ref
+    from repro_torch.kernels import (bgmv, build, flash_attention,
+                                     local_step, pool_distance, ref)
     t0 = time.perf_counter()
     logs = build.build_all()
     build_s = time.perf_counter() - t0
@@ -1089,7 +1705,7 @@ def main(argv):
     # phase 4: the main path
     print("[4] main path: launch(Experiment(strategy='fedelmy')), "
           "full-width paper CNN")
-    main_path = run_main_path(torch, local_step)
+    main_path, main_result = run_main_path(torch, local_step)
 
     # phase 5: card against CPU
     print("[5] card (kernel) against CPU (plain versions)")
@@ -1111,6 +1727,10 @@ def main(argv):
     # phase 9: dfedsam card against CPU
     print("[9] dfedsam: card (kernels) against CPU (plain versions)")
     sam_agreement = dfedsam_card_vs_cpu(torch, local_step, ref)
+
+    # phases 10-12: pool serving
+    serving = serving_phases(torch, local_step, main_result, bgmv,
+                             flash_attention, pool_distance, ref)
 
     step_rows = [r for r in rows if r["main_path"]]
     byte_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[0] for r in step_rows)
@@ -1136,13 +1756,14 @@ def main(argv):
         "ms": sgd_timing["ms"], "plain_ms": sgd_timing["plain_ms"],
         "bound_ms": sgd_timing["bound_ms"],
         "bound_by": sgd_timing["bound_by"],
-        "library_ms": sgd_timing["library_ms"]}]}
+        "library_ms": sgd_timing["library_ms"]}]
+        + serving_kernels(serving)["kernels"]}
     print("details: " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), nvidia_smi=smi_line,
         build_s=build_s, gemm=rows, main_path=main_path,
         card_vs_cpu=agreement, profile=step_profile, sgd=sgd_rows,
         sgd_timing=sgd_timing, table1=table1,
-        dfedsam_card_vs_cpu=sam_agreement,
+        dfedsam_card_vs_cpu=sam_agreement, **serving,
         total_s=time.perf_counter() - t_start)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

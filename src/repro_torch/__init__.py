@@ -5,6 +5,8 @@ The port keeps the reference's module names, layouts (NHWC activations,
 HWIO conv weights) and parameter leaf names, so parameters convert between
 the two packages by plain copy (`repro_torch.convert`). Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``. The kernels on
-its paths are hand-written CUDA C++ for Hopper: the f32 GEMM behind every
-convolution of the paper CNN's training step (``kernels/csrc/gemm_f32.cu``)
-and the fused SGD update (``kernels/csrc/sgd_f32.cu``)."""
+its paths are hand-written CUDA C++ for Hopper (``kernels/csrc/``): the
+f32 GEMM behind every convolution of the paper CNN's training step, the
+fused SGD update, and for pool serving the batched low-rank correction
+(BGMV), flash attention (forward) and the factor Gram of the low-rank
+pool's distances."""

@@ -7,7 +7,7 @@ from repro_torch.api.launch import launch
 from repro_torch.api.plan import (LocalBlock, StrategyPlan, Topology,
                                   interpret, per_client_seeds, tree_mean)
 from repro_torch.api.pools import (PoolBackend, backend_for, get_pool_backend,
-                                   register_pool_backend)
+                                   list_pool_backends, register_pool_backend)
 from repro_torch.api.results import (ClientRecord, ModelRecord, RoundRecord,
                                      RunResult, StrategyOutput)
 from repro_torch.api.strategies import (describe_strategies, get_plan,
@@ -23,7 +23,8 @@ __all__ = [
     "per_client_seeds", "tree_mean",
     "register_plan", "register_strategy", "get_plan", "get_strategy_spec",
     "list_strategies", "describe_strategies",
-    "register_pool_backend", "get_pool_backend", "PoolBackend",
+    "register_pool_backend", "get_pool_backend", "list_pool_backends",
+    "PoolBackend",
     "backend_for", "LocalTrainer", "make_plain_step", "make_pool_step",
     "regularized_loss",
 ]

@@ -43,6 +43,29 @@ class RunResult:
     wall_time_s: float = 0.0
     final_pool: Any = None           # last client's pool, if kept
 
+    def require_final_pool(self) -> Any:
+        """The trained pool, or a diagnosis of why there is none: the
+        strategy's plan discards it, or the run trained no pool."""
+        if self.final_pool is not None:
+            return self.final_pool
+        from repro_torch.api.strategies import get_strategy_spec
+        try:
+            plan = get_strategy_spec(self.strategy).plan
+        except (KeyError, ValueError):
+            plan = None
+        if plan is not None and not getattr(plan, "keep_final_pool", False):
+            raise ValueError(
+                f"strategy {self.strategy!r} discards its pool "
+                "(keep_final_pool=False in its StrategyPlan) — it only "
+                "produces an aggregated model. Serve that with "
+                "PoolServer.from_params(model, result.params) instead.")
+        raise ValueError(
+            f"run of {self.strategy!r} produced no pool (use_pool=False, "
+            "a custom strategy without pool blocks, or a result built "
+            "before pools were retained). Re-run with FedConfig("
+            "use_pool=True) or serve the aggregated params via "
+            "PoolServer.from_params(model, result.params).")
+
 
 @dataclasses.dataclass
 class StrategyOutput:

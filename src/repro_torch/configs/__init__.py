@@ -1,8 +1,8 @@
 """Config registry: architecture id → ArchConfig."""
-from repro_torch.configs import paper_cnn
+from repro_torch.configs import llama3_2_1b, paper_cnn
 from repro_torch.configs.base import ArchConfig, FedConfig
 
-ARCHS = {"paper-cnn": paper_cnn.CONFIG}
+ARCHS = {"llama3.2-1b": llama3_2_1b.CONFIG, "paper-cnn": paper_cnn.CONFIG}
 
 
 def get_arch(name: str) -> ArchConfig:

@@ -1,7 +1,8 @@
 """Run configuration dataclasses (port of ``repro/configs/base.py``).
 
-`ArchConfig` keeps the fields the paper CNN's config sets and reads (f32
-throughout); `FedConfig` is the full
+`ArchConfig` keeps the fields of the families this port runs — the paper
+CNN and the dense decoder-only transformer — with the reference's
+defaults and its `reduced()` smoke-test variant; `FedConfig` is the full
 FedELMY hyper-parameter set with the reference's validation, error
 messages included."""
 from __future__ import annotations
@@ -13,12 +14,40 @@ from typing import Optional
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # "cnn" is the only family of this port
+    family: str                   # "cnn" | "dense" (the families ported)
     n_layers: int                 # cnn: conv blocks
     d_model: int                  # cnn: base conv width
+    n_heads: int
+    n_kv_heads: int
     d_ff: int
     vocab_size: int               # cnn: number of classes
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    sliding_window: int = 0       # 0 = full attention
+    param_dtype: str = "bfloat16"
     source: str = ""              # citation
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    def reduced(self) -> "ArchConfig":
+        """A smoke-test-sized variant of the same family (<=2 layers,
+        d<=256), the reference's rules for the dense family."""
+        heads = min(4, self.n_heads)
+        kv = max(1, min(self.n_kv_heads, heads))
+        while heads % kv:         # keep heads % kv == 0
+            kv -= 1
+        d = min(256, self.d_model)
+        return dataclasses.replace(
+            self, n_layers=min(2, self.n_layers), d_model=d, n_heads=heads,
+            n_kv_heads=kv, d_ff=min(512, self.d_ff),
+            vocab_size=min(1024, self.vocab_size), head_dim=d // heads,
+            param_dtype="float32",
+            sliding_window=64 if self.sliding_window else 0)
 
 
 # Valid FedConfig string knobs (the reference's lists, verbatim).

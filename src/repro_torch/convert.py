@@ -5,7 +5,8 @@ A reference pytree of nested dicts (``{"c1": {"b": ..., "w": ...}, ...}``)
 flattens to dotted names in the reference's leaf order (sorted keys at
 every level: ``c1.b, c1.w, …, fc2.w``). Layouts are shared (NHWC, HWIO),
 so values copy unchanged in both directions. Stacked pools convert the
-same way: their leaves just carry a leading capacity axis."""
+same way: their leaves just carry a leading capacity axis; `from_jax_pool`
+carries any reference pool across (stacked, moment-form or low-rank)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -13,6 +14,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from repro_torch.core.pool import LowRankDeltaPool, ModelPool, MomentPool
 from repro_torch.device import DeviceLike, resolve_device
 
 
@@ -46,3 +48,37 @@ def to_jax_params(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(key, {})
         node[leaf] = value.detach().cpu().numpy().copy()
     return tree
+
+
+def _tensor(x: Any, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True)).to(dev)
+
+
+def from_jax_lowrank_pool(pool: Any, device: DeviceLike = None):
+    """A reference `LowRankDeltaPool` (jax or numpy leaves) → the port's,
+    on `device`: the same base, factor stacks, dense stacks and count, so
+    both packages serve the same factors."""
+    dev = resolve_device(device)
+    return LowRankDeltaPool(
+        base=from_jax_params(pool.base, dev),
+        u={k: _tensor(a, dev) for k, a in sorted(pool.u.items())},
+        v={k: _tensor(a, dev) for k, a in sorted(pool.v.items())},
+        dense={k: _tensor(a, dev) for k, a in sorted(pool.dense.items())},
+        count=int(pool.count))
+
+
+def from_jax_pool(pool: Any, device: DeviceLike = None):
+    """Any reference pool (`ModelPool`, `MomentPool`, `LowRankDeltaPool`;
+    recognised by its class name, jax or numpy leaves) → the port's
+    counterpart on `device`."""
+    dev = resolve_device(device)
+    kind = type(pool).__name__
+    if kind == "LowRankDeltaPool":
+        return from_jax_lowrank_pool(pool, dev)
+    if kind == "ModelPool":
+        return ModelPool(from_jax_params(pool.members, dev), int(pool.count))
+    if kind == "MomentPool":
+        return MomentPool(from_jax_params(pool.mean, dev),
+                          _tensor(pool.sq_norm_mean, dev), int(pool.count),
+                          from_jax_params(pool.anchor, dev))
+    raise TypeError(f"from_jax_pool: no conversion for a {kind}")

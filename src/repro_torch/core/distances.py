@@ -1,5 +1,6 @@
 """Distance regularizers d1 / d2 (paper Eq. 7–8) and the appendix's
-logarithmic magnitude calibration (port of ``repro/core/distances.py``).
+logarithmic magnitude calibration (port of ``repro/core/distances.py``),
+for the stacked, moment-form and low-rank pools.
 
 d1: mean distance from the model in training to every live pool member
     (maximized → diversity).
@@ -9,11 +10,13 @@ gradient; `log_scale`'s calibration factor is detached (the reference's
 `stop_gradient`)."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
 
 import torch
 
-from repro_torch.core.pool import ModelPool
+from repro_torch.core.pool import (LowRankDeltaPool, ModelPool, MomentPool,
+                                   _leaf_key)
+from repro_torch.kernels.pool_distance import factor_gram
 
 F32 = torch.float32
 Params = Dict[str, torch.Tensor]
@@ -65,6 +68,81 @@ def d1_pool_distance(params: Params, pool: ModelPool,
     members = {k: s.detach() for k, s in pool.members.items()}
     dists = _distance(params, members, measure, batched=True)
     return torch.sum(dists * pool.mask()) / float(pool.count)
+
+
+def lowrank_member_sq(params: Params,
+                      pool: LowRankDeltaPool) -> torch.Tensor:
+    """Per-member ‖m − m_t‖² (C,) in factor form, never densifying a
+    member: with G = m − base and Δ_t = U_tV_tᵀ per matrix leaf,
+    ‖G − Δ_t‖² = ‖G‖² − 2⟨GᵀU_t, V_t⟩ + ⟨U_tᵀU_t, V_tᵀV_t⟩; dense-delta
+    leaves contribute their residuals directly."""
+    total = torch.zeros((pool.capacity,), dtype=F32,
+                        device=pool.mask().device)
+    for i, (name, b) in enumerate(pool.base.items()):
+        k = _leaf_key(i)
+        g = params[name].to(F32) - b.to(F32)
+        if k in pool.dense:
+            r = g[None] - pool.dense[k]
+            total = total + torch.sum(torch.square(r),
+                                      dim=tuple(range(1, r.dim())))
+        else:
+            u, v = pool.u[k], pool.v[k]
+            nd = tuple(range(1, u.dim()))
+            gu = torch.einsum("...io,c...ir->c...or", g, u)
+            cross = torch.sum(gu * v, dim=nd)
+            uu = torch.einsum("c...ir,c...is->c...rs", u, u)
+            vv = torch.einsum("c...ir,c...is->c...rs", v, v)
+            total = total + (torch.sum(g * g) - 2.0 * cross +
+                             torch.sum(uu * vv, dim=nd))
+    return torch.clamp_min(total, 0.0)
+
+
+def d1_lowrank(params: Params, pool: LowRankDeltaPool,
+               measure: str = "l2") -> torch.Tensor:
+    """Eq. 7 over factor-form members (l2 / squared_l2 only: l1 and cosine
+    have no exact Gram form)."""
+    sq = lowrank_member_sq(params, pool)
+    if measure == "l2":
+        d = torch.sqrt(sq + 1e-12)
+    elif measure == "squared_l2":
+        d = sq
+    else:
+        raise ValueError(
+            f"lowrank pool supports l2/squared_l2, got {measure!r}")
+    return torch.sum(d * pool.mask()) / float(pool.count)
+
+
+def lowrank_pairwise_sq(pool: LowRankDeltaPool,
+                        gram_fn: Callable = factor_gram) -> torch.Tensor:
+    """Pairwise ‖m_i − m_j‖² (C, C) from r×r Grams: the base cancels, and
+    ⟨Δ_i, Δ_j⟩ = ⟨U_iᵀU_j, V_iᵀV_j⟩_F comes from two long-axis Grams over
+    the (C·r)-row factor stacks of each leaf. `gram_fn` computes A (…, M,
+    P) → A·Aᵀ: by default `kernels.pool_distance.factor_gram` (the kernel
+    on CUDA, the plain version on the CPU)."""
+    c = pool.capacity
+    inner = torch.zeros((c, c), dtype=F32, device=pool.mask().device)
+    for k, u in pool.u.items():
+        v = pool.v[k]
+        r = u.shape[-1]
+        # (C, *lead, d, r) → (L, C·r, d): the Gram's long axis is d; the
+        # flattened lead dims ride the kernel's batch axis.
+        uf = u.reshape((c, -1) + tuple(u.shape[-2:]))
+        vf = v.reshape((c, -1) + tuple(v.shape[-2:]))
+        uf = uf.permute(1, 0, 3, 2).reshape(uf.shape[1], c * r, u.shape[-2])
+        vf = vf.permute(1, 0, 3, 2).reshape(vf.shape[1], c * r, v.shape[-2])
+        gu = gram_fn(uf.contiguous()).reshape(-1, c, r, c, r)
+        gv = gram_fn(vf.contiguous()).reshape(-1, c, r, c, r)
+        inner = inner + torch.einsum("lirjs,lirjs->ij", gu, gv)
+    for d in pool.dense.values():
+        df = d.reshape(d.shape[0], -1).to(F32)
+        inner = inner + df @ df.T
+    diag = torch.diagonal(inner)
+    return torch.clamp_min(diag[:, None] + diag[None, :] - 2.0 * inner, 0.0)
+
+
+def d1_moment(params: Params, pool: MomentPool) -> torch.Tensor:
+    """Moment-form d1: the RMS of the exact mean squared distance."""
+    return torch.sqrt(pool.mean_sq_distance(params) + 1e-12)
 
 
 def d2_anchor_distance(params: Params, anchor: Params,

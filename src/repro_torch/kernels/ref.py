@@ -42,3 +42,47 @@ def sgd_update_ref(p: torch.Tensor, g: torch.Tensor, *, lr: float,
     p32 = p.float()
     return torch.add(p32, torch.add(g.float(), p32, alpha=wd),
                      alpha=-lr).to(p.dtype)
+
+
+NEG_INF = -1e30
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """Dense softmax attention with f32 scores, out in q's dtype — the
+    flash-attention kernel's plain version. q: (B, Tq, H, hd); k, v:
+    (B, Tk, KV, hd); query head h reads kv head h // (H / KV)."""
+    b, tq, h, hd = q.shape
+    tk, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
+    qf = q.float() * hd ** -0.5
+    kf = k.float().repeat_interleave(g, dim=2)
+    vf = v.float().repeat_interleave(g, dim=2)
+    s = torch.einsum("bthd,bshd->bhts", qf, kf)
+    q_pos = torch.arange(tq, device=q.device)[:, None]
+    k_pos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window:
+        mask &= q_pos - k_pos < window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhts,bshd->bthd", p, vf).to(q.dtype)
+
+
+def factor_gram_ref(a: torch.Tensor) -> torch.Tensor:
+    """f32 A·Aᵀ over the trailing axis, (…, M, P) → (…, M, M) — the factor
+    Gram kernel's plain version."""
+    af = a.float()
+    return af @ af.transpose(-1, -2)
+
+
+def bgmv_ref(x: torch.Tensor, u: torch.Tensor,
+             v: torch.Tensor) -> torch.Tensor:
+    """f32 batched low-rank correction y_s = (x_s @ u_s) @ v_sᵀ — the BGMV
+    kernel's plain version. x: (S, N, d_in) per member or (N, d_in)
+    shared; u: (S, d_in, r); v: (S, d_out, r) → (S, N, d_out)."""
+    xf, uf, vf = x.float(), u.float(), v.float()
+    t = xf @ uf            # (N, d_in) broadcasts over S
+    return t @ vf.transpose(-1, -2)

@@ -1,0 +1,239 @@
+"""Transformer building blocks of the dense decoder family (port of the
+dense subset of ``repro/models/layers.py``).
+
+Conventions, as in the reference: activations (B, T, D); attention heads
+in the last-but-one axis, q (B, T, H, hd); parameters are name → tensor
+dicts whose layer-stacked leaves carry a leading L axis. Every product
+accumulates in f32 and is cast back to the activation dtype exactly where
+the reference casts (`preferred_element_type=f32` there): `matmul_f32`.
+
+`flash_attention` routes by device. On a CUDA tensor it launches the
+hand-written kernel (`kernels/flash_attention.py`), forward only and from
+position 0: a `q_offset` (cached decode) or an input that requires grad
+(training) raises `NotImplementedError` until a backward kernel exists.
+On a CPU tensor it runs the reference's chunked online-softmax
+formulation, kv block by kv block.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention import flash_attn_f32
+
+ACC = torch.float32
+NEG_INF = -1e30
+Params = Dict[str, torch.Tensor]
+
+
+def _he(gen: torch.Generator, shape, dtype, fan_in=None) -> torch.Tensor:
+    """N(0, 1/fan_in) drawn on the generator's device (fan_in defaults to
+    shape[0]), cast to the parameter dtype."""
+    fan_in = fan_in or shape[0]
+    x = torch.randn(shape, generator=gen, device=gen.device, dtype=ACC)
+    return (x / math.sqrt(fan_in)).to(dtype)
+
+
+def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (…, d_in) @ w (d_in, d_out) accumulated in f32, returned in f32:
+    the reference's ``einsum(..., preferred_element_type=f32)``. f32
+    operands multiply as they are (TF32 must be off on the card); bf16
+    operands go through cuBLAS with an f32 output on the card; anything
+    else is widened to f32 first, which computes the same products."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    if x.dtype == ACC and w.dtype == ACC:
+        y = x2 @ w
+    elif x.device.type == "cuda" and x.dtype == w.dtype:
+        y = torch.mm(x2, w, out_dtype=ACC)
+    else:
+        y = x2.to(ACC) @ w.to(ACC)
+    return y.reshape(*lead, w.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+def rms_norm_init(d: int, dtype, device, lead=()) -> Params:
+    """Unit scales; `lead` stacks them (the layer axis)."""
+    return {"scale": torch.ones(tuple(lead) + (d,), dtype=dtype,
+                                device=device)}
+
+
+def rms_norm(scale: torch.Tensor, x: torch.Tensor,
+             eps: float = 1e-5) -> torch.Tensor:
+    xf = x.to(ACC)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.to(ACC)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=ACC, device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=ACC, device=device),
+                           exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (…, T, H, hd) rotated pairwise (first half against second
+    half); positions: (…, T)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, x.device)
+    angles = positions.to(ACC)[..., None] * freqs        # (…, T, hd/2)
+    cos = torch.cos(angles)[..., None, :]                 # (…, T, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(ACC), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Attention (GQA, optional sliding window)
+# ---------------------------------------------------------------------------
+
+def _chunked_attention(q, k, v, *, causal, window, q_offset, kv_block):
+    """The reference's jnp formulation: online softmax over kv blocks of
+    `kv_block` keys, grouped queries (B, Tq, KV, G, hd), f32 throughout."""
+    b, tq, h, hd = q.shape
+    tk, n_kv = k.shape[1], k.shape[2]
+    vd = v.shape[-1]
+    g = h // n_kv
+    qg = q.reshape(b, tq, n_kv, g, hd).to(ACC) * hd ** -0.5
+    n_blocks = -(-tk // kv_block)
+    pad = n_blocks * kv_block - tk
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    q_pos = q_offset + torch.arange(tq, device=q.device)
+    m = torch.full((b, tq, n_kv, g), NEG_INF, dtype=ACC, device=q.device)
+    l = torch.zeros((b, tq, n_kv, g), dtype=ACC, device=q.device)
+    acc = torch.zeros((b, tq, n_kv, g, vd), dtype=ACC, device=q.device)
+    for blk in range(n_blocks):
+        sl = slice(blk * kv_block, (blk + 1) * kv_block)
+        k_c, v_c = k[:, sl].to(ACC), v[:, sl].to(ACC)
+        k_pos = blk * kv_block + torch.arange(kv_block, device=q.device)
+        s = torch.einsum("btkgh,bskh->btkgs", qg, k_c)
+        mask = torch.ones((tq, kv_block), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= q_pos[:, None] >= k_pos[None, :]
+        if window:
+            mask &= q_pos[:, None] - k_pos[None, :] < window
+        mask &= (k_pos < tk)[None, :]
+        s = torch.where(mask[None, :, None, None, :], s,
+                        torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("btkgs,bskh->btkgh", p,
+                                                   v_c)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    return out.reshape(b, tq, h, vd).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    kv_block: int = 512) -> torch.Tensor:
+    """Causal / sliding-window GQA attention. q: (B, Tq, H, hd); k, v:
+    (B, Tk, KV, hd). q_offset: absolute position of q[0] relative to k[0].
+    window: 0 = full; > 0 = only keys fewer than `window` positions back.
+    CUDA: the flash-attention kernel (see the module docstring for what
+    raises); CPU: the chunked formulation."""
+    if q.device.type == "cuda":
+        if q_offset:
+            raise NotImplementedError(
+                "flash_attention on CUDA starts at position 0; cached "
+                "decode (q_offset != 0) waits for its kernel")
+        if any(t.requires_grad for t in (q, k, v)):
+            raise NotImplementedError(
+                "flash_attention on CUDA is forward-only; transformer "
+                "training on the card waits for a backward kernel")
+        return flash_attn_f32(q.contiguous(), k.contiguous(), v.contiguous(),
+                              causal=causal, window=window)
+    if q.device.type == "cpu":
+        return _chunked_attention(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset, kv_block=kv_block)
+    raise ValueError(f"flash_attention: no route for tensors on {q.device}")
+
+
+# ---------------------------------------------------------------------------
+# GQA attention block
+# ---------------------------------------------------------------------------
+
+def attn_init(gen: torch.Generator, cfg, dtype, lead=()) -> Params:
+    """GQA projections (He-normal, fan-in = the input dim) and optional
+    zero biases, in the reference's leaf order; `lead` stacks them."""
+    d, h, kv, hd = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                    cfg.resolved_head_dim)
+    lead, dev = tuple(lead), gen.device
+    p = {"wk": _he(gen, lead + (d, kv * hd), dtype, fan_in=d),
+         "wo": _he(gen, lead + (h * hd, d), dtype, fan_in=h * hd),
+         "wq": _he(gen, lead + (d, h * hd), dtype, fan_in=d),
+         "wv": _he(gen, lead + (d, kv * hd), dtype, fan_in=d)}
+    if cfg.qkv_bias:
+        for name, width in (("bk", kv * hd), ("bq", h * hd),
+                            ("bv", kv * hd)):
+            p[name] = torch.zeros(lead + (width,), dtype=dtype, device=dev)
+    return dict(sorted(p.items()))
+
+
+def _proj(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = matmul_f32(x, w)
+    if b is not None:
+        y = y + b.to(ACC)
+    return y.to(x.dtype)
+
+
+def attn_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    b, t, _ = x.shape
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    q = _proj(x, p["wq"], p.get("bq")).reshape(b, t, h, hd)
+    k = _proj(x, p["wk"], p.get("bk")).reshape(b, t, kv, hd)
+    v = _proj(x, p["wv"], p.get("bv")).reshape(b, t, kv, hd)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def attn_out(p: Params, o: torch.Tensor) -> torch.Tensor:
+    b, t, h, hd = o.shape
+    return _proj(o.reshape(b, t, h * hd), p["wo"])
+
+
+def self_attention(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
+                   *, window: Optional[int] = None) -> torch.Tensor:
+    q, k, v = attn_qkv(p, cfg, x, positions)
+    window = cfg.sliding_window if window is None else window
+    o = flash_attention(q, k, v, causal=True, window=window)
+    return attn_out(p, o)
+
+
+# ---------------------------------------------------------------------------
+# SwiGLU MLP
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype,
+             lead=()) -> Params:
+    """SwiGLU weights (He-normal); `lead` stacks them."""
+    lead = tuple(lead)
+    return {"w_down": _he(gen, lead + (d_ff, d), dtype, fan_in=d_ff),
+            "w_gate": _he(gen, lead + (d, d_ff), dtype, fan_in=d),
+            "w_up": _he(gen, lead + (d, d_ff), dtype, fan_in=d)}
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    g = matmul_f32(x, p["w_gate"])
+    u = matmul_f32(x, p["w_up"])
+    y = F.silu(g) * u
+    return matmul_f32(y.to(x.dtype), p["w_down"]).to(x.dtype)
