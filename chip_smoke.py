@@ -44,6 +44,16 @@ Phases, each failing the run with a nonzero exit:
              serving bytes, a profile of the ticks)
 12. CNN serving — the paper CNN's stacked, low-rank and moment pools
              served with poisson_skewed traffic on the card and the CPU
+13. GLA kernel — the GLA chunk kernel against its plain version at the
+             full-width layer calls of rwkv6-7b (per-channel decay,
+             bonus) and zamba2-7b (scalar decay), bf16 and f32, ragged T
+             and a nonzero initial state; errors, times, bounds
+14. SSM serving — rwkv6-7b and zamba2-7b at full width and depth in bf16
+             through `launch.steps.make_step`: prefill of a 2 × 512
+             prompt, the grow, 16 greedy decode steps, with exact GLA and
+             attention launch counts, times, tokens/s, peak memory and
+             the idle share; then each in f32, the kernel against the
+             plain GLA and prefill(T−1) + decode(1) against forward(T)
 
 Before the last lines it prints every measurement as one JSON object on
 a line starting "details: "; then the kernels' JSON record and the card's
@@ -1066,7 +1076,10 @@ ATTN_PER_FACTORED, ATTN_PER_DENSE = 16, 5 * 16
 ATTN_SHAPES = [("serve", 10, 16, 16, 32, 8, 64, True, 8192),
                ("causal2048", 2, 2048, 2048, 32, 8, 64, True, 0),
                ("window512", 2, 2048, 2048, 32, 8, 64, True, 512),
-               ("ragged2000", 2, 2000, 2000, 32, 8, 64, True, 0)]
+               ("ragged2000", 2, 2000, 2000, 32, 8, 64, True, 0),
+               # zamba2-7b's shared block at the phase-14 prefill: head
+               # dim 3584 / 32 = 112
+               ("zamba2", 2, 512, 512, 32, 32, 112, True, 0)]
 # the factor stacks lowrank_pairwise_sq hands the Gram kernel at full
 # width, C·r = 40 rows: (name, B, P, launches per call)
 GRAM_SHAPES = [("embed.u", 1, 128256, 1), ("embed.v", 1, 2048, 1),
@@ -1302,10 +1315,12 @@ def _per_call(rows, key, weight):
 
 
 def _counters():
-    from repro_torch.kernels import bgmv, flash_attention, pool_distance
+    from repro_torch.kernels import (bgmv, chunk_scan, flash_attention,
+                                     pool_distance)
     return {"bgmv_f32": bgmv.bgmv_f32,
             "flash_attn_f32": flash_attention.flash_attn_f32,
-            "factor_gram_f32": pool_distance.factor_gram_f32}
+            "factor_gram_f32": pool_distance.factor_gram_f32,
+            "gla_chunk_f32": chunk_scan.gla_chunk_f32}
 
 
 def _reset_counts():
@@ -1393,9 +1408,10 @@ def serve_llama_f32(torch):
           f"member 1's squared distances "
           f"{[round(x, 2) for x in out['pairwise_sq'][1]]}")
     want_fac = {"bgmv_f32": BGMV_PER_FORWARD,
-                "flash_attn_f32": ATTN_PER_FACTORED, "factor_gram_f32": 0}
+                "flash_attn_f32": ATTN_PER_FACTORED, "factor_gram_f32": 0,
+                "gla_chunk_f32": 0}
     want_den = {"bgmv_f32": 0, "flash_attn_f32": ATTN_PER_DENSE,
-                "factor_gram_f32": 0}
+                "factor_gram_f32": 0, "gla_chunk_f32": 0}
     if out["factored_launches"] != want_fac or \
             out["densified_launches"] != want_den:
         fail(f"launch counts {out['factored_launches']} (factored) and "
@@ -1472,10 +1488,10 @@ def serve_llama_bf16(torch):
           "gated)")
     want = {"factored": {"bgmv_f32": BGMV_PER_FORWARD * forwards,
                          "flash_attn_f32": ATTN_PER_FACTORED * forwards,
-                         "factor_gram_f32": 0},
+                         "factor_gram_f32": 0, "gla_chunk_f32": 0},
             "densified": {"bgmv_f32": 0,
                           "flash_attn_f32": ATTN_PER_DENSE * forwards,
-                          "factor_gram_f32": 0}}
+                          "factor_gram_f32": 0, "gla_chunk_f32": 0}}
     for mode, w in want.items():
         if out["modes"][mode]["launches"] != w:
             fail(f"{mode} replay launched {out['modes'][mode]['launches']}; "
@@ -1648,6 +1664,413 @@ def serving_kernels(serving):
     return {"kernels": entries}
 
 
+# ---------------------------------------------------------------------------
+# phases 13-14: SSM serving (the GLA chunk kernel; rwkv6-7b and zamba2-7b)
+# ---------------------------------------------------------------------------
+
+# phase 13: (name, B, T, H, K = V, chunk L, per-channel decay + bonus,
+# launches per prefill): the full-width layer calls of rwkv6-7b (RWKV6
+# chunks by min(32, T)) and zamba2-7b (Mamba2, its config's chunk 128, q
+# and k broadcast over the 112 heads), each at T = 512 (the main path's
+# prompt) and at a ragged T = 500 from a nonzero initial state
+GLA_CASES = [("rwkv6", 2, 512, 64, 64, 32, True, 32),
+             ("zamba2", 2, 512, 112, 64, 128, False, 81)]
+GLA_RAGGED_T = 500
+# normwise limits of the kernel against its plain version. f32: L·K·2⁻²³
+# (the same sums of up to L·K terms, taken in another order: per channel
+# the plain version contracts K in one einsum, the kernel in register
+# tiles); bf16 y: one bf16 rounding more (2⁻⁸: both round the same f32 sum
+# once, at most an ulp apart), states stay f32
+BF16_ROUNDING = 2.0 ** -8
+# phase 14: the served traffic (examples/serve_batched.py's loop at batch
+# 2): a 512-token prompt, 16 greedy tokens
+SSM_BATCH, SSM_PROMPT, SSM_NEW = 2, 512, 16
+# parameters of the full configs (jax.eval_shape of the reference's init)
+SSM_PARAMS = {"rwkv6-7b": 8_876_462_080, "zamba2-7b": 6_750_539_856}
+# launches per prefill on the main path; decode steps launch neither
+SSM_PREFILL_LAUNCHES = {"rwkv6-7b": {"gla_chunk_f32": 32,
+                                     "flash_attn_f32": 0},
+                        "zamba2-7b": {"gla_chunk_f32": 81,
+                                      "flash_attn_f32": 3}}
+# phase 14 (b), set before the first run (PERF.md's prediction for phases
+# 13-14): the f32 model through the kernel against the same weights
+# through the plain GLA, prefill logits and every cache leaf, normwise
+# (the two differ only in the GLA's sums, ~1e-7 relative a layer call);
+# prefill(T-1) + decode(1) against forward(T) at the last position, the
+# recurrence against the chunked form over every layer
+SSM_ORACLE_REL_TOL = 1e-4
+SSM_ROUNDTRIP_REL_TOL = 1e-3
+
+
+def _distinct_bytes(t):
+    """Bytes of a tensor's distinct elements: a broadcast (stride-0) axis
+    is read once."""
+    n = 1
+    for size, stride in zip(t.shape, t.stride()):
+        if stride:
+            n *= size
+    return n * t.element_size()
+
+
+def _gla_ops(b, t, h, kd, chunk, per_channel, pre):
+    """f32 operations one GLA call needs (a fused multiply-add is 2; an
+    exponential counts as 1 at the FFMA rate, a lower bound of its cost):
+    per chunk and (b, h), the inter-chunk product 2·L·K·V, the scores
+    over the pairs the mask keeps (j ≤ i, or j < i under pre: per channel
+    3·K operations and K exponentials a pair, scalar 2·K and one), the
+    intra-chunk product 2·V a pair, the q and k rescales (2·L·K
+    exponentials and products), the bonus diagonal 3·L·K + 2·L·V under
+    pre, the state update 2·L·K·V + K·V. The ragged tail counts its
+    valid tokens only."""
+    vd, total = kd, 0
+    for start in range(0, t, chunk):
+        n = min(chunk, t - start)
+        pairs = n * (n - 1) // 2 if pre else n * (n + 1) // 2
+        ops = 2 * n * kd * vd + 2 * pairs * vd + 4 * n * kd
+        ops += pairs * (4 * kd if per_channel else 2 * kd + 2)
+        ops += (3 * n * kd + 2 * n * vd) if pre else 0
+        ops += 2 * n * kd * vd + kd * vd
+        total += ops
+    return total * b * h
+
+
+def _normwise(a, b):
+    """‖a − b‖ / ‖b‖ in f64, both on one device."""
+    a, b = a.double(), b.double()
+    return float((a - b).norm() / b.norm())
+
+
+def check_gla(torch, chunk_scan, ssm, ref):
+    """The GLA chunk kernel against its plain version
+    (`ssm.gla_chunked_plain`) at the full-width layer calls of both
+    models, in bf16 and f32 inputs, at T = 512 from a zero state and at a
+    ragged T = 500 from a nonzero one; the f32 T = 512 cases also against
+    the step-by-step recurrence. Inputs as the models make them: q, k, v
+    ~ N(0, 1) (zamba2's q and k one (B, T, 1, K) tensor broadcast over the
+    heads, stride 0); RWKV6's log decay −exp(N(0, 1) − 1) per channel and
+    bonus exp(0.1·N), Mamba2's −softplus(N(0, 1)) per head. Times: the
+    kernel and the plain version, L2 flushed; the bound from the bytes
+    read and written and the operations `_gla_ops` counts."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device=CARD).manual_seed(13)
+
+    def rn(*shape):
+        return torch.randn(shape, device=CARD, generator=gen)
+    rows, max_abs = [], 0.0
+    for name, b, t0, h, kd, chunk, per_channel, per_prefill in GLA_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for t, init in ((t0, False), (GLA_RAGGED_T, True)):
+                if per_channel:
+                    q, k = rn(b, t, h, kd), rn(b, t, h, kd)
+                    ld = -torch.exp(rn(b, t, h, kd) - 1.0)
+                    bonus = torch.exp(0.1 * rn(h, kd))
+                else:
+                    q = rn(b, t, 1, kd).expand(b, t, h, kd)
+                    k = rn(b, t, 1, kd).expand(b, t, h, kd)
+                    ld = -F.softplus(rn(b, t, h))
+                    bonus = None
+                v = rn(b, t, h, kd)
+                q, k, v = (x.to(dtype) for x in (q, k, v))
+                s0 = rn(b, h, kd, kd) if init else None
+
+                def kernel():
+                    return chunk_scan.gla_chunk_f32(
+                        q, k, v, ld, chunk=chunk, bonus=bonus,
+                        initial_state=s0)
+
+                def plain():
+                    return ssm.gla_chunked_plain(
+                        q, k, v, ld, chunk=chunk, bonus=bonus,
+                        initial_state=s0)
+                y, st = kernel()
+                torch.cuda.synchronize()
+                yp, sp = plain()
+                f32_tol = chunk * kd * 2.0 ** -23
+                y_tol = f32_tol + (BF16_ROUNDING if dtype == torch.bfloat16
+                                   else 0.0)
+                row = dict(model=name, dtype=str(dtype), b=b, t=t, h=h,
+                           k=kd, v=kd, chunk=chunk, per_channel=per_channel,
+                           initial_state=init,
+                           per_prefill=per_prefill if t == t0 and
+                           dtype == torch.bfloat16 else 0,
+                           y_rel_err=_normwise(y, yp),
+                           state_rel_err=_normwise(st, sp),
+                           y_tol=y_tol, state_tol=f32_tol,
+                           max_abs_err=float((y.float() - yp.float()).abs()
+                                             .max()),
+                           finite=bool(torch.isfinite(y.float()).all() and
+                                       torch.isfinite(st).all()))
+                ok = (row["finite"] and row["y_rel_err"] <= y_tol and
+                      row["state_rel_err"] <= f32_tol)
+                if dtype == torch.float32 and not init:
+                    yr, sr = ref.gla_recurrence_ref(q, k, v, ld, bonus=bonus)
+                    row.update(y_rel_err_recurrence=_normwise(y, yr),
+                               state_rel_err_recurrence=_normwise(st, sr),
+                               plain_y_rel_err_recurrence=_normwise(yp, yr))
+                    ok = ok and row["y_rel_err_recurrence"] <= f32_tol and \
+                        row["state_rel_err_recurrence"] <= f32_tol
+                nbytes = (sum(_distinct_bytes(x) for x in (q, k, v, ld))
+                          + y.numel() * y.element_size() + st.numel() * 4
+                          + (bonus.numel() * 4 if bonus is not None else 0)
+                          + (s0.numel() * 4 if s0 is not None else 0))
+                bound_ms, bound_by, parts = _bound(
+                    nbytes, _gla_ops(b, t, h, kd, chunk, per_channel,
+                                     bonus is not None), PEAK_F32_FLOPS)
+                row.update(parts, within_tolerance=ok, ms=median_ms(kernel),
+                           plain_ms=median_ms(plain, reps=9, warmup=1),
+                           bound_ms=bound_ms, bound_by=bound_by)
+                rows.append(row)
+                extra = (f", recurrence {row['y_rel_err_recurrence']:.2e}/"
+                         f"{row['state_rel_err_recurrence']:.2e}"
+                         if "y_rel_err_recurrence" in row else "")
+                print(f"  gla {name:6s} {str(dtype)[6:]:8s} T={t}"
+                      f"{' s0' if init else '   '}: y {row['y_rel_err']:.2e} "
+                      f"state {row['state_rel_err']:.2e} normwise (tol "
+                      f"{y_tol:.1e}/{f32_tol:.1e}){extra}; kernel "
+                      f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
+                      f"bound {bound_ms:.4f} ({bound_by})")
+                if not ok:
+                    fail(f"gla_chunk_f32 {name} {dtype} T={t} disagrees with "
+                         "its plain version beyond the stated tolerance")
+                max_abs = max(max_abs, row["max_abs_err"])
+    return rows, max_abs
+
+
+def _grow(cache, n):
+    """The hybrid's shared attention caches grown by `n` positions, as
+    examples/serve_batched.py's `grow` does (other leaves unchanged)."""
+    import torch.nn.functional as F
+    return {k: F.pad(v, (0, 0, 0, 0, 0, n))
+            if k in ("shared_k", "shared_v") else v
+            for k, v in cache.items()}
+
+
+def _ssm_model(torch, cfg):
+    """The model on the card, its params from seed 0, the draw's wall time
+    and its peak device memory in GB (each leaf passes through one f32
+    buffer); holds the parameter count to the full config's. The peak
+    memory statistics restart after the draw."""
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    n = sum(p.numel() for p in params.values())
+    if n != SSM_PARAMS[cfg.name]:
+        fail(f"{cfg.name}: {n} parameters; the full config has "
+             f"{SSM_PARAMS[cfg.name]}")
+    return model, params, build_s, init_peak_gb
+
+
+def serve_ssm_bf16(torch, name):
+    """(a) The config's own bf16 model at full width and depth through the
+    port's `launch.steps.make_step`, as examples/serve_batched.py serves
+    it: prefill of a (2, 512) prompt, the grow, 16 greedy decode steps.
+    That first pass is the main path: counts reset before, read after
+    the prefill and after the decode steps. A second pass is timed
+    (prefill; decode ms a token and tokens/s) and a `torch.profiler`
+    pass reads the idle share of one prefill and of 4 decode steps."""
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch import make_step
+
+    cfg = get_arch(name)
+    model, params, build_s, init_peak_gb = _ssm_model(torch, cfg)
+    total = SSM_PROMPT + SSM_NEW
+    prefill = make_step(cfg, ShapeConfig("prefill_512", SSM_PROMPT,
+                                         SSM_BATCH, "prefill"))
+    serve = make_step(cfg, ShapeConfig("decode_528", total, SSM_BATCH,
+                                       "decode"))
+    tokens = torch.from_numpy(np.random.default_rng(14).integers(
+        0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT))).to(CARD)
+
+    def run():
+        logits, cache = prefill(params, {"tokens": tokens})
+        cache = _grow(cache, SSM_NEW)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter()
+        counts_pre = _read_counts()
+        finite = torch.isfinite(logits).all()
+        tok = logits[:, -1].argmax(-1)[:, None]
+        out = [tok]
+        for pos in range(SSM_PROMPT, total):
+            logits, cache = serve(params, tok, cache, pos)
+            finite &= torch.isfinite(logits).all()
+            tok = logits[:, -1].argmax(-1)[:, None]
+            out.append(tok)
+        torch.cuda.synchronize()
+        return (t_pre, time.perf_counter(), counts_pre, bool(finite),
+                torch.cat(out, 1), cache)
+
+    _reset_counts()
+    t0 = time.perf_counter()
+    t_pre, t_end, counts_pre, finite, seq, cache = run()
+    counts_all = _read_counts()
+    counts_dec = {k: counts_all[k] - counts_pre[k] for k in counts_all}
+    first = dict(prefill_ms=(t_pre - t0) * 1e3,
+                 decode_ms_per_token=(t_end - t_pre) * 1e3 / SSM_NEW)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_pre, t_end, _, finite2, seq2, _ = run()
+    out = dict(params=sum(p.numel() for p in params.values()),
+               param_gb=sum(p.numel() * p.element_size()
+                            for p in params.values()) / 1e9,
+               build_s=build_s, launches_prefill=counts_pre,
+               launches_decode=counts_dec, finite=finite and finite2,
+               first_pass=first, prefill_ms=(t_pre - t0) * 1e3,
+               decode_ms_per_token=(t_end - t_pre) * 1e3 / SSM_NEW,
+               tokens_per_s=SSM_BATCH * SSM_NEW / (t_end - t_pre),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               init_peak_gb=init_peak_gb,
+               greedy_tokens=seq[0].tolist(),
+               same_tokens_second_pass=bool(torch.equal(seq, seq2)))
+    logits, _ = prefill(params, {"tokens": tokens})
+    tok = logits[:, -1].argmax(-1)[:, None]
+    out["profile_prefill"] = _profile(
+        torch, lambda n: [prefill(params, {"tokens": tokens})
+                          for _ in range(n)], 1,
+        f"{name} bf16 prefill (2 x 512)")
+    out["profile_decode"] = _profile(
+        torch, lambda n: [serve(params, tok, cache, SSM_PROMPT + i)
+                          for i in range(n)], 4,
+        f"{name} bf16 decode step (batch 2; 'step' = token)")
+    print(f"  {name} bf16 ({out['params']:,} parameters, "
+          f"{out['param_gb']:.2f} GB, drawn on the card in "
+          f"{build_s:.2f} s): prefill {out['prefill_ms']:.2f} ms, decode "
+          f"{out['decode_ms_per_token']:.2f} ms/token, "
+          f"{out['tokens_per_s']:.1f} tokens/s; peak {out['peak_gb']:.2f} "
+          f"GB serving ({out['init_peak_gb']:.2f} GB drawing); launches "
+          f"prefill {counts_pre}, decode x{SSM_NEW} {counts_dec}; greedy "
+          f"{out['greedy_tokens'][:6]}")
+    want_dec = {k: 0 for k in counts_pre}
+    want_pre = dict(want_dec, **SSM_PREFILL_LAUNCHES[name])
+    if counts_pre != want_pre or counts_dec != want_dec:
+        fail(f"{name}: launches {counts_pre} (prefill) and {counts_dec} "
+             f"({SSM_NEW} decode steps); expected {want_pre} and "
+             f"{want_dec}")
+    if not out["finite"]:
+        fail(f"{name}: non-finite logits in bf16 serving")
+    del model, params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_oracle_f32(torch, name, ssm):
+    """(b) The card's oracle: the config in f32 at full width and depth,
+    one set of weights. Prefill of the (2, 512) prompt through the kernel
+    and through the plain GLA (`ssm.gla_chunked` pointed at
+    `gla_chunked_plain`, counts read to show which ran): logits and every
+    cache leaf normwise within SSM_ORACLE_REL_TOL. Then, through the
+    kernel, prefill(T−1) + the grow + decode(1) against forward(T) at the
+    last position, within SSM_ROUNDTRIP_REL_TOL (the reference's
+    tests/test_arch_smoke.py round trip)."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+
+    cfg = dataclasses.replace(get_arch(name), param_dtype="float32")
+    model, params, build_s, init_peak_gb = _ssm_model(torch, cfg)
+    t = SSM_PROMPT
+    tokens = torch.from_numpy(np.random.default_rng(15).integers(
+        0, cfg.vocab_size, (SSM_BATCH, t))).to(CARD)
+    def counted_prefill():
+        _reset_counts()
+        logits, cache = model.prefill(params, {"tokens": tokens})
+        torch.cuda.synchronize()
+        return logits, cache, _read_counts()["gla_chunk_f32"]
+    lk, ck, nk = counted_prefill()
+    with mock.patch.object(ssm, "gla_chunked", ssm.gla_chunked_plain):
+        lp, cp, np_ = counted_prefill()
+    full = model.forward(params, {"tokens": tokens})
+    lt, ct = model.prefill(params, {"tokens": tokens[:, :t - 1]})
+    ld, _ = model.decode(params, tokens[:, t - 1:], _grow(ct, 1), t - 1)
+    out = dict(build_s=build_s, kernel_launches=nk, plain_launches=np_,
+               logits_rel_err=_normwise(lk, lp),
+               cache_rel_err={k: _normwise(ck[k], cp[k]) for k in ck},
+               prefill_vs_forward_rel_err=_normwise(lk[:, 0],
+                                                    full[:, t - 1]),
+               roundtrip_rel_err=_normwise(ld[:, 0], full[:, t - 1]),
+               roundtrip_max_abs_err=float((ld[:, 0] - full[:, t - 1])
+                                           .abs().max()),
+               max_abs_logit=float(full[:, t - 1].abs().max()),
+               argmax_equal=bool(torch.equal(ld[:, 0].argmax(-1),
+                                             full[:, t - 1].argmax(-1))),
+               finite=bool(torch.isfinite(full).all() and
+                           torch.isfinite(ld).all()),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               init_peak_gb=init_peak_gb)
+    print(f"  {name} f32 oracle (full depth, {build_s:.2f} s to draw): "
+          f"kernel vs plain GLA prefill logits {out['logits_rel_err']:.2e}"
+          f", cache {max(out['cache_rel_err'].values()):.2e} normwise "
+          f"(tolerance {SSM_ORACLE_REL_TOL:g}; GLA launches {nk} / {np_}); "
+          f"prefill(T-1)+decode vs forward(T) "
+          f"{out['roundtrip_rel_err']:.2e} (tolerance "
+          f"{SSM_ROUNDTRIP_REL_TOL:g}), max abs "
+          f"{out['roundtrip_max_abs_err']:.2e} of |logit| <= "
+          f"{out['max_abs_logit']:.2f}; peak {out['peak_gb']:.2f} GB")
+    if nk != SSM_PREFILL_LAUNCHES[name]["gla_chunk_f32"] or np_ != 0:
+        fail(f"{name} f32 oracle: {nk} GLA launches through the kernel and "
+             f"{np_} through the plain version")
+    if not (out["finite"] and out["logits_rel_err"] <= SSM_ORACLE_REL_TOL
+            and max(out["cache_rel_err"].values()) <= SSM_ORACLE_REL_TOL
+            and out["prefill_vs_forward_rel_err"] <= SSM_ORACLE_REL_TOL):
+        fail(f"{name}: the kernel's f32 prefill disagrees with the plain "
+             "version's or with the forward")
+    if not out["roundtrip_rel_err"] <= SSM_ROUNDTRIP_REL_TOL:
+        fail(f"{name}: prefill(T-1) + decode(1) disagrees with forward(T)")
+    del model, params, lk, ck, lp, cp, full, ct
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_phases(torch, chunk_scan, ssm, ref):
+    """Phases 13-14; returns their measurements by name."""
+    print("[13] gla_chunk_f32 against its plain version at the full-width "
+          "layer calls")
+    gla_rows, gla_err = check_gla(torch, chunk_scan, ssm, ref)
+    print("[14] rwkv6-7b and zamba2-7b served at full width and depth: "
+          "make_step prefill, grow, greedy decode")
+    served = {}
+    for name in ("rwkv6-7b", "zamba2-7b"):
+        served[name] = dict(bf16=serve_ssm_bf16(torch, name),
+                            f32=ssm_oracle_f32(torch, name, ssm))
+    return dict(gla=gla_rows, gla_max_abs_err=gla_err, ssm_serving=served)
+
+
+def gla_kernel_entry(ssm_out):
+    """The kernels line's GLA entry. Launches: phase 14's main paths (the
+    bf16 prefills and decode steps of both models). Times and bounds:
+    one prefill of each model at the (2, 512) prompt, i.e. the bf16 T =
+    512 layer call of rwkv6-7b × 32 plus that of zamba2-7b × 81."""
+    rows = ssm_out["gla"]
+    launches = sum(sum(s["bf16"][k]["gla_chunk_f32"]
+                       for k in ("launches_prefill", "launches_decode"))
+                   for s in ssm_out["ssm_serving"].values())
+    byte_ms = _per_call(rows, "byte_ms", "per_prefill")
+    op_ms = _per_call(rows, "op_ms", "per_prefill")
+    entry = {"name": "gla_chunk_f32", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/gla_chunk_f32.cu",
+             "replaces": "src/repro/kernels/chunk_scan.py:82",
+             "launches": launches, "max_abs_err": ssm_out["gla_max_abs_err"],
+             "ms": _per_call(rows, "ms", "per_prefill"),
+             "plain_ms": _per_call(rows, "plain_ms", "per_prefill"),
+             "bound_ms": max(byte_ms, op_ms),
+             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+             "library_ms": None}
+    if not launches:
+        fail("gla_chunk_f32 was launched no time on its main path")
+    return entry
+
+
 def main(argv):
     """No arguments: every phase. ``--planted-faults``: phases 1-2, then
     `planted_faults` (a calibration of phase 5's checks; no result line)."""
@@ -1680,8 +2103,10 @@ def main(argv):
           f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
 
     # phase 2: build the kernels, one nvcc each, in parallel
-    from repro_torch.kernels import (bgmv, build, flash_attention,
-                                     local_step, pool_distance, ref)
+    from repro_torch.kernels import (bgmv, build, chunk_scan,
+                                     flash_attention, local_step,
+                                     pool_distance, ref)
+    from repro_torch.models import ssm
     t0 = time.perf_counter()
     logs = build.build_all()
     build_s = time.perf_counter() - t0
@@ -1732,6 +2157,9 @@ def main(argv):
     serving = serving_phases(torch, local_step, main_result, bgmv,
                              flash_attention, pool_distance, ref)
 
+    # phases 13-14: SSM serving
+    ssm_out = ssm_phases(torch, chunk_scan, ssm, ref)
+
     step_rows = [r for r in rows if r["main_path"]]
     byte_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[0] for r in step_rows)
     flop_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[1] for r in step_rows)
@@ -1757,13 +2185,21 @@ def main(argv):
         "bound_ms": sgd_timing["bound_ms"],
         "bound_by": sgd_timing["bound_by"],
         "library_ms": sgd_timing["library_ms"]}]
-        + serving_kernels(serving)["kernels"]}
+        + serving_kernels(serving)["kernels"] + [gla_kernel_entry(ssm_out)]}
+    # flash attention's main paths: phase 11's replays and zamba2-7b's
+    # served prefill and decode steps (phase 14)
+    zamba = ssm_out["ssm_serving"]["zamba2-7b"]["bf16"]
+    for entry in kernels["kernels"]:
+        if entry["name"] == "flash_attn_f32":
+            entry["launches"] += sum(
+                zamba[k]["flash_attn_f32"]
+                for k in ("launches_prefill", "launches_decode"))
     print("details: " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), nvidia_smi=smi_line,
         build_s=build_s, gemm=rows, main_path=main_path,
         card_vs_cpu=agreement, profile=step_profile, sgd=sgd_rows,
         sgd_timing=sgd_timing, table1=table1,
-        dfedsam_card_vs_cpu=sam_agreement, **serving,
+        dfedsam_card_vs_cpu=sam_agreement, **serving, **ssm_out,
         total_s=time.perf_counter() - t_start)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

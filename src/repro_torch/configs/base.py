@@ -1,8 +1,10 @@
 """Run configuration dataclasses (port of ``repro/configs/base.py``).
 
 `ArchConfig` keeps the fields of the families this port runs — the paper
-CNN and the dense decoder-only transformer — with the reference's
-defaults and its `reduced()` smoke-test variant; `FedConfig` is the full
+CNN, the dense decoder-only transformer, the SSM family (RWKV6) and the
+hybrid (Mamba2 + a shared attention block) — with the reference's
+defaults and its `reduced()` smoke-test variant; `ShapeConfig` and
+`INPUT_SHAPES` are the reference's step shapes; `FedConfig` is the full
 FedELMY hyper-parameter set with the reference's validation, error
 messages included."""
 from __future__ import annotations
@@ -12,9 +14,19 @@ from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state_size: int = 64          # N (per-channel state) for Mamba2
+    head_dim: int = 64            # P
+    expand: int = 2
+    conv_width: int = 4
+    chunk_size: int = 128
+    kind: str = "mamba2"          # "mamba2" | "rwkv6"
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # "cnn" | "dense" (the families ported)
+    family: str                   # "cnn" | "dense" | "ssm" | "hybrid"
     n_layers: int                 # cnn: conv blocks
     d_model: int                  # cnn: base conv width
     n_heads: int
@@ -26,6 +38,9 @@ class ArchConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    ssm: Optional[SSMConfig] = None
+    # hybrid: apply one shared attention block every `shared_attn_every` layers
+    shared_attn_every: int = 0
     sliding_window: int = 0       # 0 = full attention
     param_dtype: str = "bfloat16"
     source: str = ""              # citation
@@ -34,20 +49,54 @@ class ArchConfig:
     def resolved_head_dim(self) -> int:
         return self.head_dim if self.head_dim else self.d_model // self.n_heads
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_decode(self) -> bool:
+        """True if decoding at 500k context is sub-quadratic or holds a
+        bounded state."""
+        if self.family in ("ssm", "hybrid"):
+            return True
+        return self.sliding_window > 0
+
     def reduced(self) -> "ArchConfig":
         """A smoke-test-sized variant of the same family (<=2 layers,
-        d<=256), the reference's rules for the dense family."""
+        d<=256), the reference's rules for the dense, SSM and hybrid
+        families."""
         heads = min(4, self.n_heads)
         kv = max(1, min(self.n_kv_heads, heads))
         while heads % kv:         # keep heads % kv == 0
             kv -= 1
         d = min(256, self.d_model)
+        ssm = None if self.ssm is None else SSMConfig(
+            state_size=min(16, self.ssm.state_size),
+            head_dim=min(32, self.ssm.head_dim), expand=2, conv_width=4,
+            chunk_size=32, kind=self.ssm.kind)
         return dataclasses.replace(
             self, n_layers=min(2, self.n_layers), d_model=d, n_heads=heads,
             n_kv_heads=kv, d_ff=min(512, self.d_ff),
             vocab_size=min(1024, self.vocab_size), head_dim=d // heads,
-            param_dtype="float32",
+            param_dtype="float32", ssm=ssm,
+            shared_attn_every=1 if self.shared_attn_every else 0,
             sliding_window=64 if self.sliding_window else 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                     # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 # Valid FedConfig string knobs (the reference's lists, verbatim).

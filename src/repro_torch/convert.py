@@ -4,9 +4,13 @@ name → tensor dicts.
 A reference pytree of nested dicts (``{"c1": {"b": ..., "w": ...}, ...}``)
 flattens to dotted names in the reference's leaf order (sorted keys at
 every level: ``c1.b, c1.w, …, fc2.w``). Layouts are shared (NHWC, HWIO),
-so values copy unchanged in both directions. Stacked pools convert the
-same way: their leaves just carry a leading capacity axis; `from_jax_pool`
-carries any reference pool across (stacked, moment-form or low-rank)."""
+so values copy unchanged in both directions. The language models' layer
+leaves carry a leading L axis (``layers.mixer.w_in``, …) and the hybrid's
+shared block sits under ``shared_attn.``; bf16 leaves (numpy's
+``ml_dtypes.bfloat16``, as ``np.asarray`` gives them from a bf16 jax
+array) copy bit for bit. Stacked pools convert the same way: their leaves
+just carry a leading capacity axis; `from_jax_pool` carries any reference
+pool across (stacked, moment-form or low-rank)."""
 from __future__ import annotations
 
 from typing import Any, Dict
@@ -26,6 +30,15 @@ def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
         out[prefix[:-1]] = np.asarray(tree)
 
 
+def _from_numpy(x: np.ndarray) -> torch.Tensor:
+    """A tensor holding `x`'s values; numpy has no bfloat16 of its own, so
+    a bf16 array (ml_dtypes) crosses as its 16-bit patterns."""
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(x, copy=True))
+
+
 def from_jax_params(tree: Any, device: DeviceLike = None
                     ) -> Dict[str, torch.Tensor]:
     """Nested dict of numpy-convertible leaves → ``{"c1.b": tensor, …}`` on
@@ -33,8 +46,7 @@ def from_jax_params(tree: Any, device: DeviceLike = None
     dev = resolve_device(device)
     flat: Dict[str, np.ndarray] = {}
     _flatten(tree, "", flat)
-    return {k: torch.from_numpy(np.array(v, copy=True)).to(dev)
-            for k, v in flat.items()}
+    return {k: _from_numpy(v).to(dev) for k, v in flat.items()}
 
 
 def to_jax_params(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -51,7 +63,7 @@ def to_jax_params(params: Dict[str, torch.Tensor]) -> Dict[str, Any]:
 
 
 def _tensor(x: Any, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, copy=True)).to(dev)
+    return _from_numpy(np.asarray(x)).to(dev)
 
 
 def from_jax_lowrank_pool(pool: Any, device: DeviceLike = None):

@@ -207,6 +207,9 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int64_t b,
     case 64:
       return launch<T, 64>(q, k, v, o, b, tq, tk, h, kv, causal, window,
                            scale, st);
+    case 112:  // zamba2's shared attention block, 3584 / 32 heads
+      return launch<T, 112>(q, k, v, o, b, tq, tk, h, kv, causal, window,
+                            scale, st);
     case 128:
       return launch<T, 128>(q, k, v, o, b, tq, tk, h, kv, causal, window,
                             scale, st);

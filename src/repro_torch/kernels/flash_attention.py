@@ -6,8 +6,8 @@ softmax attention with an online softmax over key tiles.
     dtype; query head h reads kv head h // (H / KV); scores in f32.
 
 `flash_attn_f32` launches the hand-written kernel ``csrc/flash_attn_f32.cu``
-(bf16 or f32, contiguous CUDA tensors, hd 32, 64 or 128; anything else
-raises). Its plain version is `ref.attention_ref`. The model reaches both
+(bf16 or f32, contiguous CUDA tensors, hd 32, 64, 112 or 128; anything
+else raises). Its plain version is `ref.attention_ref`. The model reaches both
 through `models/layers.flash_attention`, which routes by device: the
 kernel on CUDA, the reference's chunked formulation on the CPU. The
 kernel has no backward: a CUDA input that requires grad raises."""
@@ -21,7 +21,7 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 128)   # the kernel's template instances
+HEAD_DIMS = (32, 64, 112, 128)   # the kernel's template instances
 _MAX_GRID_YZ = 65535
 
 

@@ -86,3 +86,37 @@ def bgmv_ref(x: torch.Tensor, u: torch.Tensor,
     xf, uf, vf = x.float(), u.float(), v.float()
     t = xf @ uf            # (N, d_in) broadcasts over S
     return t @ vf.transpose(-1, -2)
+
+
+def gla_recurrence_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       log_decay: torch.Tensor, *, bonus=None,
+                       initial_state=None):
+    """The gated-linear-attention recurrence token by token, in f32 — the
+    semantic ground truth of the GLA chunk kernel and of its plain
+    version. q, k: (B, T, H, K); v: (B, T, H, V); log_decay (B, T, H)
+    or (B, T, H, K); bonus (H, K) or None; initial_state (B, H, K, V).
+
+        S_t = e^{ld_t} ⊙ S_{t-1} + k_tᵀ v_t
+        y_t = q_t · S_t                          (bonus None)
+        y_t = q_t · (S_{t-1} + diag(u) k_tᵀ v_t)  (bonus u)
+
+    Returns y (B, T, H, V) in v's dtype and the final state in f32."""
+    b, t, h, kd = q.shape
+    vd = v.shape[-1]
+    if log_decay.dim() == 3:
+        log_decay = log_decay[..., None]
+    s = (torch.zeros((b, h, kd, vd), dtype=torch.float32, device=q.device)
+         if initial_state is None else initial_state.float())
+    ys = []
+    for i in range(t):
+        qt, kt, vt, ld = (x[:, i].float() for x in (q, k, v, log_decay))
+        kv = kt[..., None] * vt[..., None, :]                # (B, H, K, V)
+        if bonus is None:
+            s = torch.exp(ld)[..., None] * s + kv
+            ys.append(torch.einsum("bhk,bhkv->bhv", qt, s))
+        else:
+            ys.append(torch.einsum(
+                "bhk,bhkv->bhv", qt,
+                s + bonus.float()[None, :, :, None] * kv))
+            s = torch.exp(ld)[..., None] * s + kv
+    return torch.stack(ys, dim=1).to(v.dtype), s

@@ -2,7 +2,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models.base import Model
 from repro_torch.models.cnn import PaperCNN, build_cnn
-from repro_torch.models.transformer import build_decoder_only, lm_eval_fn
+from repro_torch.models.transformer import (build_decoder_only, build_hybrid,
+                                            build_rwkv, lm_eval_fn)
 
 # Families of the reference not ported yet, and the slice each waits for.
 _NOT_PORTED = {
@@ -10,8 +11,6 @@ _NOT_PORTED = {
     "vlm": "the MoE/MLA slice (chameleon's backbone)",
     "audio": "the encoder-decoder slice",
     "encdec": "the encoder-decoder slice",
-    "hybrid": "the SSM slice with the GLA chunk kernel (ROADMAP B7)",
-    "ssm": "the SSM slice with the GLA chunk kernel (ROADMAP B7)",
 }
 
 
@@ -22,6 +21,12 @@ def build_model(cfg: ArchConfig, device: DeviceLike = None) -> Model:
         return build_cnn(cfg, device)
     if cfg.family == "dense":
         return build_decoder_only(cfg, device)
+    if cfg.family == "hybrid":
+        return build_hybrid(cfg, device)
+    if cfg.family == "ssm":
+        if cfg.ssm.kind == "rwkv6":
+            return build_rwkv(cfg, device)
+        return build_hybrid(cfg, device)
     if cfg.family in _NOT_PORTED:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not ported yet; it arrives "
@@ -30,4 +35,4 @@ def build_model(cfg: ArchConfig, device: DeviceLike = None) -> Model:
 
 
 __all__ = ["Model", "PaperCNN", "build_cnn", "build_decoder_only",
-           "build_model", "lm_eval_fn"]
+           "build_hybrid", "build_model", "build_rwkv", "lm_eval_fn"]

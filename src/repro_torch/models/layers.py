@@ -12,7 +12,9 @@ hand-written kernel (`kernels/flash_attention.py`), forward only and from
 position 0: a `q_offset` (cached decode) or an input that requires grad
 (training) raises `NotImplementedError` until a backward kernel exists.
 On a CPU tensor it runs the reference's chunked online-softmax
-formulation, kv block by kv block.
+formulation, kv block by kv block. `decode_attention` (one query against
+a KV cache) is plain PyTorch on every device, as the reference has no
+kernel for it.
 """
 from __future__ import annotations
 
@@ -34,7 +36,7 @@ def _he(gen: torch.Generator, shape, dtype, fan_in=None) -> torch.Tensor:
     shape[0]), cast to the parameter dtype."""
     fan_in = fan_in or shape[0]
     x = torch.randn(shape, generator=gen, device=gen.device, dtype=ACC)
-    return (x / math.sqrt(fan_in)).to(dtype)
+    return x.div_(math.sqrt(fan_in)).to(dtype)   # one f32 buffer, not two
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -164,6 +166,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return _chunked_attention(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset, kv_block=kv_block)
     raise ValueError(f"flash_attention: no route for tensors on {q.device}")
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_pos: torch.Tensor,
+                     pos: torch.Tensor) -> torch.Tensor:
+    """Single-token attention over a KV cache. q: (B, 1, H, hd); caches
+    (B, W, KV, hd); cache_pos (B, W): the absolute position of each entry
+    (−1 = empty); pos (B,): the current position. Entries after `pos`
+    are masked (the reference's sliding-window mask waits for the dense
+    family's ring-buffer decode). Scores and softmax in f32, out in q's
+    dtype."""
+    b, _, h, hd = q.shape
+    n_kv = k_cache.shape[2]
+    g = h // n_kv
+    qg = q.reshape(b, n_kv, g, hd).to(ACC) * hd ** -0.5
+    s = torch.einsum("bkgh,bwkh->bkgw", qg, k_cache.to(ACC))
+    valid = (cache_pos >= 0) & (cache_pos <= pos[:, None])
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgw,bwkh->bkgh", p, v_cache.to(ACC))
+    return out.reshape(b, 1, h, hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
-"""The dense decoder-only transformer (port of `build_decoder_only`,
-`lm_logits`, `chunked_xent` and `lm_eval_fn` of
-``repro/models/transformer.py``, dense family only).
+"""Model factories of the language-model families (port of
+`build_decoder_only`, `build_hybrid`, `build_rwkv`, `lm_logits`,
+`chunked_xent` and `lm_eval_fn` of ``repro/models/transformer.py``: the
+dense decoder-only family, the hybrid (Mamba2 layers with a weight-tied
+attention + MLP block between segments, zamba2) and RWKV6).
 
 Parameters are a name → tensor dict in the reference's leaf order:
 ``embed``, ``final_norm.scale``, ``layers.attn.{wk,wo,wq,wv}``,
@@ -12,10 +14,18 @@ Python loop over the L-stacked leaves. Init draws on the model's device
 from a `torch.Generator` there: it matches the reference in distribution,
 not in values (parity tests carry the reference's init across).
 
-The forward carries the factored-serving hook (`models/factored.py`), as
-the reference's dense family does. Prefill, cached decode and the other
-families (MoE, MLA, hybrid, RWKV, encoder-decoder) are not ported: they
-raise `NotImplementedError` naming their slice."""
+The dense forward carries the factored-serving hook (`models/factored.py`),
+as the reference's dense family does; the dense family's prefill and
+cached decode raise `NotImplementedError` naming their slice. The hybrid
+and RWKV6 models have the reference's whole interface: forward, loss,
+`init_cache`, `prefill` (the last position's logits and the cache) and
+one-token `decode`. Their leaves are ``embed``, ``final_norm.scale``,
+``layers.*`` (L-stacked), ``lm_head`` and, for the hybrid,
+``shared_attn.*``. The hybrid's decode writes the new key and value into
+copies of ``shared_k``/``shared_v`` at `pos` and raises when `pos` lies
+past their length (grow them after prefill, as
+``examples/serve_batched.py`` does); the reference clamps such a write.
+MoE, MLA and encoder-decoder are not ported."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -25,6 +35,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 from repro_torch.models.base import Model, Params
 from repro_torch.models.factored import (FACTORED_FORWARD_ATTR,
                                          make_decoder_factored)
@@ -101,24 +112,50 @@ def _block_fwd(lp: Params, cfg: ArchConfig, x: torch.Tensor,
     return x + L.mlp(sub_params(lp, "ffn"), h)
 
 
+def _prefixed(prefix: str, params: Params) -> Params:
+    return {f"{prefix}.{k}": v for k, v in params.items()}
+
+
+def _in_leaf_order(params: Params) -> Params:
+    """The reference's leaf order: keys sorted at every level."""
+    return dict(sorted(params.items(), key=lambda kv: kv[0].split(".")))
+
+
+def _embed_init(cfg: ArchConfig, gen: torch.Generator) -> Params:
+    """embed N(0, 0.02²) and the final norm's unit scale."""
+    dt, dev, d = param_dtype(cfg), gen.device, cfg.d_model
+    emb = torch.randn((cfg.vocab_size, d), generator=gen, device=dev)
+    return {"embed": (emb * 0.02).to(dt),
+            "final_norm.scale": L.rms_norm_init(d, dt, dev)["scale"]}
+
+
+def _lm_head_init(cfg: ArchConfig, gen: torch.Generator) -> Params:
+    """Untied embeddings: a He-normal lm_head (drawn last)."""
+    if cfg.tie_embeddings:
+        return {}
+    return {"lm_head": L._he(gen, (cfg.d_model, cfg.vocab_size),
+                             param_dtype(cfg))}
+
+
+def _norm_scales(cfg: ArchConfig, dev, names, lead) -> Params:
+    dt = param_dtype(cfg)
+    return {f"{name}.scale": L.rms_norm_init(cfg.d_model, dt, dev,
+                                             lead)["scale"]
+            for name in names}
+
+
 def _init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
     """Fresh parameters on the generator's device: embed N(0, 0.02²),
     He-normal matrices (fan-in = the input dim), unit norm scales; the
     layer leaves drawn stacked on their leading L axis."""
     dt, dev, d = param_dtype(cfg), gen.device, cfg.d_model
     lead = (cfg.n_layers,)
-    emb = torch.randn((cfg.vocab_size, d), generator=gen, device=dev)
-    p = {"embed": (emb * 0.02).to(dt),
-         "final_norm.scale": L.rms_norm_init(d, dt, dev)["scale"]}
-    p.update({f"layers.attn.{k}": v
-              for k, v in L.attn_init(gen, cfg, dt, lead).items()})
-    p.update({f"layers.ffn.{k}": v
-              for k, v in L.mlp_init(gen, d, cfg.d_ff, dt, lead).items()})
-    for name in ("ln1", "ln2"):
-        p[f"layers.{name}.scale"] = L.rms_norm_init(d, dt, dev,
-                                                    lead)["scale"]
-    if not cfg.tie_embeddings:
-        p["lm_head"] = L._he(gen, (d, cfg.vocab_size), dt)
+    p = _embed_init(cfg, gen)
+    p.update(_prefixed("layers.attn", L.attn_init(gen, cfg, dt, lead)))
+    p.update(_prefixed("layers.ffn", L.mlp_init(gen, d, cfg.d_ff, dt, lead)))
+    p.update(_prefixed("layers", _norm_scales(cfg, dev, ("ln1", "ln2"),
+                                              lead)))
+    p.update(_lm_head_init(cfg, gen))
     return p
 
 
@@ -157,3 +194,252 @@ def build_decoder_only(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     return Model(cfg, init, forward, loss_fn,
                  _not_ported("prefill", slice_), _not_ported("decode", slice_),
                  _not_ported("init_cache", slice_), dev)
+
+
+# ---------------------------------------------------------------------------
+# Hybrid (Zamba2): Mamba2 backbone + weight-tied shared attention block
+# ---------------------------------------------------------------------------
+
+def build_hybrid(cfg: ArchConfig, device: DeviceLike = None) -> Model:
+    """Mamba2 layers in `n_layers // shared_attn_every` segments with the
+    weight-tied attention + MLP block after each (one segment and no
+    shared block when `shared_attn_every` is 0: a pure Mamba2 stack)."""
+    dev = resolve_device(device)
+    every = cfg.shared_attn_every
+    n_app = cfg.n_layers // every if every else 0
+    n_seg = n_app if every else 1
+    seg_len = cfg.n_layers // n_seg
+    dm = SSM.mamba2_dims(cfg)
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    conv_dim = dm.d_inner + 2 * dm.state
+
+    def init(seed: int) -> Params:
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        dt, d, lead = param_dtype(cfg), cfg.d_model, (cfg.n_layers,)
+        p = _embed_init(cfg, gen)
+        p.update(_prefixed("layers", _norm_scales(cfg, dev, ("ln",), lead)))
+        p.update(_prefixed("layers.mixer",
+                           SSM.mamba2_init(gen, cfg, dt, lead)))
+        if every:
+            p.update(_prefixed("shared_attn", _norm_scales(
+                cfg, dev, ("ln1", "ln2"), ())))
+            p.update(_prefixed("shared_attn.attn",
+                               L.attn_init(gen, cfg, dt)))
+            p.update(_prefixed("shared_attn.mlp",
+                               L.mlp_init(gen, d, cfg.d_ff, dt)))
+        p.update(_lm_head_init(cfg, gen))
+        return _in_leaf_order(p)
+
+    def segments():
+        """(segment index, its layer indices)."""
+        return [(si, range(si * seg_len, (si + 1) * seg_len))
+                for si in range(n_seg)]
+
+    def _shared_block(sp: Params, x, positions):
+        h = L.rms_norm(sp["ln1.scale"], x, cfg.norm_eps)
+        x = x + L.self_attention(sub_params(sp, "attn"), cfg, h, positions)
+        h = L.rms_norm(sp["ln2.scale"], x, cfg.norm_eps)
+        return x + L.mlp(sub_params(sp, "mlp"), h)
+
+    def backbone(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        b, t = tokens.shape
+        x = params["embed"][tokens.long()]
+        positions = torch.arange(t, device=tokens.device).expand(b, t)
+        sp = sub_params(params, "shared_attn")
+        for _, layers in segments():
+            for l in layers:
+                lp = layer_params(params, l)
+                x = x + SSM.mamba2_block(
+                    sub_params(lp, "mixer"), cfg,
+                    L.rms_norm(lp["ln.scale"], x, cfg.norm_eps))
+            if every:
+                x = _shared_block(sp, x, positions)
+        return x
+
+    def forward(params: Params, batch) -> torch.Tensor:
+        return lm_logits(params, cfg, backbone(params, batch["tokens"]))
+
+    def loss_fn(params: Params, batch) -> torch.Tensor:
+        x = backbone(params, batch["tokens"])
+        return chunked_xent(params, cfg, x, batch["labels"])
+
+    def init_cache(batch: int, seq_len: int, dtype=None):
+        dtype = dtype or param_dtype(cfg)
+        c = {"ssm": torch.zeros((cfg.n_layers, batch, dm.n_heads, dm.state,
+                                 dm.head_dim), dtype=ACC, device=dev),
+             "conv": torch.zeros((cfg.n_layers, batch, dm.conv_width - 1,
+                                  conv_dim), dtype=dtype, device=dev)}
+        if every:
+            for name in ("shared_k", "shared_v"):
+                c[name] = torch.zeros((n_app, batch, seq_len, kv, hd),
+                                      dtype=dtype, device=dev)
+        return c
+
+    def prefill(params: Params, batch):
+        tokens = batch["tokens"]
+        b, t = tokens.shape
+        x = params["embed"][tokens.long()]
+        positions = torch.arange(t, device=tokens.device).expand(b, t)
+        sp = sub_params(params, "shared_attn")
+        states, convs, sk, sv = [], [], [], []
+        for _, layers in segments():
+            for l in layers:
+                lp = layer_params(params, l)
+                mp = sub_params(lp, "mixer")
+                h = L.rms_norm(lp["ln.scale"], x, cfg.norm_eps)
+                q, k, v, ld, xh, z, conv = SSM._mamba2_qkvd(mp, cfg, h)
+                y, st = SSM.gla_chunked(q, k, v, ld,
+                                        chunk=min(cfg.ssm.chunk_size, t))
+                x = x + SSM._mamba2_out(mp, cfg, h, y, xh, z)
+                states.append(st)
+                convs.append(conv)
+            if every:
+                attn = sub_params(sp, "attn")
+                h = L.rms_norm(sp["ln1.scale"], x, cfg.norm_eps)
+                q, k, v = L.attn_qkv(attn, cfg, h, positions)
+                x = x + L.attn_out(attn, L.flash_attention(q, k, v,
+                                                           causal=True))
+                h = L.rms_norm(sp["ln2.scale"], x, cfg.norm_eps)
+                x = x + L.mlp(sub_params(sp, "mlp"), h)
+                sk.append(k)
+                sv.append(v)
+        cache = {"ssm": torch.stack(states), "conv": torch.stack(convs)}
+        if every:
+            cache["shared_k"] = torch.stack(sk)
+            cache["shared_v"] = torch.stack(sv)
+        return lm_logits(params, cfg, x[:, -1:]), cache
+
+    def decode(params: Params, token: torch.Tensor, cache, pos):
+        pos = int(pos)
+        b = token.shape[0]
+        x = params["embed"][token.long()]
+        sp = sub_params(params, "shared_attn")
+        if every:
+            s_len = cache["shared_k"].shape[2]
+            if not 0 <= pos < s_len:
+                raise ValueError(
+                    f"decode at position {pos} past the shared attention "
+                    f"caches' {s_len} entries: grow shared_k/shared_v "
+                    "after prefill")
+            sk, sv = cache["shared_k"].clone(), cache["shared_v"].clone()
+            positions = torch.full((b, 1), pos, device=token.device)
+            entry_pos = torch.arange(s_len, device=token.device).expand(
+                b, s_len)
+            pos_b = torch.full((b,), pos, device=token.device)
+        states, convs = [], []
+        for si, layers in segments():
+            for l in layers:
+                lp = layer_params(params, l)
+                h = L.rms_norm(lp["ln.scale"], x, cfg.norm_eps)
+                y, st, conv = SSM.mamba2_decode(
+                    sub_params(lp, "mixer"), cfg, h, cache["ssm"][l],
+                    cache["conv"][l])
+                x = x + y
+                states.append(st)
+                convs.append(conv)
+            if every:
+                attn = sub_params(sp, "attn")
+                h = L.rms_norm(sp["ln1.scale"], x, cfg.norm_eps)
+                q, k, v = L.attn_qkv(attn, cfg, h, positions)
+                sk[si, :, pos] = k[:, 0].to(sk.dtype)
+                sv[si, :, pos] = v[:, 0].to(sv.dtype)
+                a = L.decode_attention(q, sk[si], sv[si], entry_pos, pos_b)
+                x = x + L.attn_out(attn, a)
+                h = L.rms_norm(sp["ln2.scale"], x, cfg.norm_eps)
+                x = x + L.mlp(sub_params(sp, "mlp"), h)
+        new_cache = {"ssm": torch.stack(states), "conv": torch.stack(convs)}
+        if every:
+            new_cache["shared_k"], new_cache["shared_v"] = sk, sv
+        return lm_logits(params, cfg, x), new_cache
+
+    return Model(cfg, init, forward, loss_fn, prefill, decode, init_cache,
+                 dev)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 (pure SSM family)
+# ---------------------------------------------------------------------------
+
+def build_rwkv(cfg: ArchConfig, device: DeviceLike = None) -> Model:
+    dev = resolve_device(device)
+    s = cfg.ssm
+    n_heads = cfg.d_model // s.head_dim
+
+    def init(seed: int) -> Params:
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        dt, d, lead = param_dtype(cfg), cfg.d_model, (cfg.n_layers,)
+        p = _embed_init(cfg, gen)
+        p.update(_prefixed("layers", _norm_scales(cfg, dev, ("ln1", "ln2"),
+                                                  lead)))
+        p.update(_prefixed("layers.mixer", SSM.rwkv6_init(gen, cfg, dt,
+                                                          lead)))
+        p.update(_prefixed("layers.ffn", L.mlp_init(gen, d, cfg.d_ff, dt,
+                                                    lead)))
+        p.update(_lm_head_init(cfg, gen))
+        return _in_leaf_order(p)
+
+    def _ffn(lp: Params, x):
+        h = L.rms_norm(lp["ln2.scale"], x, cfg.norm_eps)
+        return x + L.mlp(sub_params(lp, "ffn"), h)
+
+    def backbone(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+        x = params["embed"][tokens.long()]
+        for l in range(cfg.n_layers):
+            lp = layer_params(params, l)
+            x = x + SSM.rwkv6_block(sub_params(lp, "mixer"), cfg,
+                                    L.rms_norm(lp["ln1.scale"], x,
+                                               cfg.norm_eps))
+            x = _ffn(lp, x)
+        return x
+
+    def forward(params: Params, batch) -> torch.Tensor:
+        return lm_logits(params, cfg, backbone(params, batch["tokens"]))
+
+    def loss_fn(params: Params, batch) -> torch.Tensor:
+        return chunked_xent(params, cfg, backbone(params, batch["tokens"]),
+                            batch["labels"])
+
+    def init_cache(batch: int, seq_len: int, dtype=None):
+        dtype = dtype or param_dtype(cfg)
+        return {"state": torch.zeros((cfg.n_layers, batch, n_heads,
+                                      s.head_dim, s.head_dim), dtype=ACC,
+                                     device=dev),
+                "x_prev": torch.zeros((cfg.n_layers, batch, 1, cfg.d_model),
+                                      dtype=dtype, device=dev)}
+
+    def prefill(params: Params, batch):
+        tokens = batch["tokens"]
+        t = tokens.shape[1]
+        x = params["embed"][tokens.long()]
+        states, lasts = [], []
+        for l in range(cfg.n_layers):
+            lp = layer_params(params, l)
+            mp = sub_params(lp, "mixer")
+            h = L.rms_norm(lp["ln1.scale"], x, cfg.norm_eps)
+            r, k, v, g, ld, x_last = SSM._rwkv6_inputs(
+                mp, cfg, h, torch.zeros_like(h[:, :1]))
+            y, st = SSM.gla_chunked(r, k, v, ld, chunk=min(32, t),
+                                    bonus=torch.exp(mp["bonus_u"]))
+            x = _ffn(lp, x + SSM._rwkv6_out(mp, cfg, h, y, g))
+            states.append(st)
+            lasts.append(x_last)
+        return lm_logits(params, cfg, x[:, -1:]), \
+            {"state": torch.stack(states), "x_prev": torch.stack(lasts)}
+
+    def decode(params: Params, token: torch.Tensor, cache, pos):
+        x = params["embed"][token.long()]
+        states, prevs = [], []
+        for l in range(cfg.n_layers):
+            lp = layer_params(params, l)
+            h = L.rms_norm(lp["ln1.scale"], x, cfg.norm_eps)
+            y, st, xp = SSM.rwkv6_decode(sub_params(lp, "mixer"), cfg, h,
+                                         cache["state"][l],
+                                         cache["x_prev"][l])
+            x = _ffn(lp, x + y)
+            states.append(st)
+            prevs.append(xp)
+        return lm_logits(params, cfg, x), \
+            {"state": torch.stack(states), "x_prev": torch.stack(prevs)}
+
+    return Model(cfg, init, forward, loss_fn, prefill, decode, init_cache,
+                 dev)

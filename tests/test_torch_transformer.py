@@ -124,7 +124,7 @@ def test_kernel_plain_version_matches_pallas(b, tq, tk, h, kv, causal,
 def test_families_not_ported_raise():
     base = dict(name="x", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
                 d_ff=128, vocab_size=100)
-    for family in ("moe", "hybrid", "ssm", "encdec", "vlm", "audio"):
+    for family in ("moe", "encdec", "vlm", "audio"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_model(ArchConfig(family=family, **base), device="cpu")
     with pytest.raises(ValueError):
