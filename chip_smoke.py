@@ -17,19 +17,21 @@ Phases, each failing the run with a nonzero exit:
              before each launch), bounds
 4. main    — paper Algorithm 1 through `launch(Experiment(strategy=
              "fedelmy"))` on the full-width paper CNN, with the launch
-             counter showing every conv ran through the kernel
+             counters showing every conv ran through the GEMM kernel and
+             every pool step's d1 and d2 through the sweep
 5. card vs CPU — each conv, one step (with the forward's decisions
              pinned) and a 5-step slice agree between the card (kernel)
              and the CPU (plain versions) from the same init
-6. profile — where a training step's time goes, fedelmy's pool step and
-             dfedsam's SAM step (measured, not gated)
+6. profile — where a training step's time goes, fedelmy's pool step
+             (through the sweep and, for comparison, with d1/d2 per leaf)
+             and dfedsam's SAM step (measured, not gated)
 7. sgd     — the fused SGD kernel against its plain version, bitwise, on
              the paper CNN's leaves and on ragged and misaligned leaves;
              times beside the bound and `torch._fused_sgd_`
 8. table 1 — the paper's Table 1 methods (and the other registered
              strategies) through `launch` on the full-width paper CNN,
              on label-skew and on domain-shift data, each run with its
-             exact GEMM and SGD launch counts
+             exact GEMM, SGD and sweep launch counts
 9. dfedsam card vs CPU — 5 SAM steps from one init on both devices,
              with the native forward's decisions pinned and without
 10. serving kernels — BGMV, flash attention and the factor Gram against
@@ -53,7 +55,21 @@ Phases, each failing the run with a nonzero exit:
              prompt, the grow, 16 greedy decode steps, with exact GLA and
              attention launch counts, times, tokens/s, peak memory and
              the idle share; then each in f32, the kernel against the
-             plain GLA and prefill(T−1) + decode(1) against forward(T)
+             plain GLA (through the full depth, and per layer on the same
+             inputs) and prefill(T−1) + decode(1) against forward(T)
+15. sweep     — the pool-distance sweep's forward and backward kernels
+             against their plain versions: the reference test's (C, P)
+             grid in f32 and bf16, ragged P, a batched form against single
+             runs, the paper CNN's 10 leaves at capacity 4 and 6; errors
+             within the kernel's summation bound, times beside the bound,
+             the plain version and `torch.cdist`
+16. regularizer — −α·log_scale(d1) + β·log_scale(d2) at full width for
+             each distance measure, through the sweep against the
+             per-leaf code on the same card tensors, at a pool model's
+             first step and after 5 steps
+17. fig 9    — fedelmy at l2, l1, cosine, squared_l2 and without the
+             regularizers through `launch` (paper Fig. 9), with exact
+             GEMM and sweep launch counts
 
 Before the last lines it prints every measurement as one JSON object on
 a line starting "details: "; then the kernels' JSON record and the card's
@@ -64,6 +80,7 @@ fault planted (PLANTED_FAULTS), and reads every check of phase 5 and the
 f64 check of phase 3 with each, beside the correct kernel: which check
 sees which fault, and where SLICE_RATIO_TOL lies between them.
 """
+import contextlib
 import json
 import math
 import statistics
@@ -84,6 +101,9 @@ MAIN_SHAPES = [("c1", 64 * 32 * 32, 27, 64, False),
                ("c3", 64 * 8 * 8, 1152, 256, True)]
 RAGGED_SHAPE = ("ragged", 1000, 77, 45, True)
 GEMM_LAUNCHES_PER_STEP = 8     # c1: fwd + dB; c2, c3: fwd + dA + dB
+# the pool-distance sweep per Eq. 9 pool step: d1 forward, d2 forward and
+# their two backwards; plain steps (warm-up, baselines) launch none
+SWEEP_LAUNCHES_PER_POOL_STEP = 4
 CONVS = ("c1", "c2", "c3")
 CARD = "cuda"
 # phase 5 (c): the slice's end points may lie at most this share of the
@@ -221,6 +241,28 @@ def check_gemm(torch, local_step, ref):
 # phase 4 / 5 helpers
 # ---------------------------------------------------------------------------
 
+def _sweep_wrappers():
+    from repro_torch.kernels import pool_distance
+    return {"forward": pool_distance.pool_distance_f32,
+            "backward": pool_distance.pool_distance_bwd_f32}
+
+
+def _reset_sweep():
+    for fn in _sweep_wrappers().values():
+        fn.launches = 0
+
+
+def _read_sweep():
+    return {k: fn.launches for k, fn in _sweep_wrappers().items()}
+
+
+def _sweep_expected(pool_steps):
+    """The sweep's launches over `pool_steps` Eq. 9 steps: d1 and d2 each
+    one forward and one backward a step."""
+    half = SWEEP_LAUNCHES_PER_POOL_STEP // 2 * pool_steps
+    return {"forward": half, "backward": half}
+
+
 def quickstart_data():
     from repro_torch.data import dirichlet_partition, make_image_dataset
     train = make_image_dataset(n_samples=4000, seed=0, noise=2.5)
@@ -250,8 +292,10 @@ def run_main_path(torch, local_step):
 
     fed = FedConfig(n_clients=4, pool_size=3, e_local=25, e_warmup=10,
                     learning_rate=1e-3, alpha=0.06, beta=1.0)
-    n_steps = fed.e_warmup + fed.n_clients * fed.pool_size * fed.e_local
+    pool_steps = fed.n_clients * fed.pool_size * fed.e_local
+    n_steps = fed.e_warmup + pool_steps
     local_step.gemm_f32.launches = 0
+    _reset_sweep()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = launch(Experiment(model=model, client_iters=iters, fed=fed,
@@ -259,6 +303,7 @@ def run_main_path(torch, local_step):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = local_step.gemm_f32.launches
+    sweep = _read_sweep()
 
     for c in res.clients:
         losses = ", ".join(f"{m.task_loss:.4f}" for m in c.models)
@@ -266,10 +311,16 @@ def run_main_path(torch, local_step):
               f"{c.global_metric:.4f}; pool-model task losses [{losses}]")
     print(f"  final accuracy {res.final_metric:.4f}; {n_steps} steps in "
           f"{wall:.3f} s wall ({n_steps / wall:.2f} steps/s, 4 evals "
-          f"included); gemm_f32 launches {launches}")
+          f"included); gemm_f32 launches {launches}; pool-distance sweep "
+          f"launches {sum(sweep.values())} ({sweep}) over {pool_steps} pool "
+          "steps")
     if launches != GEMM_LAUNCHES_PER_STEP * n_steps:
         fail(f"gemm_f32 launched {launches} times in the main path; "
              f"expected {GEMM_LAUNCHES_PER_STEP} x {n_steps} steps")
+    if sweep != _sweep_expected(pool_steps):
+        fail(f"the pool-distance sweep launched {sweep} in the main path; "
+             f"expected {_sweep_expected(pool_steps)} ("
+             f"{SWEEP_LAUNCHES_PER_POOL_STEP} x {pool_steps} pool steps)")
     if len(res.clients) != 4 or any(len(c.models) != 3
                                     for c in res.clients):
         fail("the run's records do not have 4 clients x 3 pool models")
@@ -286,7 +337,8 @@ def run_main_path(torch, local_step):
         fail(f"final accuracy {res.final_metric:.4f} is not above 0.5 "
              f"(chance is 0.1): the run did not learn")
     return dict(steps=n_steps, wall_s=wall, steps_per_s=n_steps / wall,
-                launches=launches, final_accuracy=res.final_metric,
+                launches=launches, sweep_launches=sweep,
+                final_accuracy=res.final_metric,
                 client_accuracy=[c.global_metric for c in res.clients]), res
 
 
@@ -661,11 +713,29 @@ def _profile(torch, run, n_steps, label):
     return out
 
 
+# phase 6's earlier reading of the Eq. 9 pool step with d1/d2 per leaf,
+# before the sweep (H100 80GB HBM3, 700 W; PERF.md §5), printed beside
+# this run's
+PER_LEAF_RECORD = {"host_ms_per_step": 35.203, "kernels_per_step": 565.7,
+                  "device_busy_ms_per_step": 9.379}
+
+
+def per_leaf_route():
+    """A context in which the stacked pool's d1/d2 take the per-leaf code
+    on every device (the route before the sweep), to measure the two
+    routes in one run."""
+    from unittest import mock
+
+    from repro_torch.core import distances
+    return mock.patch.object(distances, "_route", lambda *args: "cpu")
+
+
 def profile_steps(torch, n_steps=20):
     """Where a training step's time goes, over `n_steps` steps of the
     full-width CNN at batch 64 after 3 warm-up steps: the Eq. 9 pool step
-    (fedelmy's) and dfedsam's SAM step (the plan's own step factory and
-    trainer overrides: SGD at 10 × lr)."""
+    (fedelmy's), through the sweep and with d1/d2 per leaf, and dfedsam's
+    SAM step (the plan's own step factory and trainer overrides: SGD at
+    10 × lr)."""
     from repro_torch.api import Experiment, get_plan
     from repro_torch.api.trainer import LocalTrainer
     from repro_torch.configs import FedConfig, get_arch
@@ -684,6 +754,17 @@ def profile_steps(torch, n_steps=20):
     out = {"pool": _profile(
         torch, lambda n: trainer.train(pool.average(), it, n, pool=pool),
         n_steps, "Eq. 9 pool step")}
+    with per_leaf_route():
+        trainer.train(pool.average(), it, 3, pool=pool)
+        out["pool_per_leaf"] = _profile(
+            torch, lambda n: trainer.train(pool.average(), it, n, pool=pool),
+            n_steps, "Eq. 9 pool step, d1/d2 per leaf (the route before "
+            "the sweep)")
+    for key in ("host_ms_per_step", "kernels_per_step",
+                "device_busy_ms_per_step"):
+        print(f"    {key}: sweep {out['pool'][key]:.3f}, per leaf "
+              f"{out['pool_per_leaf'][key]:.3f}; the earlier record "
+              f"{PER_LEAF_RECORD[key]}")
 
     plan = get_plan("dfedsam")
     sam_trainer = LocalTrainer(model.loss_fn, fed,
@@ -824,22 +905,31 @@ AT_CHANCE = {("label-skew", "dfedavgm"), ("label-skew", "fedelmy_pfl")}
 def expected_run(strategy, fed, shots=1):
     """What a run of `strategy` must show: training steps over the fused
     loss (8 GEMM launches each), custom steps over the native loss (no
-    GEMM launch), SGD launches (one per dfedsam step), client records and
-    pool models per record, round records, final pool members."""
+    GEMM launch), SGD launches (one per dfedsam step), pool-distance sweep
+    launches (per Eq. 9 step of the stacked pool, a forward and a
+    backward for each of d1 and d2 that is on; per MetaFed anchored step,
+    those of its d2 to the anchor), client records and pool models per
+    record, round
+    records, final pool members."""
     n, s, e, w = fed.n_clients, fed.pool_size, fed.e_local, fed.e_warmup
-    plain = dict(fused=n * e, custom=0, sgd=0, clients=0, models=0,
+    plain = dict(fused=n * e, custom=0, sgd=0, sweep=0, clients=0, models=0,
                  rounds=0, pool=None)
+    per_step = SWEEP_LAUNCHES_PER_POOL_STEP // 2 * (int(fed.use_d1) +
+                                                     int(fed.use_d2))
     return {
         "fedseq": dict(plain, clients=n),
         "dfedavgm": plain,
         "dfedsam": dict(plain, fused=0, custom=n * e, sgd=n * e),
-        "metafed": dict(plain, fused=n * (e // 2), custom=n * (e // 2)),
+        "metafed": dict(plain, fused=n * (e // 2), custom=n * (e // 2),
+                        sweep=SWEEP_LAUNCHES_PER_POOL_STEP // 2 * n *
+                        (e // 2)),
         "fedelmy": dict(plain, fused=w + n * s * e, clients=n, models=s,
-                        pool=s + 1),
+                        pool=s + 1, sweep=per_step * n * s * e),
         "fedelmy_fewshot": dict(plain, fused=w + shots * n * s * e,
-                                rounds=shots, pool=s + 1),
+                                rounds=shots, pool=s + 1,
+                                sweep=per_step * shots * n * s * e),
         "fedelmy_pfl": dict(plain, fused=n * (w + s * e), clients=n,
-                            models=s, pool=s + 1),
+                            models=s, pool=s + 1, sweep=per_step * n * s * e),
         "local_only": dict(plain, fused=e),
     }[strategy]
 
@@ -892,6 +982,7 @@ def table1_on_card(torch, local_step):
         want = expected_run(strategy, fed, fields.get("shots", 1))
         local_step.gemm_f32.launches = 0
         local_step.sgd_f32.launches = 0
+        _reset_sweep()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = launch(Experiment(model=model, client_iters=iters, fed=fed,
@@ -900,21 +991,24 @@ def table1_on_card(torch, local_step):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         gemm, sgd = local_step.gemm_f32.launches, local_step.sgd_f32.launches
+        sweep = sum(_read_sweep().values())
         steps = want["fused"] + want["custom"]
         row = dict(family=family, strategy=strategy, steps=steps,
                    wall_s=wall, steps_per_s=steps / wall,
                    final_accuracy=res.final_metric, gemm_launches=gemm,
-                   sgd_launches=sgd)
+                   sgd_launches=sgd, sweep_launches=sweep)
         rows.append(row)
         print(f"  {family:12s} {strategy:16s} {steps:4d} steps in "
               f"{wall:7.3f} s ({steps / wall:6.2f} steps/s, evaluations "
               f"included); final accuracy {res.final_metric:.4f}; "
-              f"gemm_f32 {gemm}, sgd_f32 {sgd} launches")
+              f"gemm_f32 {gemm}, sgd_f32 {sgd}, sweep {sweep} launches")
         what = f"{family} {strategy}"
-        if gemm != 8 * want["fused"] or sgd != want["sgd"]:
-            fail(f"{what}: gemm_f32 {gemm} and sgd_f32 {sgd} launches; "
-                 f"expected {8 * want['fused']} (8 x {want['fused']} "
-                 f"fused-loss steps) and {want['sgd']}")
+        if gemm != 8 * want["fused"] or sgd != want["sgd"] or \
+                sweep != want["sweep"]:
+            fail(f"{what}: gemm_f32 {gemm}, sgd_f32 {sgd} and sweep {sweep} "
+                 f"launches; expected {8 * want['fused']} (8 x "
+                 f"{want['fused']} fused-loss steps), {want['sgd']} and "
+                 f"{want['sweep']}")
         models = [len(c.models) for c in res.clients]
         if len(res.clients) != want["clients"] or \
                 any(m != want["models"] for m in models) or \
@@ -1700,6 +1794,14 @@ SSM_PREFILL_LAUNCHES = {"rwkv6-7b": {"gla_chunk_f32": 32,
 # recurrence against the chunked form over every layer
 SSM_ORACLE_REL_TOL = 1e-4
 SSM_ROUNDTRIP_REL_TOL = 1e-3
+# phase 14 (b), per layer: the GLA kernel against `gla_chunked_plain` on
+# the same inputs at a few layer calls of the f32 prefill (the first, the
+# middle and the last), y and the final state normwise. Set before its
+# first run from the kernel's own phase-13 f32 readings at these layer
+# shapes, y ≤ 1.58e-7 and states ≤ 6.9e-10 (H100, PERF.md §6): 1e-5
+# leaves a ~60× margin for the model's own activations and sits 10× below
+# the full-depth check, whose differences grow ~10³-fold over the depth.
+SSM_LAYER_REL_TOL = 1e-5
 
 
 def _distinct_bytes(t):
@@ -1966,7 +2068,11 @@ def ssm_oracle_f32(torch, name, ssm):
     one set of weights. Prefill of the (2, 512) prompt through the kernel
     and through the plain GLA (`ssm.gla_chunked` pointed at
     `gla_chunked_plain`, counts read to show which ran): logits and every
-    cache leaf normwise within SSM_ORACLE_REL_TOL. Then, through the
+    cache leaf normwise within SSM_ORACLE_REL_TOL; and at the first, the
+    middle and the last layer call of the kernel's prefill, the kernel's
+    y and state against `gla_chunked_plain` on the same inputs within
+    SSM_LAYER_REL_TOL (the per-layer hold that the full depth's ~10³-fold
+    growth of differences cannot give). Then, through the
     kernel, prefill(T−1) + the grow + decode(1) against forward(T) at the
     last position, within SSM_ROUNDTRIP_REL_TOL (the reference's
     tests/test_arch_smoke.py round trip)."""
@@ -1987,14 +2093,36 @@ def ssm_oracle_f32(torch, name, ssm):
         logits, cache = model.prefill(params, {"tokens": tokens})
         torch.cuda.synchronize()
         return logits, cache, _read_counts()["gla_chunk_f32"]
-    lk, ck, nk = counted_prefill()
+    n_layers = SSM_PREFILL_LAUNCHES[name]["gla_chunk_f32"]
+    picked = sorted({0, n_layers // 2, n_layers - 1})
+    calls, kernel_gla = [], ssm.gla_chunked
+
+    def capturing(*args, **kwargs):
+        out = kernel_gla(*args, **kwargs)
+        if len(calls) in picked:
+            calls.append((args, kwargs, out))
+        else:
+            calls.append(None)
+        return out
+    with mock.patch.object(ssm, "gla_chunked", capturing):
+        lk, ck, nk = counted_prefill()
+    if len(calls) != n_layers:
+        fail(f"{name} f32 oracle: {len(calls)} GLA calls in the prefill; "
+             f"expected {n_layers}")
+    layers = {}
+    for i in picked:
+        args, kwargs, (yk, sk) = calls[i]
+        yp, sp = ssm.gla_chunked_plain(*args, **kwargs)
+        layers[i] = dict(y_rel_err=_normwise(yk, yp),
+                         state_rel_err=_normwise(sk, sp))
+    del calls
     with mock.patch.object(ssm, "gla_chunked", ssm.gla_chunked_plain):
         lp, cp, np_ = counted_prefill()
     full = model.forward(params, {"tokens": tokens})
     lt, ct = model.prefill(params, {"tokens": tokens[:, :t - 1]})
     ld, _ = model.decode(params, tokens[:, t - 1:], _grow(ct, 1), t - 1)
     out = dict(build_s=build_s, kernel_launches=nk, plain_launches=np_,
-               logits_rel_err=_normwise(lk, lp),
+               layer_rel_err=layers, logits_rel_err=_normwise(lk, lp),
                cache_rel_err={k: _normwise(ck[k], cp[k]) for k in ck},
                prefill_vs_forward_rel_err=_normwise(lk[:, 0],
                                                     full[:, t - 1]),
@@ -2017,6 +2145,13 @@ def ssm_oracle_f32(torch, name, ssm):
           f"{SSM_ROUNDTRIP_REL_TOL:g}), max abs "
           f"{out['roundtrip_max_abs_err']:.2e} of |logit| <= "
           f"{out['max_abs_logit']:.2f}; peak {out['peak_gb']:.2f} GB")
+    print(f"  {name} f32 per layer, kernel vs plain GLA on the same inputs "
+          f"(tolerance {SSM_LAYER_REL_TOL:g}): " + ", ".join(
+              f"call {i} y {r['y_rel_err']:.2e} state "
+              f"{r['state_rel_err']:.2e}" for i, r in layers.items()))
+    if any(max(r.values()) > SSM_LAYER_REL_TOL for r in layers.values()):
+        fail(f"{name}: the GLA kernel disagrees with the plain GLA on the "
+             "same inputs at a layer call")
     if nk != SSM_PREFILL_LAUNCHES[name]["gla_chunk_f32"] or np_ != 0:
         fail(f"{name} f32 oracle: {nk} GLA launches through the kernel and "
              f"{np_} through the plain version")
@@ -2069,6 +2204,502 @@ def gla_kernel_entry(ssm_out):
     if not launches:
         fail("gla_chunk_f32 was launched no time on its main path")
     return entry
+
+
+# ---------------------------------------------------------------------------
+# phases 15-17: the pool-distance sweep (d1/d2 of the stacked pool)
+# ---------------------------------------------------------------------------
+
+# phase 15: the reference test's grid (tests/test_kernels.py), tiny and
+# ragged P (one element, a ragged 31, one chunk of 4,096 + 1), a batched
+# form against a loop of single runs, and the paper CNN's 10 leaves at
+# the main path's capacity (pool_size 3 + 1) and FedConfig's default (6)
+PD_FLAT_SHAPES = [(2, 1000), (6, 70000), (11, 131072)]
+PD_RAGGED_P = (1, 31, 4097)
+PD_BATCHED = (3, 4, 70001)
+PD_CAPACITIES = (4, 6)
+PD_CHUNK = 4096              # csrc/pool_distance_f32.cu: elements a block
+F32_UNIT = 2.0 ** -24        # unit roundoff of f32
+
+
+def sweep_chain(total_blocks):
+    """The longest run of dependent f32 roundings in one of the kernel's
+    sums over `total_blocks` chunks (csrc/pool_distance_f32.cu): 2 to form
+    a term (w − m, then its square), 16 adds in a thread, 5 shuffle levels,
+    7 warps, then ⌈chunks/4⌉ + 2 across the chunks. An f32 sum whose
+    longest chain is L lies within L·2⁻²⁴·Σ|terms| of the exact sum."""
+    return 2 + 16 + 5 + 7 + -(-total_blocks // 4) + 2
+
+
+def _sweep_table(ws, ms):
+    """Leaf i as w (1, n_i) and members (1, C, n_i), the kernel's table."""
+    return ([w.reshape(1, -1) for w in ws],
+            [m.reshape(1, m.shape[0], -1) for m in ms])
+
+
+def _stats_f64(ws, ms):
+    """Exact-in-f64 stats of a table and the sums of their absolute
+    terms: ((B, 4, C), (B,)) each, from the inputs' own values."""
+    import torch
+    exact, absolute, wsq = 0.0, 0.0, 0.0
+    for w, m in zip(ws, ms):
+        w, m = w.double(), m.double()
+        r = w[:, None] - m
+        wm = w[:, None] * m
+        exact = exact + torch.stack([r.square().sum(-1), r.abs().sum(-1),
+                                     wm.sum(-1), m.square().sum(-1)], 1)
+        absolute = absolute + torch.stack([
+            r.square().sum(-1), r.abs().sum(-1), wm.abs().sum(-1),
+            m.square().sum(-1)], 1)
+        wsq = wsq + w.square().sum(-1)
+    return exact, absolute, wsq
+
+
+def _stats_plain(ref, ws, ms):
+    """The plain version over a table: per leaf, summed over the leaves."""
+    import torch
+    stats, wsq = 0.0, 0.0
+    for w, m in zip(ws, ms):
+        p = ref.pool_distance_stats_ref(w, m)
+        stats = stats + torch.stack([p[k] for k in ("sq", "l1", "dot",
+                                                     "norm")], 1)
+        wsq = wsq + w.float().square().sum(-1)
+    return stats, wsq
+
+
+def _hold_stats(torch, pd_mod, ref, name, ws, ms):
+    """One forward case: the kernel twice (the same bits), held per stat
+    normwise against the exact sums within L·2⁻²⁴·‖Σ|terms|‖, and against
+    the plain version within that plus the plain version's own distance
+    from the exact sums."""
+    stats, wsq = pd_mod.pool_distance_f32(ws, ms)
+    again, again_wsq = pd_mod.pool_distance_f32(ws, ms)
+    torch.cuda.synchronize()
+    plain, plain_wsq = _stats_plain(ref, ws, ms)
+    exact, absolute, exact_wsq = _stats_f64(ws, ms)
+    blocks = sum(-(-w.shape[1] // PD_CHUNK) for w in ws)
+    chain = sweep_chain(blocks)
+    rows = {}
+    for i, key in enumerate(("sq", "l1", "dot", "norm", "wsq")):
+        k, p, e, a = ((wsq, plain_wsq, exact_wsq, exact_wsq) if key == "wsq"
+                      else (stats[:, i], plain[:, i], exact[:, i],
+                            absolute[:, i]))
+        k, p = k.double(), p.double()
+        bound = chain * F32_UNIT * float(a.norm())
+        rows[key] = dict(exact_err=float((k - e).norm()),
+                         plain_err=float((k - p).norm()),
+                         plain_exact_err=float((p - e).norm()), bound=bound)
+        rows[key]["ok"] = (rows[key]["exact_err"] <= bound and
+                           rows[key]["plain_err"] <= bound +
+                           rows[key]["plain_exact_err"])
+    max_abs = max(float((stats - plain).abs().max()),
+                  float((wsq - plain_wsq).abs().max()))
+    ok = all(r["ok"] for r in rows.values()) and torch.equal(stats, again) \
+        and torch.equal(wsq, again_wsq) and bool(torch.isfinite(stats).all())
+    worst = max(r["exact_err"] / r["bound"] if r["bound"] else 0.0
+                for r in rows.values())
+    print(f"  sweep {name:28s} chain {chain:4d}: worst error "
+          f"{worst:.2e} of its bound; vs plain max abs {max_abs:.3e}; "
+          f"repeat {'bitwise' if torch.equal(stats, again) else 'DIFFERS'}")
+    if not ok:
+        fail(f"pool_distance_f32 {name}: {rows}")
+    return dict(name=name, chain=chain, blocks=blocks, stats=rows,
+                worst_share_of_bound=worst, max_abs_err=max_abs), stats, wsq
+
+
+def _cnn_table(torch, capacity, count, seed0):
+    """The full-width CNN's leaves (init seed0) and a stacked pool of
+    `capacity` slots with `count` members (inits seed0 + 1 …), the empty
+    slots zeros, on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.pool import ModelPool
+    from repro_torch.models import build_model
+    model = build_model(get_arch("paper-cnn"))
+    pool = ModelPool.create(model.init(seed0 + 1), capacity)
+    for i in range(2, count + 1):
+        pool = pool.append(model.init(seed0 + i))
+    return model.init(seed0), pool
+
+
+def _hold_backward(torch, pd_mod, ref, name, ws, ms, g_stats, g_wsq):
+    """One backward case against `pool_distance_stats_bwd_ref` per leaf,
+    elementwise within (4C + 4)·2⁻²³ of the sum of the absolute terms (both
+    sides round each member's three terms and the sum once or twice)."""
+    outs = pd_mod.pool_distance_bwd_f32(ws, ms, g_stats, g_wsq)
+    torch.cuda.synchronize()
+    c = ms[0].shape[1]
+    gs, gl, gd = (g_stats[0, i][:, None] for i in range(3))
+    worst, max_abs, finite = 0.0, 0.0, True
+    for w, m, out in zip(ws, ms, outs):
+        want = ref.pool_distance_stats_bwd_ref(
+            w[0], m[0], g_stats[0, 0], g_stats[0, 1], g_stats[0, 2],
+            g_wsq=g_wsq[0])
+        r = w[0][None] - m[0]
+        terms = ((2 * gs * r).abs() + gl.abs() + (gd * m[0]).abs()).sum(0) \
+            + (2 * g_wsq[0] * w[0]).abs()
+        bound = (4 * c + 4) * 2.0 ** -23 * terms.double()
+        err = (out[0].double() - want.double()).abs()
+        worst = max(worst, float((err / bound.clamp_min(1e-30)).max()))
+        max_abs = max(max_abs, float(err.max()))
+        finite = finite and bool(torch.isfinite(out).all())
+    print(f"  sweep backward {name:19s}: worst error {worst:.2e} of its "
+          f"bound, max abs {max_abs:.3e}")
+    if worst > 1.0 or not finite:
+        fail(f"pool_distance_bwd_f32 {name} disagrees with its plain "
+             "version beyond the stated bound (or is not finite)")
+    return dict(name=name, worst_share_of_bound=worst, max_abs_err=max_abs)
+
+
+def _sweep_timing(torch, pd_mod, ref, ws, ms, library):
+    """Kernel, plain and library ms of one forward and one backward at a
+    table (L2 flushed before each launch), and the bounds: the forward
+    reads w and C members once, (C + 1)·P·4 bytes, for 8 operations an
+    element and member plus 2 for Σw²; the backward reads them again and
+    writes ∂w, (C + 2)·P·4 bytes, for 7 operations an element and member
+    plus 2."""
+    c = ms[0].shape[1]
+    p = sum(w.shape[1] for w in ws)
+    gen = torch.Generator(device=CARD).manual_seed(16)
+    g_stats = torch.randn((1, 4, c), device=CARD, generator=gen)
+    g_wsq = torch.randn((1,), device=CARD, generator=gen)
+    fwd_bound = _bound((c + 1) * p * 4 + (4 * c + 1) * 4,
+                       p * (8 * c + 2), PEAK_F32_FLOPS)
+    bwd_bound = _bound((c + 2) * p * 4 + (4 * c + 1) * 4, p * (7 * c + 2),
+                       PEAK_F32_FLOPS)
+    return dict(
+        members=c, elements=p,
+        forward=dict(ms=median_ms(lambda: pd_mod.pool_distance_f32(ws, ms)),
+                     plain_ms=median_ms(lambda: _stats_plain(ref, ws, ms)),
+                     library_ms=median_ms(library), bound_ms=fwd_bound[0],
+                     bound_by=fwd_bound[1], **fwd_bound[2]),
+        backward=dict(
+            ms=median_ms(lambda: pd_mod.pool_distance_bwd_f32(
+                ws, ms, g_stats, g_wsq)),
+            plain_ms=median_ms(lambda: [ref.pool_distance_stats_bwd_ref(
+                w[0], m[0], g_stats[0, 0], g_stats[0, 1], g_stats[0, 2],
+                g_wsq=g_wsq[0]) for w, m in zip(ws, ms)]),
+            library_ms=None, bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+            **bwd_bound[2]))
+
+
+def check_pool_distance(torch, pd_mod, ref):
+    """Phase 15: the sweep's kernels against their plain versions. Each
+    stat normwise within L·2⁻²⁴·‖Σ|terms|‖ of the exact (f64) sums, L the
+    kernel's longest summation chain (`sweep_chain`), and of the plain
+    version within that plus the plain version's own error; two launches
+    give the same bits; the batched form equals a loop of single runs
+    bit for bit (each run's sums are taken in the same order). The
+    backward at the CNN's table (the main path's pool: capacity 4, 3
+    members, the empty slot's ḡ 0 as d1 gives it; a member equal to w; the
+    d2 anchor equal to w, every residual 0). Times at the CNN's table:
+    d1 (capacity 4) and d2 (one member), forward and backward, beside the
+    bounds, the plain versions and `torch.cdist` for the forward."""
+    gen = torch.Generator(device=CARD).manual_seed(15)
+
+    def rn(*shape):
+        return torch.randn(shape, device=CARD, generator=gen)
+    rows, max_abs = [], 0.0
+    cases = [(f"flat C={c} P={p} {dt}", c, p, dt)
+             for c, p in PD_FLAT_SHAPES for dt in ("f32", "bf16")]
+    cases += [(f"ragged C=3 P={p} {dt}", 3, p, dt)
+              for p in PD_RAGGED_P for dt in ("f32", "bf16")]
+    for name, c, p, dt in cases:
+        w, m = rn(1, p), rn(1, c, p)
+        if dt == "bf16":
+            w, m = w.bfloat16(), m.bfloat16()
+        row, _, _ = _hold_stats(torch, pd_mod, ref, name, [w], [m])
+        rows.append(row)
+        max_abs = max(max_abs, row["max_abs_err"])
+    b, c, p = PD_BATCHED
+    w, m = rn(b, p), rn(b, c, p)
+    row, stats, wsq = _hold_stats(torch, pd_mod, ref,
+                                  f"batched B={b} C={c} P={p}", [w], [m])
+    singles = [pd_mod.pool_distance_f32([w[i:i + 1]], [m[i:i + 1]])
+               for i in range(b)]
+    row["batched_equals_singles"] = all(
+        torch.equal(stats[i], s[0][0]) and torch.equal(wsq[i], s[1][0])
+        for i, s in enumerate(singles))
+    print(f"  sweep batched against {b} single runs: "
+          f"{'bitwise equal' if row['batched_equals_singles'] else 'DIFFER'}")
+    if not row["batched_equals_singles"]:
+        fail("pool_distance_f32: the batched form differs from single runs")
+    rows.append(row)
+    for capacity in PD_CAPACITIES:
+        params, pool = _cnn_table(torch, capacity, capacity - 1, 30)
+        ws, ms = _sweep_table(list(params.values()),
+                              list(pool.members.values()))
+        row, _, _ = _hold_stats(torch, pd_mod, ref,
+                                f"CNN 10 leaves capacity {capacity}", ws, ms)
+        rows.append(row)
+        max_abs = max(max_abs, row["max_abs_err"])
+
+    # backward at the main path's table
+    params, pool = _cnn_table(torch, 4, 3, 40)
+    live = pool.mask()
+    g_stats = rn(1, 4, 4) * live            # the empty slot's ḡ is 0
+    g_wsq = rn(1)
+    bwd_rows = []
+    ws, ms = _sweep_table(list(params.values()), list(pool.members.values()))
+    bwd_rows.append(_hold_backward(torch, pd_mod, ref, "capacity 4", ws, ms,
+                                   g_stats, g_wsq))
+    anchor = pool.first()
+    ws0, _ = _sweep_table(list(anchor.values()), [])
+    bwd_rows.append(_hold_backward(torch, pd_mod, ref, "w = member 0",
+                                   [x.contiguous() for x in ws0], ms,
+                                   g_stats, g_wsq))
+    ms_d2 = [s[:1].reshape(1, 1, -1) for s in pool.members.values()]
+    bwd_rows.append(_hold_backward(torch, pd_mod, ref, "d2, w = anchor",
+                                   [x.contiguous() for x in ws0], ms_d2,
+                                   rn(1, 4, 1), g_wsq))
+
+    # times at the main path's table: d1 (capacity 4) and d2 (one member)
+    wf = torch.cat([x.reshape(-1) for x in params.values()])
+    mf = torch.cat([s.reshape(4, -1) for s in pool.members.values()], 1)
+    ms_d2 = [s[:1].reshape(1, 1, -1) for s in pool.members.values()]
+    timing = {
+        "d1": _sweep_timing(torch, pd_mod, ref, ws, ms,
+                            lambda: torch.cdist(wf[None], mf, p=2)),
+        "d2": _sweep_timing(torch, pd_mod, ref, ws, ms_d2,
+                            lambda: torch.cdist(wf[None], mf[:1], p=2))}
+    for key, t in timing.items():
+        for way in ("forward", "backward"):
+            r = t[way]
+            lib = ("—" if r["library_ms"] is None
+                   else f"{r['library_ms']:.4f}")
+            print(f"  sweep {key} {way:8s} ({t['members']} members, "
+                  f"{t['elements']} elements): kernel {r['ms']:.4f} ms, "
+                  f"plain {r['plain_ms']:.4f}, torch.cdist {lib}, bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']})")
+    return dict(rows=rows, backward=bwd_rows, timing=timing,
+                max_abs_err=max_abs,
+                bwd_max_abs_err=max(r["max_abs_err"] for r in bwd_rows))
+
+
+# phase 16: the regularizer −α·log_scale(d1) + β·log_scale(d2) at full
+# width, through the sweep against the per-leaf code on the same card
+# tensors. Set before the first run: values within 1e-5 relative (f32
+# sums of 1.4 M terms in two orders: the sweep's within ~125·2⁻²⁴ ≈ 7e-6
+# of the exact sum of positive terms, at worst); gradients per leaf
+# within 1e-4 normwise (each member's ḡ carries that relative error, and
+# d1's gradient Σ_t ḡ_t·(w − m_t) cancels between members near the pool
+# average by up to ~10×). At a pool model's first step w equals the
+# anchor, every residual is 0: l2 and squared_l2 give exactly 0 gradient
+# on both routes, l1 the same ±1 terms. Cosine's distance there is
+# exactly 0 with gradient exactly 0, so both routes compute rounding
+# residues, which log_scale's data-dependent 10^k then magnifies: there
+# the raw d1 and d2 are held within COS_RESIDUE_TOL of 0 and their
+# gradient within COS_RESIDUE_TOL/‖w‖, and the full loss is printed.
+REG_VALUE_REL_TOL = 1e-5
+REG_GRAD_REL_TOL = 1e-4
+COS_RESIDUE_TOL = 1e-5
+MEASURES = ("l2", "l1", "cosine", "squared_l2")
+
+
+def _regularizer(torch, params, pool, measure, task, fed, raw=False):
+    """(value, gradient per leaf) of −α·log_scale(d1) + β·log_scale(d2),
+    or of d1 + d2 when `raw`, at `params`."""
+    from repro_torch.core import distances as D
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    d1 = D.d1_pool_distance(leaves, pool, measure)
+    d2 = D.d2_anchor_distance(leaves, pool.first(), measure)
+    if raw:
+        total = d1 + d2
+    else:
+        total = (-fed.alpha * D.log_scale(d1, task) +
+                 fed.beta * D.log_scale(d2, task))
+    grads = torch.autograd.grad(total, list(leaves.values()))
+    return (float(total.detach()), dict(zip(leaves, grads)),
+            (float(d1.detach()), float(d2.detach())))
+
+
+def _rel_or_exact(a, b):
+    """|a − b| / |b|, or |a − b| itself where b is exactly 0."""
+    return abs(a - b) / abs(b) if b else abs(a - b)
+
+
+def regularizer_on_card(torch):
+    """Phase 16: for each measure, the full Eq. 9 regularizer through the
+    sweep (the card's route) and through the per-leaf code, both in f32 on
+    the same card tensors: value and gradient per leaf, with the launch
+    counts of each route (4 sweep launches, then none). Two points: a
+    pool model's first step (the pool holds its anchor alone, w = the
+    pool average = the anchor) and, with three members in a capacity-4
+    pool, after 5 Eq. 9 steps from the pool average."""
+    from repro_torch.api.trainer import LocalTrainer
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.core.pool import ModelPool
+    from repro_torch.data import batch_iterator
+    from repro_torch.models import build_model
+
+    model = build_model(get_arch("paper-cnn"))
+    inits = [model.init(s) for s in (20, 21, 22)]
+    fed = FedConfig(**TABLE1_FED)
+    task = torch.tensor(math.log(10.0), device=CARD)
+    first = ModelPool.create(inits[0], 4)
+    full = first.append(inits[1]).append(inits[2])
+    arrays, _ = quickstart_data()
+    trainer = LocalTrainer(model.loss_fn, fed)
+    moved, _ = trainer.train(full.average(),
+                             batch_iterator(arrays[0], 64, seed=0), 5,
+                             pool=full)
+    points = {"first step": (first.average(), first),
+              "after 5 steps": (moved, full)}
+    out = {}
+    for point, (params, pool) in points.items():
+        w_norm = float(torch.sqrt(sum(v.double().square().sum()
+                                      for v in params.values())))
+        for measure in MEASURES:
+            res = {}
+            for route in ("sweep", "per_leaf"):
+                _reset_sweep()
+                with (per_leaf_route() if route == "per_leaf"
+                      else contextlib.nullcontext()):
+                    value, grads, dists = _regularizer(torch, params, pool,
+                                                       measure, task, fed)
+                    raw = _regularizer(torch, params, pool, measure, task,
+                                       fed, raw=True)
+                torch.cuda.synchronize()
+                res[route] = dict(value=value, grads=grads, dists=dists,
+                                  raw=raw, launches=sum(_read_sweep()
+                                                        .values()))
+            a, b = res["sweep"], res["per_leaf"]
+            grad_err = {k: float((g - b["grads"][k]).norm()) /
+                        float(b["grads"][k].norm())
+                        if float(b["grads"][k].norm()) else
+                        float((g - b["grads"][k]).norm())
+                        for k, g in a["grads"].items()}
+            row = dict(value_sweep=a["value"], value_per_leaf=b["value"],
+                       d1_d2_sweep=a["dists"], d1_d2_per_leaf=b["dists"],
+                       value_rel_err=_rel_or_exact(a["value"], b["value"]),
+                       grad_rel_err=grad_err,
+                       launches=(a["launches"], b["launches"]))
+            residue = measure == "cosine" and point == "first step"
+            if residue:
+                row["raw_residue"] = {
+                    r: dict(d1=res[r]["raw"][2][0], d2=res[r]["raw"][2][1],
+                            grad_norm_times_w=w_norm * float(torch.sqrt(sum(
+                                g.double().square().sum()
+                                for g in res[r]["raw"][1].values()))))
+                    for r in res}
+                ok = all(abs(v["d1"]) <= COS_RESIDUE_TOL and
+                         abs(v["d2"]) <= COS_RESIDUE_TOL and
+                         v["grad_norm_times_w"] <= COS_RESIDUE_TOL
+                         for v in row["raw_residue"].values())
+            else:
+                ok = (row["value_rel_err"] <= REG_VALUE_REL_TOL and
+                      max(grad_err.values()) <= REG_GRAD_REL_TOL)
+            ok = ok and row["launches"] == (8, 0)
+            row["ok"] = ok
+            out[f"{point}, {measure}"] = row
+            detail = (f"raw residues {row['raw_residue']} (tolerance "
+                      f"{COS_RESIDUE_TOL:g}); full loss not held"
+                      if residue else
+                      f"value rel err {row['value_rel_err']:.2e} (tol "
+                      f"{REG_VALUE_REL_TOL:g}), gradient worst leaf "
+                      f"{max(grad_err.values()):.2e} (tol "
+                      f"{REG_GRAD_REL_TOL:g})")
+            print(f"  {point:13s} {measure:10s}: loss sweep "
+                  f"{a['value']:.6e} per leaf {b['value']:.6e}; {detail}; "
+                  f"sweep launches {row['launches']}")
+            if not ok:
+                fail(f"the regularizer through the sweep disagrees with the "
+                     f"per-leaf code ({point}, {measure}) or launched other "
+                     "than 8 sweeps and 0")
+    return out
+
+
+FIG9_RUNS = [("l2", {}), ("l1", {"distance_measure": "l1"}),
+             ("cosine", {"distance_measure": "cosine"}),
+             ("squared_l2", {"distance_measure": "squared_l2"}),
+             ("none", {"use_d1": False, "use_d2": False})]
+
+
+def fig9_on_card(torch, local_step):
+    """Phase 17: paper Fig. 9's five configurations
+    (benchmarks/fig9_distance_measures.py) — fedelmy at each measure and
+    with both regularizers off — through `launch` on phase 8's label-skew
+    data and settings, one after another: exact GEMM and sweep launch
+    counts (none with the regularizers off), every pool model's task loss
+    finite, the final accuracies printed (not gated; a tie is reported as
+    a tie)."""
+    from repro_torch.api import Experiment, launch
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.data import batch_iterator
+    from repro_torch.models import build_model
+
+    model = build_model(get_arch("paper-cnn"))
+    arrays, test = quickstart_data()
+    test_images = torch.from_numpy(test.images).to(model.device)
+    test_labels = torch.from_numpy(test.labels).to(model.device)
+
+    def accuracy(params):
+        with torch.no_grad():
+            logits = model.forward(params, {"images": test_images})
+        return (logits.argmax(-1) == test_labels).float().mean()
+
+    rows = []
+    for name, extra in FIG9_RUNS:
+        fed = FedConfig(**TABLE1_FED, **extra)
+        want = expected_run("fedelmy", fed)
+        iters = [batch_iterator(a, 64, seed=i) for i, a in enumerate(arrays)]
+        local_step.gemm_f32.launches = 0
+        _reset_sweep()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = launch(Experiment(model=model, client_iters=iters, fed=fed,
+                                strategy="fedelmy", seed=0, eval_fn=accuracy))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        gemm, sweep = local_step.gemm_f32.launches, sum(_read_sweep().values())
+        losses = [m.task_loss for c in res.clients for m in c.models]
+        rows.append(dict(measure=name, final_accuracy=res.final_metric,
+                         wall_s=wall, gemm_launches=gemm,
+                         sweep_launches=sweep, task_losses=losses))
+        print(f"  fig9 {name:10s} final accuracy {res.final_metric:.4f}; "
+              f"{wall:.2f} s; gemm_f32 {gemm}, sweep {sweep} launches; "
+              f"task losses {min(losses):.4f}..{max(losses):.4f}")
+        if gemm != 8 * want["fused"] or sweep != want["sweep"]:
+            fail(f"fig9 {name}: gemm_f32 {gemm} and sweep {sweep} launches; "
+                 f"expected {8 * want['fused']} and {want['sweep']}")
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"fig9 {name}: a pool model's task loss is not finite")
+    best = max(r["final_accuracy"] for r in rows)
+    top = [r["measure"] for r in rows if r["final_accuracy"] == best]
+    print(f"  fig9: highest final accuracy {best:.4f}: " +
+          (f"a tie between {', '.join(top)}" if len(top) > 1 else top[0]))
+    return dict(rows=rows, best=top)
+
+
+def sweep_kernel_entries(main_path, pd_out):
+    """The kernels line's entries of the sweep's forward and backward.
+    Launches: phase 4's main path. Times and bounds: one Eq. 9 pool step
+    at the main path's table, d1 (capacity 4) plus d2 (one member)."""
+    entries = []
+    for name, way, replaces, err in (
+            ("pool_distance_f32", "forward",
+             "src/repro/kernels/pool_distance.py:75", pd_out["max_abs_err"]),
+            ("pool_distance_bwd_f32", "backward",
+             "src/repro/core/distances.py:56", pd_out["bwd_max_abs_err"])):
+        rows = [pd_out["timing"][k][way] for k in ("d1", "d2")]
+        byte_ms = sum(r["byte_ms"] for r in rows)
+        op_ms = sum(r["op_ms"] for r in rows)
+        lib = [r["library_ms"] for r in rows]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/pool_distance_f32.cu",
+            "replaces": replaces,
+            "launches": main_path["sweep_launches"][way],
+            "max_abs_err": err,
+            "ms": sum(r["ms"] for r in rows),
+            "plain_ms": sum(r["plain_ms"] for r in rows),
+            "bound_ms": max(byte_ms, op_ms),
+            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+            "library_ms": None if None in lib else sum(lib)})
+    for e in entries:
+        if not e["launches"]:
+            fail(f"{e['name']} was launched no time on its main path")
+    return entries
 
 
 def main(argv):
@@ -2160,6 +2791,17 @@ def main(argv):
     # phases 13-14: SSM serving
     ssm_out = ssm_phases(torch, chunk_scan, ssm, ref)
 
+    # phases 15-17: the pool-distance sweep
+    print("[15] pool_distance_f32 and pool_distance_bwd_f32 against their "
+          "plain versions")
+    pd_out = check_pool_distance(torch, pool_distance, ref)
+    print("[16] the Eq. 9 regularizer at full width: the sweep against the "
+          "per-leaf code on the card")
+    regularizer = regularizer_on_card(torch)
+    print("[17] paper Fig. 9 on the card: fedelmy at each distance measure "
+          "and without the regularizers")
+    fig9 = fig9_on_card(torch, local_step)
+
     step_rows = [r for r in rows if r["main_path"]]
     byte_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[0] for r in step_rows)
     flop_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[1] for r in step_rows)
@@ -2185,7 +2827,8 @@ def main(argv):
         "bound_ms": sgd_timing["bound_ms"],
         "bound_by": sgd_timing["bound_by"],
         "library_ms": sgd_timing["library_ms"]}]
-        + serving_kernels(serving)["kernels"] + [gla_kernel_entry(ssm_out)]}
+        + serving_kernels(serving)["kernels"] + [gla_kernel_entry(ssm_out)]
+        + sweep_kernel_entries(main_path, pd_out)}
     # flash attention's main paths: phase 11's replays and zamba2-7b's
     # served prefill and decode steps (phase 14)
     zamba = ssm_out["ssm_serving"]["zamba2-7b"]["bf16"]
@@ -2200,6 +2843,7 @@ def main(argv):
         card_vs_cpu=agreement, profile=step_profile, sgd=sgd_rows,
         sgd_timing=sgd_timing, table1=table1,
         dfedsam_card_vs_cpu=sam_agreement, **serving, **ssm_out,
+        pool_distance=pd_out, regularizer=regularizer, fig9=fig9,
         total_s=time.perf_counter() - t_start)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

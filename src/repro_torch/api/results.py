@@ -2,7 +2,7 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 from repro_torch.configs.base import FedConfig
 
@@ -14,6 +14,12 @@ class ModelRecord:
     task_loss: float                 # last-step task loss ℓ(m_j)
     val_metric: Optional[float] = None
 
+    def to_legacy(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"model": self.index, "task_loss": self.task_loss}
+        if self.val_metric is not None:
+            d["val_acc"] = self.val_metric
+        return d
+
 
 @dataclasses.dataclass
 class ClientRecord:
@@ -23,12 +29,25 @@ class ClientRecord:
     models: List[ModelRecord] = dataclasses.field(default_factory=list)
     global_metric: Optional[float] = None   # eval_fn(m) after this client
 
+    def to_legacy(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"client": self.client, "rank": self.rank,
+                             "models": [m.to_legacy() for m in self.models]}
+        if self.global_metric is not None:
+            d["global_acc"] = self.global_metric
+        return d
+
 
 @dataclasses.dataclass
 class RoundRecord:
     """One full cycle around the ring (few-shot adaptation)."""
     round: int
     global_metric: Optional[float] = None
+
+    def to_legacy(self) -> Dict[str, Any]:
+        d: Dict[str, Any] = {"shot": self.round}
+        if self.global_metric is not None:
+            d["global_acc"] = self.global_metric
+        return d
 
 
 @dataclasses.dataclass
@@ -42,6 +61,18 @@ class RunResult:
     final_metric: Optional[float] = None
     wall_time_s: float = 0.0
     final_pool: Any = None           # last client's pool, if kept
+
+    def history(self) -> List[Dict[str, Any]]:
+        """Legacy history dicts, as the reference's deprecated drivers
+        return them: per-shot records for few-shot runs, per-client
+        records for sequential chains, else one global record."""
+        if self.rounds:
+            return [r.to_legacy() for r in self.rounds]
+        if self.clients:
+            return [c.to_legacy() for c in self.clients]
+        if self.final_metric is not None:
+            return [{"global_acc": self.final_metric}]
+        return []
 
     def require_final_pool(self) -> Any:
         """The trained pool, or a diagnosis of why there is none: the

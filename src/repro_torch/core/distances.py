@@ -7,7 +7,15 @@ d1: mean distance from the model in training to every live pool member
 d2: distance to the pool's first model m_0^i (minimized → anchor).
 Measures: l2 (default), l1, cosine, squared_l2. Pool members never carry
 gradient; `log_scale`'s calibration factor is detached (the reference's
-`stop_gradient`)."""
+`stop_gradient`).
+
+The stacked pool's d1 and the d2 route by the tensors' device. On CUDA
+they go through the pool-distance sweep (`kernels/pool_distance`: one
+kernel launch for every leaf and member, forward and backward) and
+`distances_from_stats`, as the reference designed its Pallas kernel for
+them; d2 is the sweep over a one-member pool of the anchor. On the CPU
+they take the per-leaf formulation, the reference's own CPU path. Mixed
+devices raise."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -16,18 +24,13 @@ import torch
 
 from repro_torch.core.pool import (LowRankDeltaPool, ModelPool, MomentPool,
                                    _leaf_key)
-from repro_torch.kernels.pool_distance import factor_gram
+from repro_torch.kernels.pool_distance import (distances_from_stats,
+                                               factor_gram,
+                                               tree_pool_distance_stats)
+from repro_torch.kernels.ref import abs_ref
 
 F32 = torch.float32
 Params = Dict[str, torch.Tensor]
-
-
-def _abs(x: torch.Tensor) -> torch.Tensor:
-    """|x| with the reference's derivative: +1 at x == 0 (JAX differentiates
-    `abs` as select(x >= 0, g, -g); `torch.abs` gives 0 there). Every pool
-    model starts exactly at its d2 anchor, so the l1 measure meets x == 0
-    on its first step."""
-    return torch.where(x >= 0, x, -x)
 
 
 def _leaf_sum(x: torch.Tensor, batched: bool) -> torch.Tensor:
@@ -46,7 +49,9 @@ def _distance(a: Params, b: Params, measure: str, batched: bool
         sq = sum(_leaf_sum(torch.square(x - y), batched) for x, y in pairs)
         return sq if measure == "squared_l2" else torch.sqrt(sq + 1e-12)
     if measure == "l1":
-        return sum(_leaf_sum(_abs(x - y), batched) for x, y in pairs)
+        # JAX's derivative of |x| at 0: every pool model starts exactly at
+        # its d2 anchor, so the l1 measure meets x == 0 on its first step
+        return sum(_leaf_sum(abs_ref(x - y), batched) for x, y in pairs)
     if measure == "cosine":
         dot = sum(_leaf_sum(x * y, batched) for x, y in pairs)
         na = torch.sqrt(sum(x.square().sum() for x, _ in pairs) + 1e-12)
@@ -62,9 +67,30 @@ def pairwise_distance(a: Params, b: Params, measure: str = "l2"
     return _distance(a, b, measure, batched=False)
 
 
+def _route(params: Params, other: Params, name: str) -> str:
+    types = {t.device.type for t in params.values()} | \
+        {t.device.type for t in other.values()}
+    if types in ({"cuda"}, {"cpu"}):
+        return types.pop()
+    raise ValueError(f"{name}: no route for tensors on {sorted(types)}")
+
+
+def d1_pool_sweep(params: Params, pool: ModelPool,
+                  measure: str = "l2") -> torch.Tensor:
+    """Eq. 7 through the pool-distance sweep: every member's stats in one
+    pass over the pool's capacity, the empty slots masked out of the mean
+    (their gradient is exactly 0)."""
+    stats, w_sq = tree_pool_distance_stats(params, pool.members)
+    dists = distances_from_stats(stats, w_sq, measure)
+    return torch.sum(dists * pool.mask()) / float(pool.count)
+
+
 def d1_pool_distance(params: Params, pool: ModelPool,
                      measure: str = "l2") -> torch.Tensor:
-    """Eq. 7: (1/|M|) Σ_t dist(m, m_t) over live members (masked)."""
+    """Eq. 7: (1/|M|) Σ_t dist(m, m_t) over live members (masked). CUDA:
+    `d1_pool_sweep`; CPU: per leaf."""
+    if _route(params, pool.members, "d1_pool_distance") == "cuda":
+        return d1_pool_sweep(params, pool, measure)
     members = {k: s.detach() for k, s in pool.members.items()}
     dists = _distance(params, members, measure, batched=True)
     return torch.sum(dists * pool.mask()) / float(pool.count)
@@ -145,9 +171,20 @@ def d1_moment(params: Params, pool: MomentPool) -> torch.Tensor:
     return torch.sqrt(pool.mean_sq_distance(params) + 1e-12)
 
 
+def d2_anchor_sweep(params: Params, anchor: Params,
+                    measure: str = "l2") -> torch.Tensor:
+    """Eq. 8 through the pool-distance sweep, over a one-member pool of
+    the anchor's leaves (views, nothing copied)."""
+    stats, w_sq = tree_pool_distance_stats(
+        params, {k: v.unsqueeze(0) for k, v in anchor.items()})
+    return distances_from_stats(stats, w_sq, measure)[0]
+
+
 def d2_anchor_distance(params: Params, anchor: Params,
                        measure: str = "l2") -> torch.Tensor:
-    """Eq. 8: dist(m, m_0^i)."""
+    """Eq. 8: dist(m, m_0^i). CUDA: `d2_anchor_sweep`; CPU: per leaf."""
+    if _route(params, anchor, "d2_anchor_distance") == "cuda":
+        return d2_anchor_sweep(params, anchor, measure)
     return pairwise_distance(params, {k: v.detach()
                                       for k, v in anchor.items()}, measure)
 

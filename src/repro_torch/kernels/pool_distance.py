@@ -1,33 +1,55 @@
-"""Factor Gram for the low-rank pool's distance statistics (port of
-``factor_gram`` in ``repro/kernels/pool_distance.py``).
+"""The FedELMY pool-distance statistics (port of
+``repro/kernels/pool_distance.py``): the sweep behind the d1/d2
+regularizers (Eq. 7–8) and the factor Gram of the low-rank pool.
 
-Pairwise member distances of a `LowRankDeltaPool` reduce to Gram
-matrices over the stacked factors: with A = [U_1ᵀ; …; U_Cᵀ] (C·r rows),
-⟨Δ_i, Δ_j⟩ = ⟨U_iᵀU_j, V_iᵀV_j⟩_F reads off two A·Aᵀ products
-(`core/distances.lowrank_pairwise_sq`). `factor_gram` is that product
-over the long trailing axis,
+**The sweep.** dist(m, m_t) for every pool member t needs, per member,
 
-    a (M, P) → (M, M), or a (B, M, P) → (B, M, M), f32.
+    sq[t] = Σ(w − m_t)²,  l1[t] = Σ|w − m_t|,  dot[t] = Σ w·m_t,
+    norm[t] = Σ m_t²,
 
-On CUDA tensors it launches the hand-written kernel
-``csrc/factor_gram_f32.cu`` (f32, contiguous; its sum over P is the same
-on every run: chunk partials, then the chunks added in order); on CPU
-tensors it takes the plain version `ref.factor_gram_ref`. Nothing falls
-back. (The pool-distance statistics sweep of the same reference module
-is not ported yet.)"""
+and cosine also Σw² (`distances_from_stats` maps them to the four
+measures). `pool_distance_stats` takes the reference's flat forms, w (P,)
+and pool (C, P) → (C,) each, or w (B, P) and pool (B, C, P) → (B, C);
+`tree_pool_distance_stats` reads a model's leaves and a stacked pool's
+(C, *shape) leaves in place, with a gradient for the model's leaves
+(`PoolStatsFunction`: the members carry none, ḡnorm has no term). On CUDA
+tensors both launch the hand-written kernels ``csrc/pool_distance_f32.cu``
+(one forward launch, f32 or bf16 in, f32 sums that repeat bit for bit;
+the backward f32 only); on CPU tensors they take the plain versions
+`ref.pool_distance_stats_ref` and `ref.pool_distance_stats_bwd_ref`.
+
+**The factor Gram.** Pairwise member distances of a `LowRankDeltaPool`
+reduce to Gram matrices over the stacked factors: with A = [U_1ᵀ; …;
+U_Cᵀ] (C·r rows), ⟨Δ_i, Δ_j⟩ = ⟨U_iᵀU_j, V_iᵀV_j⟩_F reads off two A·Aᵀ
+products (`core/distances.lowrank_pairwise_sq`). `factor_gram` is that
+product over the long trailing axis, a (M, P) → (M, M), or a (B, M, P) →
+(B, M, M), f32. On CUDA tensors it launches ``csrc/factor_gram_f32.cu``
+(f32, contiguous; its sum over P is the same on every run: chunk
+partials, then the chunks added in order); on CPU tensors it takes
+`ref.factor_gram_ref`.
+
+Nothing falls back: a CUDA tensor launches its kernel or raises."""
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import factor_gram_ref
+from repro_torch.kernels.ref import (factor_gram_ref,
+                                     pool_distance_stats_bwd_ref,
+                                     pool_distance_stats_ref)
 
 TILE = 64               # csrc/factor_gram_f32.cu: its output tile edge
 MAX_M = 256             # rows the reference's kernel takes (C·r ≤ 256)
 _MAX_GRID_Z = 65535
+_MAX_GRID_Y = 65535
+MAX_MEMBERS = 63        # csrc/pool_distance_f32.cu: 4·C + 1 sums ≤ 256
+STATS = ("sq", "l1", "dot", "norm")
+
+Params = Dict[str, torch.Tensor]
 
 
 @functools.cache
@@ -90,3 +112,274 @@ def factor_gram(a: torch.Tensor) -> torch.Tensor:
     if a.device.type == "cpu":
         return factor_gram_ref(a)
     raise ValueError(f"factor_gram: no route for a tensor on {a.device}")
+
+
+# ---------------------------------------------------------------------------
+# The pool-distance statistics sweep
+# ---------------------------------------------------------------------------
+
+@functools.cache
+def _sweep_lib() -> ctypes.CDLL:
+    lib = build.load("pool_distance_f32")
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    ptrs, ints = ctypes.POINTER(p), ctypes.POINTER(i64)
+    lib.pool_distance_f32.argtypes = [ptrs, ptrs, ints, ints, ints, ints, i,
+                                      i, i, i, p, p, p, p, p,
+                                      ctypes.POINTER(i)]
+    lib.pool_distance_f32.restype = i
+    lib.pool_distance_bwd_f32.argtypes = [ptrs, ptrs, ptrs, ints, ints, ints,
+                                          ints, ints, i, i, i, p, p, p,
+                                          ctypes.POINTER(i)]
+    lib.pool_distance_bwd_f32.restype = i
+    lib.pool_distance_f32_chunk.argtypes = []
+    lib.pool_distance_f32_chunk.restype = i
+    return lib
+
+
+def _table(ws: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
+           name: str) -> Tuple[int, int, torch.dtype]:
+    """Check a leaf table: every w (B, n_i) and m (B, C, n_i) on one CUDA
+    device, of one dtype, unit stride along n_i; returns (B, C, dtype)."""
+    if not ws or len(ws) != len(ms):
+        raise ValueError(f"{name}: {len(ws)} w leaves and {len(ms)} member "
+                         "leaves")
+    device, dtype = ws[0].device, ws[0].dtype
+    b, c = ms[0].shape[:2]
+    for i, (w, m) in enumerate(zip(ws, ms)):
+        for what, t in (("w", w), ("members", m)):
+            if t.device.type != "cuda" or t.device != device:
+                raise ValueError(f"{name}: {what} of leaf {i} is on "
+                                 f"{t.device}, leaf 0's w on {device}")
+            if t.dtype != dtype:
+                raise TypeError(f"{name}: {what} of leaf {i} is {t.dtype}, "
+                                f"leaf 0's w {dtype}")
+            if t.shape[-1] > 1 and t.stride(-1) != 1:
+                raise ValueError(f"{name}: {what} of leaf {i} is not "
+                                 "contiguous along its elements")
+        if w.dim() != 2 or m.dim() != 3 or m.shape != (b, c, w.shape[1]) \
+                or w.shape[0] != b:
+            raise ValueError(f"{name}: leaf {i} has w {tuple(w.shape)} and "
+                             f"members {tuple(m.shape)}; expected (B, n) and "
+                             f"({b}, {c}, n)")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: {dtype} is not float32 or bfloat16")
+    if not 1 <= c <= MAX_MEMBERS or \
+            not 1 <= b <= _MAX_GRID_Y or sum(w.shape[1] for w in ws) == 0:
+        raise ValueError(f"{name}: no grid for B = {b}, C = {c} and "
+                         f"{sum(w.shape[1] for w in ws)} elements")
+    return b, c, dtype
+
+
+def _strides(ws, ms):
+    n = len(ws)
+    i64 = ctypes.c_int64 * n
+    return (i64(*[w.shape[1] for w in ws]), i64(*[w.stride(0) for w in ws]),
+            i64(*[m.stride(0) for m in ms]), i64(*[m.stride(1) for m in ms]))
+
+
+def pool_distance_f32(ws: Sequence[torch.Tensor], ms: Sequence[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the forward sweep over a table of leaves: leaf i's w (B, n_i)
+    and its members (B, C, n_i), CUDA tensors of one dtype (f32 or bf16)
+    with unit stride along n_i (the other strides are free). Returns the
+    statistics (B, 4, C) f32 — rows sq, l1, dot, norm — and Σw² (B,) f32.
+    One launch (one more per 40 leaves); `pool_distance_f32.launches`
+    counts them."""
+    b, c, dtype = _table(ws, ms, "pool_distance_f32")
+    lib = _sweep_lib()
+    chunk = lib.pool_distance_f32_chunk()
+    blocks = sum(-(-w.shape[1] // chunk) for w in ws)
+    dev = ws[0].device
+    stats = torch.empty((b, 4, c), device=dev, dtype=torch.float32)
+    wsq = torch.empty((b,), device=dev, dtype=torch.float32)
+    part = torch.empty(b * blocks * (4 * c + 1), device=dev,
+                       dtype=torch.float32)
+    counters = torch.zeros(b, device=dev, dtype=torch.int32)
+    ptrs = ctypes.c_void_p * len(ws)
+    launches = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.pool_distance_f32(
+            ptrs(*[w.data_ptr() for w in ws]),
+            ptrs(*[m.data_ptr() for m in ms]), *_strides(ws, ms), len(ws),
+            b, c, int(dtype == torch.bfloat16), stats.data_ptr(),
+            wsq.data_ptr(), part.data_ptr(), counters.data_ptr(), stream,
+            ctypes.byref(launches))
+    pool_distance_f32.launches += launches.value
+    if err != 0:
+        raise RuntimeError(f"pool_distance_f32: launch failed with CUDA error "
+                           f"{err}")
+    return stats, wsq
+
+
+pool_distance_f32.launches = 0
+
+
+def pool_distance_bwd_f32(ws: Sequence[torch.Tensor],
+                          ms: Sequence[torch.Tensor], g_stats: torch.Tensor,
+                          g_wsq: torch.Tensor) -> List[torch.Tensor]:
+    """Launch the backward sweep over the same table (f32 leaves only):
+    ∂w_i (B, n_i) = 2Σ_t ḡsq_t·(w − m_t) + Σ_t ḡl1_t·s(w − m_t) +
+    Σ_t ḡdot_t·m_t + 2·ḡwsq·w, with ḡ read from device memory: g_stats
+    (B, 4, C) (row 3, ḡnorm, is not read) and g_wsq (B,).
+    `pool_distance_bwd_f32.launches` counts the launches."""
+    b, c, dtype = _table(ws, ms, "pool_distance_bwd_f32")
+    if dtype != torch.float32:
+        raise NotImplementedError(
+            "pool_distance_bwd_f32 takes f32 leaves; a bf16 model under "
+            "grad has no backward kernel yet")
+    dev = ws[0].device
+    g_stats = g_stats.to(device=dev, dtype=torch.float32).contiguous()
+    g_wsq = g_wsq.to(device=dev, dtype=torch.float32).contiguous()
+    if g_stats.shape != (b, 4, c) or g_wsq.shape != (b,):
+        raise ValueError(f"pool_distance_bwd_f32: ḡ is {tuple(g_stats.shape)}"
+                         f" and {tuple(g_wsq.shape)}; expected ({b}, 4, {c}) "
+                         f"and ({b},)")
+    outs = [torch.empty(w.shape, device=dev, dtype=torch.float32)
+            for w in ws]
+    n = len(ws)
+    ptrs = ctypes.c_void_p * n
+    launches = ctypes.c_int(0)
+    lib = _sweep_lib()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        sizes, w_run, m_run, m_member = _strides(ws, ms)
+        err = lib.pool_distance_bwd_f32(
+            ptrs(*[w.data_ptr() for w in ws]),
+            ptrs(*[m.data_ptr() for m in ms]),
+            ptrs(*[o.data_ptr() for o in outs]), sizes, w_run, m_run,
+            m_member, (ctypes.c_int64 * n)(*[o.stride(0) for o in outs]), n,
+            b, c, g_stats.data_ptr(), g_wsq.data_ptr(), stream,
+            ctypes.byref(launches))
+    pool_distance_bwd_f32.launches += launches.value
+    if err != 0:
+        raise RuntimeError(f"pool_distance_bwd_f32: launch failed with CUDA "
+                           f"error {err}")
+    return outs
+
+
+pool_distance_bwd_f32.launches = 0
+
+
+def _device_type(tensors: Sequence[torch.Tensor], name: str) -> str:
+    types = {t.device.type for t in tensors}
+    if len(types) != 1:
+        raise ValueError(f"{name}: tensors on mixed devices {sorted(types)}")
+    return types.pop()
+
+
+def pool_distance_stats(w_flat: torch.Tensor,
+                        pool_flat: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Fused per-member statistics, single-run or batched:
+
+    * w_flat (P,), pool_flat (C, P)        → stats each (C,)
+    * w_flat (B, P), pool_flat (B, C, P)   → stats each (B, C)
+
+    Returns a dict of f32 stats: sq, l1, dot, norm. CUDA: one launch of
+    the sweep; CPU: `ref.pool_distance_stats_ref`."""
+    if w_flat.dim() == 1:
+        stats = pool_distance_stats(w_flat[None], pool_flat[None])
+        return {k: v[0] for k, v in stats.items()}
+    if w_flat.dim() != 2 or pool_flat.dim() != 3 or \
+            pool_flat.shape[::2] != w_flat.shape:
+        raise ValueError(f"pool_distance_stats: w {tuple(w_flat.shape)} and "
+                         f"pool {tuple(pool_flat.shape)}; expected (P,) and "
+                         "(C, P), or (B, P) and (B, C, P)")
+    route = _device_type((w_flat, pool_flat), "pool_distance_stats")
+    if route == "cuda":
+        stats, _ = pool_distance_f32([w_flat], [pool_flat])
+        return dict(zip(STATS, stats.unbind(1)))
+    if route == "cpu":
+        return pool_distance_stats_ref(w_flat, pool_flat)
+    raise ValueError(f"pool_distance_stats: no route for tensors on {route}")
+
+
+def distances_from_stats(stats: Dict[str, torch.Tensor], w_sq_norm,
+                         measure: str) -> torch.Tensor:
+    """Per-member distances from the stats. w_sq_norm = Σw²: a scalar for
+    (C,) stats, (B,) for batched (B, C) stats."""
+    if measure == "l2":
+        return torch.sqrt(stats["sq"] + 1e-12)
+    if measure == "squared_l2":
+        return stats["sq"]
+    if measure == "l1":
+        return stats["l1"]
+    if measure == "cosine":
+        w_sq = torch.as_tensor(w_sq_norm, dtype=torch.float32,
+                               device=stats["dot"].device)
+        if stats["dot"].dim() == 2 and w_sq.dim() == 1:
+            w_sq = w_sq[:, None]              # (B,) → (B, 1) vs (B, C)
+        return 1.0 - stats["dot"] / (
+            torch.sqrt(w_sq + 1e-12) * torch.sqrt(stats["norm"] + 1e-12))
+    raise ValueError(measure)
+
+
+def _leaf_table(w: Sequence[torch.Tensor], members: Sequence[torch.Tensor]):
+    """Leaf i as w (1, n_i) and members (1, C, n_i), views where the
+    layout allows it."""
+    return ([x.reshape(1, -1) for x in w],
+            [m.reshape(1, m.shape[0], -1) for m in members])
+
+
+class PoolStatsFunction(torch.autograd.Function):
+    """(members, *w) → (stats (4, C), Σw²) with a gradient for the w leaves.
+    Routed by the tensors' device: the forward and backward kernels on
+    CUDA, the plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, members, *w):
+        route = _device_type(list(w) + list(members),
+                             "tree_pool_distance_stats")
+        ctx.route = route
+        ctx.save_for_backward(*w, *members)
+        if route == "cuda":
+            if any(x.dtype != torch.float32 for x in w) and \
+                    any(ctx.needs_input_grad[1:]):
+                raise NotImplementedError(
+                    "tree_pool_distance_stats: the backward kernel takes f32 "
+                    "leaves; bf16 under grad has no kernel yet")
+            stats, wsq = pool_distance_f32(*_leaf_table(w, members))
+            return stats[0], wsq[0]
+        if route == "cpu":
+            parts = [pool_distance_stats_ref(x.reshape(-1),
+                                             m.reshape(m.shape[0], -1))
+                     for x, m in zip(w, members)]
+            stats = torch.stack([sum(p[k] for p in parts) for k in STATS])
+            wsq = sum(x.float().square().sum() for x in w)
+            return stats, wsq
+        raise ValueError(f"tree_pool_distance_stats: no route for tensors "
+                         f"on {route}")
+
+    @staticmethod
+    def backward(ctx, g_stats, g_wsq):
+        saved = ctx.saved_tensors
+        n = len(saved) // 2
+        w, members = saved[:n], saved[n:]
+        if ctx.route == "cuda":
+            grads = pool_distance_bwd_f32(*_leaf_table(w, members),
+                                          g_stats[None], g_wsq.reshape(1))
+        else:
+            grads = [pool_distance_stats_bwd_ref(
+                x.reshape(-1), m.reshape(m.shape[0], -1), g_stats[0],
+                g_stats[1], g_stats[2], g_wsq=g_wsq)
+                for x, m in zip(w, members)]
+        return (None,) + tuple(g.reshape(x.shape).to(x.dtype)
+                               for g, x in zip(grads, w))
+
+
+def tree_pool_distance_stats(params: Params, members: Params
+                             ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """The sweep over a model's leaves, read in place: `params` name →
+    tensor, `members` name → (C, *shape) stack (a pool's members, or a
+    one-member view of its anchor). Returns the stats dict (sq, l1, dot,
+    norm; each (C,) f32) and Σw² (f32 scalar), differentiable in `params`
+    (the members are detached)."""
+    names = list(params)
+    if set(members) != set(names):
+        raise ValueError(f"tree_pool_distance_stats: the members' leaves "
+                         f"{sorted(members)} are not the model's "
+                         f"{sorted(names)}")
+    stats, wsq = PoolStatsFunction.apply(
+        tuple(members[k].detach() for k in names),
+        *(params[k] for k in names))
+    return dict(zip(STATS, stats.unbind(0))), wsq

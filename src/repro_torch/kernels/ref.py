@@ -71,6 +71,71 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.einsum("bhts,bshd->bthd", p, vf).to(q.dtype)
 
 
+def abs_ref(x: torch.Tensor) -> torch.Tensor:
+    """|x| with JAX's derivative, +1 at x == 0 (`torch.abs` gives 0 there),
+    so that autograd of the plain sweep is the reference's gradient."""
+    return torch.where(x >= 0, x, -x)
+
+
+def pool_distance_ref(w_flat: torch.Tensor,
+                      pool_flat: torch.Tensor) -> dict:
+    """Per-member stats over flattened params, w (P,) and pool (C, P) →
+    sq, l1, dot, norm each (C,) in f32."""
+    w = w_flat.float()
+    m = pool_flat.float()
+    r = w[None, :] - m
+    return {"sq": torch.sum(r * r, dim=1),
+            "l1": torch.sum(abs_ref(r), dim=1),
+            "dot": m @ w,
+            "norm": torch.sum(m * m, dim=1)}
+
+
+def pool_distance_stats_ref(w_flat: torch.Tensor,
+                            pool_flat: torch.Tensor) -> dict:
+    """The pool-distance sweep's plain version, single-run or batched
+    (port of ``repro/core/distances.pool_distance_stats_ref``):
+
+    * w (P,), pool (C, P)      → sq, l1, dot, norm each (C,)
+    * w (B, P), pool (B, C, P) → each (B, C)
+
+    in f32 over flattened tensors."""
+    w = w_flat.float()
+    m = pool_flat.float()
+    w_row = w.unsqueeze(-2)                       # (…, 1, P) vs (…, C, P)
+    r = w_row - m
+    return {"sq": torch.sum(r * r, dim=-1),
+            "l1": torch.sum(abs_ref(r), dim=-1),
+            "dot": torch.sum(w_row * m, dim=-1),
+            "norm": torch.sum(m * m, dim=-1)}
+
+
+def pool_distance_stats_bwd_ref(w_flat: torch.Tensor, pool_flat: torch.Tensor,
+                                g_sq: torch.Tensor, g_l1: torch.Tensor,
+                                g_dot: torch.Tensor, *,
+                                g_wsq=None) -> torch.Tensor:
+    """The sweep's backward, plain: ∂/∂w of Σ_t ḡsq_t·sq_t + ḡl1_t·l1_t +
+    ḡdot_t·dot_t (+ ḡwsq·Σw²) in f32, shaped like w,
+
+        2Σ_t ḡsq_t·(w − m_t) + Σ_t ḡl1_t·s(w − m_t) + Σ_t ḡdot_t·m_t
+        (+ 2·ḡwsq·w),
+
+    with s(x) = +1 for x ≥ 0 and −1 otherwise: JAX's derivative of |x|
+    (a pool model's first step sits exactly on its d2 anchor, r = 0).
+    Shapes as `pool_distance_stats_ref`; the ḡ are (C,) or (B, C), ḡwsq
+    a scalar or (B,)."""
+    w = w_flat.float()
+    m = pool_flat.float()
+    r = w.unsqueeze(-2) - m
+    sign = torch.where(r >= 0, 1.0, -1.0)
+    grad = torch.sum(2.0 * g_sq.float()[..., None] * r +
+                     g_l1.float()[..., None] * sign +
+                     g_dot.float()[..., None] * m, dim=-2)
+    if g_wsq is not None:
+        g = torch.as_tensor(g_wsq, dtype=torch.float32, device=w.device)
+        grad = grad + 2.0 * g[..., None] * w
+    return grad
+
+
 def factor_gram_ref(a: torch.Tensor) -> torch.Tensor:
     """f32 A·Aᵀ over the trailing axis, (…, M, P) → (…, M, M) — the factor
     Gram kernel's plain version."""
