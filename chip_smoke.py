@@ -13,8 +13,10 @@ Phases, each failing the run with a nonzero exit:
              per source, all started together
 3. kernels — the f32 GEMM kernel against its plain version at the shapes
              the paper CNN's training step gives it (forward, dA = G·Bᵀ,
-             dB = Aᵀ·G) and one ragged shape; errors, times (L2 flushed
-             before each launch), bounds
+             dB = Aᵀ·G) and one ragged shape, each launched twice and
+             bitwise equal (the split-K sum is fixed-order); errors, the
+             plan (tile, slices), times (L2 flushed before each launch),
+             bounds
 4. main    — paper Algorithm 1 through `launch(Experiment(strategy=
              "fedelmy"))` on the full-width paper CNN, with the launch
              counters showing every conv ran through the GEMM kernel and
@@ -36,8 +38,9 @@ Phases, each failing the run with a nonzero exit:
              with the native forward's decisions pinned and without
 10. serving kernels — BGMV, flash attention and the factor Gram against
              their plain versions at the full-width llama3.2-1b serving
-             shapes (and long sequences for attention); errors, times
-             beside the bound, the plain version and a library call
+             shapes (and long sequences for attention, at every head dim
+             the kernel has: 32, 64, 112, 128); errors, times beside the
+             bound, the plain version and a library call
 11. llama serving — a full-width llama3.2-1b factor pool (5 members,
              rank 8) through `PoolServer.from_pool`: f32 factored scores
              against the densified oracle with exact launch counts, the
@@ -108,7 +111,9 @@ CONVS = ("c1", "c2", "c3")
 CARD = "cuda"
 # phase 5 (c): the slice's end points may lie at most this share of the
 # distance moved apart. `--planted-faults` read 0.0653 for the correct
-# kernel and 0.125, 0.178 and 1.16 for the planted faults (H100, PERF.md).
+# kernel and 0.125, 0.178 and 1.16 for the planted faults, for the first
+# GEMM design and for the split-K one alike (NVIDIA H100 80GB HBM3 at
+# 700 W, PERF.md).
 SLICE_RATIO_TOL = 0.1
 # phase 7: the SGD kernel's inputs (dfedsam's lr = 10 × 1e-3, FedConfig's
 # weight decay)
@@ -197,7 +202,9 @@ def check_gemm(torch, local_step, ref):
             def kernel(x=x, y=y, ta=ta, tb=tb):
                 return local_step.gemm_f32(x, y, trans_a=ta, trans_b=tb)
             out = kernel()
+            again = kernel()
             torch.cuda.synchronize()
+            repeat = bool(torch.equal(out, again))
             want = plain()
             xa = (x.t() if ta else x).double()
             yb = (y.t() if tb else y).double()
@@ -213,9 +220,10 @@ def check_gemm(torch, local_step, ref):
             ok = ok and f64_err <= 1e-5
             byte_s, flop_s = bound_parts_s(pm, pk, pn)
             row = dict(conv=name, product=prod, m=pm, k=pk, n=pn,
+                       plan=list(local_step.gemm_plan(pm, pn, pk)),
                        max_abs_err=abs_err, max_rel_err=rel_err,
                        f64_err=f64_err, plain_f64_err=plain_f64_err,
-                       within_tolerance=ok,
+                       within_tolerance=ok, bitwise_repeat=repeat,
                        ms=median_ms(kernel), plain_ms=median_ms(plain),
                        library_ms=median_ms(library),
                        bound_ms=max(byte_s, flop_s) * 1e3,
@@ -225,13 +233,17 @@ def check_gemm(torch, local_step, ref):
                   f"vs plain max abs err {abs_err:.3e} (rel {rel_err:.3e}); "
                   f"normwise err vs f64: kernel {f64_err:.2e}, plain "
                   f"{plain_f64_err:.2e}; {'within' if ok else 'OUTSIDE'} "
-                  f"tolerance; "
+                  f"tolerance; plan {row['plan']}, repeat "
+                  f"{'bitwise' if repeat else 'DIFFERS'}; "
                   f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}"
                   f" ms, torch.matmul {row['library_ms']:.4f} ms, bound "
                   f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
             if not ok:
                 fail(f"gemm_f32 {name} {prod} disagrees with its plain "
                      f"version beyond the stated bound")
+            if not repeat:
+                fail(f"gemm_f32 {name} {prod}: two launches on the same "
+                     "inputs differ")
             max_abs = max(max_abs, abs_err)
             rows.append(row)
     return rows, max_abs
@@ -616,14 +628,16 @@ def card_vs_cpu(torch):
 
 # Faults planted in csrc/gemm_f32.cu for `--planted-faults`: (name, text
 # in the source, its replacement).
+# The chunk add runs after panel p of a block whose slice starts at kb,
+# so kb + p·BK < CHUNK_K holds for K's first chunk only.
 PLANTED_FAULTS = [
     ("first_k_chunk_x1.001", "acc[i][j] += part[i][j];",
-     "acc[i][j] += (k0 < CHUNK_K ? 1.001f : 1.f) * part[i][j];"),
+     "acc[i][j] += (kb + p * BK < CHUNK_K ? 1.001f : 1.f) * part[i][j];"),
     ("first_k_chunk_x1.01", "acc[i][j] += part[i][j];",
-     "acc[i][j] += (k0 < CHUNK_K ? 1.01f : 1.f) * part[i][j];"),
+     "acc[i][j] += (kb + p * BK < CHUNK_K ? 1.01f : 1.f) * part[i][j];"),
     ("ragged_k_chunk_dropped",
-     "if ((k0 + BK) % CHUNK_K == 0 || k0 + BK >= K) {",
-     "if ((k0 + BK) % CHUNK_K == 0) {"),
+     "if ((p + 1) % PANELS_PER_CHUNK == 0 || p + 1 == n_panels) {",
+     "if ((p + 1) % PANELS_PER_CHUNK == 0) {"),
 ]
 
 
@@ -1173,7 +1187,13 @@ ATTN_SHAPES = [("serve", 10, 16, 16, 32, 8, 64, True, 8192),
                ("ragged2000", 2, 2000, 2000, 32, 8, 64, True, 0),
                # zamba2-7b's shared block at the phase-14 prefill: head
                # dim 3584 / 32 = 112
-               ("zamba2", 2, 512, 512, 32, 32, 112, True, 0)]
+               ("zamba2", 2, 512, 512, 32, 32, 112, True, 0),
+               # the kernel's other head dims: 32 (the reduced configs'),
+               # ragged, windowed, GQA 8:1; and 128 at qwen2-7b's heads
+               # (28 over 4 kv heads: a group of 7 packs 64 query rows
+               # unevenly)
+               ("hd32", 3, 777, 777, 16, 2, 32, True, 256),
+               ("hd128", 2, 1024, 1024, 28, 4, 128, True, 0)]
 # the factor stacks lowrank_pairwise_sq hands the Gram kernel at full
 # width, C·r = 40 rows: (name, B, P, launches per call)
 GRAM_SHAPES = [("embed.u", 1, 128256, 1), ("embed.v", 1, 2048, 1),
@@ -1313,7 +1333,10 @@ def check_flash_attention(torch, fa_mod, ref):
             q, k, v = (t.to(dtype) for t in (q, k, v))
             out = fa_mod.flash_attn_f32(q, k, v, causal=causal,
                                         window=window)
+            again = fa_mod.flash_attn_f32(q, k, v, causal=causal,
+                                          window=window)
             torch.cuda.synchronize()
+            repeat = bool(torch.equal(out, again))
             want = ref.attention_ref(q, k, v, causal=causal, window=window)
             err = (out.float() - want.float()).abs()
             if dtype == torch.float32:
@@ -1337,6 +1360,7 @@ def check_flash_attention(torch, fa_mod, ref):
                        if name == "serve" and dtype == torch.bfloat16 else 0,
                        causal=causal, window=window, dtype=str(dtype),
                        max_abs_err=float(err.max()), within_tolerance=ok,
+                       bitwise_repeat=repeat,
                        ms=median_ms(lambda: fa_mod.flash_attn_f32(
                            q, k, v, causal=causal, window=window)),
                        plain_ms=median_ms(lambda: ref.attention_ref(
@@ -1346,13 +1370,18 @@ def check_flash_attention(torch, fa_mod, ref):
                        bound_ms=bound_ms, bound_by=bound_by)
             rows.append(row)
             print(f"  attn {name:10s} {str(dtype)[6:]:8s}: max abs err "
-                  f"{row['max_abs_err']:.3e}; kernel {row['ms']:.4f} ms, "
+                  f"{row['max_abs_err']:.3e}, repeat "
+                  f"{'bitwise' if repeat else 'DIFFERS'}; kernel "
+                  f"{row['ms']:.4f} ms, "
                   f"plain {row['plain_ms']:.4f}, sdpa "
                   f"{row['library_ms']:.4f}, bound {bound_ms:.4f} "
                   f"({bound_by})")
             if not ok:
                 fail(f"flash_attn_f32 {name} {dtype} disagrees with its "
                      "plain version beyond the stated tolerance")
+            if not repeat:
+                fail(f"flash_attn_f32 {name} {dtype}: two launches on the "
+                     "same inputs differ")
             max_abs = max(max_abs, row["max_abs_err"])
     return rows, max_abs
 

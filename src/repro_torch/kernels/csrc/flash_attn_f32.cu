@@ -6,40 +6,380 @@
 //   h / (H / KV); out (B, Tq, H, hd) in q's dtype
 //
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention_pallas
-// (body _fa_kernel). What it computes is the Pallas kernel's: scores
-// (q·scale)·kᵀ in f32, scale = hd^-1/2 as the caller rounds it; a key is
-// masked (score −1e30) when it lies at or past Tk, after the query
-// (causal), or `window` or more positions before it;
-// the running max m, sum l and output accumulator are rescaled per key
-// tile; out = acc / max(l, 1e-30). The TPU kernel runs a sequential grid
-// axis over key blocks with (m, l, acc) in VMEM scratch; here one block
-// owns (b, h, 64 query rows) and loops over key tiles itself. Key tiles
-// that are masked for every row of the block (above the causal diagonal,
-// wholly outside the window) are skipped: for a row that has a valid key
-// in some tile they add exactly nothing to (m, l, acc). A row with no valid
+// (body _fa_kernel). What it computes is the Pallas kernel's: scores q·kᵀ
+// in f32 times scale = hd^-1/2 as the caller rounds it; a key is masked
+// (score −1e30) when it lies at or past Tk, after the query (causal), or
+// `window` or more positions before it; the running max m, sum l and
+// output accumulator are rescaled per key tile; out = acc / max(l, 1e-30).
+// The TPU kernel runs a sequential grid axis over key blocks with
+// (m, l, acc) in VMEM scratch; here a block loops over key tiles itself.
+// Key tiles that are masked for every row of the block (above the causal
+// diagonal, wholly outside the window) are skipped: they add exactly
+// nothing to (m, l, acc). A masked key adds p = 0, so a row with no valid
 // key at all (not possible in causal self-attention, where each query sees
 // itself) gets 0 here where the Pallas kernel averages the values of the
 // padded key blocks.
 //
-// Layout of a block: 256 threads, 4 per query row. Each thread keeps its
-// row of q (scaled) in registers, computes the scores of 16 of the tile's
-// 64 keys (keys l, l+4, …), shares max and sum over its 4 lanes with warp
-// shuffles, writes its probabilities to shared memory, and accumulates
-// p·v for 16 of the hd columns (columns l, l+4, …) over all 64 keys.
-// K (padded rows: no bank conflicts), V and P tiles live in dynamic shared
-// memory.
+// Bound on an H100 SXM: 4·hd FLOP per valid (query, key) pair at 989
+// TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32), against the bytes of
+// q, k, v and out at 3.35 TB/s; long sequences are bound by operations,
+// the serving shape (16 tokens) by bytes.
 //
-// Bound on an H100 SXM: operations at the serving shape's head counts and
-// long sequences (4·hd FLOP per (query, key) pair against the bytes of q,
-// k, v and o); this first kernel computes in f32 FFMA, not the tensor
-// cores, so it stays well above that bound.
+// bf16: tensor cores, the FlashAttention-2 shape.
+//  * A block of 4 warps owns 64 query rows, 16 a warp, of one (batch, kv
+//    head): the rows are (position, query head) pairs of the kv head's
+//    group, position-major, so the group's query heads share every K/V
+//    tile the block loads (at the serving shape, Tq = 16 and a group of 4
+//    heads fill the tile; GQA reads K/V once per group, not per head).
+//  * Q, K and V tiles (64 rows) are copied to shared memory with 16-byte
+//    cp.async (rows padded by 16 bytes: ldmatrix reads without bank
+//    conflicts); K/V tiles are double-buffered, the next tile's copy in
+//    flight while this one computes.
+//  * S = Q·Kᵀ by mma.sync.m16n8k16 (bf16 inputs, f32 accumulation) from
+//    ldmatrix fragments; bf16·bf16 products are exact in f32, so S is an
+//    f32 sum in another order. `scale` multiplies the f32 scores after the
+//    product (a scaled q would not be a bf16 value). S and P stay in
+//    registers: the accumulator fragment of S is the A fragment of P·V.
+//    Only tiles that cross the diagonal, the window's edge or Tk compute
+//    the mask; the others are valid for every row of the block.
+//  * P·V: FlashAttention-2 rounds P to bf16 before P·V. That is ~2⁻⁹
+//    relative to each weight, and it fails this kernel's tolerance (one
+//    bf16 rounding of the output, 2⁻⁷·|out| + 1e-6) where cancellation
+//    leaves |out| ~1e-5; so does a two-term split. P is split exactly into
+//    three bf16 terms, P = hi + mid + lo (each the bf16 rounding of what
+//    the earlier terms leave), and all three multiply the same bf16 V
+//    fragment (ldmatrix.trans) into one f32 tile accumulator: P carries
+//    ~24 bits, as an f32 P would. The tile's P·V starts from 0 and is
+//    added to the running output by FFMA, acc = acc·corr + tile, so the
+//    tensor cores' own f32 additions (which align and truncate) never add
+//    a small tile into a long sum.
+//  Error model: scores within ~hd·2⁻²⁴·Σ|q·k| of an f32 sum; P within
+//  2⁻²⁴ relative (3 terms) and expf's 1 ulp; P·V within 64·2⁻²³ relative
+//  to Σ|p·v| per tile plus one f32 rounding per tile.
 //
-// Plain C interface for ctypes; returns cudaGetLastError().
+// f32: FFMA (phase 11's and 14's f32 oracles; nothing serves in f32).
+// One block owns (b, h, 64 query rows), 256 threads, 4 per query row:
+// each thread keeps its row of q (scaled) in registers, computes the
+// scores of 16 of the tile's 64 keys (keys l, l+4, …), shares max and sum
+// over its 4 lanes with warp shuffles, writes its probabilities to shared
+// memory, and accumulates p·v for 16 of the hd columns over all 64 keys.
+//
+// Plain C interface for ctypes; returns cudaGetLastError(). q, k, v and
+// out start on 16-byte boundaries (the wrapper checks q, k and v).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr float NEG_INF = -1e30f;
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores
+// ---------------------------------------------------------------------------
+
+constexpr int TC_THREADS = 128;   // 4 warps
+constexpr int TC_BQ = 64;         // query rows per block, 16 a warp
+constexpr int TC_BK = 64;         // keys per tile
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a·b: a 16×16 (row), b 16×8 (col), bf16; d 16×8 f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// (x0, x1) = hi + mid + lo exactly up to the last term's rounding: each
+// term the bf16 rounding of what the earlier ones leave (the differences
+// are exact in f32). Packed as bf16x2, x0 in the low half.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
+                                       uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float r0 = x0 - __low2float(h), r1 = x1 - __high2float(h);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(r0, r1);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(r0 - __low2float(m), r1 - __high2float(m));
+  hi = bits(h);
+  mid = bits(m);
+  lo = bits(l);
+}
+
+constexpr int TC_PAD = 8;  // bf16 a shared row is padded by: 16 bytes
+
+template <int HD>
+constexpr size_t tc_smem_bytes() {
+  // Q, then 2 stages of K, then 2 of V
+  return sizeof(__nv_bfloat16) * (size_t)(TC_BQ + 4 * TC_BK) * (HD + TC_PAD);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       __nv_bfloat16* __restrict__ o, int tq, int tk, int h,
+                       int kv, int causal, int window, float scale) {
+  static_assert(HD % 16 == 0, "head dim in k16 steps and pairs of n8 blocks");
+  constexpr int S = HD + TC_PAD;  // bf16 per shared row
+  constexpr int NB = HD / 8;  // n8 blocks of the output's columns
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + TC_BQ * S;
+  __nv_bfloat16* vs = ks + 2 * TC_BK * S;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = h / kv;
+  const int kvh = blockIdx.y, b = blockIdx.z;
+  const int rows = tq * g;  // (position, head) rows of this (b, kv head)
+  const int r0 = blockIdx.x * TC_BQ;
+  const int q_first = r0 / g;
+  const int q_last = (min(r0 + TC_BQ, rows) - 1) / g;
+
+  // the Q tile: row r is q[b, r / g, kvh·g + r % g, :]
+  for (int c = tid; c < TC_BQ * HD / 8; c += TC_THREADS) {
+    const int row = c / (HD / 8), col = c % (HD / 8) * 8;
+    const int r = r0 + row;
+    const bool ok = r < rows;
+    const __nv_bfloat16* src =
+        ok ? q + (((size_t)b * tq + r / g) * h + kvh * g + r % g) * HD + col
+           : q;
+    cp_async16(qs + row * S + col, src, ok);
+  }
+  auto load_kv = [&](int kt, int stage) {
+    for (int c = tid; c < TC_BK * HD / 8; c += TC_THREADS) {
+      const int row = c / (HD / 8), col = c % (HD / 8) * 8;
+      const int kpos = kt * TC_BK + row;
+      const bool ok = kpos < tk;  // past Tk: zeros (masked anyway)
+      const size_t off =
+          (((size_t)b * tk + (ok ? kpos : 0)) * kv + kvh) * HD + col;
+      cp_async16(ks + (stage * TC_BK + row) * S + col, k + off, ok);
+      cp_async16(vs + (stage * TC_BK + row) * S + col, v + off, ok);
+    }
+  };
+
+  const int n_kt = (tk + TC_BK - 1) / TC_BK;
+  const int kt_end = causal ? min(n_kt, q_last / TC_BK + 1) : n_kt;
+  const int kt_begin = window > 0 ? max(0, q_first - window + 1) / TC_BK : 0;
+
+  // this thread's two rows of the warp's 16: lane/4 and lane/4 + 8
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) qpos[i] = (r0 + warp * 16 + lane / 4 + 8 * i) / g;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float acc[NB][4];
+#pragma unroll
+  for (int n = 0; n < NB; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  if (kt_begin < kt_end) load_kv(kt_begin, 0);
+  cp_async_commit();  // with the Q tile
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int stage = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) load_kv(kt + 1, stage ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile (and Q) landed, the next in flight
+    __syncthreads();
+    const __nv_bfloat16* kst = ks + stage * TC_BK * S;
+    const __nv_bfloat16* vst = vs + stage * TC_BK * S;
+
+    // S = Q·Kᵀ: 16 rows × 64 keys a warp, 8 n8 blocks of keys
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < HD / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, qs + (warp * 16 + lane % 16) * S + kk * 16 + lane / 16 * 8);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, kst + (jp * 16 + lane / 16 * 8 + lane % 8) * S +
+                            kk * 16 + (lane / 8) % 2 * 8);
+        mma_bf16(s[2 * jp], a, bk[0], bk[1]);
+        mma_bf16(s[2 * jp + 1], a, bk[2], bk[3]);
+      }
+    }
+
+    // scale, mask, online softmax; element e of block j: row lane/4 + 8·(e/2),
+    // key kt·64 + 8j + 2·(lane%4) + e%2. A tile whose every key is valid
+    // for every row of the block (below the diagonal, inside the window and
+    // Tk) skips the mask: the same values, fewer instructions.
+    const int k_first = kt * TC_BK, k_last = k_first + TC_BK - 1;
+    const bool all_valid = k_last < tk && (!causal || k_last <= q_first) &&
+                           (window <= 0 || q_last - k_first < window);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (all_valid) {
+          s[j][e] *= scale;
+        } else {
+          const int kpos = k_first + 8 * j + 2 * (lane % 4) + e % 2;
+          const int qp = qpos[e / 2];
+          bool valid = kpos < tk;
+          if (causal) valid = valid && qp >= kpos;
+          if (window > 0) valid = valid && qp - kpos < window;
+          s[j][e] = valid ? s[j][e] * scale : NEG_INF;
+        }
+        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+      }
+    float corr[2], psum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      corr[i] = expf(m[i] - m_new);
+      m[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // a masked key adds exactly 0, also while the row's m is −1e30
+        const float p = all_valid || s[j][e] > 0.5f * NEG_INF
+                            ? expf(s[j][e] - m[e / 2])
+                            : 0.f;
+        s[j][e] = p;
+        psum[e / 2] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 1);
+      psum[i] += __shfl_xor_sync(0xffffffffu, psum[i], 2);
+      l[i] = l[i] * corr[i] + psum[i];
+    }
+
+    // the tile's P·V from 0, P in three bf16 terms, then into acc
+    float t[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) t[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < TC_BK / 16; ++kk) {
+      uint32_t hi[4], mid[4], lo[4];
+      split3(s[2 * kk][0], s[2 * kk][1], hi[0], mid[0], lo[0]);
+      split3(s[2 * kk][2], s[2 * kk][3], hi[1], mid[1], lo[1]);
+      split3(s[2 * kk + 1][0], s[2 * kk + 1][1], hi[2], mid[2], lo[2]);
+      split3(s[2 * kk + 1][2], s[2 * kk + 1][3], hi[3], mid[3], lo[3]);
+#pragma unroll
+      for (int np = 0; np < NB / 2; ++np) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, vst + (kk * 16 + (lane / 8) % 2 * 8 + lane % 8) * S +
+                                  np * 16 + lane / 16 * 8);
+        mma_bf16(t[2 * np], hi, bv[0], bv[1]);
+        mma_bf16(t[2 * np], mid, bv[0], bv[1]);
+        mma_bf16(t[2 * np], lo, bv[0], bv[1]);
+        mma_bf16(t[2 * np + 1], hi, bv[2], bv[3]);
+        mma_bf16(t[2 * np + 1], mid, bv[2], bv[3]);
+        mma_bf16(t[2 * np + 1], lo, bv[2], bv[3]);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[n][e] = fmaf(acc[n][e], corr[e / 2], t[n][e]);
+    __syncthreads();  // this stage is read; the next prefetch may land here
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + warp * 16 + lane / 4 + 8 * i;
+    if (r >= rows) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    __nv_bfloat16* orow =
+        o + (((size_t)b * tq + r / g) * h + kvh * g + r % g) * HD +
+        2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(
+          acc[n][2 * i] / den, acc[n][2 * i + 1] / den);
+  }
+}
+
+template <int HD>
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                int64_t b, int64_t tq, int64_t tk, int64_t h, int64_t kv,
+                int causal, int64_t window, float scale, cudaStream_t st) {
+  // the attribute is per device: one bit per device it was set on
+  static uint64_t configured = 0;
+  constexpr size_t smem = tc_smem_bytes<HD>();
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
+  if (!(configured & bit)) {
+    err = cudaFuncSetAttribute(flash_attn_bf16_kernel<HD>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    configured |= bit;
+  }
+  const int64_t rows = tq * (h / kv);
+  const dim3 grid((unsigned)((rows + TC_BQ - 1) / TC_BQ), (unsigned)kv,
+                  (unsigned)b);
+  flash_attn_bf16_kernel<HD><<<grid, TC_THREADS, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      (int)tq, (int)tk, (int)h, (int)kv, causal, (int)window, scale);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32: FFMA
+// ---------------------------------------------------------------------------
 
 constexpr int THREADS = 256;
 constexpr int BQ = 64;               // query rows per block
@@ -47,20 +387,6 @@ constexpr int BK = 64;               // keys per tile
 constexpr int LANES = 4;             // threads per query row
 constexpr int KEYS = BK / LANES;     // scores per thread per tile
 constexpr int PS = BK + 4;           // row stride of the P tile
-constexpr float NEG_INF = -1e30f;
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 template <int HD>
 constexpr size_t smem_bytes() {
@@ -68,11 +394,11 @@ constexpr size_t smem_bytes() {
                           (size_t)BQ * PS);
 }
 
-template <typename T, int HD>
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
-flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, T* __restrict__ o, int tq, int tk,
-                  int h, int kv, int causal, int window, float scale) {
+flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ o, int tq,
+                  int tk, int h, int kv, int causal, int window, float scale) {
   extern __shared__ float smem[];
   float* ks = smem;                          // [BK][HD + 1]
   float* vs = ks + BK * (HD + 1);            // [BK][HD]
@@ -88,9 +414,9 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const bool live = qpos < tq;
 
   float qr[HD];
-  const T* qrow = q + (((size_t)b * tq + (live ? qpos : 0)) * h + hh) * HD;
+  const float* qrow = q + (((size_t)b * tq + (live ? qpos : 0)) * h + hh) * HD;
 #pragma unroll
-  for (int c = 0; c < HD; ++c) qr[c] = live ? to_f32(qrow[c]) * scale : 0.f;
+  for (int c = 0; c < HD; ++c) qr[c] = live ? qrow[c] * scale : 0.f;
 
   float m = NEG_INF, l = 0.f, acc[COLS];
 #pragma unroll
@@ -110,8 +436,8 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float kx = 0.f, vx = 0.f;
       if (kpos < tk) {
         const size_t off = (((size_t)b * tk + kpos) * kv + kvh) * HD + c;
-        kx = to_f32(k[off]);
-        vx = to_f32(v[off]);
+        kx = k[off];
+        vx = v[off];
       }
       ks[key * (HD + 1) + c] = kx;
       vs[key * HD + c] = vx;
@@ -164,16 +490,16 @@ flash_attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (live) {
     const float den = fmaxf(l, 1e-30f);
-    T* orow = o + (((size_t)b * tq + qpos) * h + hh) * HD + lane;
+    float* orow = o + (((size_t)b * tq + qpos) * h + hh) * HD + lane;
 #pragma unroll
-    for (int c = 0; c < COLS; ++c) orow[LANES * c] = from_f32<T>(acc[c] / den);
+    for (int c = 0; c < COLS; ++c) orow[LANES * c] = acc[c] / den;
   }
 }
 
-template <typename T, int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
-           int64_t tq, int64_t tk, int64_t h, int64_t kv, int causal,
-           int64_t window, float scale, cudaStream_t st) {
+template <int HD>
+int launch_f32(const void* q, const void* k, const void* v, void* o,
+               int64_t b, int64_t tq, int64_t tk, int64_t h, int64_t kv,
+               int causal, int64_t window, float scale, cudaStream_t st) {
   // the attribute is per device: one bit per device it was set on
   static uint64_t configured = 0;
   constexpr size_t smem = smem_bytes<HD>();
@@ -183,38 +509,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int64_t b,
   const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
   if (!(configured & bit)) {
     err = cudaFuncSetAttribute(
-        flash_attn_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured |= bit;
   }
   const dim3 grid((unsigned)((tq + BQ - 1) / BQ), (unsigned)h, (unsigned)b);
-  flash_attn_kernel<T, HD><<<grid, THREADS, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), (int)tq, (int)tk, (int)h,
-      (int)kv, causal, (int)window, scale);
+  flash_attn_kernel<HD><<<grid, THREADS, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), (int)tq, (int)tk,
+      (int)h, (int)kv, causal, (int)window, scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int64_t b,
-             int64_t tq, int64_t tk, int64_t h, int64_t kv, int64_t hd,
-             int causal, int64_t window, float scale, cudaStream_t st) {
-  switch (hd) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, b, tq, tk, h, kv, causal, window,
-                           scale, st);
-    case 64:
-      return launch<T, 64>(q, k, v, o, b, tq, tk, h, kv, causal, window,
-                           scale, st);
-    case 112:  // zamba2's shared attention block, 3584 / 32 heads
-      return launch<T, 112>(q, k, v, o, b, tq, tk, h, kv, causal, window,
-                            scale, st);
-    case 128:
-      return launch<T, 128>(q, k, v, o, b, tq, tk, h, kv, causal, window,
-                            scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <int HD>
+int launch(const void* q, const void* k, const void* v, void* o, int bf16,
+           int64_t b, int64_t tq, int64_t tk, int64_t h, int64_t kv,
+           int causal, int64_t window, float scale, cudaStream_t st) {
+  return bf16 ? launch_bf16<HD>(q, k, v, o, b, tq, tk, h, kv, causal, window,
+                                scale, st)
+              : launch_f32<HD>(q, k, v, o, b, tq, tk, h, kv, causal, window,
+                               scale, st);
 }
 
 }  // namespace
@@ -225,8 +540,19 @@ extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
                               int causal, int64_t window, float scale,
                               void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, b, tq, tk, h, kv, hd,
-                                        causal, window, scale, st)
-              : dispatch<float>(q, k, v, o, b, tq, tk, h, kv, hd, causal,
-                                window, scale, st);
+  switch (hd) {
+    case 32:
+      return launch<32>(q, k, v, o, bf16, b, tq, tk, h, kv, causal, window,
+                        scale, st);
+    case 64:
+      return launch<64>(q, k, v, o, bf16, b, tq, tk, h, kv, causal, window,
+                        scale, st);
+    case 112:  // zamba2's shared attention block, 3584 / 32 heads
+      return launch<112>(q, k, v, o, bf16, b, tq, tk, h, kv, causal, window,
+                         scale, st);
+    case 128:
+      return launch<128>(q, k, v, o, bf16, b, tq, tk, h, kv, causal, window,
+                         scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -7,7 +7,9 @@ softmax attention with an online softmax over key tiles.
 
 `flash_attn_f32` launches the hand-written kernel ``csrc/flash_attn_f32.cu``
 (bf16 or f32, contiguous CUDA tensors, hd 32, 64, 112 or 128; anything
-else raises). Its plain version is `ref.attention_ref`. The model reaches both
+else raises): bf16 on the tensor cores (mma.sync, P·V with P in three
+bf16 terms), f32 in FFMA; see its header. Its plain version is
+`ref.attention_ref`. The model reaches both
 through `models/layers.flash_attention`, which routes by device: the
 kernel on CUDA, the reference's chunked formulation on the CPU. The
 kernel has no backward: a CUDA input that requires grad raises."""
@@ -78,6 +80,11 @@ def flash_attn_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if min(b, tq, tk) == 0 or max(b, h) > _MAX_GRID_YZ:
         raise ValueError(f"flash_attn_f32: no grid for q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attn_f32: {name} must start on a "
+                             "16-byte boundary (the kernel copies 16-byte "
+                             "rows)")
     out = torch.empty_like(q)
     scale = float(np.float32(hd ** -0.5))
     with torch.cuda.device(q.device):

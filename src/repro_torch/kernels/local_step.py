@@ -7,7 +7,8 @@
 * `gemm` — the f32 matrix product of every conv, forward and backward.
   On a CUDA tensor it launches the hand-written kernel
   ``csrc/gemm_f32.cu`` (see its header for what it replaces and what
-  bounds it); its gradient is a `torch.autograd.Function` whose backward
+  bounds it) with the plan `gemm_plan` chooses: block tile and split-K;
+  its gradient is a `torch.autograd.Function` whose backward
   runs the same kernel for dA = G·Bᵀ and dB = Aᵀ·G through transpose
   flags, as the reference's custom VJP runs its Pallas kernel. On a CPU
   tensor it takes the plain version `ref.gemm_ref`. Any other device
@@ -27,7 +28,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -38,8 +39,23 @@ from repro_torch.kernels.ref import gemm_ref, sgd_update_ref
 # Attribute under which a model registers its training-loss twin.
 FUSED_LOSS_ATTR = "fused_step_loss"
 
-_BLOCK_M = 64          # the kernel's output tile rows (csrc/gemm_f32.cu)
-_MAX_GRID_Y = 65535    # CUDA's limit on gridDim.y
+# csrc/gemm_f32.cu's block tiles (rows, cols), by the index its C
+# interface takes, largest first
+GEMM_TILES = ((128, 128), (128, 64), (64, 64))
+CHUNK_K = 128          # K per partial sum, the reference's BLOCK_K
+N_SMS = 132            # H100 SXM streaming multiprocessors
+# a product whose tiles fill this many SMs is not split
+_FILL = N_SMS * 9 // 10
+# the 128×128 tile (one block an SM) only for K of at least 4 chunks:
+# below that its loads and epilogue are not hidden behind its FMAs
+_BIG_TILE_MIN_K = 4 * CHUNK_K
+# a split product aims at this many blocks (three waves of the 64×64
+# tile's two blocks an SM) with at most _MAX_SPLITS slices (the tile's last
+# block adds them one after another)
+_SPLIT_BLOCKS = 6 * N_SMS
+_MAX_SPLITS = 128
+_MAX_GRID_YZ = 65535   # CUDA's limit on gridDim.y and gridDim.z
+_COUNTERS = 4096       # split tiles a launch may have (one counter each)
 
 
 def fused_loss_for(loss_fn: Callable) -> Callable:
@@ -67,12 +83,72 @@ def im2col(x: torch.Tensor, k: int = 3) -> torch.Tensor:
 # The GEMM kernel's wrapper
 # ---------------------------------------------------------------------------
 
+class GemmPlan(NamedTuple):
+    """How csrc/gemm_f32.cu computes one (M, K) @ (K, N) product: block
+    tile `GEMM_TILES[tile]`, and `splits` slices of `slice_k` along K
+    (a multiple of `CHUNK_K`; K itself when `splits` is 1)."""
+    tile: int
+    splits: int
+    slice_k: int
+
+    @property
+    def block(self) -> Tuple[int, int]:
+        return GEMM_TILES[self.tile]
+
+    def grid(self, m: int, n: int) -> Tuple[int, int, int]:
+        """(x, y, z) = (column tiles, row tiles, slices)."""
+        bm, bn = self.block
+        return -(-n // bn), -(-m // bm), self.splits
+
+    def workspace(self, m: int, n: int) -> int:
+        """Floats of the slices' partial sums (0 when not split)."""
+        if self.splits == 1:
+            return 0
+        gx, gy, _ = self.grid(m, n)
+        bm, bn = self.block
+        return gx * gy * self.splits * bm * bn
+
+
+def gemm_plan(m: int, n: int, k: int) -> GemmPlan:
+    """The plan of one product. Tile: the largest whose tiles (nearly)
+    fill the card's SMs, not wider or taller than the output needs
+    (N ≤ 64 or M ≤ 64 take 64), 128×128 only for a long K; 64×64 when none
+    does. Split-K when the tiles leave SMs idle and K holds more than one
+    128-wide chunk: about `_SPLIT_BLOCKS` blocks in at most `_MAX_SPLITS`
+    slices, each a whole number of chunks, none empty. Raises where the
+    grid would exceed CUDA's limits. (The constants were read off a sweep
+    of plans over the paper CNN's products on an H100.)"""
+    if min(m, n, k) <= 0:
+        raise ValueError(f"gemm_plan: empty product ({m}, {k}) @ ({k}, {n})")
+    tile = len(GEMM_TILES) - 1
+    for i, (bm, bn) in enumerate(GEMM_TILES):
+        if (bm > 64 and m <= 64) or (bn > 64 and n <= 64) or (
+                i == 0 and k < _BIG_TILE_MIN_K):
+            continue
+        if -(-m // bm) * -(-n // bn) >= _FILL:
+            tile = i
+            break
+    bm, bn = GEMM_TILES[tile]
+    tiles = -(-m // bm) * -(-n // bn)
+    chunks = -(-k // CHUNK_K)
+    splits, slice_k = 1, k
+    if tiles < _FILL and chunks > 1:
+        want = min(chunks, _MAX_SPLITS, -(-_SPLIT_BLOCKS // tiles))
+        per = -(-chunks // want)
+        splits, slice_k = -(-chunks // per), per * CHUNK_K
+    plan = GemmPlan(tile, splits, slice_k)
+    _, gy, gz = plan.grid(m, n)
+    if gy > _MAX_GRID_YZ or gz > _MAX_GRID_YZ or (
+            splits > 1 and tiles > _COUNTERS):
+        raise ValueError(f"gemm_plan: no grid for ({m}, {k}) @ ({k}, {n})")
+    return plan
+
+
 def bind_gemm(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signature of `lib.gemm_f32` (csrc/gemm_f32.cu)."""
     fn = lib.gemm_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    fn.argtypes = [p, p, p, i64, i64, i64, i32, i32, i32, i64, i32, p, p, p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -80,6 +156,15 @@ def bind_gemm(lib: ctypes.CDLL) -> ctypes.CDLL:
 @functools.cache
 def _gemm_lib() -> ctypes.CDLL:
     return bind_gemm(build.load("gemm_f32"))
+
+
+@functools.cache
+def _split_counters(device: torch.device, stream: int) -> torch.Tensor:
+    """The split tiles' counters of one stream of one device: zeroed once
+    here; the last block of each tile sets its counter back to 0, so a
+    split product launches nothing but the kernel. Keyed by stream, so that
+    products on two streams never share a counter."""
+    return torch.zeros(_COUNTERS, device=device, dtype=torch.int32)
 
 
 def gemm_f32(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
@@ -108,14 +193,22 @@ def gemm_f32(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
                          f"({m}, {k}), op(b) is ({k2}, {n})")
     if min(m, n, k) == 0:
         raise ValueError(f"gemm_f32: empty product ({m}, {k}) @ ({k}, {n})")
-    if (m + _BLOCK_M - 1) // _BLOCK_M > _MAX_GRID_Y:
-        raise ValueError(f"gemm_f32: M={m} exceeds the kernel's grid")
+    plan = gemm_plan(m, n, k)
     lib = _gemm_lib()
     c = torch.empty((m, n), device=a.device, dtype=torch.float32)
+    ws = counters = None
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
+        if plan.splits > 1:
+            ws = torch.empty(plan.workspace(m, n), device=a.device,
+                             dtype=torch.float32)
+            counters = _split_counters(a.device, stream)
         err = lib.gemm_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                           int(trans_a), int(trans_b), stream)
+                           int(trans_a), int(trans_b), plan.tile,
+                           plan.slice_k, plan.splits,
+                           None if ws is None else ws.data_ptr(),
+                           None if counters is None else counters.data_ptr(),
+                           stream)
     if err != 0:
         raise RuntimeError(f"gemm_f32: launch failed with CUDA error {err}")
     gemm_f32.launches += 1
