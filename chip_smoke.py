@@ -38,9 +38,11 @@ Phases, each failing the run with a nonzero exit:
              with the native forward's decisions pinned and without
 10. serving kernels — BGMV, flash attention and the factor Gram against
              their plain versions at the full-width llama3.2-1b serving
-             shapes (and long sequences for attention, at every head dim
-             the kernel has: 32, 64, 112, 128); errors, times beside the
-             bound, the plain version and a library call
+             shapes (BGMV also ragged and at rank 64; long sequences for
+             attention, at every head dim the kernel has: 32, 64, 112,
+             128), each case launched twice and bitwise equal; errors,
+             times beside the bound, the plain version and a library
+             call, and each BGMV kernel's device time at the sites
 11. llama serving — a full-width llama3.2-1b factor pool (5 members,
              rank 8) through `PoolServer.from_pool`: f32 factored scores
              against the densified oracle with exact launch counts, the
@@ -52,7 +54,9 @@ Phases, each failing the run with a nonzero exit:
 13. GLA kernel — the GLA chunk kernel against its plain version at the
              full-width layer calls of rwkv6-7b (per-channel decay,
              bonus) and zamba2-7b (scalar decay), bf16 and f32, ragged T
-             and a nonzero initial state; errors, times, bounds
+             and a nonzero initial state, a strong decay, K = 48 and
+             V = 40, each case launched twice and bitwise equal; errors,
+             times, bounds, and each pass's device time
 14. SSM serving — rwkv6-7b and zamba2-7b at full width and depth in bf16
              through `launch.steps.make_step`: prefill of a 2 × 512
              prompt, the grow, 16 greedy decode steps, with exact GLA and
@@ -691,11 +695,12 @@ def planted_faults(torch, local_step):
     return readings
 
 
-def _profile(torch, run, n_steps, label):
+def _profile(torch, run, n_steps, label, watch=()):
     """`torch.profiler` over `run(n_steps)`: host time per step, device
     busy time per step (the kernels' summed device time), the device's
-    idle share, kernels launched per step and the five kernels with the
-    most device time."""
+    idle share, kernels launched per step, the five kernels with the
+    most device time, and the device time per step of every kernel whose
+    name holds one of `watch` (with its share of the busy time)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -717,6 +722,16 @@ def _profile(torch, run, n_steps, label):
                idle_share=1.0 - busy_us / 1e6 / host_s if host_s else None,
                kernels_per_step=len(kernels) / n_steps,
                top=[(name, us / 1e3 / n_steps) for name, us in top])
+    watched = {}
+    for name, us in by_name.items():
+        if any(w in name for w in watch):
+            short = _short_name(name)
+            watched[short] = watched.get(short, 0.0) + us / 1e3 / n_steps
+    if watch:
+        out["watched"] = watched
+        out["watched_share"] = (sum(watched.values()) /
+                                out["device_busy_ms_per_step"]
+                                if busy_us else None)
     print(f"  {label}: {out['host_ms_per_step']:.3f} ms/step on the host "
           f"clock (profiler on), device busy "
           f"{out['device_busy_ms_per_step']:.3f} ms/step, idle share "
@@ -724,6 +739,10 @@ def _profile(torch, run, n_steps, label):
           "kernels/step")
     for name, ms in out["top"]:
         print(f"    {ms:8.4f} ms/step  {name[:90]}")
+    if watch:
+        print(f"    watched: " + ", ".join(
+            f"{k} {v:.4f} ms/step" for k, v in watched.items()) +
+            f" ({out['watched_share']:.3f} of the busy time)")
     return out
 
 
@@ -1229,28 +1248,105 @@ def _bound(bytes_, ops, peak):
                  op_ms=op_s * 1e3))
 
 
+def _short_name(name):
+    """A kernel's name without its namespace, template arguments and
+    parameters."""
+    import re
+    found = re.findall(r"(\w+_kernel)", name)
+    return found[0] if found else name[:48]
+
+
+def kernel_profile(torch, fn, keep, reps=10):
+    """Where one call of `fn` spends its device time, by kernel, under
+    `torch.profiler` (L2 flushed and the card spun ahead of the host
+    before each call, as in `median_ms`): each kernel's mean µs a call
+    (kernels whose names hold one of `keep`), the mean gap from one
+    kernel's end to the next one's start within a call (negative where
+    they overlap, as under a programmatic dependent launch) and the mean
+    span from the first start to the last end."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 << 20, dtype=torch.float32, device=CARD)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            torch.cuda._sleep(1_000_000)
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and any(k in e.name for k in keep)),
+                    key=lambda e: e.time_range.start)
+    if not events:
+        return dict(kernels_seen=0, reps=reps)
+    # a call's kernels follow one another; calls lie ~0.5 ms apart (the
+    # spin): split at gaps of over 100 µs, and read the gaps and spans of
+    # the calls the profiler recorded whole
+    calls, us, seen = [[events[0]]], {}, {}
+    for prev, e in zip(events, events[1:]):
+        if e.time_range.start - prev.time_range.end > 100:
+            calls.append([])
+        calls[-1].append(e)
+    for e in events:
+        name = _short_name(e.name)
+        us[name] = us.get(name, 0.0) + e.time_range.elapsed_us()
+        seen[name] = seen.get(name, 0) + 1
+    us = {name: total / seen[name] for name, total in us.items()}
+    per_call = max(len(c) for c in calls)
+    whole = [c for c in calls if len(c) == per_call]
+    gaps = [statistics.mean(c[i + 1].time_range.start - c[i].time_range.end
+                            for c in whole) for i in range(per_call - 1)]
+    spans = statistics.mean(c[-1].time_range.end - c[0].time_range.start
+                            for c in whole)
+    return dict(us=us, gap_us=gaps, span_us=spans, calls=len(whole),
+                reps=reps)
+
+
+def _profile_line(prof):
+    if "us" not in prof:
+        return f"profile: {prof}"
+    parts = ", ".join(f"{k} {v:.2f}" for k, v in prof["us"].items())
+    gaps = ", ".join(f"{g:.2f}" for g in prof["gap_us"])
+    return (f"profile (us a call): {parts}; gap {gaps or '-'}; span "
+            f"{prof['span_us']:.2f}")
+
+
 def check_bgmv(torch, bgmv_mod, ref):
     """The BGMV kernel at every site of a full-width factored forward
     (per-member bf16 x, as the forward gives it) and, at q and down, with
-    f32 x and with the shared x of `fdense`. Tolerance: elementwise within
-    (d_in + r)·2⁻²³·((|x|·|u|)·|v|ᵀ) of the plain version (two f32 sums
-    taken in other orders). Times: kernel, plain version, two `torch.bmm`
-    (the library yardstick)."""
+    f32 x and with the shared x of `fdense`; then ragged shapes (N = 17
+    and 33 rows, d_in = 2000, d_out = 1000, rank 5; an odd d_in and d_out
+    that take the kernel's unvectorised loads and stores) and rank 64.
+    Tolerance: elementwise within (d_in + r)·2⁻²³·((|x|·|u|)·|v|ᵀ) of the
+    plain version (two f32 sums taken in other orders); every case
+    launched twice and bitwise equal. Times: kernel, plain version, two
+    `torch.bmm` (the library yardstick); at the forward's sites a
+    `kernel_profile` of one call (each kernel's device time)."""
     gen = torch.Generator(device=CARD).manual_seed(1)
-    s, n, r = SERVE_S, SERVE_N, SERVE_R
-    cases = [(site, d_in, d_out, c, torch.bfloat16, False)
+    s, n0, r0 = SERVE_S, SERVE_N, SERVE_R
+    cases = [(site, n0, d_in, d_out, r0, c, torch.bfloat16, False)
              for site, d_in, d_out, c in BGMV_SITES]
-    cases += [("q", 2048, 2048, 0, torch.float32, False),
-              ("down", 8192, 2048, 0, torch.float32, False),
-              ("q", 2048, 2048, 0, torch.float32, True)]
+    cases += [("q", n0, 2048, 2048, r0, 0, torch.float32, False),
+              ("down", n0, 8192, 2048, r0, 0, torch.float32, False),
+              ("q", n0, 2048, 2048, r0, 0, torch.float32, True)]
+    cases += [("ragged", n, 2000, 1000, 5, 0, dtype, False)
+              for n in (17, 33) for dtype in (torch.bfloat16, torch.float32)]
+    cases += [("odd", 17, 1999, 999, 5, 0, torch.float32, False),
+              ("odd", 17, 1999, 999, 5, 0, torch.bfloat16, True),
+              ("q.r64", n0, 2048, 2048, 64, 0, torch.bfloat16, False),
+              ("down.r64", n0, 8192, 2048, 64, 0, torch.float32, False)]
     rows, max_abs = [], 0.0
-    for site, d_in, d_out, count, dtype, shared in cases:
+    for site, n, d_in, d_out, r, count, dtype, shared in cases:
         xs = (n, d_in) if shared else (s, n, d_in)
         x = torch.randn(xs, device=CARD, generator=gen).to(dtype)
         u = 0.05 * torch.randn((s, d_in, r), device=CARD, generator=gen)
         v = 0.05 * torch.randn((s, d_out, r), device=CARD, generator=gen)
         out = bgmv_mod.bgmv_f32(x, u, v)
+        again = bgmv_mod.bgmv_f32(x, u, v)
         torch.cuda.synchronize()
+        bitwise = bool(torch.equal(out, again))
         want = ref.bgmv_ref(x, u, v)
         xa = x.double().abs()
         bound = (d_in + r) * 2.0 ** -23 * ((xa @ u.double().abs()) @
@@ -1260,33 +1356,44 @@ def check_bgmv(torch, bgmv_mod, ref):
         xf = x.float()
         vt = v.mT.contiguous()
 
-        def library(xf=xf, u=u, vt=vt, shared=shared):
+        def library(xf=xf, u=u, vt=vt, shared=shared, n=n, d_in=d_in):
             t = torch.bmm(xf.expand(s, n, d_in) if shared else xf, u)
             return torch.bmm(t, vt)
         nbytes = x.numel() * x.element_size() + (u.numel() + v.numel() +
                                                   s * n * d_out) * 4
         bound_ms, bound_by, parts = _bound(
             nbytes, 2 * s * n * r * (d_in + d_out), PEAK_F32_FLOPS)
-        row = dict(parts, site=site, d_in=d_in, d_out=d_out, dtype=str(dtype),
-                   shared=shared, per_forward=count,
+        row = dict(parts, site=site, n=n, d_in=d_in, d_out=d_out, r=r,
+                   dtype=str(dtype), shared=shared, per_forward=count,
                    max_abs_err=float(err.max()),
                    max_rel_to_bound=float((err / bound.clamp_min(1e-30))
                                           .max()),
-                   within_tolerance=ok,
+                   within_tolerance=ok, bitwise_repeat=bitwise,
                    ms=median_ms(lambda: bgmv_mod.bgmv_f32(x, u, v)),
                    plain_ms=median_ms(lambda: ref.bgmv_ref(x, u, v)),
                    library_ms=median_ms(library), bound_ms=bound_ms,
                    bound_by=bound_by)
+        if count:
+            row["profile"] = kernel_profile(
+                torch, lambda: bgmv_mod.bgmv_f32(x, u, v),
+                keep=("shrink", "expand", "bgmv"))
         rows.append(row)
-        print(f"  bgmv {site:7s} {d_in}->{d_out} x {str(dtype)[6:]:8s}"
-              f"{' shared' if shared else ''}: max abs err "
-              f"{row['max_abs_err']:.3e} ({row['max_rel_to_bound']:.2e} of "
-              f"the bound); kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f}, 2x torch.bmm {row['library_ms']:.4f},"
-              f" bound {bound_ms:.4f} ({bound_by})")
+        print(f"  bgmv {site:8s} N={n:2d} r={r:2d} {d_in}->{d_out} x "
+              f"{str(dtype)[6:]:8s}{' shared' if shared else ''}: max abs "
+              f"err {row['max_abs_err']:.3e} ({row['max_rel_to_bound']:.2e}"
+              f" of the bound), repeat "
+              f"{'bitwise' if bitwise else 'DIFFERS'}; kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, 2x "
+              f"torch.bmm {row['library_ms']:.4f}, bound {bound_ms:.4f} "
+              f"({bound_by})")
+        if "profile" in row:
+            print(f"    {_profile_line(row['profile'])}")
         if not ok:
-            fail(f"bgmv_f32 {site} disagrees with its plain version beyond "
-                 "the stated bound")
+            fail(f"bgmv_f32 {site} N={n} r={r} disagrees with its plain "
+                 "version beyond the stated bound")
+        if not bitwise:
+            fail(f"bgmv_f32 {site} N={n} r={r}: two launches on the same "
+                 "inputs differ")
         max_abs = max(max_abs, row["max_abs_err"])
     return rows, max_abs
 
@@ -1589,7 +1696,8 @@ def serve_llama_bf16(torch):
         profile = _profile(
             torch, lambda k: [server.score(trace.arrays, trace.ticks[i])
                               for i in range(k)], 8,
-            f"bf16 {mode} tick of 2 requests (8 ticks; 'step' = tick)")
+            f"bf16 {mode} tick of 2 requests (8 ticks; 'step' = tick)",
+            watch=("shrink", "expand", "bgmv"))
         out["modes"][mode] = dict(
             launches=counts, replays=[r.row() for r in reports],
             p50_ms=best.p50_ms, p99_ms=best.p99_ms, qps=best.qps,
@@ -1799,12 +1907,33 @@ def serving_kernels(serving):
 GLA_CASES = [("rwkv6", 2, 512, 64, 64, 32, True, 32),
              ("zamba2", 2, 512, 112, 64, 128, False, 81)]
 GLA_RAGGED_T = 500
+# more phase-13 cases, each in bf16 and f32: (name, B, T, H, K, V, chunk
+# L, per-channel decay + bonus, initial state, decay): both models' forms
+# under a strong decay (log decay down to −e³, so that factors underflow)
+# and both forms at K = 48, V = 40 (the tails of the kernels' K and V
+# tiles), ragged, with q and k broadcast over the heads in the post form
+GLA_EXTRA_CASES = [
+    ("rwkv6-strong", 2, 512, 64, 64, 64, 32, True, True, "strong"),
+    ("zamba2-strong", 2, 512, 112, 64, 64, 128, False, True, "strong"),
+    ("k48v40-pre", 2, 500, 8, 48, 40, 32, True, True, "model"),
+    ("k48v40-post", 2, 500, 8, 48, 40, 128, False, True, "model")]
 # normwise limits of the kernel against its plain version. f32: L·K·2⁻²³
 # (the same sums of up to L·K terms, taken in another order: per channel
 # the plain version contracts K in one einsum, the kernel in register
 # tiles); bf16 y: one bf16 rounding more (2⁻⁸: both round the same f32 sum
 # once, at most an ulp apart), states stay f32
 BF16_ROUNDING = 2.0 ** -8
+# bf16 y, besides: at most this share of its elements may differ from the
+# plain version's bf16 value. Both round an f32 value that agrees to ~1e-7
+# relative, so they differ only where the two straddle a rounding
+# boundary; an f32 operand of the tensor cores (P, S_c, the rescaled q
+# and k) rounded once to bf16 moves the f32 value by ~2⁻⁹ relative and
+# changes many. Set from the readings of tests/test_torch_gla_chunked_form
+# .py's emulation at the models' per-head shapes: ≤ 1.1e-4 on the kernel's
+# routes, ≥ 5.0e-3 with any of those operands rounded once (S_c at
+# zamba2-7b's shape the closest); the normwise limit above passes all of
+# them. On an H100 the kernel reads 4.6e-5 to 1.9e-4.
+BF16_MISMATCH_TOL = 2.0 ** -10
 # phase 14: the served traffic (examples/serve_batched.py's loop at batch
 # 2): a 512-token prompt, 16 greedy tokens
 SSM_BATCH, SSM_PROMPT, SSM_NEW = 2, 512, 16
@@ -1843,7 +1972,7 @@ def _distinct_bytes(t):
     return n * t.element_size()
 
 
-def _gla_ops(b, t, h, kd, chunk, per_channel, pre):
+def _gla_ops(b, t, h, kd, chunk, per_channel, pre, vd=None):
     """f32 operations one GLA call needs (a fused multiply-add is 2; an
     exponential counts as 1 at the FFMA rate, a lower bound of its cost):
     per chunk and (b, h), the inter-chunk product 2·L·K·V, the scores
@@ -1852,8 +1981,8 @@ def _gla_ops(b, t, h, kd, chunk, per_channel, pre):
     intra-chunk product 2·V a pair, the q and k rescales (2·L·K
     exponentials and products), the bonus diagonal 3·L·K + 2·L·V under
     pre, the state update 2·L·K·V + K·V. The ragged tail counts its
-    valid tokens only."""
-    vd, total = kd, 0
+    valid tokens only. V defaults to K."""
+    vd, total = vd or kd, 0
     for start in range(0, t, chunk):
         n = min(chunk, t - start)
         pairs = n * (n - 1) // 2 if pre else n * (n + 1) // 2
@@ -1871,99 +2000,139 @@ def _normwise(a, b):
     return float((a - b).norm() / b.norm())
 
 
+def _gla_cases():
+    """Phase 13's cases in order: each of GLA_CASES at T and at the
+    ragged GLA_RAGGED_T from a nonzero state, then GLA_EXTRA_CASES, each
+    in bf16 and f32: (name, B, T, H, K, V, L, per_channel, initial
+    state, decay, dtype, launches per prefill)."""
+    import torch
+    out = []
+    for name, b, t0, h, kd, chunk, per_channel, per_prefill in GLA_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            for t, init in ((t0, False), (GLA_RAGGED_T, True)):
+                out.append((name, b, t, h, kd, kd, chunk, per_channel, init,
+                            "model", dtype,
+                            per_prefill if t == t0 and
+                            dtype == torch.bfloat16 else 0))
+    for name, b, t, h, kd, vd, chunk, per_channel, init, decay in \
+            GLA_EXTRA_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            out.append((name, b, t, h, kd, vd, chunk, per_channel, init,
+                        decay, dtype, 0))
+    return out
+
+
 def check_gla(torch, chunk_scan, ssm, ref):
     """The GLA chunk kernel against its plain version
     (`ssm.gla_chunked_plain`) at the full-width layer calls of both
     models, in bf16 and f32 inputs, at T = 512 from a zero state and at a
     ragged T = 500 from a nonzero one; the f32 T = 512 cases also against
-    the step-by-step recurrence. Inputs as the models make them: q, k, v
-    ~ N(0, 1) (zamba2's q and k one (B, T, 1, K) tensor broadcast over the
-    heads, stride 0); RWKV6's log decay −exp(N(0, 1) − 1) per channel and
-    bonus exp(0.1·N), Mamba2's −softplus(N(0, 1)) per head. Times: the
-    kernel and the plain version, L2 flushed; the bound from the bytes
-    read and written and the operations `_gla_ops` counts."""
+    the step-by-step recurrence; then GLA_EXTRA_CASES (strong decay, K =
+    48 and V = 40). Inputs as the models make them: q, k, v ~ N(0, 1)
+    (zamba2's q and k one (B, T, 1, K) tensor broadcast over the heads,
+    stride 0); RWKV6's log decay −exp(N(0, 1) − 1) per channel and bonus
+    exp(0.1·N), Mamba2's −softplus(N(0, 1)) per head; the strong decay
+    −exp(min(1.5·N + 1.5, 3)) per channel and −exp(min(N + 2, 3)) per
+    head. Every case is launched twice and must be bitwise equal. Times:
+    the kernel and the plain version, L2 flushed; the bound from the
+    bytes read and written and the operations `_gla_ops` counts; at the
+    models' T = 512 calls a `kernel_profile` (each pass's device time)."""
     import torch.nn.functional as F
     gen = torch.Generator(device=CARD).manual_seed(13)
 
     def rn(*shape):
         return torch.randn(shape, device=CARD, generator=gen)
     rows, max_abs = [], 0.0
-    for name, b, t0, h, kd, chunk, per_channel, per_prefill in GLA_CASES:
-        for dtype in (torch.bfloat16, torch.float32):
-            for t, init in ((t0, False), (GLA_RAGGED_T, True)):
-                if per_channel:
-                    q, k = rn(b, t, h, kd), rn(b, t, h, kd)
-                    ld = -torch.exp(rn(b, t, h, kd) - 1.0)
-                    bonus = torch.exp(0.1 * rn(h, kd))
-                else:
-                    q = rn(b, t, 1, kd).expand(b, t, h, kd)
-                    k = rn(b, t, 1, kd).expand(b, t, h, kd)
-                    ld = -F.softplus(rn(b, t, h))
-                    bonus = None
-                v = rn(b, t, h, kd)
-                q, k, v = (x.to(dtype) for x in (q, k, v))
-                s0 = rn(b, h, kd, kd) if init else None
+    for (name, b, t, h, kd, vd, chunk, per_channel, init, decay, dtype,
+         per_prefill) in _gla_cases():
+        strong = decay == "strong"
+        if per_channel:
+            q, k = rn(b, t, h, kd), rn(b, t, h, kd)
+            ld = -torch.exp((1.5 * rn(b, t, h, kd) + 1.5).clamp(max=3.0)
+                            if strong else rn(b, t, h, kd) - 1.0)
+            bonus = torch.exp(0.1 * rn(h, kd))
+        else:
+            q = rn(b, t, 1, kd).expand(b, t, h, kd)
+            k = rn(b, t, 1, kd).expand(b, t, h, kd)
+            ld = (-torch.exp((rn(b, t, h) + 2.0).clamp(max=3.0)) if strong
+                  else -F.softplus(rn(b, t, h)))
+            bonus = None
+        v = rn(b, t, h, vd)
+        q, k, v = (x.to(dtype) for x in (q, k, v))
+        s0 = rn(b, h, kd, vd) if init else None
 
-                def kernel():
-                    return chunk_scan.gla_chunk_f32(
-                        q, k, v, ld, chunk=chunk, bonus=bonus,
-                        initial_state=s0)
+        def kernel():
+            return chunk_scan.gla_chunk_f32(
+                q, k, v, ld, chunk=chunk, bonus=bonus, initial_state=s0)
 
-                def plain():
-                    return ssm.gla_chunked_plain(
-                        q, k, v, ld, chunk=chunk, bonus=bonus,
-                        initial_state=s0)
-                y, st = kernel()
-                torch.cuda.synchronize()
-                yp, sp = plain()
-                f32_tol = chunk * kd * 2.0 ** -23
-                y_tol = f32_tol + (BF16_ROUNDING if dtype == torch.bfloat16
-                                   else 0.0)
-                row = dict(model=name, dtype=str(dtype), b=b, t=t, h=h,
-                           k=kd, v=kd, chunk=chunk, per_channel=per_channel,
-                           initial_state=init,
-                           per_prefill=per_prefill if t == t0 and
-                           dtype == torch.bfloat16 else 0,
-                           y_rel_err=_normwise(y, yp),
-                           state_rel_err=_normwise(st, sp),
-                           y_tol=y_tol, state_tol=f32_tol,
-                           max_abs_err=float((y.float() - yp.float()).abs()
-                                             .max()),
-                           finite=bool(torch.isfinite(y.float()).all() and
-                                       torch.isfinite(st).all()))
-                ok = (row["finite"] and row["y_rel_err"] <= y_tol and
-                      row["state_rel_err"] <= f32_tol)
-                if dtype == torch.float32 and not init:
-                    yr, sr = ref.gla_recurrence_ref(q, k, v, ld, bonus=bonus)
-                    row.update(y_rel_err_recurrence=_normwise(y, yr),
-                               state_rel_err_recurrence=_normwise(st, sr),
-                               plain_y_rel_err_recurrence=_normwise(yp, yr))
-                    ok = ok and row["y_rel_err_recurrence"] <= f32_tol and \
-                        row["state_rel_err_recurrence"] <= f32_tol
-                nbytes = (sum(_distinct_bytes(x) for x in (q, k, v, ld))
-                          + y.numel() * y.element_size() + st.numel() * 4
-                          + (bonus.numel() * 4 if bonus is not None else 0)
-                          + (s0.numel() * 4 if s0 is not None else 0))
-                bound_ms, bound_by, parts = _bound(
-                    nbytes, _gla_ops(b, t, h, kd, chunk, per_channel,
-                                     bonus is not None), PEAK_F32_FLOPS)
-                row.update(parts, within_tolerance=ok, ms=median_ms(kernel),
-                           plain_ms=median_ms(plain, reps=9, warmup=1),
-                           bound_ms=bound_ms, bound_by=bound_by)
-                rows.append(row)
-                extra = (f", recurrence {row['y_rel_err_recurrence']:.2e}/"
-                         f"{row['state_rel_err_recurrence']:.2e}"
-                         if "y_rel_err_recurrence" in row else "")
-                print(f"  gla {name:6s} {str(dtype)[6:]:8s} T={t}"
-                      f"{' s0' if init else '   '}: y {row['y_rel_err']:.2e} "
-                      f"state {row['state_rel_err']:.2e} normwise (tol "
-                      f"{y_tol:.1e}/{f32_tol:.1e}){extra}; kernel "
-                      f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
-                      f"bound {bound_ms:.4f} ({bound_by})")
-                if not ok:
-                    fail(f"gla_chunk_f32 {name} {dtype} T={t} disagrees with "
-                         "its plain version beyond the stated tolerance")
-                max_abs = max(max_abs, row["max_abs_err"])
+        def plain():
+            return ssm.gla_chunked_plain(
+                q, k, v, ld, chunk=chunk, bonus=bonus, initial_state=s0)
+        y, st = kernel()
+        y2, st2 = kernel()
+        torch.cuda.synchronize()
+        bitwise = bool(torch.equal(y, y2) and torch.equal(st, st2))
+        yp, sp = plain()
+        f32_tol = chunk * kd * 2.0 ** -23
+        y_tol = f32_tol + (BF16_ROUNDING if dtype == torch.bfloat16
+                           else 0.0)
+        row = dict(model=name, dtype=str(dtype), b=b, t=t, h=h, k=kd, v=vd,
+                   chunk=chunk, per_channel=per_channel, initial_state=init,
+                   decay=decay, per_prefill=per_prefill,
+                   y_rel_err=_normwise(y, yp),
+                   state_rel_err=_normwise(st, sp),
+                   y_tol=y_tol, state_tol=f32_tol,
+                   max_abs_err=float((y.float() - yp.float()).abs().max()),
+                   y_mismatch_share=float((y != yp).double().mean()),
+                   bitwise_repeat=bitwise,
+                   finite=bool(torch.isfinite(y.float()).all() and
+                               torch.isfinite(st).all()))
+        ok = (row["finite"] and row["y_rel_err"] <= y_tol and
+              row["state_rel_err"] <= f32_tol)
+        if dtype == torch.bfloat16:
+            ok = ok and row["y_mismatch_share"] <= BF16_MISMATCH_TOL
+        if dtype == torch.float32 and not init and decay == "model":
+            yr, sr = ref.gla_recurrence_ref(q, k, v, ld, bonus=bonus)
+            row.update(y_rel_err_recurrence=_normwise(y, yr),
+                       state_rel_err_recurrence=_normwise(st, sr),
+                       plain_y_rel_err_recurrence=_normwise(yp, yr))
+            ok = ok and row["y_rel_err_recurrence"] <= f32_tol and \
+                row["state_rel_err_recurrence"] <= f32_tol
+        nbytes = (sum(_distinct_bytes(x) for x in (q, k, v, ld))
+                  + y.numel() * y.element_size() + st.numel() * 4
+                  + (bonus.numel() * 4 if bonus is not None else 0)
+                  + (s0.numel() * 4 if s0 is not None else 0))
+        bound_ms, bound_by, parts = _bound(
+            nbytes, _gla_ops(b, t, h, kd, chunk, per_channel,
+                             bonus is not None, vd), PEAK_F32_FLOPS)
+        row.update(parts, within_tolerance=ok, ms=median_ms(kernel),
+                   plain_ms=median_ms(plain, reps=9, warmup=1),
+                   bound_ms=bound_ms, bound_by=bound_by)
+        if decay == "model" and not init:
+            row["profile"] = kernel_profile(torch, kernel, keep=("gla",))
+        rows.append(row)
+        extra = (f", recurrence {row['y_rel_err_recurrence']:.2e}/"
+                 f"{row['state_rel_err_recurrence']:.2e}"
+                 if "y_rel_err_recurrence" in row else "")
+        if dtype == torch.bfloat16:
+            extra += (f", y values differing {row['y_mismatch_share']:.2e}"
+                      f" (tol {BF16_MISMATCH_TOL:.1e})")
+        print(f"  gla {name:13s} {str(dtype)[6:]:8s} T={t}"
+              f"{' s0' if init else '   '}: y {row['y_rel_err']:.2e} "
+              f"state {row['state_rel_err']:.2e} normwise (tol "
+              f"{y_tol:.1e}/{f32_tol:.1e}){extra}, repeat "
+              f"{'bitwise' if bitwise else 'DIFFERS'}; kernel "
+              f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
+              f"bound {bound_ms:.4f} ({bound_by})")
+        if "profile" in row:
+            print(f"    {_profile_line(row['profile'])}")
+        if not ok:
+            fail(f"gla_chunk_f32 {name} {dtype} T={t} disagrees with "
+                 "its plain version beyond the stated tolerance")
+        if not bitwise:
+            fail(f"gla_chunk_f32 {name} {dtype} T={t}: two launches on the "
+                 "same inputs differ")
+        max_abs = max(max_abs, row["max_abs_err"])
     return rows, max_abs
 
 
@@ -2066,7 +2235,7 @@ def serve_ssm_bf16(torch, name):
     out["profile_prefill"] = _profile(
         torch, lambda n: [prefill(params, {"tokens": tokens})
                           for _ in range(n)], 1,
-        f"{name} bf16 prefill (2 x 512)")
+        f"{name} bf16 prefill (2 x 512)", watch=("gla",))
     out["profile_decode"] = _profile(
         torch, lambda n: [serve(params, tok, cache, SSM_PROMPT + i)
                           for i in range(n)], 4,

@@ -87,6 +87,18 @@ def build_all() -> Dict[str, str]:
 
 
 @functools.cache
+def counters(device, stream: int, size: int):
+    """`size` int32 counters for the kernels that find a group's last
+    block with an integer atomic (the GEMM's split tiles, BGMV's row
+    blocks, the GLA's heads), one buffer per (device, stream, size),
+    zeroed once here: each group's last block sets its counter back to 0,
+    so a call launches nothing but its kernels. Keyed by stream, so that
+    calls on two streams never share a counter."""
+    import torch
+    return torch.zeros(size, device=device, dtype=torch.int32)
+
+
+@functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if needed."""
     build(name)

@@ -9,9 +9,12 @@ RWKV6.
     Mamba2); initial_state (B, H, K, V) f32 or None  →  y (B, T, H, V) in
     v's dtype and the final state (B, H, K, V) in f32.
 
-`gla_chunk_f32` launches the hand-written kernel ``csrc/gla_chunk_f32.cu``
-once for the whole sequence: one block per (b, h) walks the chunks in
-order with the state in shared memory. It takes q, k, v in one dtype (f32
+`gla_chunk_f32` calls the hand-written kernel ``csrc/gla_chunk_f32.cu``
+once for the whole sequence, in its chunk-parallel form: a state pass (a
+block per chunk forms the chunk's contribution to the state; the last
+block of each (b, h) runs the recurrence over the chunks and stores the
+state each chunk enters with to a workspace) and an output pass (a block
+a chunk), two kernels a call. It takes q, k, v in one dtype (f32
 or bf16) with unit stride in the last dim and any other strides (a head
 stride of 0 reads Mamba2's q and k broadcast over the heads without a
 copy), chunk ≤ 128 and K, V ≤ 64; anything else raises, as does a CPU
@@ -22,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -30,14 +33,16 @@ from repro_torch.kernels import build
 
 MAX_CHUNK = 128
 MAX_KV = 64
+MAX_HEADS = 1 << 18      # B·H a call may have (one counter each)
+_MAX_GRID_Y = 65535      # CUDA's limit on gridDim.y
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("gla_chunk_f32")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.gla_chunk_f32.argtypes = [p, p, p, p, p, p, p, p, i32, i32, i64, i64,
-                                  i64, i64, i64, i64, p, p, p, p, p]
+    lib.gla_chunk_f32.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i32, i32,
+                                  i64, i64, i64, i64, i64, i64, p, p, p, p, p]
     lib.gla_chunk_f32.restype = i32
     return lib
 
@@ -108,13 +113,22 @@ def _ptr(x: Optional[torch.Tensor]) -> Optional[int]:
     return None if x is None else x.data_ptr()
 
 
+def workspace_floats(b: int, t: int, h: int, kd: int, vd: int,
+                     chunk: int) -> Tuple[int, int]:
+    """Floats of the two workspaces a call at these shapes needs: the
+    chunks' contributions, then entering states, (B·H, ⌈T / min(chunk,
+    T)⌉, K, V), and the chunks' decays (B·H, chunks, K)."""
+    chunks = b * h * -(-t // min(chunk, t))
+    return chunks * kd * vd, chunks * kd
+
+
 def gla_chunk_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   log_decay: torch.Tensor, *, chunk: int,
                   bonus: Optional[torch.Tensor] = None,
                   initial_state: Optional[torch.Tensor] = None):
     """Launch the CUDA kernel over the whole sequence in chunks of
-    min(chunk, T) tokens (one launch; `gla_chunk_f32.launches` counts
-    them). Returns (y, final state)."""
+    min(chunk, T) tokens (one launch of its two passes;
+    `gla_chunk_f32.launches` counts them). Returns (y, final state)."""
     _check(q, k, v, log_decay, bonus, initial_state)
     b, t, h, kd = q.shape
     vd = v.shape[-1]
@@ -122,15 +136,25 @@ def gla_chunk_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"gla_chunk_f32: chunk {chunk} not in [1, "
                          f"{MAX_CHUNK}]")
+    if b * h > MAX_HEADS:
+        raise ValueError(f"gla_chunk_f32: B·H = {b * h} exceeds the "
+                         f"kernel's {MAX_HEADS} counters")
+    if -(-t // chunk) > _MAX_GRID_Y:
+        raise ValueError(f"gla_chunk_f32: T = {t} in chunks of {chunk} "
+                         "exceeds the kernel's grid")
     per_channel = log_decay.dim() == 4
     y = torch.empty((b, t, h, vd), dtype=v.dtype, device=q.device)
     state = torch.empty((b, h, kd, vd), dtype=torch.float32, device=q.device)
+    n_ws, n_dws = workspace_floats(b, t, h, kd, vd, chunk)
+    ws = torch.empty(n_ws + n_dws, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _lib().gla_chunk_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), log_decay.data_ptr(),
             _ptr(bonus), _ptr(initial_state), y.data_ptr(),
-            state.data_ptr(), int(q.dtype == torch.bfloat16),
+            state.data_ptr(), ws.data_ptr(), ws.data_ptr() + 4 * n_ws,
+            build.counters(q.device, stream, MAX_HEADS).data_ptr(),
+            int(q.dtype == torch.bfloat16),
             int(per_channel), b, t, h, kd, vd, chunk, _strides(q),
             _strides(k), _strides(v), _strides(log_decay),
             stream)

@@ -158,15 +158,6 @@ def _gemm_lib() -> ctypes.CDLL:
     return bind_gemm(build.load("gemm_f32"))
 
 
-@functools.cache
-def _split_counters(device: torch.device, stream: int) -> torch.Tensor:
-    """The split tiles' counters of one stream of one device: zeroed once
-    here; the last block of each tile sets its counter back to 0, so a
-    split product launches nothing but the kernel. Keyed by stream, so that
-    products on two streams never share a counter."""
-    return torch.zeros(_COUNTERS, device=device, dtype=torch.int32)
-
-
 def gemm_f32(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
              trans_b: bool = False) -> torch.Tensor:
     """Launch the CUDA kernel: op(a) @ op(b) in f32, where op transposes
@@ -202,7 +193,7 @@ def gemm_f32(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
         if plan.splits > 1:
             ws = torch.empty(plan.workspace(m, n), device=a.device,
                              dtype=torch.float32)
-            counters = _split_counters(a.device, stream)
+            counters = build.counters(a.device, stream, _COUNTERS)
         err = lib.gemm_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
                            int(trans_a), int(trans_b), plan.tile,
                            plan.slice_k, plan.splits,
