@@ -20,7 +20,8 @@ Phases, each failing the run with a nonzero exit:
 4. main    — paper Algorithm 1 through `launch(Experiment(strategy=
              "fedelmy"))` on the full-width paper CNN, with the launch
              counters showing every conv ran through the GEMM kernel and
-             every pool step's d1 and d2 through the sweep
+             every pool step's d1 and d2 through one sweep (one forward,
+             one backward)
 5. card vs CPU — each conv, one step (with the forward's decisions
              pinned) and a 5-step slice agree between the card (kernel)
              and the CPU (plain versions) from the same init
@@ -67,13 +68,17 @@ Phases, each failing the run with a nonzero exit:
 15. sweep     — the pool-distance sweep's forward and backward kernels
              against their plain versions: the reference test's (C, P)
              grid in f32 and bf16, ragged P, a batched form against single
-             runs, the paper CNN's 10 leaves at capacity 4 and 6; errors
-             within the kernel's summation bound, times beside the bound,
-             the plain version and `torch.cdist`
+             runs, the paper CNN's 10 leaves at capacity 4 and 6 and its
+             one-member sweep, 45 ragged leaves (two launches); the
+             backward at the CNN's table and C = 2, 3, 6, 11; errors
+             within the kernel's summation bound (`SweepPlan.chain`),
+             times of the pool step's one sweep and the one-member sweep
+             beside the bound, the plain version and `torch.cdist`
 16. regularizer — −α·log_scale(d1) + β·log_scale(d2) at full width for
-             each distance measure, through the sweep against the
-             per-leaf code on the same card tensors, at a pool model's
-             first step and after 5 steps
+             each distance measure, through the joint d1/d2 sweep and
+             through separate d1 and d2 sweeps (d2 the one-member sweep)
+             against the per-leaf code on the same card tensors, at a pool
+             model's first step and after 5 steps
 17. fig 9    — fedelmy at l2, l1, cosine, squared_l2 and without the
              regularizers through `launch` (paper Fig. 9), with exact
              GEMM and sweep launch counts
@@ -108,9 +113,12 @@ MAIN_SHAPES = [("c1", 64 * 32 * 32, 27, 64, False),
                ("c3", 64 * 8 * 8, 1152, 256, True)]
 RAGGED_SHAPE = ("ragged", 1000, 77, 45, True)
 GEMM_LAUNCHES_PER_STEP = 8     # c1: fwd + dB; c2, c3: fwd + dA + dB
-# the pool-distance sweep per Eq. 9 pool step: d1 forward, d2 forward and
-# their two backwards; plain steps (warm-up, baselines) launch none
-SWEEP_LAUNCHES_PER_POOL_STEP = 4
+# the pool-distance sweep per Eq. 9 pool step of the stacked pool with d1
+# or d2 on: one forward and one backward (with both on, of the one sweep
+# that gives d1 and d2); plain steps (warm-up, baselines) launch none
+SWEEP_LAUNCHES_PER_POOL_STEP = 2
+# per MetaFed anchored step: the forward and backward of its d2 sweep
+SWEEP_LAUNCHES_PER_ANCHORED_STEP = 2
 CONVS = ("c1", "c2", "c3")
 CARD = "cuda"
 # phase 5 (c): the slice's end points may lie at most this share of the
@@ -273,10 +281,9 @@ def _read_sweep():
 
 
 def _sweep_expected(pool_steps):
-    """The sweep's launches over `pool_steps` Eq. 9 steps: d1 and d2 each
-    one forward and one backward a step."""
-    half = SWEEP_LAUNCHES_PER_POOL_STEP // 2 * pool_steps
-    return {"forward": half, "backward": half}
+    """The sweep's launches over `pool_steps` Eq. 9 steps with d1 and d2
+    on: one forward and one backward of the joint sweep a step."""
+    return {"forward": pool_steps, "backward": pool_steps}
 
 
 def quickstart_data():
@@ -939,22 +946,21 @@ def expected_run(strategy, fed, shots=1):
     """What a run of `strategy` must show: training steps over the fused
     loss (8 GEMM launches each), custom steps over the native loss (no
     GEMM launch), SGD launches (one per dfedsam step), pool-distance sweep
-    launches (per Eq. 9 step of the stacked pool, a forward and a
-    backward for each of d1 and d2 that is on; per MetaFed anchored step,
-    those of its d2 to the anchor), client records and pool models per
-    record, round
-    records, final pool members."""
+    launches (per Eq. 9 step of the stacked pool, one forward and one
+    backward when d1 or d2 is on: of the joint sweep with both on; per
+    MetaFed anchored step, those of its d2 to the anchor), client records
+    and pool models per record, round records, final pool members."""
     n, s, e, w = fed.n_clients, fed.pool_size, fed.e_local, fed.e_warmup
     plain = dict(fused=n * e, custom=0, sgd=0, sweep=0, clients=0, models=0,
                  rounds=0, pool=None)
-    per_step = SWEEP_LAUNCHES_PER_POOL_STEP // 2 * (int(fed.use_d1) +
-                                                     int(fed.use_d2))
+    per_step = (SWEEP_LAUNCHES_PER_POOL_STEP if fed.use_d1 or fed.use_d2
+                else 0)
     return {
         "fedseq": dict(plain, clients=n),
         "dfedavgm": plain,
         "dfedsam": dict(plain, fused=0, custom=n * e, sgd=n * e),
         "metafed": dict(plain, fused=n * (e // 2), custom=n * (e // 2),
-                        sweep=SWEEP_LAUNCHES_PER_POOL_STEP // 2 * n *
+                        sweep=SWEEP_LAUNCHES_PER_ANCHORED_STEP * n *
                         (e // 2)),
         "fedelmy": dict(plain, fused=w + n * s * e, clients=n, models=s,
                         pool=s + 1, sweep=per_step * n * s * e),
@@ -2416,17 +2422,9 @@ PD_FLAT_SHAPES = [(2, 1000), (6, 70000), (11, 131072)]
 PD_RAGGED_P = (1, 31, 4097)
 PD_BATCHED = (3, 4, 70001)
 PD_CAPACITIES = (4, 6)
-PD_CHUNK = 4096              # csrc/pool_distance_f32.cu: elements a block
+# 45 ragged leaves of 1–5,787 elements: two tables of the kernel's 40
+PD_WIDE_SIZES = tuple(1 + (i * 2_654_435_761) % 6000 for i in range(45))
 F32_UNIT = 2.0 ** -24        # unit roundoff of f32
-
-
-def sweep_chain(total_blocks):
-    """The longest run of dependent f32 roundings in one of the kernel's
-    sums over `total_blocks` chunks (csrc/pool_distance_f32.cu): 2 to form
-    a term (w − m, then its square), 16 adds in a thread, 5 shuffle levels,
-    7 warps, then ⌈chunks/4⌉ + 2 across the chunks. An f32 sum whose
-    longest chain is L lies within L·2⁻²⁴·Σ|terms| of the exact sum."""
-    return 2 + 16 + 5 + 7 + -(-total_blocks // 4) + 2
 
 
 def _sweep_table(ws, ms):
@@ -2466,17 +2464,22 @@ def _stats_plain(ref, ws, ms):
 
 
 def _hold_stats(torch, pd_mod, ref, name, ws, ms):
-    """One forward case: the kernel twice (the same bits), held per stat
-    normwise against the exact sums within L·2⁻²⁴·‖Σ|terms|‖, and against
-    the plain version within that plus the plain version's own distance
-    from the exact sums."""
+    """One forward case: the kernel twice (the same bits, the plan's
+    launches each: one a table of 40 leaves), held per stat normwise
+    against the exact sums within L·2⁻²⁴·‖Σ|terms|‖ (L = `SweepPlan.chain`,
+    the longest run of dependent f32 roundings of the kernel's order),
+    and against the plain version within that plus the plain version's
+    own distance from the exact sums."""
+    before = pd_mod.pool_distance_f32.launches
     stats, wsq = pd_mod.pool_distance_f32(ws, ms)
     again, again_wsq = pd_mod.pool_distance_f32(ws, ms)
+    launched = pd_mod.pool_distance_f32.launches - before
     torch.cuda.synchronize()
     plain, plain_wsq = _stats_plain(ref, ws, ms)
     exact, absolute, exact_wsq = _stats_f64(ws, ms)
-    blocks = sum(-(-w.shape[1] // PD_CHUNK) for w in ws)
-    chain = sweep_chain(blocks)
+    plan = pd_mod.sweep_plan(ms[0].shape[1], [w.shape[1] for w in ws],
+                             ws[0].element_size())
+    blocks, chain = plan.total_blocks, plan.chain
     rows = {}
     for i, key in enumerate(("sq", "l1", "dot", "norm", "wsq")):
         k, p, e, a = ((wsq, plain_wsq, exact_wsq, exact_wsq) if key == "wsq"
@@ -2493,16 +2496,19 @@ def _hold_stats(torch, pd_mod, ref, name, ws, ms):
     max_abs = max(float((stats - plain).abs().max()),
                   float((wsq - plain_wsq).abs().max()))
     ok = all(r["ok"] for r in rows.values()) and torch.equal(stats, again) \
-        and torch.equal(wsq, again_wsq) and bool(torch.isfinite(stats).all())
+        and torch.equal(wsq, again_wsq) and \
+        bool(torch.isfinite(stats).all()) and launched == 2 * len(plan.tables)
     worst = max(r["exact_err"] / r["bound"] if r["bound"] else 0.0
                 for r in rows.values())
     print(f"  sweep {name:28s} chain {chain:4d}: worst error "
           f"{worst:.2e} of its bound; vs plain max abs {max_abs:.3e}; "
           f"repeat {'bitwise' if torch.equal(stats, again) else 'DIFFERS'}")
     if not ok:
-        fail(f"pool_distance_f32 {name}: {rows}")
-    return dict(name=name, chain=chain, blocks=blocks, stats=rows,
-                worst_share_of_bound=worst, max_abs_err=max_abs), stats, wsq
+        fail(f"pool_distance_f32 {name}: {rows}; {launched} launches for 2 "
+             f"calls of {len(plan.tables)}")
+    return dict(name=name, chain=chain, chunks=blocks, slots=plan.slots,
+                groups=plan.groups, stats=rows, worst_share_of_bound=worst,
+                max_abs_err=max_abs), stats, wsq
 
 
 def _cnn_table(torch, capacity, count, seed0):
@@ -2522,9 +2528,12 @@ def _cnn_table(torch, capacity, count, seed0):
 def _hold_backward(torch, pd_mod, ref, name, ws, ms, g_stats, g_wsq):
     """One backward case against `pool_distance_stats_bwd_ref` per leaf,
     elementwise within (4C + 4)·2⁻²³ of the sum of the absolute terms (both
-    sides round each member's three terms and the sum once or twice)."""
+    sides round each member's three terms and the sum once or twice); a
+    second call gives the same bits."""
     outs = pd_mod.pool_distance_bwd_f32(ws, ms, g_stats, g_wsq)
+    again = pd_mod.pool_distance_bwd_f32(ws, ms, g_stats, g_wsq)
     torch.cuda.synchronize()
+    repeat = all(torch.equal(a, b) for a, b in zip(outs, again))
     c = ms[0].shape[1]
     gs, gl, gd = (g_stats[0, i][:, None] for i in range(3))
     worst, max_abs, finite = 0.0, 0.0, True
@@ -2541,22 +2550,48 @@ def _hold_backward(torch, pd_mod, ref, name, ws, ms, g_stats, g_wsq):
         max_abs = max(max_abs, float(err.max()))
         finite = finite and bool(torch.isfinite(out).all())
     print(f"  sweep backward {name:19s}: worst error {worst:.2e} of its "
-          f"bound, max abs {max_abs:.3e}")
-    if worst > 1.0 or not finite:
+          f"bound, max abs {max_abs:.3e}; repeat "
+          f"{'bitwise' if repeat else 'DIFFERS'}")
+    if worst > 1.0 or not finite or not repeat:
         fail(f"pool_distance_bwd_f32 {name} disagrees with its plain "
-             "version beyond the stated bound (or is not finite)")
+             "version beyond the stated bound (or is not finite, or a "
+             "second call differs)")
     return dict(name=name, worst_share_of_bound=worst, max_abs_err=max_abs)
+
+
+def _call_work(torch, fn, counter):
+    """What one call of `fn` launches, after a first call (which allocates
+    what the wrapper keeps): the kernels its wrapper counts (`counter`)
+    and the PyTorch operators it runs, by name (`TorchDispatchMode`; a
+    fill of the counters shows as `zero_` or `fill_`)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    ops = []
+
+    class Log(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            ops.append(func.overloadpacket.__name__)
+            return func(*args, **(kwargs or {}))
+    fn()
+    before = counter.launches
+    with Log():
+        fn()
+    return dict(launches=counter.launches - before, ops=sorted(set(ops)))
 
 
 def _sweep_timing(torch, pd_mod, ref, ws, ms, library):
     """Kernel, plain and library ms of one forward and one backward at a
-    table (L2 flushed before each launch), and the bounds: the forward
-    reads w and C members once, (C + 1)·P·4 bytes, for 8 operations an
-    element and member plus 2 for Σw²; the backward reads them again and
-    writes ∂w, (C + 2)·P·4 bytes, for 7 operations an element and member
-    plus 2."""
+    table (L2 flushed before each launch), each kernel's µs under the
+    profiler (`kernel_profile`), and the bounds: the forward reads w and
+    C members once, (C + 1)·P·4 bytes, for 8 operations an element and
+    member plus 2 for Σw²; the backward reads them again and writes ∂w,
+    (C + 2)·P·4 bytes, for 7 operations an element and member plus 2.
+    Beside them, a yardstick of the timing itself: one PyTorch reduction
+    (`torch.sum`) over a flat f32 tensor of the forward's bytes. Fails
+    where a call launches any kernel but its sweep (a fill of the
+    counters, say)."""
     c = ms[0].shape[1]
     p = sum(w.shape[1] for w in ws)
+    plan = pd_mod.sweep_plan(c, [w.shape[1] for w in ws], 4)
     gen = torch.Generator(device=CARD).manual_seed(16)
     g_stats = torch.randn((1, 4, c), device=CARD, generator=gen)
     g_wsq = torch.randn((1,), device=CARD, generator=gen)
@@ -2564,34 +2599,59 @@ def _sweep_timing(torch, pd_mod, ref, ws, ms, library):
                        p * (8 * c + 2), PEAK_F32_FLOPS)
     bwd_bound = _bound((c + 2) * p * 4 + (4 * c + 1) * 4, p * (7 * c + 2),
                        PEAK_F32_FLOPS)
+
+    def forward():
+        return pd_mod.pool_distance_f32(ws, ms)
+
+    flat = torch.randn((c + 1) * p, device=CARD, generator=gen)
+
+    def backward():
+        return pd_mod.pool_distance_bwd_f32(ws, ms, g_stats, g_wsq)
+    kernels = {"forward": _call_work(torch, forward,
+                                     pd_mod.pool_distance_f32),
+               "backward": _call_work(torch, backward,
+                                      pd_mod.pool_distance_bwd_f32)}
+    if any(k["launches"] != 1 or set(k["ops"]) - {"empty"}
+           for k in kernels.values()):
+        fail(f"a sweep call launched {kernels}; expected its one kernel "
+             "and no PyTorch operator but allocations")
     return dict(
-        members=c, elements=p,
-        forward=dict(ms=median_ms(lambda: pd_mod.pool_distance_f32(ws, ms)),
+        members=c, elements=p, chunks=plan.total_blocks, slots=plan.slots,
+        groups=plan.groups, kernels=kernels,
+        read_same_bytes_ms=median_ms(lambda: flat.sum()),
+        forward=dict(ms=median_ms(forward),
                      plain_ms=median_ms(lambda: _stats_plain(ref, ws, ms)),
                      library_ms=median_ms(library), bound_ms=fwd_bound[0],
-                     bound_by=fwd_bound[1], **fwd_bound[2]),
+                     bound_by=fwd_bound[1],
+                     profile=kernel_profile(torch, forward,
+                                            keep=("pool_distance",)),
+                     **fwd_bound[2]),
         backward=dict(
-            ms=median_ms(lambda: pd_mod.pool_distance_bwd_f32(
-                ws, ms, g_stats, g_wsq)),
+            ms=median_ms(backward),
             plain_ms=median_ms(lambda: [ref.pool_distance_stats_bwd_ref(
                 w[0], m[0], g_stats[0, 0], g_stats[0, 1], g_stats[0, 2],
                 g_wsq=g_wsq[0]) for w, m in zip(ws, ms)]),
             library_ms=None, bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+            profile=kernel_profile(torch, backward, keep=("pool_distance",)),
             **bwd_bound[2]))
 
 
 def check_pool_distance(torch, pd_mod, ref):
     """Phase 15: the sweep's kernels against their plain versions. Each
     stat normwise within L·2⁻²⁴·‖Σ|terms|‖ of the exact (f64) sums, L the
-    kernel's longest summation chain (`sweep_chain`), and of the plain
+    kernel's longest summation chain (`SweepPlan.chain`), and of the plain
     version within that plus the plain version's own error; two launches
     give the same bits; the batched form equals a loop of single runs
-    bit for bit (each run's sums are taken in the same order). The
-    backward at the CNN's table (the main path's pool: capacity 4, 3
-    members, the empty slot's ḡ 0 as d1 gives it; a member equal to w; the
-    d2 anchor equal to w, every residual 0). Times at the CNN's table:
-    d1 (capacity 4) and d2 (one member), forward and backward, beside the
-    bounds, the plain versions and `torch.cdist` for the forward."""
+    bit for bit (each run's sums are taken in the same order). The forward
+    also at 45 ragged leaves (two launches) and at the CNN's one-member
+    sweep, f32 and bf16. The backward at the CNN's table (the main path's
+    pool: capacity 4, 3 members, the empty slot's ḡ 0 as d1 gives it; a
+    member equal to w; the d2 anchor equal to w, every residual 0), at the
+    flat and ragged shapes (C = 2, 3, 6, 11) and at the 45 leaves, each
+    repeated bit for bit. Times at the CNN's table: the
+    Eq. 9 pool step's one sweep (capacity 4, d1 and d2 together) and the
+    one-member sweep (MetaFed's anchored d2), forward and backward, beside
+    the bounds, the plain versions and `torch.cdist` for the forward."""
     gen = torch.Generator(device=CARD).manual_seed(15)
 
     def rn(*shape):
@@ -2630,44 +2690,89 @@ def check_pool_distance(torch, pd_mod, ref):
                                 f"CNN 10 leaves capacity {capacity}", ws, ms)
         rows.append(row)
         max_abs = max(max_abs, row["max_abs_err"])
+    # more leaves than a launch's table takes: two launches, the second's
+    # blocks after the first's partial slots
+    wide_w = [rn(1, n) for n in PD_WIDE_SIZES]
+    wide_m = [rn(1, 3, n) for n in PD_WIDE_SIZES]
+    for dt in ("f32", "bf16"):
+        cast = (lambda x: x.bfloat16()) if dt == "bf16" else (lambda x: x)
+        row, _, _ = _hold_stats(
+            torch, pd_mod, ref, f"{len(PD_WIDE_SIZES)} ragged leaves C=3 {dt}",
+            [cast(x) for x in wide_w], [cast(x) for x in wide_m])
+        rows.append(row)
+        max_abs = max(max_abs, row["max_abs_err"])
 
-    # backward at the main path's table
+    # the main path's table (capacity 4, 3 members) and its one-member
+    # sweep of member 0 (MetaFed's anchored d2, every d2-only step)
     params, pool = _cnn_table(torch, 4, 3, 40)
+    ws, ms = _sweep_table(list(params.values()), list(pool.members.values()))
+    ms_d2 = [s[:1].reshape(1, 1, -1) for s in pool.members.values()]
+    for dt in ("f32", "bf16"):
+        cast = (lambda x: x.bfloat16()) if dt == "bf16" else (lambda x: x)
+        row, _, _ = _hold_stats(torch, pd_mod, ref,
+                                f"CNN 10 leaves one member {dt}",
+                                [cast(x) for x in ws],
+                                [cast(x) for x in ms_d2])
+        rows.append(row)
+        max_abs = max(max_abs, row["max_abs_err"])
+
+    # backward at the main path's table, then at the flat and ragged
+    # shapes (C = 2, 3, 6 and 11: two passes of 8 members) and the 45 leaves
     live = pool.mask()
     g_stats = rn(1, 4, 4) * live            # the empty slot's ḡ is 0
     g_wsq = rn(1)
-    bwd_rows = []
-    ws, ms = _sweep_table(list(params.values()), list(pool.members.values()))
-    bwd_rows.append(_hold_backward(torch, pd_mod, ref, "capacity 4", ws, ms,
-                                   g_stats, g_wsq))
+    bwd_rows = [_hold_backward(torch, pd_mod, ref, "capacity 4", ws, ms,
+                               g_stats, g_wsq)]
     anchor = pool.first()
     ws0, _ = _sweep_table(list(anchor.values()), [])
     bwd_rows.append(_hold_backward(torch, pd_mod, ref, "w = member 0",
                                    [x.contiguous() for x in ws0], ms,
                                    g_stats, g_wsq))
-    ms_d2 = [s[:1].reshape(1, 1, -1) for s in pool.members.values()]
     bwd_rows.append(_hold_backward(torch, pd_mod, ref, "d2, w = anchor",
                                    [x.contiguous() for x in ws0], ms_d2,
                                    rn(1, 4, 1), g_wsq))
+    bwd_cases = [(f"flat C={c} P={p}", c, [p]) for c, p in PD_FLAT_SHAPES]
+    bwd_cases += [(f"ragged C=3 P={p}", 3, [p]) for p in PD_RAGGED_P]
+    bwd_cases.append((f"{len(PD_WIDE_SIZES)} ragged leaves C=3", 3,
+                      PD_WIDE_SIZES))
+    for name, c, sizes in bwd_cases:
+        bwd_rows.append(_hold_backward(
+            torch, pd_mod, ref, name, [rn(1, n) for n in sizes],
+            [rn(1, c, n) for n in sizes], rn(1, 4, c), rn(1)))
 
-    # times at the main path's table: d1 (capacity 4) and d2 (one member)
+    # times at the main path's table: the pool step's one sweep (capacity
+    # 4) and the one-member sweep (MetaFed's anchored d2)
     wf = torch.cat([x.reshape(-1) for x in params.values()])
     mf = torch.cat([s.reshape(4, -1) for s in pool.members.values()], 1)
-    ms_d2 = [s[:1].reshape(1, 1, -1) for s in pool.members.values()]
     timing = {
-        "d1": _sweep_timing(torch, pd_mod, ref, ws, ms,
-                            lambda: torch.cdist(wf[None], mf, p=2)),
-        "d2": _sweep_timing(torch, pd_mod, ref, ws, ms_d2,
-                            lambda: torch.cdist(wf[None], mf[:1], p=2))}
-    for key, t in timing.items():
+        "pool_step": _sweep_timing(torch, pd_mod, ref, ws, ms,
+                                   lambda: torch.cdist(wf[None], mf, p=2)),
+        "one_member": _sweep_timing(
+            torch, pd_mod, ref, ws, ms_d2,
+            lambda: torch.cdist(wf[None], mf[:1], p=2))}
+    # the timing's own floor: a sweep over one element
+    one = rn(1, 1)
+    timing["one_element_ms"] = median_ms(
+        lambda: pd_mod.pool_distance_f32([one], [one[:, None]]))
+    print(f"  sweep timing yardsticks: torch.sum over the pool step's "
+          f"bytes {timing['pool_step']['read_same_bytes_ms']:.4f} ms, over "
+          f"the one-member sweep's "
+          f"{timing['one_member']['read_same_bytes_ms']:.4f} ms; a "
+          f"one-element sweep {timing['one_element_ms']:.4f} ms")
+    for key in ("pool_step", "one_member"):
+        t = timing[key]
         for way in ("forward", "backward"):
             r = t[way]
             lib = ("—" if r["library_ms"] is None
                    else f"{r['library_ms']:.4f}")
-            print(f"  sweep {key} {way:8s} ({t['members']} members, "
-                  f"{t['elements']} elements): kernel {r['ms']:.4f} ms, "
-                  f"plain {r['plain_ms']:.4f}, torch.cdist {lib}, bound "
-                  f"{r['bound_ms']:.4f} ({r['bound_by']})")
+            us = ", ".join(f"{k} {v:.2f} µs" for k, v in
+                           r["profile"].get("us", {}).items())
+            print(f"  sweep {key:10s} {way:8s} ({t['members']} members, "
+                  f"{t['elements']} elements, G={t['groups']}, "
+                  f"{t['chunks']} chunks, {t['slots']} blocks): kernel "
+                  f"{r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f}, torch.cdist {lib}, bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}); profiler: {us}")
     return dict(rows=rows, backward=bwd_rows, timing=timing,
                 max_abs_err=max_abs,
                 bwd_max_abs_err=max(r["max_abs_err"] for r in bwd_rows))
@@ -2691,16 +2796,24 @@ REG_VALUE_REL_TOL = 1e-5
 REG_GRAD_REL_TOL = 1e-4
 COS_RESIDUE_TOL = 1e-5
 MEASURES = ("l2", "l1", "cosine", "squared_l2")
+# phase 16's routes of d1 and d2 and their sweep launches for the two
+# regularizers a route computes
+ROUTES = ("joint", "separate", "per_leaf")
+ROUTE_LAUNCHES = {"joint": 4, "separate": 8}
 
 
-def _regularizer(torch, params, pool, measure, task, fed, raw=False):
+def _regularizer(torch, params, pool, measure, task, fed, raw=False,
+                 joint=True):
     """(value, gradient per leaf) of −α·log_scale(d1) + β·log_scale(d2),
-    or of d1 + d2 when `raw`, at `params`."""
+    or of d1 + d2 when `raw`, at `params`: d1 and d2 from one call of
+    `d1_d2_pool_distance` (`joint`), else from `d1_pool_distance` and
+    `d2_anchor_distance` (on the card a one-member sweep of the anchor)."""
     from repro_torch.core import distances as D
     leaves = {k: v.detach().clone().requires_grad_(True)
               for k, v in params.items()}
-    d1 = D.d1_pool_distance(leaves, pool, measure)
-    d2 = D.d2_anchor_distance(leaves, pool.first(), measure)
+    d1, d2 = (D.d1_d2_pool_distance(leaves, pool, measure) if joint else
+              (D.d1_pool_distance(leaves, pool, measure),
+               D.d2_anchor_distance(leaves, pool.first(), measure)))
     if raw:
         total = d1 + d2
     else:
@@ -2718,12 +2831,16 @@ def _rel_or_exact(a, b):
 
 def regularizer_on_card(torch):
     """Phase 16: for each measure, the full Eq. 9 regularizer through the
-    sweep (the card's route) and through the per-leaf code, both in f32 on
-    the same card tensors: value and gradient per leaf, with the launch
-    counts of each route (4 sweep launches, then none). Two points: a
-    pool model's first step (the pool holds its anchor alone, w = the
-    pool average = the anchor) and, with three members in a capacity-4
-    pool, after 5 Eq. 9 steps from the pool average."""
+    joint sweep (the card's route: `d1_d2_pool_distance`, one forward and
+    one backward for d1 and d2), through separate sweeps (d1's over the
+    pool, d2's the one-member sweep of the anchor, as MetaFed's anchored
+    step and every d2-only step take it) and through the per-leaf code,
+    all in f32 on the same card tensors: value and gradient per leaf
+    against the per-leaf code's, with the launch counts of each route (2
+    sweep launches a regularizer joint, 4 separate, none per leaf). Two
+    points: a pool model's first step (the pool holds its anchor alone, w
+    = the pool average = the anchor) and, with three members in a
+    capacity-4 pool, after 5 Eq. 9 steps from the pool average."""
     from repro_torch.api.trainer import LocalTrainer
     from repro_torch.configs import FedConfig, get_arch
     from repro_torch.core.pool import ModelPool
@@ -2749,61 +2866,70 @@ def regularizer_on_card(torch):
                                       for v in params.values())))
         for measure in MEASURES:
             res = {}
-            for route in ("sweep", "per_leaf"):
+            for route in ROUTES:
                 _reset_sweep()
                 with (per_leaf_route() if route == "per_leaf"
                       else contextlib.nullcontext()):
-                    value, grads, dists = _regularizer(torch, params, pool,
-                                                       measure, task, fed)
+                    joint = route != "separate"
+                    value, grads, dists = _regularizer(
+                        torch, params, pool, measure, task, fed, joint=joint)
                     raw = _regularizer(torch, params, pool, measure, task,
-                                       fed, raw=True)
+                                       fed, raw=True, joint=joint)
                 torch.cuda.synchronize()
                 res[route] = dict(value=value, grads=grads, dists=dists,
                                   raw=raw, launches=sum(_read_sweep()
                                                         .values()))
-            a, b = res["sweep"], res["per_leaf"]
-            grad_err = {k: float((g - b["grads"][k]).norm()) /
-                        float(b["grads"][k].norm())
-                        if float(b["grads"][k].norm()) else
-                        float((g - b["grads"][k]).norm())
-                        for k, g in a["grads"].items()}
-            row = dict(value_sweep=a["value"], value_per_leaf=b["value"],
-                       d1_d2_sweep=a["dists"], d1_d2_per_leaf=b["dists"],
-                       value_rel_err=_rel_or_exact(a["value"], b["value"]),
-                       grad_rel_err=grad_err,
-                       launches=(a["launches"], b["launches"]))
+            b = res["per_leaf"]
             residue = measure == "cosine" and point == "first step"
-            if residue:
-                row["raw_residue"] = {
-                    r: dict(d1=res[r]["raw"][2][0], d2=res[r]["raw"][2][1],
-                            grad_norm_times_w=w_norm * float(torch.sqrt(sum(
-                                g.double().square().sum()
-                                for g in res[r]["raw"][1].values()))))
-                    for r in res}
-                ok = all(abs(v["d1"]) <= COS_RESIDUE_TOL and
-                         abs(v["d2"]) <= COS_RESIDUE_TOL and
-                         v["grad_norm_times_w"] <= COS_RESIDUE_TOL
-                         for v in row["raw_residue"].values())
-            else:
-                ok = (row["value_rel_err"] <= REG_VALUE_REL_TOL and
-                      max(grad_err.values()) <= REG_GRAD_REL_TOL)
-            ok = ok and row["launches"] == (8, 0)
-            row["ok"] = ok
-            out[f"{point}, {measure}"] = row
-            detail = (f"raw residues {row['raw_residue']} (tolerance "
-                      f"{COS_RESIDUE_TOL:g}); full loss not held"
-                      if residue else
-                      f"value rel err {row['value_rel_err']:.2e} (tol "
-                      f"{REG_VALUE_REL_TOL:g}), gradient worst leaf "
-                      f"{max(grad_err.values()):.2e} (tol "
-                      f"{REG_GRAD_REL_TOL:g})")
-            print(f"  {point:13s} {measure:10s}: loss sweep "
-                  f"{a['value']:.6e} per leaf {b['value']:.6e}; {detail}; "
-                  f"sweep launches {row['launches']}")
-            if not ok:
-                fail(f"the regularizer through the sweep disagrees with the "
-                     f"per-leaf code ({point}, {measure}) or launched other "
-                     "than 8 sweeps and 0")
+            for route in ("joint", "separate"):
+                a = res[route]
+                grad_err = {k: float((g - b["grads"][k]).norm()) /
+                            float(b["grads"][k].norm())
+                            if float(b["grads"][k].norm()) else
+                            float((g - b["grads"][k]).norm())
+                            for k, g in a["grads"].items()}
+                row = dict(value_sweep=a["value"], value_per_leaf=b["value"],
+                           d1_d2_sweep=a["dists"], d1_d2_per_leaf=b["dists"],
+                           value_rel_err=_rel_or_exact(a["value"],
+                                                       b["value"]),
+                           grad_rel_err=grad_err,
+                           launches=(a["launches"], b["launches"]))
+                if residue:
+                    row["raw_residue"] = {
+                        r: dict(d1=res[r]["raw"][2][0],
+                                d2=res[r]["raw"][2][1],
+                                grad_norm_times_w=w_norm * float(torch.sqrt(
+                                    sum(g.double().square().sum()
+                                        for g in res[r]["raw"][1].values()))))
+                        for r in (route, "per_leaf")}
+                    ok = all(abs(v["d1"]) <= COS_RESIDUE_TOL and
+                             abs(v["d2"]) <= COS_RESIDUE_TOL and
+                             v["grad_norm_times_w"] <= COS_RESIDUE_TOL
+                             for v in row["raw_residue"].values())
+                else:
+                    ok = (row["value_rel_err"] <= REG_VALUE_REL_TOL and
+                          max(grad_err.values()) <= REG_GRAD_REL_TOL)
+                # two regularizers a route (the loss, then the raw d1 +
+                # d2), each one forward and one backward of the joint
+                # sweep, or of d1's sweep and of d2's
+                ok = ok and row["launches"] == (ROUTE_LAUNCHES[route], 0)
+                row["ok"] = ok
+                out[f"{point}, {measure}, {route}"] = row
+                detail = (f"raw residues {row['raw_residue']} (tolerance "
+                          f"{COS_RESIDUE_TOL:g}); full loss not held"
+                          if residue else
+                          f"value rel err {row['value_rel_err']:.2e} (tol "
+                          f"{REG_VALUE_REL_TOL:g}), gradient worst leaf "
+                          f"{max(grad_err.values()):.2e} (tol "
+                          f"{REG_GRAD_REL_TOL:g})")
+                print(f"  {point:13s} {measure:10s} {route:8s}: loss sweep "
+                      f"{a['value']:.6e} per leaf {b['value']:.6e}; "
+                      f"{detail}; sweep launches {row['launches']}")
+                if not ok:
+                    fail(f"the regularizer through the {route} sweep "
+                         f"disagrees with the per-leaf code ({point}, "
+                         f"{measure}) or launched other than "
+                         f"{ROUTE_LAUNCHES[route]} sweeps and 0")
     return out
 
 
@@ -2871,29 +2997,24 @@ def fig9_on_card(torch, local_step):
 
 def sweep_kernel_entries(main_path, pd_out):
     """The kernels line's entries of the sweep's forward and backward.
-    Launches: phase 4's main path. Times and bounds: one Eq. 9 pool step
-    at the main path's table, d1 (capacity 4) plus d2 (one member)."""
+    Launches: phase 4's main path. Times and bounds: the one sweep of an
+    Eq. 9 pool step at the main path's table (capacity 4, d1 and d2
+    together)."""
     entries = []
     for name, way, replaces, err in (
             ("pool_distance_f32", "forward",
              "src/repro/kernels/pool_distance.py:75", pd_out["max_abs_err"]),
             ("pool_distance_bwd_f32", "backward",
              "src/repro/core/distances.py:56", pd_out["bwd_max_abs_err"])):
-        rows = [pd_out["timing"][k][way] for k in ("d1", "d2")]
-        byte_ms = sum(r["byte_ms"] for r in rows)
-        op_ms = sum(r["op_ms"] for r in rows)
-        lib = [r["library_ms"] for r in rows]
+        r = pd_out["timing"]["pool_step"][way]
         entries.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/pool_distance_f32.cu",
             "replaces": replaces,
             "launches": main_path["sweep_launches"][way],
-            "max_abs_err": err,
-            "ms": sum(r["ms"] for r in rows),
-            "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": max(byte_ms, op_ms),
-            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "library_ms": None if None in lib else sum(lib)})
+            "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     for e in entries:
         if not e["launches"]:
             fail(f"{e['name']} was launched no time on its main path")

@@ -26,19 +26,20 @@ Params = Dict[str, torch.Tensor]
 def hp_regularized_loss(loss_fn: Callable, fed: FedConfig,
                         backend: PoolBackend) -> Callable:
     """Eq. 9 with (α, β) as arguments:
-    ``full_loss(params, batch, pool, alpha, beta) -> (total, task)``."""
+    ``full_loss(params, batch, pool, alpha, beta) -> (total, task)``.
+    d1 and d2 from `D.eq9_distances` (the stacked pool's one sweep when
+    both are on)."""
 
     def full_loss(params, batch, pool, alpha, beta):
         task = loss_fn(params, batch)
         total = task
-        if fed.use_d1:
-            d1 = backend.d1(params, pool, fed.distance_measure)
+        d1, d2 = D.eq9_distances(params, pool, fed.distance_measure,
+                                 fed.use_d1, fed.use_d2, backend.d1)
+        if d1 is not None:
             if fed.log_scale_distances:
                 d1 = D.log_scale(d1, task)
             total = total - alpha * d1
-        if fed.use_d2:
-            d2 = D.d2_anchor_distance(params, pool.first(),
-                                      fed.distance_measure)
+        if d2 is not None:
             if fed.log_scale_distances:
                 d2 = D.log_scale(d2, task)
             total = total + beta * d2

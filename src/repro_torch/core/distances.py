@@ -13,12 +13,17 @@ The stacked pool's d1 and the d2 route by the tensors' device. On CUDA
 they go through the pool-distance sweep (`kernels/pool_distance`: one
 kernel launch for every leaf and member, forward and backward) and
 `distances_from_stats`, as the reference designed its Pallas kernel for
-them; d2 is the sweep over a one-member pool of the anchor. On the CPU
-they take the per-leaf formulation, the reference's own CPU path. Mixed
-devices raise."""
+them. The anchor m_0^i is the pool's member 0, so one sweep over the pool
+gives both (`d1_d2_pool_distance`, which `eq9_distances` takes for the
+Eq. 9 step of the trainer and of `fedelmy_loss`): d2 is the
+sweep's column 0, and autograd adds both terms' ḡ into the one stats
+tensor, so the step makes one forward and one backward launch. Alone, d2
+is the sweep over a one-member pool of the anchor (MetaFed's anchored
+step). On the CPU they take the per-leaf formulation, the reference's own
+CPU path. Mixed devices raise."""
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -80,9 +85,7 @@ def d1_pool_sweep(params: Params, pool: ModelPool,
     """Eq. 7 through the pool-distance sweep: every member's stats in one
     pass over the pool's capacity, the empty slots masked out of the mean
     (their gradient is exactly 0)."""
-    stats, w_sq = tree_pool_distance_stats(params, pool.members)
-    dists = distances_from_stats(stats, w_sq, measure)
-    return torch.sum(dists * pool.mask()) / float(pool.count)
+    return d1_d2_pool_sweep(params, pool, measure)[0]
 
 
 def d1_pool_distance(params: Params, pool: ModelPool,
@@ -94,6 +97,41 @@ def d1_pool_distance(params: Params, pool: ModelPool,
     members = {k: s.detach() for k, s in pool.members.items()}
     dists = _distance(params, members, measure, batched=True)
     return torch.sum(dists * pool.mask()) / float(pool.count)
+
+
+def d1_d2_pool_sweep(params: Params, pool: ModelPool, measure: str = "l2"
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eq. 7 and Eq. 8 through one pool-distance sweep: d1 the masked mean
+    as `d1_pool_sweep` forms it, d2 member 0's column (the anchor
+    `pool.first()` is member 0)."""
+    stats, w_sq = tree_pool_distance_stats(params, pool.members)
+    dists = distances_from_stats(stats, w_sq, measure)
+    return torch.sum(dists * pool.mask()) / float(pool.count), dists[0]
+
+
+def d1_d2_pool_distance(params: Params, pool: ModelPool,
+                        measure: str = "l2"
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(d1, d2) of a stacked pool. CUDA: `d1_d2_pool_sweep`; CPU:
+    `d1_pool_distance` and `d2_anchor_distance` per leaf."""
+    if _route(params, pool.members, "d1_d2_pool_distance") == "cuda":
+        return d1_d2_pool_sweep(params, pool, measure)
+    return (d1_pool_distance(params, pool, measure),
+            d2_anchor_distance(params, pool.first(), measure))
+
+
+def eq9_distances(params: Params, pool, measure: str, use_d1: bool,
+                  use_d2: bool, d1: Callable = d1_pool_distance
+                  ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """(d1, d2) of Eq. 9, None where a regularizer is off: d1 from `d1` (a
+    pool backend's), d2 the distance to the anchor. Where `d1` is the
+    stacked pool's and both are on, one call of `d1_d2_pool_distance`
+    gives both (one sweep on CUDA)."""
+    if use_d1 and use_d2 and d1 is d1_pool_distance:
+        return d1_d2_pool_distance(params, pool, measure)
+    return (d1(params, pool, measure) if use_d1 else None,
+            d2_anchor_distance(params, pool.first(), measure)
+            if use_d2 else None)
 
 
 def lowrank_member_sq(params: Params,

@@ -32,15 +32,15 @@ def fedelmy_loss(loss_fn: Callable, params: Params, batch, pool,
     (`repro_torch.api.trainer.regularized_loss`)."""
     task = loss_fn(params, batch)
     total = task
-    moment = isinstance(pool, MomentPool)
-    if fed.use_d1:
-        d1 = (D.d1_moment(params, pool) if moment
-              else D.d1_pool_distance(params, pool, fed.distance_measure))
+    d1, d2 = D.eq9_distances(
+        params, pool, fed.distance_measure, fed.use_d1, fed.use_d2,
+        (lambda p, pool, measure: D.d1_moment(p, pool))
+        if isinstance(pool, MomentPool) else D.d1_pool_distance)
+    if d1 is not None:
         if fed.log_scale_distances:
             d1 = D.log_scale(d1, task)
         total = total - fed.alpha * d1
-    if fed.use_d2:
-        d2 = D.d2_anchor_distance(params, pool.first(), fed.distance_measure)
+    if d2 is not None:
         if fed.log_scale_distances:
             d2 = D.log_scale(d2, task)
         total = total + fed.beta * d2

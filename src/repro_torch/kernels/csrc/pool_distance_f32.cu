@@ -8,7 +8,9 @@
 //   ∂/∂w = 2Σ_t ḡsq_t·(w − m_t) + Σ_t ḡl1_t·s(w − m_t) + Σ_t ḡdot_t·m_t
 //          + 2·ḡwsq·w,   s(x) = +1 for x ≥ 0, −1 otherwise
 // (JAX's derivative of |x|); ḡnorm has no term, the members carry no
-// gradient. f32 only.
+// gradient. f32 only. The Eq. 9 step's d1 and d2 share one call of each:
+// d2's anchor is the pool's member 0, and autograd adds both terms' ḡ into
+// the one (4, C) ḡ.
 //
 // Replaces: src/repro/kernels/pool_distance.py:_pool_distance_stats_batched
 // (body _pd_kernel_batched; front pool_distance_stats). The Pallas kernel
@@ -17,51 +19,74 @@
 // callers concatenate the whole pool first (ops.tree_pool_distances). Here
 // nothing is copied: the launch carries a table of leaves by value (each
 // leaf's w, its member 0 and the strides between members and runs), and
-// each block finds its leaf and chunk in that table, as sgd_f32.cu does.
-// Blocks on the card run in no order, so the sum over P is two stages
-// that give the same bits on every run: each block writes its chunk's
-// 4·C + 1 sums to a workspace; the last block of each run to finish —
-// counted with an integer atomic, never a float one — adds the chunks'
-// partials in a fixed order, as factor_gram_f32.cu does.
-//
-// Inside a block, thread i owns the four-element groups i, i + 256, i + 512
-// and i + 768 of its 4,096-element chunk, loaded as one 16-byte (f32) or
-// 8-byte (bf16) vector where every pointer of the leaf is aligned and
-// element by element otherwise (the CNN's fc2.b has 10 elements); either
-// way each thread adds its 16 elements in the same order, so alignment
-// never changes a bit. The thread keeps its 16 w values in registers and
-// walks the members, each member's four sums reduced over the block by a
-// warp shuffle tree and then the 8 warps in order.
-//
-// Summation chain (the longest run of dependent f32 additions, which the
-// tolerance of chip_smoke.py's phase 15 is derived from): 16 in a thread,
-// 5 shuffle levels, 7 warps, then ⌈chunks/4⌉ + 2 across chunks.
+// each block finds the leaf of each of its chunks in that table.
 //
 // Bound on an H100 SXM: bytes. The forward reads w and the C members once,
 // (C + 1)·P·4 bytes at f32 (the paper CNN's P = 1,422,218 at capacity 4:
 // 28.4 MB, 8.5 µs at 3.35 TB/s) for ~8 operations an element and member;
-// the backward reads them again and writes ∂w, (C + 2)·P·4 bytes.
+// the backward reads them again and writes ∂w, (C + 2)·P·4 bytes. What the
+// design does about it:
+//
+// * One resident wave of blocks that walk the chunks. A launch has
+//   min(chunks, 2·132) blocks (__launch_bounds__ keeps two on each SM);
+//   block j takes the chunks j, j + gridDim.x, … of its table and keeps
+//   its sums in registers across them, so it pays its reduction once.
+// * Every byte of a chunk in flight before any arithmetic. A chunk is
+//   1,024·G elements of one leaf; thread i owns its four-element groups
+//   i + k·256 (k < G). For each chunk it issues the loads of its w and of
+//   every member of the pass (MC members: C itself up to 8, passes of 8
+//   above) and only then adds: 16-byte (f32) or 8-byte (bf16) vectors where
+//   every pointer of the leaf is aligned and the group lies inside the
+//   leaf, element by element otherwise (the CNN's fc2.b has 10 elements),
+//   in the same order either way, so alignment never changes a bit. MC and
+//   G are template parameters; pool_distance.py `sweep_plan` picks the
+//   widest G whose (MC + 1)·4·G loaded values stay within 48 registers.
+// * One block reduction for all 4C + 1 sums: each warp adds its lanes' sums
+//   by a shuffle tree, lane 0 puts them in shared memory, and after one
+//   barrier thread j adds sum j of the 8 warps in order.
+// * A parallel tail. Each block writes its 4C + 1 partials to a workspace
+//   laid out sum-major, (B, 4C + 1, slots: the blocks of every launch); the
+//   last block of each run to finish — counted with an integer atomic on a
+//   counter that it then sets back to 0, never a float atomic — adds the
+//   partials with one warp per sum, four sums a warp at a time: lane l
+//   takes slots l, l + 32, … in order, then a shuffle tree adds the lanes.
+//   The order is fixed, so runs repeat bit for bit, and a run's sums do not
+//   depend on the other runs of the batch.
+//
+// Summation chain (the longest run of dependent f32 roundings of a sum,
+// which phase 15 of chip_smoke.py derives its tolerance from;
+// pool_distance.py `SweepPlan.chain`): 2 to form a term, 4·G adds a chunk
+// over the most chunks a block walks, 5 shuffle levels, 7 warps, then
+// ⌈slots/32⌉ in a lane of the tail and 5 shuffle levels.
 //
 // Plain C interface for ctypes. The caller passes host arrays of the
-// leaves' pointers, sizes and strides (in elements), a workspace of
-// (B · total blocks · (4C + 1)) floats and B zeroed int32 counters; the
-// entry packs the leaves into tables of MAX_LEAVES and launches once per
-// table on the caller's stream (blocks of later launches count on from
-// earlier ones, so the last block of the last launch adds every chunk).
-// It returns cudaGetLastError() and writes the number of launches.
+// leaves' pointers, sizes and strides (in elements), the plan (G; the
+// grid's cap), a workspace of B · slots · (4C + 1) floats and B int32
+// counters that are 0 (the kernel leaves them 0); the entry packs the
+// leaves into tables of MAX_LEAVES and launches once per table on the
+// caller's stream (the last block of the last launch adds every slot). It
+// returns cudaGetLastError() and writes the number of launches.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <vector>
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
-constexpr int GROUPS = 4;                         // 4-element groups a thread
-constexpr int PER_THREAD = GROUPS * 4;            // 16 elements
-constexpr int64_t CHUNK = THREADS * PER_THREAD;   // 4,096 elements a block
-constexpr int MAX_LEAVES = 40;                    // table < 4 KB of params
+constexpr int MAX_LEAVES = 40;   // table < 4 KB of params
 constexpr int MAX_MEMBERS = 63;  // 4C + 1 ≤ THREADS (pool_distance.py too)
+constexpr int ROUND = 8;         // members a pass holds, at most
+constexpr int BLOCKS_PER_SM = 2;
+
+// The (MC, G) instances: members a pass and four-element groups a thread,
+// for each MC the widest G whose (MC + 1)·4·G loaded values stay within
+// 48 registers (pool_distance.py GROUPS).
+#define SWEEP_INSTANCES(X) \
+  X(1, 4) X(2, 4) X(3, 2) X(4, 2) X(5, 2) X(6, 1) X(7, 1) X(8, 1)
 
 struct Leaf {
   const void* w;        // run 0's w
@@ -72,58 +97,89 @@ struct Leaf {
   int64_t m_run;        // … between two runs' member 0
   int64_t m_member;     // … between two members
   int64_t o_run;        // … between two runs' ∂w
-  int64_t first_block;  // global index of the leaf's first block
+  int64_t first_chunk;  // index of the leaf's first chunk in its table
   int aligned;          // every pointer the leaf reads (and writes) aligned
 };
 
 struct Table {
   Leaf leaf[MAX_LEAVES];
   int n_leaves;
-  int64_t block0;       // global index of this launch's first block
+  int64_t chunks;       // chunks of the table's leaves
+  int64_t slot0;        // partial slot of this launch's block 0
 };
 
-__device__ __forceinline__ float load(const void* p, int64_t i, int bf16) {
-  return bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i])
-              : static_cast<const float*>(p)[i];
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
 }
 
-// the four elements of group g (elements 4g … 4g + 3 of the chunk)
-__device__ __forceinline__ void load4(const void* base, int64_t start,
-                                      int64_t len, int64_t g, int bf16,
-                                      int aligned, float v[4]) {
-  const int64_t e = start + 4 * g;
-  if (aligned && 4 * g + 3 < len) {
-    if (bf16) {
-      const uint2 raw = *reinterpret_cast<const uint2*>(
-          static_cast<const __nv_bfloat16*>(base) + e);
-      const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-      const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-      const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-      v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-    } else {
-      const float4 f = *reinterpret_cast<const float4*>(
-          static_cast<const float*>(base) + e);
-      v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
-    }
-    return;
-  }
+// Four elements as one streaming load (ld.global.cs): each byte is read
+// once, so it may leave the cache first.
+__device__ __forceinline__ void vec4(const float* p, float v[4]) {
+  const float4 f = __ldcs(reinterpret_cast<const float4*>(p));
+  v[0] = f.x; v[1] = f.y; v[2] = f.z; v[3] = f.w;
+}
+
+__device__ __forceinline__ void vec4(const __nv_bfloat16* p, float v[4]) {
+  const uint2 raw = __ldcs(reinterpret_cast<const uint2*>(p));
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 b = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+
+// This thread's 4·G elements of the chunk at p (len elements of it inside
+// the leaf; zeros past them): group k is elements 4(tid + k·256) … + 3.
+template <typename T, int G>
+__device__ __forceinline__ void load_chunk(const T* p, int64_t len,
+                                           int aligned, float v[4 * G]) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j)
-    v[j] = 4 * g + j < len ? load(base, e + j, bf16) : 0.f;
+  for (int k = 0; k < G; ++k) {
+    const int64_t e = 4 * (threadIdx.x + k * THREADS);
+    if (aligned && e + 3 < len) {
+      vec4(p + e, v + 4 * k);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[4 * k + j] = e + j < len ? to_f32(p[e + j]) : 0.f;
+    }
+  }
 }
 
-__device__ __forceinline__ const void* offset(const void* p, int64_t i,
-                                              int bf16) {
-  return bf16 ? static_cast<const void*>(
-                    static_cast<const __nv_bfloat16*>(p) + i)
-              : static_cast<const void*>(static_cast<const float*>(p) + i);
+template <int G>
+__device__ __forceinline__ void store_chunk(float* p, int64_t len,
+                                            int aligned,
+                                            const float v[4 * G]) {
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const int64_t e = 4 * (threadIdx.x + k * THREADS);
+    if (aligned && e + 3 < len) {
+      *reinterpret_cast<float4*>(p + e) =
+          make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (e + j < len) p[e + j] = v[4 * k + j];
+    }
+  }
 }
 
-// The leaf whose blocks hold global block gb (the table is in block order).
-__device__ __forceinline__ int find_leaf(const Table& t, int64_t gb) {
+// Chunk k of the table: its leaf (the leaves in chunk order), its first
+// element and the elements of it inside the leaf.
+struct Place {
+  const Leaf* leaf;
+  int64_t start, len;
+};
+
+template <int G>
+__device__ __forceinline__ Place place(const Table& t, int64_t k) {
+  constexpr int64_t CHUNK = 4 * THREADS * G;
   int li = 0;
-  while (li + 1 < t.n_leaves && t.leaf[li + 1].first_block <= gb) ++li;
-  return li;
+  while (li + 1 < t.n_leaves && t.leaf[li + 1].first_chunk <= k) ++li;
+  const Leaf& leaf = t.leaf[li];
+  const int64_t start = (k - leaf.first_chunk) * CHUNK;
+  return {&leaf, start, leaf.n - start < CHUNK ? leaf.n - start : CHUNK};
 }
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -132,145 +188,164 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-__global__ void __launch_bounds__(THREADS)
-pool_distance_kernel(const __grid_constant__ Table table, int c, int bf16,
-                     int64_t total_blocks, float* __restrict__ stats,
+template <typename T, int MC, int G>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
+pool_distance_kernel(const __grid_constant__ Table table, int c,
+                     int64_t slots, float* __restrict__ stats,
                      float* __restrict__ wsq, float* __restrict__ part,
                      int* __restrict__ counters) {
-  __shared__ float red[WARPS][4];
+  constexpr int E = 4 * G;                    // elements a thread a chunk
+  extern __shared__ float red[];              // [WARPS][4C + 1]
   __shared__ int is_last;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int64_t b = blockIdx.y;
-  const int64_t gb = table.block0 + blockIdx.x;
-  const Leaf& leaf = table.leaf[find_leaf(table, gb)];
-  const int64_t start = (gb - leaf.first_block) * CHUNK;
-  const int64_t len = leaf.n - start < CHUNK ? leaf.n - start : CHUNK;
   const int n_out = 4 * c + 1;
-  float* mine = part + (b * total_blocks + gb) * n_out;
+  float* mine = red + warp * n_out;
 
-  float w[PER_THREAD];
-  const void* wb = offset(leaf.w, b * leaf.w_run, bf16);
+  // this thread's sums over its elements of the block's chunks, in chunk
+  // order: per member sq, l1, dot, norm; Σ w² in the first pass
+  float sw = 0.f;
+  for (int t0 = 0; t0 < c; t0 += MC) {
+    float s[MC][4];
 #pragma unroll
-  for (int k = 0; k < GROUPS; ++k)
-    load4(wb, start, len, tid + k * THREADS, bf16, leaf.aligned, w + 4 * k);
-
-  // the block's sums: per member sq, l1, dot, norm; then Σ w² (slot 4C)
-  for (int t = 0; t <= c; ++t) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    if (t < c) {
-      const void* mb = offset(leaf.m, b * leaf.m_run + t * leaf.m_member, bf16);
+    for (int u = 0; u < MC; ++u)
 #pragma unroll
-      for (int k = 0; k < GROUPS; ++k) {
-        float m[4];
-        load4(mb, start, len, tid + k * THREADS, bf16, leaf.aligned, m);
+      for (int q = 0; q < 4; ++q) s[u][q] = 0.f;
+    for (int64_t k = blockIdx.x; k < table.chunks; k += gridDim.x) {
+      const Place p = place<G>(table, k);
+      const Leaf& l = *p.leaf;
+      const T* wp = static_cast<const T*>(l.w) + b * l.w_run + p.start;
+      const T* mp = static_cast<const T*>(l.m) + b * l.m_run + p.start +
+                    t0 * l.m_member;
+      float w[E], m[MC][E];
+      load_chunk<T, G>(wp, p.len, l.aligned, w);
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float x = w[4 * k + j], y = m[j], r = x - y;
-          s[0] = fmaf(r, r, s[0]);
-          s[1] += fabsf(r);
-          s[2] = fmaf(x, y, s[2]);
-          s[3] = fmaf(y, y, s[3]);
+      for (int u = 0; u < MC; ++u)
+        if (t0 + u < c)
+          load_chunk<T, G>(mp + u * l.m_member, p.len, l.aligned, m[u]);
+#pragma unroll
+      for (int u = 0; u < MC; ++u) {
+        if (t0 + u >= c) break;
+#pragma unroll
+        for (int e = 0; e < E; ++e) {
+          const float x = w[e], y = m[u][e], r = x - y;
+          s[u][0] = fmaf(r, r, s[u][0]);
+          s[u][1] += fabsf(r);
+          s[u][2] = fmaf(x, y, s[u][2]);
+          s[u][3] = fmaf(y, y, s[u][3]);
         }
       }
-    } else {
+      if (t0 == 0) {
 #pragma unroll
-      for (int e = 0; e < PER_THREAD; ++e) s[0] = fmaf(w[e], w[e], s[0]);
+        for (int e = 0; e < E; ++e) sw = fmaf(w[e], w[e], sw);
+      }
     }
 #pragma unroll
-    for (int q = 0; q < 4; ++q) s[q] = warp_sum(s[q]);
-    if (lane == 0) {
+    for (int u = 0; u < MC; ++u) {
+      if (t0 + u >= c) break;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) red[warp][q] = s[q];
+      for (int q = 0; q < 4; ++q) {
+        const float v = warp_sum(s[u][q]);
+        if (lane == 0) mine[q * c + t0 + u] = v;
+      }
     }
-    __syncthreads();
-    if (tid < (t < c ? 4 : 1)) {
-      float acc = red[0][tid];
+  }
+  sw = warp_sum(sw);
+  if (lane == 0) mine[4 * c] = sw;
+  __syncthreads();
+
+  // the block's partials, the 8 warps added in order, sum-major
+  float* run_part = part + b * n_out * slots;
+  if (tid < n_out) {
+    float acc = red[tid];
 #pragma unroll
-      for (int v = 1; v < WARPS; ++v) acc += red[v][tid];
-      mine[t < c ? tid * c + t : 4 * c] = acc;
-    }
-    __syncthreads();  // red is read before the next member writes it
+    for (int v = 1; v < WARPS; ++v) acc += red[v * n_out + tid];
+    run_part[tid * slots + table.slot0 + blockIdx.x] = acc;
   }
 
-  // the last block of run b adds the chunks' partials: four running sums
-  // over chunks ≡ 0, 1, 2, 3 (mod 4), then (s0 + s1) + (s2 + s3)
-  __threadfence();
+  // the last block of run b adds the slots' partials: a warp a sum, four
+  // sums a warp at a time. Thread 0 counts the block in with an atomic
+  // that releases the partials the barrier ordered before it and, in the
+  // last block, acquires every other block's for the threads after the
+  // next barrier.
   __syncthreads();
-  if (tid == 0) is_last = atomicAdd(counters + b, 1) == total_blocks - 1;
+  if (tid == 0) {
+    int before;
+    asm volatile("atom.add.acq_rel.gpu.global.s32 %0, [%1], 1;\n"
+                 : "=r"(before) : "l"(counters + b) : "memory");
+    is_last = before == slots - 1;
+    if (is_last) counters[b] = 0;  // ready for the next call
+  }
   __syncthreads();
   if (!is_last) return;
-  __threadfence();
-  const float* all = part + b * total_blocks * n_out;
-  for (int j = tid; j < n_out; j += THREADS) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    int64_t g = 0;
-    for (; g + 4 <= total_blocks; g += 4) {
+  for (int j0 = warp; j0 < n_out; j0 += 4 * WARPS) {
+    float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 2
+    for (int64_t i = lane; i < slots; i += 32) {
 #pragma unroll
-      for (int q = 0; q < 4; ++q) s[q] += __ldcg(all + (g + q) * n_out + j);
+      for (int q = 0; q < 4; ++q)
+        if (j0 + q * WARPS < n_out)
+          acc[q] += __ldcg(run_part + (j0 + q * WARPS) * slots + i);
     }
-    for (int q = 0; g < total_blocks; ++g, ++q)
-      s[q] += __ldcg(all + g * n_out + j);
-    const float sum = (s[0] + s[1]) + (s[2] + s[3]);
-    if (j < 4 * c) stats[b * 4 * c + j] = sum;
-    else wsq[b] = sum;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int j = j0 + q * WARPS;
+      const float v = warp_sum(acc[q]);
+      if (lane == 0 && j < n_out) {
+        if (j < 4 * c) stats[b * 4 * c + j] = v;
+        else wsq[b] = v;
+      }
+    }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+template <int MC, int G>
+__global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 pool_distance_bwd_kernel(const __grid_constant__ Table table, int c,
                          const float* __restrict__ g_stats,
                          const float* __restrict__ g_wsq) {
-  // ḡsq, ḡl1, ḡdot of run b's members (rows 0–2 of its (4, C) block)
-  __shared__ float g[3 * MAX_MEMBERS];
-  const int tid = threadIdx.x;
+  constexpr int E = 4 * G;
   const int64_t b = blockIdx.y;
-  for (int j = tid; j < 3 * c; j += THREADS) g[j] = g_stats[b * 4 * c + j];
-  const float two_gw = 2.f * g_wsq[b];
-  __syncthreads();
-
-  const int64_t gb = table.block0 + blockIdx.x;
-  const Leaf& leaf = table.leaf[find_leaf(table, gb)];
-  const int64_t start = (gb - leaf.first_block) * CHUNK;
-  const int64_t len = leaf.n - start < CHUNK ? leaf.n - start : CHUNK;
-  const float* wb = static_cast<const float*>(leaf.w) + b * leaf.w_run;
-  float* ob = leaf.out + b * leaf.o_run;
-
-  float w[PER_THREAD], acc[PER_THREAD];
+  // ḡsq, ḡl1, ḡdot of run b's members: rows 0–2 of its (4, C) block, the
+  // same addresses in every thread
+  const float* g = g_stats + b * 4 * c;
+  const float two_gw = 2.f * __ldg(g_wsq + b);
+  for (int64_t k = blockIdx.x; k < table.chunks; k += gridDim.x) {
+    const Place p = place<G>(table, k);
+    const Leaf& l = *p.leaf;
+    const float* wp = static_cast<const float*>(l.w) + b * l.w_run + p.start;
+    const float* mp = static_cast<const float*>(l.m) + b * l.m_run + p.start;
+    float w[E], acc[E];
+    load_chunk<float, G>(wp, p.len, l.aligned, w);
+    for (int t0 = 0; t0 < c; t0 += MC) {
+      float m[MC][E], gs2[MC], gl[MC], gd[MC];
 #pragma unroll
-  for (int k = 0; k < GROUPS; ++k)
-    load4(wb, start, len, tid + k * THREADS, 0, leaf.aligned, w + 4 * k);
+      for (int u = 0; u < MC; ++u) {
+        if (t0 + u < c) {
+          load_chunk<float, G>(mp + (t0 + u) * l.m_member, p.len, l.aligned,
+                               m[u]);
+          gs2[u] = 2.f * __ldg(g + t0 + u);
+          gl[u] = __ldg(g + c + t0 + u);
+          gd[u] = __ldg(g + 2 * c + t0 + u);
+        }
+      }
+      if (t0 == 0) {
 #pragma unroll
-  for (int e = 0; e < PER_THREAD; ++e) acc[e] = two_gw * w[e];
-  for (int t = 0; t < c; ++t) {
-    const float* mb = static_cast<const float*>(leaf.m) + b * leaf.m_run +
-                      t * leaf.m_member;
-    const float gs2 = 2.f * g[t], gl = g[c + t], gd = g[2 * c + t];
+        for (int e = 0; e < E; ++e) acc[e] = two_gw * w[e];
+      }
 #pragma unroll
-    for (int k = 0; k < GROUPS; ++k) {
-      float m[4];
-      load4(mb, start, len, tid + k * THREADS, 0, leaf.aligned, m);
+      for (int u = 0; u < MC; ++u) {
+        if (t0 + u >= c) break;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float r = w[4 * k + j] - m[j];
-        float a = acc[4 * k + j];
-        a = fmaf(gs2, r, a);
-        a += r >= 0.f ? gl : -gl;
-        acc[4 * k + j] = fmaf(gd, m[j], a);
+        for (int e = 0; e < E; ++e) {
+          const float r = w[e] - m[u][e];
+          float a = fmaf(gs2[u], r, acc[e]);
+          a += r >= 0.f ? gl[u] : -gl[u];
+          acc[e] = fmaf(gd[u], m[u][e], a);
+        }
       }
     }
-  }
-#pragma unroll
-  for (int k = 0; k < GROUPS; ++k) {
-    const int64_t g4 = tid + k * THREADS;
-    if (leaf.aligned && 4 * g4 + 3 < len) {
-      *reinterpret_cast<float4*>(ob + start + 4 * g4) =
-          make_float4(acc[4 * k], acc[4 * k + 1], acc[4 * k + 2],
-                      acc[4 * k + 3]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (4 * g4 + j < len) ob[start + 4 * g4 + j] = acc[4 * k + j];
-    }
+    store_chunk<G>(l.out + b * l.o_run + p.start, p.len, l.aligned, acc);
   }
 }
 
@@ -278,103 +353,172 @@ bool aligned_to(const void* p, int64_t bytes) {
   return (reinterpret_cast<uintptr_t>(p) % bytes) == 0;
 }
 
-// Packs the leaves into tables and launches `launch(table)` once per table.
-template <typename Launch>
-int for_each_table(const void* const* w, const void* const* m,
-                   void* const* out, const int64_t* n, const int64_t* w_run,
-                   const int64_t* m_run, const int64_t* m_member,
-                   const int64_t* o_run, int n_leaves, int b, int c,
-                   int esz, Launch launch, int* launches) {
-  *launches = 0;
-  Table table;
-  table.n_leaves = 0;
-  table.block0 = 0;
-  int64_t blocks = 0;  // global block count so far
+struct Args {
+  const void* const* w;
+  const void* const* m;
+  void* const* out;
+  const int64_t* n;
+  const int64_t* w_run;
+  const int64_t* m_run;
+  const int64_t* m_member;
+  const int64_t* o_run;
+  int n_leaves, b, c;
+  int64_t max_grid;     // blocks a launch, at most
+  cudaStream_t stream;
+  int* launches;
+};
+
+// Packs the non-empty leaves into tables of MAX_LEAVES, chunks of `chunk`
+// elements; each table's launch has min(its chunks, max_grid) blocks, and
+// its blocks' partial slots follow those of the tables before it.
+std::vector<Table> pack(const Args& a, int esz, int64_t chunk) {
+  std::vector<Table> tables;
   const int64_t vec = 4 * esz;  // bytes of a 4-element group
-  for (int i = 0; i <= n_leaves; ++i) {
-    const bool flush = i == n_leaves || table.n_leaves == MAX_LEAVES;
-    if (flush && table.n_leaves > 0) {
-      launch(table, blocks - table.block0);
-      ++*launches;
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-      table.n_leaves = 0;
-      table.block0 = blocks;
+  for (int i = 0; i < a.n_leaves; ++i) {
+    if (a.n[i] == 0) continue;
+    if (tables.empty() || tables.back().n_leaves == MAX_LEAVES) {
+      Table t;
+      t.n_leaves = 0;
+      t.chunks = 0;
+      t.slot0 = tables.empty() ? 0
+                               : tables.back().slot0 +
+                                     std::min(tables.back().chunks,
+                                              a.max_grid);
+      tables.push_back(t);
     }
-    if (i == n_leaves || n[i] == 0) continue;
-    Leaf& leaf = table.leaf[table.n_leaves++];
-    leaf.w = w[i];
-    leaf.m = m[i];
-    leaf.out = out ? static_cast<float*>(out[i]) : nullptr;
-    leaf.n = n[i];
-    leaf.w_run = w_run[i];
-    leaf.m_run = m_run[i];
-    leaf.m_member = m_member[i];
-    leaf.o_run = o_run ? o_run[i] : 0;
-    leaf.first_block = blocks;
-    bool ok = aligned_to(w[i], vec) && aligned_to(m[i], vec) &&
-              (b == 1 || ((w_run[i] * esz) % vec == 0 &&
-                          (m_run[i] * esz) % vec == 0)) &&
-              (c == 1 || (m_member[i] * esz) % vec == 0);
-    if (out)
-      ok = ok && aligned_to(out[i], vec) &&
-           (b == 1 || (o_run[i] * esz) % vec == 0);
+    Table& t = tables.back();
+    Leaf& leaf = t.leaf[t.n_leaves++];
+    leaf.w = a.w[i];
+    leaf.m = a.m[i];
+    leaf.out = a.out ? static_cast<float*>(a.out[i]) : nullptr;
+    leaf.n = a.n[i];
+    leaf.w_run = a.w_run[i];
+    leaf.m_run = a.m_run[i];
+    leaf.m_member = a.m_member[i];
+    leaf.o_run = a.o_run ? a.o_run[i] : 0;
+    leaf.first_chunk = t.chunks;
+    bool ok = aligned_to(a.w[i], vec) && aligned_to(a.m[i], vec) &&
+              (a.b == 1 || ((a.w_run[i] * esz) % vec == 0 &&
+                            (a.m_run[i] * esz) % vec == 0)) &&
+              (a.c == 1 || (a.m_member[i] * esz) % vec == 0);
+    if (a.out)
+      ok = ok && aligned_to(a.out[i], vec) &&
+           (a.b == 1 || (a.o_run[i] * esz) % vec == 0);
     leaf.aligned = ok;
-    blocks += (n[i] + CHUNK - 1) / CHUNK;
+    t.chunks += (a.n[i] + chunk - 1) / chunk;
+  }
+  return tables;
+}
+
+// Launches `launch(table, blocks)` once per table; returns the first
+// error.
+template <typename Launch>
+int launch_all(const Args& a, const std::vector<Table>& tables,
+               Launch launch) {
+  for (const Table& t : tables) {
+    launch(t, std::min(t.chunks, a.max_grid));
+    ++*a.launches;
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+template <typename T, int MC, int G>
+int forward(const Args& a, float* stats, float* wsq, float* part,
+            int64_t part_floats, int* counters) {
+  const std::vector<Table> tables = pack(a, sizeof(T), 4 * THREADS * G);
+  if (tables.empty()) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t slots = tables.back().slot0 +
+                        std::min(tables.back().chunks, a.max_grid);
+  const int n_out = 4 * a.c + 1;
+  if (a.b * slots * n_out > part_floats)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = sizeof(float) * WARPS * n_out;
+  return launch_all(a, tables, [&](const Table& t, int64_t blocks) {
+    pool_distance_kernel<T, MC, G>
+        <<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(a.b)),
+           THREADS, smem, a.stream>>>(t, a.c, slots, stats, wsq, part,
+                                      counters);
+  });
+}
 
-extern "C" int pool_distance_f32_chunk() { return static_cast<int>(CHUNK); }
+template <int MC, int G>
+int backward(const Args& a, const float* g_stats, const float* g_wsq) {
+  const std::vector<Table> tables = pack(a, sizeof(float), 4 * THREADS * G);
+  return launch_all(a, tables, [&](const Table& t, int64_t blocks) {
+    pool_distance_bwd_kernel<MC, G>
+        <<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(a.b)),
+           THREADS, 0, a.stream>>>(t, a.c, g_stats, g_wsq);
+  });
+}
+
+// A plan the kernels take: G of the instance for MC = min(C, 8), at least
+// one block a launch.
+bool valid_plan(int c, int g, int64_t grid) {
+  if (c < 1 || c > MAX_MEMBERS || grid < 1 || grid > INT32_MAX) return false;
+  const int mc = std::min(c, ROUND);
+#define SWEEP_VALID(MC, G) \
+  if (mc == MC && g == G) return true;
+  SWEEP_INSTANCES(SWEEP_VALID)
+#undef SWEEP_VALID
+  return false;
+}
+
+}  // namespace
 
 // Forward. w, m: host arrays of n_leaves device pointers (run 0's w and
 // member 0 of each leaf; f32, or bf16 when bf16 != 0); n, w_run, m_run,
-// m_member: host arrays of sizes and strides in elements. stats: (B, 4, C)
-// f32 (sq, l1, dot, norm); wsq: (B,) f32; part: the workspace; counters: B
-// zeroed ints. Empty leaves are skipped; at least one leaf is not empty.
+// m_member: host arrays of sizes and strides in elements; g, grid: the
+// plan's groups a thread and blocks a launch, at most. stats: (B, 4, C)
+// f32 (sq, l1, dot, norm); wsq: (B,) f32; part: the workspace of
+// part_floats floats; counters: B ints that are 0. Empty leaves are
+// skipped; at least one leaf is not empty.
 extern "C" int pool_distance_f32(const void* const* w, const void* const* m,
                                  const int64_t* n, const int64_t* w_run,
                                  const int64_t* m_run,
                                  const int64_t* m_member, int n_leaves,
-                                 int b, int c, int bf16, float* stats,
-                                 float* wsq, float* part, int* counters,
+                                 int b, int c, int bf16, int g, int64_t grid,
+                                 float* stats, float* wsq, float* part,
+                                 int64_t part_floats, int* counters,
                                  void* stream, int* launches) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int64_t total = 0;
-  for (int i = 0; i < n_leaves; ++i) total += (n[i] + CHUNK - 1) / CHUNK;
-  return for_each_table(
-      w, m, nullptr, n, w_run, m_run, m_member, nullptr, n_leaves, b, c,
-      bf16 ? 2 : 4,
-      [&](const Table& table, int64_t blocks) {
-        pool_distance_kernel<<<dim3(static_cast<unsigned>(blocks),
-                                    static_cast<unsigned>(b)),
-                               THREADS, 0, s>>>(table, c, bf16, total, stats,
-                                                wsq, part, counters);
-      },
-      launches);
+  *launches = 0;
+  if (!valid_plan(c, g, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{w, m, nullptr, n, w_run, m_run, m_member, nullptr, n_leaves,
+               b, c, grid, static_cast<cudaStream_t>(stream), launches};
+  const int mc = std::min(c, ROUND);
+#define SWEEP_FORWARD(MC, G)                                                \
+  if (mc == MC && g == G)                                                   \
+    return bf16 ? forward<__nv_bfloat16, MC, G>(a, stats, wsq, part,        \
+                                                part_floats, counters)      \
+                : forward<float, MC, G>(a, stats, wsq, part, part_floats,   \
+                                        counters);
+  SWEEP_INSTANCES(SWEEP_FORWARD)
+#undef SWEEP_FORWARD
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Backward (f32). out: host array of device pointers to each leaf's ∂w of
 // run 0, o_run its run stride; g_stats (B, 4, C) and g_wsq (B,) f32 in
-// device memory (row 3 of g_stats, ḡnorm, is not read).
+// device memory (row 3 of g_stats, ḡnorm, is not read); g, grid as above.
 extern "C" int pool_distance_bwd_f32(const void* const* w,
                                      const void* const* m, void* const* out,
                                      const int64_t* n, const int64_t* w_run,
                                      const int64_t* m_run,
                                      const int64_t* m_member,
                                      const int64_t* o_run, int n_leaves,
-                                     int b, int c, const float* g_stats,
+                                     int b, int c, int g, int64_t grid,
+                                     const float* g_stats,
                                      const float* g_wsq, void* stream,
                                      int* launches) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return for_each_table(
-      w, m, out, n, w_run, m_run, m_member, o_run, n_leaves, b, c, 4,
-      [&](const Table& table, int64_t blocks) {
-        pool_distance_bwd_kernel<<<dim3(static_cast<unsigned>(blocks),
-                                        static_cast<unsigned>(b)),
-                                   THREADS, 0, s>>>(table, c, g_stats, g_wsq);
-      },
-      launches);
+  *launches = 0;
+  if (!valid_plan(c, g, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{w, m, out, n, w_run, m_run, m_member, o_run, n_leaves, b, c,
+               grid, static_cast<cudaStream_t>(stream), launches};
+  const int mc = std::min(c, ROUND);
+#define SWEEP_BACKWARD(MC, G) \
+  if (mc == MC && g == G) return backward<MC, G>(a, g_stats, g_wsq);
+  SWEEP_INSTANCES(SWEEP_BACKWARD)
+#undef SWEEP_BACKWARD
+  return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -15,8 +15,9 @@ and pool (C, P) → (C,) each, or w (B, P) and pool (B, C, P) → (B, C);
 (`PoolStatsFunction`: the members carry none, ḡnorm has no term). On CUDA
 tensors both launch the hand-written kernels ``csrc/pool_distance_f32.cu``
 (one forward launch, f32 or bf16 in, f32 sums that repeat bit for bit;
-the backward f32 only); on CPU tensors they take the plain versions
-`ref.pool_distance_stats_ref` and `ref.pool_distance_stats_bwd_ref`.
+the backward f32 only), laid out by `sweep_plan`; on CPU tensors they
+take the plain versions `ref.pool_distance_stats_ref` and
+`ref.pool_distance_stats_bwd_ref`.
 
 **The factor Gram.** Pairwise member distances of a `LowRankDeltaPool`
 reduce to Gram matrices over the stacked factors: with A = [U_1ᵀ; …;
@@ -33,7 +34,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -46,8 +47,21 @@ TILE = 64               # csrc/factor_gram_f32.cu: its output tile edge
 MAX_M = 256             # rows the reference's kernel takes (C·r ≤ 256)
 _MAX_GRID_Z = 65535
 _MAX_GRID_Y = 65535
-MAX_MEMBERS = 63        # csrc/pool_distance_f32.cu: 4·C + 1 sums ≤ 256
 STATS = ("sq", "l1", "dot", "norm")
+# csrc/pool_distance_f32.cu: threads a block (8 warps), members a pass
+# holds, leaves a launch's table takes, resident blocks an SM (its
+# __launch_bounds__), and the four-element groups a thread of the
+# instance for MC members a pass: the widest G whose (MC + 1)·4·G loaded
+# values, all issued before a thread's first FMA, stay within 48
+# registers
+THREADS = 256
+WARPS = THREADS // 32
+ROUND = 8
+MAX_MEMBERS = 63        # 4·C + 1 sums ≤ THREADS
+MAX_LEAVES = 40
+BLOCKS_PER_SM = 2
+GROUPS = {1: 4, 2: 4, 3: 2, 4: 2, 5: 2, 6: 1, 7: 1, 8: 1}
+N_SMS = 132             # H100 SXM streaming multiprocessors
 
 Params = Dict[str, torch.Tensor]
 
@@ -124,16 +138,94 @@ def _sweep_lib() -> ctypes.CDLL:
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     ptrs, ints = ctypes.POINTER(p), ctypes.POINTER(i64)
     lib.pool_distance_f32.argtypes = [ptrs, ptrs, ints, ints, ints, ints, i,
-                                      i, i, i, p, p, p, p, p,
+                                      i, i, i, i, i64, p, p, p, i64, p, p,
                                       ctypes.POINTER(i)]
     lib.pool_distance_f32.restype = i
     lib.pool_distance_bwd_f32.argtypes = [ptrs, ptrs, ptrs, ints, ints, ints,
-                                          ints, ints, i, i, i, p, p, p,
-                                          ctypes.POINTER(i)]
+                                          ints, ints, i, i, i, i, i64, p, p,
+                                          p, ctypes.POINTER(i)]
     lib.pool_distance_bwd_f32.restype = i
-    lib.pool_distance_f32_chunk.argtypes = []
-    lib.pool_distance_f32_chunk.restype = i
     return lib
+
+
+class SweepPlan(NamedTuple):
+    """How csrc/pool_distance_f32.cu runs a call over C members: passes of
+    min(C, `ROUND`) members, `groups` four-element groups a thread, so a
+    chunk is `chunk` = 1,024·`groups` elements of a leaf;
+    `blocks[i]` chunks for leaf i. The non-empty leaves go in tables of
+    `MAX_LEAVES`, one launch each, whose grid is (min(its chunks, `grid`),
+    B): block j walks the chunks j, j + grid, … of its table and leaves one
+    partial slot a run (the forward's)."""
+    members: int
+    groups: int
+    chunk: int
+    blocks: Tuple[int, ...]
+    grid: int
+
+    @property
+    def total_blocks(self) -> int:
+        """Chunks over all leaves."""
+        return sum(self.blocks)
+
+    @property
+    def tables(self) -> List[int]:
+        """The chunks of each launch's table."""
+        live = [n for n in self.blocks if n]
+        return [sum(live[i:i + MAX_LEAVES])
+                for i in range(0, len(live), MAX_LEAVES)]
+
+    def grids(self, b: int) -> List[Tuple[int, int]]:
+        """(x, y) of each launch: its blocks, the runs."""
+        return [(min(n, self.grid), b) for n in self.tables]
+
+    @property
+    def slots(self) -> int:
+        """The forward's partial slots a run: its blocks over all launches."""
+        return sum(x for x, _ in self.grids(1))
+
+    @property
+    def chunks_per_block(self) -> int:
+        """The most chunks a block walks."""
+        return max(-(-n // x) for n, (x, _) in zip(self.tables,
+                                                   self.grids(1)))
+
+    def workspace(self, b: int) -> int:
+        """Floats of the forward's partials, (B, 4C + 1, slots)."""
+        return b * (4 * self.members + 1) * self.slots
+
+    @property
+    def chain(self) -> int:
+        """The longest run of dependent f32 roundings in one of the
+        forward's sums: 2 to form a term (w − m, then its square or
+        product), 4·G adds a chunk over the most chunks a block walks, 5
+        shuffle levels of a warp, 7 adds of the 8 warps, ⌈slots/32⌉ adds of
+        a lane of the tail's warp, then its 5 shuffle levels. An f32 sum
+        whose longest chain is L lies within L·2⁻²⁴·Σ|terms| of the exact
+        sum."""
+        return (2 + 4 * self.groups * self.chunks_per_block + 5 +
+                (WARPS - 1) + -(-self.slots // 32) + 5)
+
+
+def sweep_plan(c: int, sizes: Sequence[int], esz: int) -> SweepPlan:
+    """The plan of a sweep over C members and leaves of `sizes` elements
+    of `esz` bytes (4 f32, 2 bf16; the plan is the same for both): one
+    resident wave of blocks (`BLOCKS_PER_SM` on each of the 132 SMs) that
+    walk the chunks, so a block pays its reduction once, and the
+    instance's `GROUPS` a thread. Raises where the kernels take no such
+    call."""
+    if not 1 <= c <= MAX_MEMBERS:
+        raise ValueError(f"sweep_plan: C = {c} is outside 1..{MAX_MEMBERS}")
+    if esz not in (2, 4):
+        raise ValueError(f"sweep_plan: {esz}-byte elements; the kernels "
+                         "read f32 or bf16")
+    if any(n < 0 for n in sizes) or not any(sizes):
+        raise ValueError(f"sweep_plan: no elements in leaves {list(sizes)}")
+    mc = min(c, ROUND)
+    groups = GROUPS[mc]
+    chunk = 4 * THREADS * groups
+    return SweepPlan(c, groups, chunk,
+                     tuple(-(-n // chunk) for n in sizes),
+                     BLOCKS_PER_SM * N_SMS)
 
 
 def _table(ws: Sequence[torch.Tensor], ms: Sequence[torch.Tensor],
@@ -187,24 +279,22 @@ def pool_distance_f32(ws: Sequence[torch.Tensor], ms: Sequence[torch.Tensor]
     counts them."""
     b, c, dtype = _table(ws, ms, "pool_distance_f32")
     lib = _sweep_lib()
-    chunk = lib.pool_distance_f32_chunk()
-    blocks = sum(-(-w.shape[1] // chunk) for w in ws)
+    plan = sweep_plan(c, [w.shape[1] for w in ws], ws[0].element_size())
     dev = ws[0].device
     stats = torch.empty((b, 4, c), device=dev, dtype=torch.float32)
     wsq = torch.empty((b,), device=dev, dtype=torch.float32)
-    part = torch.empty(b * blocks * (4 * c + 1), device=dev,
-                       dtype=torch.float32)
-    counters = torch.zeros(b, device=dev, dtype=torch.int32)
+    part = torch.empty(plan.workspace(b), device=dev, dtype=torch.float32)
     ptrs = ctypes.c_void_p * len(ws)
     launches = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        counters = build.counters(dev, stream, _MAX_GRID_Y)
         err = lib.pool_distance_f32(
             ptrs(*[w.data_ptr() for w in ws]),
             ptrs(*[m.data_ptr() for m in ms]), *_strides(ws, ms), len(ws),
-            b, c, int(dtype == torch.bfloat16), stats.data_ptr(),
-            wsq.data_ptr(), part.data_ptr(), counters.data_ptr(), stream,
-            ctypes.byref(launches))
+            b, c, int(dtype == torch.bfloat16), plan.groups, plan.grid,
+            stats.data_ptr(), wsq.data_ptr(), part.data_ptr(), part.numel(),
+            counters.data_ptr(), stream, ctypes.byref(launches))
     pool_distance_f32.launches += launches.value
     if err != 0:
         raise RuntimeError(f"pool_distance_f32: launch failed with CUDA error "
@@ -241,6 +331,7 @@ def pool_distance_bwd_f32(ws: Sequence[torch.Tensor],
     ptrs = ctypes.c_void_p * n
     launches = ctypes.c_int(0)
     lib = _sweep_lib()
+    plan = sweep_plan(c, [w.shape[1] for w in ws], 4)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         sizes, w_run, m_run, m_member = _strides(ws, ms)
@@ -249,8 +340,8 @@ def pool_distance_bwd_f32(ws: Sequence[torch.Tensor],
             ptrs(*[m.data_ptr() for m in ms]),
             ptrs(*[o.data_ptr() for o in outs]), sizes, w_run, m_run,
             m_member, (ctypes.c_int64 * n)(*[o.stride(0) for o in outs]), n,
-            b, c, g_stats.data_ptr(), g_wsq.data_ptr(), stream,
-            ctypes.byref(launches))
+            b, c, plan.groups, plan.grid, g_stats.data_ptr(),
+            g_wsq.data_ptr(), stream, ctypes.byref(launches))
     pool_distance_bwd_f32.launches += launches.value
     if err != 0:
         raise RuntimeError(f"pool_distance_bwd_f32: launch failed with CUDA "
