@@ -29,25 +29,37 @@ Phases, each failing the run with a nonzero exit:
              (through the sweep and, for comparison, with d1/d2 per leaf)
              and dfedsam's SAM step (measured, not gated)
 7. sgd     — the fused SGD kernel against its plain version, bitwise, on
-             the paper CNN's leaves and on ragged and misaligned leaves;
-             times beside the bound and `torch._fused_sgd_`
+             the paper CNN's leaves (also with the conv weights' gradients
+             as the permuted views autograd hands over, read in place), on
+             ragged and misaligned leaves, 100 small leaves and leaves
+             whose boundaries fall inside a block's range, each with
+             `sgd_plan`'s launches; times beside the bound and
+             `torch._fused_sgd_`, and the timing floor (an empty kernel, a
+             flat `torch.add` over the same bytes, the kernel with the L2
+             left clean)
 8. table 1 — the paper's Table 1 methods (and the other registered
              strategies) through `launch` on the full-width paper CNN,
              on label-skew and on domain-shift data, each run with its
              exact GEMM, SGD and sweep launch counts
 9. dfedsam card vs CPU — 5 SAM steps from one init on both devices,
-             with the native forward's decisions pinned and without
+             with the native forward's decisions pinned and without; what
+             one SGD update runs on the card (one launch, no copy of the
+             gradient views)
 10. serving kernels — BGMV, flash attention and the factor Gram against
              their plain versions at the full-width llama3.2-1b serving
              shapes (BGMV also ragged and at rank 64; long sequences for
              attention, at every head dim the kernel has: 32, 64, 112,
-             128), each case launched twice and bitwise equal; errors,
-             times beside the bound, the plain version and a library
-             call, and each BGMV kernel's device time at the sites
+             128; the Gram as one grouped call of a pairwise call's 20
+             stacks and each shape alone, M from 1 to 256, ragged P,
+             each Gram symmetric bit for bit), each case launched twice
+             and bitwise equal; errors, times beside the bound, the plain
+             version and a library call, and each BGMV kernel's device
+             time at the sites
 11. llama serving — a full-width llama3.2-1b factor pool (5 members,
              rank 8) through `PoolServer.from_pool`: f32 factored scores
              against the densified oracle with exact launch counts, the
-             pool's pairwise distances through the Gram kernel, then a
+             pool's pairwise distances through the Gram kernel (one
+             launch a call), then a
              bf16 `serve_trace` replay of both modes (p50/p99/qps,
              serving bytes, a profile of the ticks)
 12. CNN serving — the paper CNN's stacked, low-rank and moment pools
@@ -157,6 +169,17 @@ def median_ms(fn, reps=25, warmup=3):
     spins for ~0.5 ms (`torch.cuda._sleep`) while the host enqueues the
     start event, `fn`'s launches and the end event, so the time is the
     device's alone: no gap where the card waits for the host's Python."""
+    return _median_ms(fn, lambda flush: flush.zero_(), reps, warmup)
+
+
+def median_ms_clean_l2(fn, reps=25, warmup=3):
+    """`median_ms` with a flush that reads the 256 MiB instead of writing
+    it, so `fn` finds the L2 clean: beside `median_ms` it shows what the
+    write-back of the dirty flush lines costs a launch."""
+    return _median_ms(fn, lambda flush: flush.sum(), reps, warmup)
+
+
+def _median_ms(fn, flush_by, reps, warmup):
     import torch
     flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
@@ -164,7 +187,7 @@ def median_ms(fn, reps=25, warmup=3):
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
-        flush.zero_()
+        flush_by(flush)
         torch.cuda._sleep(1_000_000)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -832,14 +855,30 @@ def _ulps(a, b):
     return int((ia - ib).abs().max()) if a.numel() else 0
 
 
+def _conv_grad_views(ps, randn):
+    """Gradients of the CNN's leaves as autograd hands them through the
+    native forward: each conv weight's (kh, kw, C_in, C_out) gradient a
+    permuted view of an (C_out, C_in, kh, kw) tensor, the rest
+    contiguous."""
+    return [randn(p.shape[::-1]).permute(3, 2, 1, 0) if p.dim() == 4
+            else randn(p.shape) for p in ps]
+
+
 def check_sgd(torch, local_step, ref):
-    """Kernel against plain version on three sets of leaves, bitwise:
-    the paper CNN's 10 leaves (one launch), ragged leaves of 1, 3 and
-    65,537 elements plus one whose pointers are not 16-byte aligned (a
-    slice at offset 1, so the kernel's scalar path), and 100 small leaves
-    (three launches: the kernel's table holds 48). Times on the CNN's
-    leaves: kernel, plain version and `torch._fused_sgd_` (the library
-    yardstick, on copies; the port never calls it)."""
+    """Kernel against plain version, bitwise, on five sets of leaves: the
+    paper CNN's 10 leaves (one launch); the same leaves with each conv
+    weight's gradient a permuted view, as autograd hands it through the
+    native forward (read in place); ragged leaves of 1, 3 and 65,537
+    elements plus one whose pointers are not 16-byte aligned (a slice at
+    offset 1, so the kernel's scalar path); 100 small leaves (two
+    launches: a table holds 64); and leaves whose boundaries fall inside
+    one block's range. Each set makes the launches `sgd_plan` gives it.
+    Times on the CNN's leaves: kernel (contiguous gradients and the
+    views), plain version and `torch._fused_sgd_` (the library yardstick,
+    on copies; the port never calls it); beside them the timing floor: an
+    empty kernel (`torch.cuda._sleep(0)`), one flat `torch.add` over the
+    same 17 MB, and the kernel after a flush that reads instead of writes
+    (`median_ms_clean_l2`)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import build_model
 
@@ -848,54 +887,82 @@ def check_sgd(torch, local_step, ref):
     def randn(n):
         return torch.randn(n, device="cuda", generator=gen)
 
-    cnn = build_model(get_arch("paper-cnn")).init(0)
+    cnn = list(build_model(get_arch("paper-cnn")).init(0).values())
+    crossing = (7, 1, 13, 2, 4, 999, 3, 5000, 6, 77, 1, 300)
     sets = {
-        "cnn": ([v for v in cnn.values()],
-                [randn(v.shape) for v in cnn.values()]),
+        "cnn": (cnn, [randn(v.shape) for v in cnn]),
+        "cnn_views": (cnn, _conv_grad_views(cnn, randn)),
         "ragged": ([randn(n) for n in RAGGED_LEAVES] + [randn(10_001)[1:]],
                    [randn(n) for n in RAGGED_LEAVES] + [randn(10_002)[2:]]),
         "many": ([randn(5 + i) for i in range(100)],
                  [randn(5 + i) for i in range(100)]),
+        "crossing": ([randn(n) for n in crossing],
+                     [randn(n) for n in crossing]),
     }
     rows = {}
     for name, (ps, gs) in sets.items():
-        before = [p.clone() for p in ps]
+        before = [p.clone() for p in ps] + [g.clone() for g in gs]
+        plans = local_step.sgd_plan(
+            tuple(p.numel() for p in ps),
+            tuple(i for i, g in enumerate(gs) if not g.is_contiguous()))
         launches = local_step.sgd_f32.launches
         out = local_step.sgd_f32(ps, gs, lr=SGD_LR, wd=SGD_WD)
+        again = local_step.sgd_f32(ps, gs, lr=SGD_LR, wd=SGD_WD)
         torch.cuda.synchronize()
-        n_launch = local_step.sgd_f32.launches - launches
+        n_launch = (local_step.sgd_f32.launches - launches) // 2
         want = [ref.sgd_update_ref(p, g, lr=SGD_LR, wd=SGD_WD)
                 for p, g in zip(ps, gs)]
         n_diff = sum(int((o != w).sum()) for o, w in zip(out, want))
+        # blocks whose slot range holds the start of a leaf past its first
+        starts = {s for plan in plans for s in plan.slot0}
+        shared = sum(
+            any(b * plan.per_block < s < (b + 1) * plan.per_block
+                for s in plan.slot0)
+            for plan in plans for b in range(plan.grid))
         rows[name] = dict(
             leaves=len(ps), elements=sum(p.numel() for p in ps),
-            launches=n_launch, n_diff=n_diff,
+            views=sum(not g.is_contiguous() for g in gs),
+            launches=n_launch, want_launches=len(plans), n_diff=n_diff,
+            blocks=[plan.grid for plan in plans], leaf_starts=len(starts),
+            blocks_crossing_a_leaf_start=shared,
             max_abs_err=max(float((o - w).abs().max())
                             for o, w in zip(out, want)),
             max_ulps=max(_ulps(o, w) for o, w in zip(out, want)),
-            inputs_unchanged=all(torch.equal(p, b)
-                                 for p, b in zip(ps, before)))
-        print(f"  sgd {name:6s} {rows[name]['leaves']} leaves, "
-              f"{rows[name]['elements']} elements, {n_launch} launch(es): "
-              f"{n_diff} elements differ from the plain version (max "
-              f"{rows[name]['max_ulps']} ulp)")
-        if n_diff or not rows[name]["inputs_unchanged"]:
+            repeat_equal=all(torch.equal(o, a) for o, a in zip(out, again)),
+            inputs_unchanged=all(torch.equal(t, b) for t, b in
+                                 zip(ps + gs, before)))
+        print(f"  sgd {name:9s} {rows[name]['leaves']} leaves "
+              f"({rows[name]['views']} gradient views), "
+              f"{rows[name]['elements']} elements, {n_launch} launch(es) "
+              f"of {rows[name]['blocks']} blocks: {n_diff} elements differ "
+              f"from the plain version (max {rows[name]['max_ulps']} ulp); "
+              f"{shared} block(s) hold a leaf boundary")
+        if n_diff or not rows[name]["inputs_unchanged"] or \
+                not rows[name]["repeat_equal"]:
             fail(f"sgd_f32 on the {name} leaves is not bitwise equal to its "
-                 "plain version, or changed its inputs")
-        want_launches = -(-len(ps) // 48)
-        if n_launch != want_launches:
+                 "plain version, changed its inputs or did not repeat")
+        if n_launch != len(plans):
             fail(f"sgd_f32 on the {name} leaves made {n_launch} launches; "
-                 f"expected {want_launches}")
+                 f"expected {len(plans)} (sgd_plan's tables)")
+    if not rows["crossing"]["blocks_crossing_a_leaf_start"]:
+        fail("no block of the crossing set holds a leaf boundary")
 
     ps, gs = sets["cnn"]
+    views = sets["cnn_views"][1]
     lib_p = [p.clone() for p in ps]
     lib_g = [g.clone() for g in gs]
+    flat_p = torch.cat([p.reshape(-1) for p in ps])
+    flat_g = torch.cat([g.reshape(-1) for g in gs])
     n_el = sum(p.numel() for p in ps)
     byte_s = 3 * n_el * 4 / PEAK_BYTES
     flop_s = 4 * n_el / PEAK_F32_FLOPS
+
+    def kernel():
+        return local_step.sgd_f32(ps, gs, lr=SGD_LR, wd=SGD_WD)
     timing = dict(
-        ms=median_ms(lambda: local_step.sgd_f32(ps, gs, lr=SGD_LR,
-                                                wd=SGD_WD)),
+        ms=median_ms(kernel),
+        views_ms=median_ms(lambda: local_step.sgd_f32(ps, views, lr=SGD_LR,
+                                                      wd=SGD_WD)),
         plain_ms=median_ms(lambda: [ref.sgd_update_ref(p, g, lr=SGD_LR,
                                                        wd=SGD_WD)
                                     for p, g in zip(ps, gs)]),
@@ -905,11 +972,25 @@ def check_sgd(torch, local_step, ref):
             is_first_step=False)),
         bound_ms=max(byte_s, flop_s) * 1e3,
         bound_by="bytes" if byte_s >= flop_s else "operations",
-        bytes=3 * n_el * 4)
-    print(f"  sgd cnn: kernel {timing['ms']:.4f} ms, plain "
-          f"{timing['plain_ms']:.4f} ms, torch._fused_sgd_ "
-          f"{timing['library_ms']:.4f} ms, bound {timing['bound_ms']:.4f} "
-          f"ms ({timing['bound_by']}: {timing['bytes']} bytes)")
+        bytes=3 * n_el * 4,
+        floor=dict(
+            empty_kernel_ms=median_ms(lambda: torch.cuda._sleep(0)),
+            flat_add_ms=median_ms(lambda: torch.add(flat_p, flat_g,
+                                                    alpha=-SGD_LR)),
+            kernel_clean_l2_ms=median_ms_clean_l2(kernel),
+            flat_add_clean_l2_ms=median_ms_clean_l2(
+                lambda: torch.add(flat_p, flat_g, alpha=-SGD_LR))))
+    floor = timing["floor"]
+    print(f"  sgd cnn: kernel {timing['ms']:.4f} ms (gradient views "
+          f"{timing['views_ms']:.4f}), plain {timing['plain_ms']:.4f} ms, "
+          f"torch._fused_sgd_ {timing['library_ms']:.4f} ms, bound "
+          f"{timing['bound_ms']:.4f} ms ({timing['bound_by']}: "
+          f"{timing['bytes']} bytes)")
+    print(f"  timing floor: empty kernel {floor['empty_kernel_ms']:.4f} ms; "
+          f"flat torch.add over the same bytes {floor['flat_add_ms']:.4f} "
+          f"ms; after a read flush (clean L2): kernel "
+          f"{floor['kernel_clean_l2_ms']:.4f}, torch.add "
+          f"{floor['flat_add_clean_l2_ms']:.4f} ms")
     return rows, timing
 
 
@@ -1107,6 +1188,26 @@ def _sam_run(torch, local_step, env, dev, loss_fn=None):
     return params, local_step.sgd_f32.launches, local_step.gemm_f32.launches
 
 
+def sgd_update_work(torch, local_step, env):
+    """What dfedsam's SGD update runs on the card: the gradients of one step
+    of the model's own loss (the native forward) from env's init on a batch
+    of 64, which of them are views, and the kernel launches and PyTorch
+    operators of one `sgd_update_tree` call (`_call_work`; a copy of a
+    view before the kernel would show as `clone` or `copy_`)."""
+    from repro_torch.data import batch_iterator
+
+    params = {k: v.to(CARD) for k, v in env["init"].items()}
+    batch = next(batch_iterator(env["arrays"][0], 64, seed=0, device=CARD))
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss = env["models"][CARD].loss_fn(leaves, batch)
+    grads = dict(zip(leaves, torch.autograd.grad(loss,
+                                                 list(leaves.values()))))
+    work = _call_work(torch, lambda: local_step.sgd_update_tree(
+        params, grads, lr=SGD_LR, wd=SGD_WD), local_step.sgd_f32)
+    return dict(gradient_views=sorted(k for k, g in grads.items()
+                                      if not g.is_contiguous()), **work)
+
+
 def dfedsam_card_vs_cpu(torch, local_step, ref):
     """5 SAM steps of `dfedsam` (one client, e_local 5, batch 64) from one
     init on the same batches, on the card (SGD kernel, cuDNN convs with
@@ -1164,7 +1265,8 @@ def dfedsam_card_vs_cpu(torch, local_step, ref):
                model=compare(card_model, cpu_model),
                forwards=len(recorded), decisions_flipped=flips,
                sgd_launches_card=card_sgd, gemm_launches_card=card_gemm,
-               sgd_launches_cpu=cpu_sgd)
+               sgd_launches_cpu=cpu_sgd,
+               sgd_update=sgd_update_work(torch, local_step, env))
     for name, tol in (("pinned", SAM_PINNED_TOL), ("model", SAM_RATIO_TOL)):
         r = out[name]
         print(f"  ({'a' if name == 'pinned' else 'b'}) {name}: end points "
@@ -1175,6 +1277,14 @@ def dfedsam_card_vs_cpu(torch, local_step, ref):
           f"forward that differ from the CPU's: {flips}; launches on the "
           f"card: sgd_f32 {card_sgd}, gemm_f32 {card_gemm}; on the CPU: "
           f"sgd_f32 {cpu_sgd}")
+    update = out["sgd_update"]
+    print(f"      one SGD update on the card: {update['launches']} sgd_f32 "
+          f"launch(es), operators {update['ops']}; gradients that are "
+          f"views, read in place: {update['gradient_views']}")
+    if update["launches"] != 1 or {"clone", "copy_", "_to_copy"} & set(
+            update["ops"]):
+        fail(f"dfedsam's SGD update ran {update}; expected one sgd_f32 "
+             "launch and no copy of a gradient")
     if (card_sgd, card_gemm) != (5, 0) or (pinned_sgd, pinned_gemm) != (5, 0) \
             or cpu_sgd != 0 or len(recorded) != 10 or len(flips) != 10:
         fail("dfedsam did not launch sgd_f32 once per step on the card "
@@ -1220,13 +1330,19 @@ ATTN_SHAPES = [("serve", 10, 16, 16, 32, 8, 64, True, 8192),
                ("hd32", 3, 777, 777, 16, 2, 32, True, 256),
                ("hd128", 2, 1024, 1024, 28, 4, 128, True, 0)]
 # the factor stacks lowrank_pairwise_sq hands the Gram kernel at full
-# width, C·r = 40 rows: (name, B, P, launches per call)
+# width, C·r = 40 rows: (name, B, P, stacks of this shape a call)
 GRAM_SHAPES = [("embed.u", 1, 128256, 1), ("embed.v", 1, 2048, 1),
                ("layer.2048", 16, 2048, 9), ("layer.512", 16, 512, 2),
                ("layer.8192", 16, 8192, 3), ("ln.u", 1, 16, 2),
                ("ln.v", 1, 2048, 2)]
 GRAM_M = 40
-GRAM_PER_CALL = sum(c for *_, c in GRAM_SHAPES)             # 20
+GRAM_STACKS_PER_CALL = sum(c for *_, c in GRAM_SHAPES)      # 20
+GRAM_PER_CALL = 1      # launches: all the stacks of a call in one
+# phase 10's other Gram shapes (B, M, P): every M ≤ 256 the kernel's row
+# groups and item groups treat differently, each with aligned rows
+# (16-byte copies) and ragged ones (4-byte copies)
+GRAM_M_CASES = [(2, m, p) for m in (1, 8, 40, 64, 65, 256)
+                for p in (2048, 3001)] + [(3, 40, 3001)]
 # normwise limit of a Gram, and of lowrank_pairwise_sq's distances,
 # against the plain version's: f32 sums in another order read ~3e-7 on an
 # H100 (phase 11's pairwise distances); dropping one of the ~264 chunks
@@ -1499,54 +1615,117 @@ def check_flash_attention(torch, fa_mod, ref):
     return rows, max_abs
 
 
+def _hold_gram(torch, ref, a, out, again):
+    """A Gram against its plain version: elementwise within
+    P·2⁻²³·(|A|·|A|ᵀ), normwise within GRAM_REL_TOL (the elementwise bound
+    alone is loose at P = 128256: it would pass a dropped chunk), the same
+    bits as a second launch, and symmetric bit for bit."""
+    want = ref.factor_gram_ref(a)
+    aa = a.double().abs()
+    bound = a.shape[-1] * 2.0 ** -23 * (aa @ aa.mT)
+    err = (out.double() - want.double()).abs()
+    rel = float(torch.linalg.vector_norm(err)
+                / torch.linalg.vector_norm(want.double()))
+    row = dict(max_abs_err=float(err.max()), rel_err=rel,
+               within_bound=bool((err <= bound).all()),
+               repeat_equal=torch.equal(out, again),
+               mirror_equal=torch.equal(out, out.mT))
+    row["ok"] = (row["within_bound"] and rel <= GRAM_REL_TOL and
+                 row["repeat_equal"] and row["mirror_equal"])
+    return row
+
+
 def check_factor_gram(torch, pd_mod, ref):
-    """The factor-Gram kernel at the stacks of a full-width pool's
-    `lowrank_pairwise_sq` and a ragged shape. Tolerance: elementwise
-    within P·2⁻²³·(|A|·|A|ᵀ) of the plain version, and normwise
-    ‖out − want‖/‖want‖ ≤ GRAM_REL_TOL per shape (the elementwise bound
-    alone is loose at P = 128256: it would pass a dropped chunk); two
-    launches on the same input give the same bits. Times: kernel, plain
-    version, `torch.bmm(a, a.mT)`."""
+    """The factor-Gram kernel on the stacks of a full-width pool's
+    `lowrank_pairwise_sq`, as one grouped call of all 20 (its main path)
+    and each shape alone, and at GRAM_M_CASES; every Gram held by
+    `_hold_gram`. A grouped call must launch its one kernel and no PyTorch
+    operator but allocations (`_call_work`). Times: each shape alone and
+    the grouped call (also after a flush that reads, `median_ms_clean_l2`)
+    beside the plain version and `torch.bmm(a, a.mT)`, summed over the 20
+    stacks for the call, and the bound of the call's bytes and
+    operations."""
     gen = torch.Generator(device=CARD).manual_seed(3)
-    rows, max_abs = [], 0.0
-    for name, b, p, count in GRAM_SHAPES + [("ragged", 3, 3001, 0)]:
-        a = 0.05 * torch.randn((b, GRAM_M, p), device=CARD, generator=gen)
-        out = pd_mod.factor_gram_f32(a)
-        again = pd_mod.factor_gram_f32(a)
-        torch.cuda.synchronize()
-        want = ref.factor_gram_ref(a)
-        aa = a.double().abs()
-        bound = p * 2.0 ** -23 * (aa @ aa.mT)
-        err = (out.double() - want.double()).abs()
-        rel = float(torch.linalg.vector_norm(err)
-                    / torch.linalg.vector_norm(want.double()))
-        ok = (bool((err <= bound).all()) and rel <= GRAM_REL_TOL
-              and torch.equal(out, again))
+
+    def stack(b, m, p):
+        return 0.05 * torch.randn((b, m, p), device=CARD, generator=gen)
+    # 20 distinct stacks, so no stack of the call finds another in the L2
+    call = [(name, stack(b, GRAM_M, p)) for name, b, p, count in GRAM_SHAPES
+            for _ in range(count)]
+    stacks = [a for _, a in call]
+    out = pd_mod.factor_gram_f32(stacks)
+    again = pd_mod.factor_gram_f32(stacks)
+    torch.cuda.synchronize()
+    held = [_hold_gram(torch, ref, a, o, o2)
+            for a, o, o2 in zip(stacks, out, again)]
+    rows, max_abs = [], max(h["max_abs_err"] for h in held)
+    for name, b, p, count in GRAM_SHAPES:
+        a = next(x for n, x in call if n == name)
         bound_ms, bound_by, parts = _bound(
             4 * (a.numel() + b * GRAM_M ** 2), 2 * b * GRAM_M ** 2 * p,
             PEAK_F32_FLOPS)
         row = dict(parts, stack=name, b=b, m=GRAM_M, p=p, per_call=count,
-                   max_abs_err=float(err.max()), rel_err=rel,
-                   within_tolerance=ok,
-                   ms=median_ms(lambda: pd_mod.factor_gram_f32(a)),
+                   grouped=[h for (n, _), h in zip(call, held) if n == name],
+                   ms=median_ms(lambda: pd_mod.factor_gram_f32([a])),
                    plain_ms=median_ms(lambda: ref.factor_gram_ref(a)),
                    library_ms=median_ms(lambda: torch.bmm(a, a.mT)),
                    bound_ms=bound_ms, bound_by=bound_by)
         rows.append(row)
-        print(f"  gram {name:10s} ({b}, {GRAM_M}, {p}): max abs err "
-              f"{row['max_abs_err']:.3e}, rel {rel:.3e}; kernel {row['ms']:.4f} ms, plain "
+        print(f"  gram {name:10s} ({b}, {GRAM_M}, {p}) ×{count}: worst rel "
+              f"{max(h['rel_err'] for h in row['grouped']):.3e} in the "
+              f"grouped call; alone: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f}, torch.bmm {row['library_ms']:.4f}, "
               f"bound {bound_ms:.4f} ({bound_by})")
-        if not ok:
-            fail(f"factor_gram_f32 {name} disagrees with its plain version "
-                 "or is not deterministic")
-        max_abs = max(max_abs, row["max_abs_err"])
-    return rows, max_abs
+    cases = []
+    for shape in GRAM_M_CASES:
+        a = stack(*shape)
+        o, o2 = pd_mod.factor_gram_f32([a]), pd_mod.factor_gram_f32([a])
+        torch.cuda.synchronize()
+        cases.append(dict(_hold_gram(torch, ref, a, o[0], o2[0]),
+                          shape=list(shape)))
+        max_abs = max(max_abs, cases[-1]["max_abs_err"])
+    print("  gram at other M: " + ", ".join(
+        f"{tuple(c['shape'])} rel {c['rel_err']:.2e}" for c in cases))
+
+    def grouped():
+        return pd_mod.factor_gram_f32(stacks)
+    byte_ms = sum(r["byte_ms"] * r["per_call"] for r in rows)
+    op_ms = sum(r["op_ms"] * r["per_call"] for r in rows)
+    call_row = dict(
+        stacks=len(stacks), work=_call_work(torch, grouped,
+                                            pd_mod.factor_gram_f32),
+        ms=median_ms(grouped), clean_l2_ms=median_ms_clean_l2(grouped),
+        plain_ms=median_ms(lambda: [ref.factor_gram_ref(a)
+                                    for a in stacks]),
+        library_ms=median_ms(lambda: [torch.bmm(a, a.mT) for a in stacks]),
+        bound_ms=max(byte_ms, op_ms),
+        bound_by="bytes" if byte_ms >= op_ms else "operations",
+        bytes=sum(r["bytes"] * r["per_call"] for r in rows),
+        ops=sum(r["ops"] * r["per_call"] for r in rows),
+        profile=kernel_profile(torch, grouped, keep=("factor_gram",)))
+    print(f"  gram grouped call of {len(stacks)} stacks: "
+          f"{call_row['work']['launches']} launch, operators "
+          f"{call_row['work']['ops']}; kernel {call_row['ms']:.4f} ms "
+          f"(after a read flush {call_row['clean_l2_ms']:.4f}), plain "
+          f"{call_row['plain_ms']:.4f}, torch.bmm "
+          f"{call_row['library_ms']:.4f}, bound {call_row['bound_ms']:.4f} "
+          f"({call_row['bound_by']}); {_profile_line(call_row['profile'])}")
+    bad = [n for (n, _), h in zip(call, held) if not h["ok"]] + [
+        c["shape"] for c in cases if not c["ok"]]
+    if bad:
+        fail(f"factor_gram_f32 disagrees with its plain version, is not "
+             f"deterministic or not symmetric at {bad}")
+    if call_row["work"]["launches"] != GRAM_PER_CALL or \
+            set(call_row["work"]["ops"]) - {"empty"}:
+        fail(f"a grouped Gram call ran {call_row['work']}; expected "
+             f"{GRAM_PER_CALL} launch and no PyTorch operator but "
+             "allocations")
+    return rows, call_row, cases, max_abs
 
 
 def _per_call(rows, key, weight):
     """Σ rows[key]·rows[weight]: a kernel's time over one call of the
-    path (113 BGMV launches a forward, 20 Gram launches a call)."""
+    path (113 BGMV launches a forward, 113 GLA launches a prefill pair)."""
     return sum(r[key] * r[weight] for r in rows if r[weight])
 
 
@@ -1848,7 +2027,8 @@ def serving_phases(torch, local_step, main_result, bgmv, flash_attention,
           "plain versions")
     bgmv_rows, bgmv_err = check_bgmv(torch, bgmv, ref)
     attn_rows, attn_err = check_flash_attention(torch, flash_attention, ref)
-    gram_rows, gram_err = check_factor_gram(torch, pool_distance, ref)
+    gram_rows, gram_call, gram_cases, gram_err = check_factor_gram(
+        torch, pool_distance, ref)
     print("[11] full-width llama3.2-1b factor pool (capacity 5, rank 8) "
           "through PoolServer.from_pool")
     llama_f32 = serve_llama_f32(torch)
@@ -1857,7 +2037,8 @@ def serving_phases(torch, local_step, main_result, bgmv, flash_attention,
     cnn = serve_cnn_pools(torch, local_step, main_result)
     return dict(bgmv=bgmv_rows, bgmv_max_abs_err=bgmv_err,
                 attention=attn_rows, attention_max_abs_err=attn_err,
-                gram=gram_rows, gram_max_abs_err=gram_err,
+                gram=gram_rows, gram_call=gram_call, gram_cases=gram_cases,
+                gram_max_abs_err=gram_err,
                 llama_f32=llama_f32, llama_bf16=llama_bf16, cnn_serving=cnn)
 
 
@@ -1866,35 +2047,41 @@ def serving_kernels(serving):
     the bf16 replays of phase 11 (BGMV: the factored one; attention: both)
     and its `lowrank_pairwise_sq` call (Gram). Times and bounds are those
     of one factored forward (113 BGMV launches at their sites' shapes, 16
-    attention launches at the serving shape in bf16) and of one pairwise
-    call (20 Gram launches), summed over their shapes; the bound is the
-    larger of the summed bytes over the memory rate and the summed
-    operations over the peak rate."""
+    attention launches at the serving shape in bf16), summed over their
+    shapes, the bound the larger of the summed bytes over the memory rate
+    and the summed operations over the peak rate; and of one pairwise call
+    (the Gram's one grouped launch over its 20 stacks; the plain version
+    and `torch.bmm` summed over the 20)."""
     modes = serving["llama_bf16"]["modes"]
     entries = []
-    for name, source, replaces, launches, err, rows, weight in (
+    for name, source, replaces, launches, err, rows in (
             ("bgmv_f32", "bgmv_f32.cu", "bgmv.py:63",
              modes["factored"]["launches"]["bgmv_f32"],
-             serving["bgmv_max_abs_err"], serving["bgmv"], "per_forward"),
+             serving["bgmv_max_abs_err"], serving["bgmv"]),
             ("flash_attn_f32", "flash_attn_f32.cu", "flash_attention.py:70",
              sum(m["launches"]["flash_attn_f32"] for m in modes.values()),
-             serving["attention_max_abs_err"], serving["attention"],
-             "per_forward"),
-            ("factor_gram_f32", "factor_gram_f32.cu", "pool_distance.py:130",
-             serving["llama_f32"]["gram_launches"],
-             serving["gram_max_abs_err"], serving["gram"], "per_call")):
-        byte_ms = _per_call(rows, "byte_ms", weight)
-        op_ms = _per_call(rows, "op_ms", weight)
+             serving["attention_max_abs_err"], serving["attention"])):
+        byte_ms = _per_call(rows, "byte_ms", "per_forward")
+        op_ms = _per_call(rows, "op_ms", "per_forward")
         entries.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": f"src/repro/kernels/{replaces}",
             "launches": launches, "max_abs_err": err,
-            "ms": _per_call(rows, "ms", weight),
-            "plain_ms": _per_call(rows, "plain_ms", weight),
+            "ms": _per_call(rows, "ms", "per_forward"),
+            "plain_ms": _per_call(rows, "plain_ms", "per_forward"),
             "bound_ms": max(byte_ms, op_ms),
             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
-            "library_ms": _per_call(rows, "library_ms", weight)})
+            "library_ms": _per_call(rows, "library_ms", "per_forward")})
+    call = serving["gram_call"]
+    entries.append({
+        "name": "factor_gram_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/factor_gram_f32.cu",
+        "replaces": "src/repro/kernels/pool_distance.py:130",
+        "launches": serving["llama_f32"]["gram_launches"],
+        "max_abs_err": serving["gram_max_abs_err"], "ms": call["ms"],
+        "plain_ms": call["plain_ms"], "bound_ms": call["bound_ms"],
+        "bound_by": call["bound_by"], "library_ms": call["library_ms"]})
     for e in entries:
         if not e["launches"]:
             fail(f"{e['name']} was launched no time on its main path")

@@ -30,7 +30,7 @@ import torch
 from repro_torch.core.pool import (LowRankDeltaPool, ModelPool, MomentPool,
                                    _leaf_key)
 from repro_torch.kernels.pool_distance import (distances_from_stats,
-                                               factor_gram,
+                                               factor_gram_group,
                                                tree_pool_distance_stats)
 from repro_torch.kernels.ref import abs_ref
 
@@ -177,26 +177,32 @@ def d1_lowrank(params: Params, pool: LowRankDeltaPool,
 
 
 def lowrank_pairwise_sq(pool: LowRankDeltaPool,
-                        gram_fn: Callable = factor_gram) -> torch.Tensor:
+                        gram_fn: Optional[Callable] = None) -> torch.Tensor:
     """Pairwise ‖m_i − m_j‖² (C, C) from r×r Grams: the base cancels, and
     ⟨Δ_i, Δ_j⟩ = ⟨U_iᵀU_j, V_iᵀV_j⟩_F comes from two long-axis Grams over
-    the (C·r)-row factor stacks of each leaf. `gram_fn` computes A (…, M,
-    P) → A·Aᵀ: by default `kernels.pool_distance.factor_gram` (the kernel
-    on CUDA, the plain version on the CPU)."""
+    the (C·r)-row factor stacks of each leaf. By default every stack goes
+    to `kernels.pool_distance.factor_gram_group` at once (one kernel launch
+    on CUDA, the plain version stack by stack on the CPU); a `gram_fn`,
+    A (…, M, P) → A·Aᵀ, is called on each stack instead."""
     c = pool.capacity
-    inner = torch.zeros((c, c), dtype=F32, device=pool.mask().device)
+    stacks, ranks = [], []
     for k, u in pool.u.items():
         v = pool.v[k]
         r = u.shape[-1]
         # (C, *lead, d, r) → (L, C·r, d): the Gram's long axis is d; the
         # flattened lead dims ride the kernel's batch axis.
-        uf = u.reshape((c, -1) + tuple(u.shape[-2:]))
-        vf = v.reshape((c, -1) + tuple(v.shape[-2:]))
-        uf = uf.permute(1, 0, 3, 2).reshape(uf.shape[1], c * r, u.shape[-2])
-        vf = vf.permute(1, 0, 3, 2).reshape(vf.shape[1], c * r, v.shape[-2])
-        gu = gram_fn(uf.contiguous()).reshape(-1, c, r, c, r)
-        gv = gram_fn(vf.contiguous()).reshape(-1, c, r, c, r)
-        inner = inner + torch.einsum("lirjs,lirjs->ij", gu, gv)
+        for f in (u, v):
+            ff = f.reshape((c, -1) + tuple(f.shape[-2:]))
+            stacks.append(ff.permute(1, 0, 3, 2).reshape(
+                ff.shape[1], c * r, f.shape[-2]).contiguous())
+        ranks.append(r)
+    grams = (factor_gram_group(stacks) if gram_fn is None
+             else [gram_fn(a) for a in stacks])
+    inner = torch.zeros((c, c), dtype=F32, device=pool.mask().device)
+    for r, gu, gv in zip(ranks, grams[0::2], grams[1::2]):
+        inner = inner + torch.einsum("lirjs,lirjs->ij",
+                                     gu.reshape(-1, c, r, c, r),
+                                     gv.reshape(-1, c, r, c, r))
     for d in pool.dense.values():
         df = d.reshape(d.shape[0], -1).to(F32)
         inner = inner + df @ df.T

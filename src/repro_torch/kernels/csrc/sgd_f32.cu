@@ -6,121 +6,190 @@
 // array for its grid, so the reference concatenates the leaves, sweeps
 // blocks of 65,536 and splits the result back. Here nothing is copied: the
 // launch carries a table of (p, g, out, n) per leaf by value in its
-// parameters, and each block finds its leaf and its chunk in that table, as
-// PyTorch's multi-tensor apply does.
+// parameters.
 //
 // Bound on an H100 SXM: bytes. Each element is read twice (p, g) and
 // written once, 12 bytes for 2 FMA: the paper CNN's 1,422,218 parameters
 // move 17.07 MB, 5.1 µs at 3.35 TB/s, against 0.09 µs of f32 FMA at
-// 67 TFLOP/s. The design therefore only has to stream: 256 threads a block,
-// CHUNK = 2,048 elements a block, float4 loads and stores where the leaf's
-// three pointers are 16-byte aligned, a scalar loop otherwise and for the
-// ragged tail of each leaf.
+// 67 TFLOP/s. So the whole of the time is memory latency and bandwidth,
+// and the design keeps every byte in flight at once:
+//
+// * One balanced wave. The leaves' slots (four elements each; a leaf's
+//   last slot may be short) are numbered through the table, and a plan
+//   (kernels/local_step.sgd_plan) splits them evenly over a resident grid
+//   of 2 × 132 blocks; a block's range may cross leaf boundaries, so no
+//   block waits on a leaf's ragged end.
+// * Every load before the first FMA. A thread takes the slots tid,
+//   tid + 256, … of its block's range (up to UNROLL of them at a time),
+//   issues all their loads — 16-byte streaming loads (ld.global.cs) where
+//   the leaf is aligned, scalar ones for a misaligned leaf or a short
+//   slot — then computes, then stores with streaming stores. __restrict__
+//   pointers let the loads run ahead of the stores.
+// * Gradients read in place. Autograd hands the native CNN's conv weight
+//   gradients as permuted views (the forward's w.permute(3, 2, 0, 1)); a
+//   leaf's gradient may be such a view of up to 4 dims, read through its
+//   sizes and strides, so no copy runs before the update.
 //
 // Arithmetic: __fmaf_rn(-lr, __fmaf_rn(wd, p, g), p) — g + wd·p and then
 // p + (−lr)·(…), each rounded once. That is how the plain version
 // (`ref.sgd_update_ref`, torch.add with alpha) and XLA's CPU update round,
 // so the three agree bitwise.
 //
-// Plain C interface for ctypes: the caller passes host arrays of leaf
-// pointers and sizes; the entry packs them into tables of MAX_LEAVES and
-// launches once per table on the caller's stream (the paper CNN's 10 leaves
-// take one launch). It returns cudaGetLastError() (0 = launched) and writes
-// the number of launches to *launches.
+// Plain C interface for ctypes: the caller passes one table (its leaves,
+// its gradient views, its slots and the slots a block) and the grid; the
+// entry launches once on the caller's stream and returns
+// cudaGetLastError().
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+constexpr int SGD_MAX_LEAVES = 64;  // leaves a table holds
+constexpr int SGD_MAX_VIEWS = 8;    // gradient views a table holds
+
+// the table's entries have external linkage: the C entry takes them
+struct SgdLeaf {
+  const float* p;
+  const float* g;
+  float* out;
+  int64_t n;      // elements
+  int64_t slot0;  // the leaf's first slot in the table
+  int vec;        // bit 0: p and out 16-byte aligned; bit 1: g too
+  int view;       // -1: g contiguous; else its index in SgdTable::view
+};
+
+struct SgdView {  // g as a view of p's shape, padded to 4 dims
+  int size[4];
+  int64_t stride[4];
+};
+
+struct SgdTable {
+  SgdLeaf leaf[SGD_MAX_LEAVES];
+  SgdView view[SGD_MAX_VIEWS];
+  int64_t slots;      // slots of the table
+  int64_t per_block;  // slots a block
+  int n_leaves;
+};
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int VEC_PER_THREAD = 2;
-constexpr int64_t CHUNK = THREADS * VEC_PER_THREAD * 4;  // 2,048 elements
-constexpr int MAX_LEAVES = 48;  // keeps the table well inside 4 KB of params
-
-struct Leaf {
-  const float* p;
-  const float* g;
-  float* out;
-  int64_t n;
-  int64_t first_block;  // first block of the grid that works on this leaf
-  int aligned;          // p, g and out all 16-byte aligned
-};
-
-struct Table {
-  Leaf leaf[MAX_LEAVES];
-  int n_leaves;
-};
+constexpr int UNROLL = 8;        // slots a thread has in flight
 
 __device__ __forceinline__ float sgd(float p, float g, float lr, float wd) {
   return __fmaf_rn(-lr, __fmaf_rn(wd, p, g), p);
 }
 
-__global__ void __launch_bounds__(THREADS)
-sgd_f32_kernel(const __grid_constant__ Table table, float lr, float wd) {
-  const int64_t b = blockIdx.x;
-  int li = 0;  // the leaf whose blocks hold b (the table is in block order)
-  while (li + 1 < table.n_leaves && table.leaf[li + 1].first_block <= b) ++li;
-  const Leaf& leaf = table.leaf[li];
-  const int64_t start = (b - leaf.first_block) * CHUNK;
-  const int64_t len = leaf.n - start < CHUNK ? leaf.n - start : CHUNK;
-  const float* p = leaf.p + start;
-  const float* g = leaf.g + start;
-  float* out = leaf.out + start;
-
-  int64_t done = 0;
-  if (leaf.aligned) {  // start is a multiple of 4, so the chunk is aligned too
-    const int64_t n4 = len / 4;
-    const float4* p4 = reinterpret_cast<const float4*>(p);
-    const float4* g4 = reinterpret_cast<const float4*>(g);
-    float4* o4 = reinterpret_cast<float4*>(out);
-    for (int64_t i = threadIdx.x; i < n4; i += THREADS) {
-      const float4 pv = p4[i];
-      const float4 gv = g4[i];
-      o4[i] = make_float4(sgd(pv.x, gv.x, lr, wd), sgd(pv.y, gv.y, lr, wd),
-                          sgd(pv.z, gv.z, lr, wd), sgd(pv.w, gv.w, lr, wd));
-    }
-    done = n4 * 4;
+// offset of element e (row-major in p's shape) in a gradient view
+__device__ __forceinline__ int64_t view_offset(const SgdView& v, uint32_t e) {
+  int64_t off = 0;
+#pragma unroll
+  for (int d = 3; d > 0; --d) {
+    const uint32_t s = static_cast<uint32_t>(v.size[d]);
+    off += static_cast<int64_t>(e % s) * v.stride[d];
+    e /= s;
   }
-  for (int64_t i = done + threadIdx.x; i < len; i += THREADS)
-    out[i] = sgd(p[i], g[i], lr, wd);
+  return off + static_cast<int64_t>(e) * v.stride[0];
+}
+
+__device__ __forceinline__ float4 load4(const float* __restrict__ x,
+                                        int cnt, bool vec) {
+  if (vec && cnt == 4) return __ldcs(reinterpret_cast<const float4*>(x));
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  r.x = __ldcs(x);
+  if (cnt > 1) r.y = __ldcs(x + 1);
+  if (cnt > 2) r.z = __ldcs(x + 2);
+  if (cnt > 3) r.w = __ldcs(x + 3);
+  return r;
+}
+
+__global__ void __launch_bounds__(THREADS)
+sgd_f32_kernel(const __grid_constant__ SgdTable t, float lr, float wd) {
+  const int64_t lo = static_cast<int64_t>(blockIdx.x) * t.per_block;
+  const int64_t hi = min(lo + t.per_block, t.slots);
+  int64_t base = lo + threadIdx.x;
+  if (base >= hi) return;
+  int li = 0;  // the leaf of the thread's next slot (slots only go up)
+  for (int step = SGD_MAX_LEAVES / 2; step > 0; step /= 2)
+    if (li + step < t.n_leaves && t.leaf[li + step].slot0 <= base)
+      li += step;
+
+  for (; base < hi; base += static_cast<int64_t>(THREADS) * UNROLL) {
+    float4 pv[UNROLL], gv[UNROLL];
+    int lk[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const int64_t slot = base + static_cast<int64_t>(u) * THREADS;
+      lk[u] = -1;
+      if (slot >= hi) continue;
+      while (li + 1 < t.n_leaves && t.leaf[li + 1].slot0 <= slot) ++li;
+      lk[u] = li;
+      const SgdLeaf& L = t.leaf[li];
+      const int64_t e = (slot - L.slot0) * 4;
+      const int cnt = static_cast<int>(min(static_cast<int64_t>(4), L.n - e));
+      pv[u] = load4(L.p + e, cnt, L.vec & 1);
+      if (L.view < 0) {
+        gv[u] = load4(L.g + e, cnt, L.vec & 2);
+      } else {
+        const SgdView& v = t.view[L.view];
+        const uint32_t e32 = static_cast<uint32_t>(e);
+        gv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+        gv[u].x = __ldcs(L.g + view_offset(v, e32));
+        if (cnt > 1) gv[u].y = __ldcs(L.g + view_offset(v, e32 + 1));
+        if (cnt > 2) gv[u].z = __ldcs(L.g + view_offset(v, e32 + 2));
+        if (cnt > 3) gv[u].w = __ldcs(L.g + view_offset(v, e32 + 3));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      if (lk[u] < 0) continue;
+      const SgdLeaf& L = t.leaf[lk[u]];
+      const int64_t slot = base + static_cast<int64_t>(u) * THREADS;
+      const int64_t e = (slot - L.slot0) * 4;
+      const int cnt = static_cast<int>(min(static_cast<int64_t>(4), L.n - e));
+      const float4 r = make_float4(sgd(pv[u].x, gv[u].x, lr, wd),
+                                   sgd(pv[u].y, gv[u].y, lr, wd),
+                                   sgd(pv[u].z, gv[u].z, lr, wd),
+                                   sgd(pv[u].w, gv[u].w, lr, wd));
+      float* __restrict__ o = L.out + e;
+      if ((L.vec & 1) && cnt == 4) {
+        __stcs(reinterpret_cast<float4*>(o), r);
+      } else {
+        __stcs(o, r.x);
+        if (cnt > 1) __stcs(o + 1, r.y);
+        if (cnt > 2) __stcs(o + 2, r.z);
+        if (cnt > 3) __stcs(o + 3, r.w);
+      }
+    }
+  }
 }
 
 }  // namespace
 
-extern "C" int sgd_f32_max_leaves() { return MAX_LEAVES; }
+extern "C" int sgd_f32_max_leaves() { return SGD_MAX_LEAVES; }
+extern "C" int sgd_f32_max_views() { return SGD_MAX_VIEWS; }
+extern "C" int sgd_f32_leaf_bytes() {
+  return static_cast<int>(sizeof(SgdLeaf));
+}
+extern "C" int sgd_f32_view_bytes() {
+  return static_cast<int>(sizeof(SgdView));
+}
 
-// p, g, out: host arrays of n_leaves device pointers (f32, contiguous);
-// n: host array of the leaves' element counts. Empty leaves are skipped.
-extern "C" int sgd_f32(const void* const* p, const void* const* g,
-                       void* const* out, const int64_t* n, int n_leaves,
-                       float lr, float wd, void* stream, int* launches) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  *launches = 0;
-  Table table;
-  table.n_leaves = 0;
-  int64_t blocks = 0;
-  for (int i = 0; i <= n_leaves; ++i) {
-    const bool flush = i == n_leaves || table.n_leaves == MAX_LEAVES;
-    if (flush && table.n_leaves > 0) {
-      sgd_f32_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, s>>>(
-          table, lr, wd);
-      ++*launches;
-      const cudaError_t err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-      table.n_leaves = 0;
-      blocks = 0;
-    }
-    if (i == n_leaves || n[i] == 0) continue;
-    Leaf& leaf = table.leaf[table.n_leaves++];
-    leaf.p = static_cast<const float*>(p[i]);
-    leaf.g = static_cast<const float*>(g[i]);
-    leaf.out = static_cast<float*>(out[i]);
-    leaf.n = n[i];
-    leaf.first_block = blocks;
-    leaf.aligned = ((reinterpret_cast<uintptr_t>(p[i]) |
-                     reinterpret_cast<uintptr_t>(g[i]) |
-                     reinterpret_cast<uintptr_t>(out[i])) & 15) == 0;
-    blocks += (n[i] + CHUNK - 1) / CHUNK;
-  }
+// leaves: n_leaves (≥ 1, non-empty) in slot order; views: n_views gradient
+// views; slots and per_block from the plan; grid = ⌈slots / per_block⌉.
+extern "C" int sgd_f32(const SgdLeaf* leaves, int n_leaves,
+                       const SgdView* views, int n_views, int64_t slots,
+                       int64_t per_block, int grid, float lr, float wd,
+                       void* stream) {
+  if (n_leaves < 1 || n_leaves > SGD_MAX_LEAVES || n_views < 0 ||
+      n_views > SGD_MAX_VIEWS || per_block < 1 ||
+      (slots + per_block - 1) / per_block != grid)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SgdTable table;
+  for (int i = 0; i < n_leaves; ++i) table.leaf[i] = leaves[i];
+  for (int i = 0; i < n_views; ++i) table.view[i] = views[i];
+  table.slots = slots;
+  table.per_block = per_block;
+  table.n_leaves = n_leaves;
+  sgd_f32_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      table, lr, wd);
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,8 +21,10 @@
   im2col + GEMM twin under `FUSED_LOSS_ATTR`.
 * `sgd_update_tree` — the SGD update p − lr·(g + wd·p) over every leaf of
   a parameter dict (`optim.sgd`'s route). On CUDA tensors it launches the
-  hand-written kernel ``csrc/sgd_f32.cu`` once for all leaves; on CPU
-  tensors it takes the plain version `ref.sgd_update_ref` per leaf.
+  hand-written kernel ``csrc/sgd_f32.cu`` once for all leaves, laid out
+  by `sgd_plan` (the slots split evenly over a resident grid; gradients
+  that autograd hands as views read in place); on CPU tensors it takes
+  the plain version `ref.sgd_update_ref` per leaf.
 """
 from __future__ import annotations
 
@@ -271,16 +273,48 @@ def maxpool2x2(x: torch.Tensor) -> torch.Tensor:
 # Fused SGD update sweep
 # ---------------------------------------------------------------------------
 
+# csrc/sgd_f32.cu: threads a block, slots a thread has in flight, leaves
+# and gradient views a table holds; the resident grid (two blocks on each
+# SM) a table's slots are split over
+SGD_THREADS = 256
+SGD_UNROLL = 8
+SGD_MAX_LEAVES = 64
+SGD_MAX_VIEWS = 8
+SGD_BLOCKS = 2 * N_SMS
+SGD_SLOT = 4            # elements a slot
+
+
+class _SgdLeaf(ctypes.Structure):
+    """One leaf of csrc/sgd_f32.cu's table (its `SgdLeaf`)."""
+    _fields_ = [("p", ctypes.c_void_p), ("g", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("n", ctypes.c_int64),
+                ("slot0", ctypes.c_int64), ("vec", ctypes.c_int),
+                ("view", ctypes.c_int)]
+
+
+class _SgdView(ctypes.Structure):
+    """A gradient read as a view of its param's shape (its `SgdView`)."""
+    _fields_ = [("size", ctypes.c_int * 4), ("stride", ctypes.c_int64 * 4)]
+
+
 def bind_sgd(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C signature of `lib.sgd_f32` (csrc/sgd_f32.cu)."""
+    """Declare the C signature of `lib.sgd_f32` (csrc/sgd_f32.cu) and check
+    that its table is the one this module packs."""
     fn = lib.sgd_f32
-    fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_void_p),
-                   ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
-                   ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-                   ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = [ctypes.POINTER(_SgdLeaf), ctypes.c_int,
+                   ctypes.POINTER(_SgdView), ctypes.c_int, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int, ctypes.c_float,
+                   ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    sizes = {"sgd_f32_max_leaves": SGD_MAX_LEAVES,
+             "sgd_f32_max_views": SGD_MAX_VIEWS,
+             "sgd_f32_leaf_bytes": ctypes.sizeof(_SgdLeaf),
+             "sgd_f32_view_bytes": ctypes.sizeof(_SgdView)}
+    for name, want in sizes.items():
+        getattr(lib, name).restype = ctypes.c_int
+        if getattr(lib, name)() != want:
+            raise RuntimeError(f"sgd_f32: the library's {name} differs from "
+                               "kernels/local_step.py's")
     return lib
 
 
@@ -289,13 +323,75 @@ def _sgd_lib() -> ctypes.CDLL:
     return bind_sgd(build.load("sgd_f32"))
 
 
+class SgdTable(NamedTuple):
+    """One launch of csrc/sgd_f32.cu: `leaves` (indices into the call's
+    leaves, all non-empty) whose slots of `SGD_SLOT` elements start at
+    `slot0` (a leaf's last slot may be short); `slots` in all, split into
+    `grid` ranges of `per_block` (the last one shorter). Block b's threads
+    take the slots b·per_block + tid + 256·u."""
+    leaves: Tuple[int, ...]
+    slot0: Tuple[int, ...]
+    slots: int
+    per_block: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=64)
+def sgd_plan(sizes: Tuple[int, ...],
+             views: Tuple[int, ...] = ()) -> Tuple[SgdTable, ...]:
+    """The launches of one update over leaves of `sizes` elements, of which
+    the leaves at the indices `views` read their gradient through a view:
+    the non-empty leaves in order, a new table when one holds
+    `SGD_MAX_LEAVES` leaves or `SGD_MAX_VIEWS` views; each table's slots
+    split evenly over at most `SGD_BLOCKS` blocks (a range may cross leaf
+    boundaries). Raises where the kernel takes no such call."""
+    if any(n < 0 for n in sizes):
+        raise ValueError(f"sgd_plan: negative leaf sizes {sizes}")
+    if any(not 0 <= i < len(sizes) or sizes[i] >= 2 ** 31 for i in views):
+        raise ValueError(f"sgd_plan: views {views} must name leaves of "
+                         "fewer than 2³¹ elements")
+    tables, leaves, n_views = [], [], 0
+    for i, n in enumerate(sizes):
+        if not n:
+            continue
+        if len(leaves) == SGD_MAX_LEAVES or (
+                i in views and n_views == SGD_MAX_VIEWS):
+            tables.append(leaves)
+            leaves, n_views = [], 0
+        leaves.append(i)
+        n_views += i in views
+    if leaves:
+        tables.append(leaves)
+    plans = []
+    for leaves in tables:
+        counts = [-(-sizes[i] // SGD_SLOT) for i in leaves]
+        slot0 = tuple(sum(counts[:j]) for j in range(len(counts)))
+        slots = sum(counts)
+        grid = min(SGD_BLOCKS, -(-slots // SGD_THREADS))
+        per_block = -(-slots // grid)
+        plans.append(SgdTable(tuple(leaves), slot0, slots, per_block,
+                              -(-slots // per_block)))
+    return tuple(plans)
+
+
+def _grad_view(g: torch.Tensor):
+    """None where g is contiguous; else g's (sizes, strides), padded to 4
+    dims."""
+    if g.is_contiguous():
+        return None
+    pad = 4 - g.dim()
+    return ((1,) * pad + tuple(g.shape), (0,) * pad + tuple(g.stride()))
+
+
 def sgd_f32(params: List[torch.Tensor], grads: List[torch.Tensor], *,
             lr: float, wd: float = 0.0) -> List[torch.Tensor]:
     """Launch the CUDA kernel: a new tensor p − lr·(g + wd·p) for every
     (p, g) pair, all leaves in one launch (more only beyond the kernel's
-    table of leaves). Every tensor must be a contiguous f32 CUDA tensor on
-    one device, each g shaped like its p; the inputs are left unchanged.
-    `sgd_f32.launches` counts the launches."""
+    table of leaves or of gradient views). Every tensor must be an f32 CUDA
+    tensor on one device, each p contiguous, each g shaped like its p and
+    either contiguous or a view of at most 4 dims (read in place, as
+    autograd hands a permuted weight's gradient); the inputs are left
+    unchanged. `sgd_f32.launches` counts the launches."""
     if len(params) != len(grads):
         raise ValueError(f"sgd_f32: {len(params)} params but "
                          f"{len(grads)} grads")
@@ -313,26 +409,44 @@ def sgd_f32(params: List[torch.Tensor], grads: List[torch.Tensor], *,
             if t.dtype != torch.float32:
                 raise TypeError(f"sgd_f32: {name} {i} is {t.dtype}, not "
                                 "float32")
-            if not t.is_contiguous():
-                raise ValueError(f"sgd_f32: {name} {i} must be contiguous")
+        if not p.is_contiguous():
+            raise ValueError(f"sgd_f32: param {i} must be contiguous")
         if g.shape != p.shape:
             raise ValueError(f"sgd_f32: grad {i} is {tuple(g.shape)}, its "
                              f"param {tuple(p.shape)}")
+        if not g.is_contiguous() and g.dim() > 4:
+            raise ValueError(f"sgd_f32: grad {i} is a view of {g.dim()} "
+                             "dims; the kernel reads views of at most 4")
+    views = [_grad_view(g) for g in grads]
     outs = [torch.empty_like(p) for p in params]
-    n = len(params)
-    ptrs = ctypes.c_void_p * n
-    launches = ctypes.c_int(0)
     lib = _sgd_lib()
+    plans = sgd_plan(tuple(p.numel() for p in params),
+                     tuple(i for i, v in enumerate(views) if v))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.sgd_f32(ptrs(*[p.data_ptr() for p in params]),
-                          ptrs(*[g.data_ptr() for g in grads]),
-                          ptrs(*[o.data_ptr() for o in outs]),
-                          (ctypes.c_int64 * n)(*[p.numel() for p in params]),
-                          n, lr, wd, stream, ctypes.byref(launches))
-    sgd_f32.launches += launches.value
-    if err != 0:
-        raise RuntimeError(f"sgd_f32: launch failed with CUDA error {err}")
+        for plan in plans:
+            leaves = (_SgdLeaf * len(plan.leaves))()
+            table_views = []
+            for j, (i, slot0) in enumerate(zip(plan.leaves, plan.slot0)):
+                p, g, o = params[i], grads[i], outs[i]
+                aligned = (p.data_ptr() | o.data_ptr()) % 16 == 0
+                g_vec = views[i] is None and g.data_ptr() % 16 == 0
+                leaves[j] = _SgdLeaf(p.data_ptr(), g.data_ptr(),
+                                     o.data_ptr(), p.numel(), slot0,
+                                     int(aligned) | 2 * int(g_vec),
+                                     len(table_views) if views[i] else -1)
+                if views[i]:
+                    table_views.append(_SgdView(
+                        (ctypes.c_int * 4)(*views[i][0]),
+                        (ctypes.c_int64 * 4)(*views[i][1])))
+            err = lib.sgd_f32(leaves, len(plan.leaves),
+                              (_SgdView * max(1, len(table_views)))(
+                                  *table_views), len(table_views), plan.slots,
+                              plan.per_block, plan.grid, lr, wd, stream)
+            if err != 0:
+                raise RuntimeError(f"sgd_f32: launch failed with CUDA error "
+                                   f"{err}")
+            sgd_f32.launches += 1
     return outs
 
 
@@ -348,10 +462,13 @@ def sgd_update_tree(params: Dict[str, torch.Tensor],
     devices = {p.device.type for p in params.values()}
     if devices == {"cuda"}:
         keys = list(params)
-        # autograd may hand back a permuted view (the native forward's
-        # HWIO → OIHW weights); the kernel takes contiguous leaves
+        # autograd hands the native forward's HWIO → OIHW weights a
+        # permuted gradient; the kernel reads such views of ≤ 4 dims in
+        # place
         outs = sgd_f32([params[k].contiguous() for k in keys],
-                       [grads[k].contiguous() for k in keys], lr=lr, wd=wd)
+                       [grads[k] if grads[k].dim() <= 4
+                        else grads[k].contiguous() for k in keys],
+                       lr=lr, wd=wd)
         return dict(zip(keys, outs))
     if devices == {"cpu"}:
         return {k: sgd_update_ref(p, grads[k], lr=lr, wd=wd)

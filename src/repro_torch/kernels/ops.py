@@ -50,9 +50,10 @@ def factor_grams(a):
 
 def lowrank_pool_sq(pool):
     """Pairwise ‖m_i − m_j‖² (C, C) of a `LowRankDeltaPool` through the
-    factor Gram, never materializing a member's delta."""
+    factor Gram (every stack in one launch on CUDA), never materializing
+    a member's delta."""
     from repro_torch.core.distances import lowrank_pairwise_sq
-    return lowrank_pairwise_sq(pool, gram_fn=factor_grams)
+    return lowrank_pairwise_sq(pool)
 
 
 def tree_pool_distances(params, pool_members, *, measure="l2"):

@@ -24,16 +24,18 @@ reduce to Gram matrices over the stacked factors: with A = [U_1ᵀ; …;
 U_Cᵀ] (C·r rows), ⟨Δ_i, Δ_j⟩ = ⟨U_iᵀU_j, V_iᵀV_j⟩_F reads off two A·Aᵀ
 products (`core/distances.lowrank_pairwise_sq`). `factor_gram` is that
 product over the long trailing axis, a (M, P) → (M, M), or a (B, M, P) →
-(B, M, M), f32. On CUDA tensors it launches ``csrc/factor_gram_f32.cu``
-(f32, contiguous; its sum over P is the same on every run: chunk
-partials, then the chunks added in order); on CPU tensors it takes
-`ref.factor_gram_ref`.
+(B, M, M), f32; `factor_gram_group` takes every stack of a call at once.
+On CUDA tensors both launch ``csrc/factor_gram_f32.cu`` once for all the
+stacks (f32, contiguous), laid out by `gram_plan` (its sum over P is the
+same on every run: chunk partials, added in a fixed order); on CPU
+tensors they take `ref.factor_gram_ref` stack by stack.
 
 Nothing falls back: a CUDA tensor launches its kernel or raises."""
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -43,9 +45,8 @@ from repro_torch.kernels.ref import (factor_gram_ref,
                                      pool_distance_stats_bwd_ref,
                                      pool_distance_stats_ref)
 
-TILE = 64               # csrc/factor_gram_f32.cu: its output tile edge
 MAX_M = 256             # rows the reference's kernel takes (C·r ≤ 256)
-_MAX_GRID_Z = 65535
+_MAX_GRID_X = 2 ** 31 - 1
 _MAX_GRID_Y = 65535
 STATS = ("sq", "l1", "dot", "norm")
 # csrc/pool_distance_f32.cu: threads a block (8 warps), members a pass
@@ -62,57 +63,246 @@ MAX_LEAVES = 40
 BLOCKS_PER_SM = 2
 GROUPS = {1: 4, 2: 4, 3: 2, 4: 2, 5: 2, 6: 1, 7: 1, 8: 1}
 N_SMS = 132             # H100 SXM streaming multiprocessors
+# csrc/factor_gram_f32.cu: threads a block, rows a group, ring slots, floats
+# a ring slot holds (its column count follows M), an item's sums (8 rows ×
+# 4) and the floats between two (team, item) sums, stacks a launch's table
+# holds, chunks a subgroup and subgroups a group at most; the plan's blocks
+# a launch (two waves of two resident on each SM) and the counters it may
+# take (one buffer from `build.counters`)
+GRAM_THREADS = 256
+GRAM_ROWS = 8
+GRAM_STAGES = 4
+GRAM_STAGE_FLOATS = 6144
+GRAM_ITEM = 32
+GRAM_RED_PITCH = 36
+GRAM_MAX_STACKS = 32
+GRAM_MAX_F = 16
+GRAM_TARGET_BLOCKS = 4 * N_SMS
+GRAM_COUNTERS = 1 << 16
 
 Params = Dict[str, torch.Tensor]
+
+
+class _GramStack(ctypes.Structure):
+    """One entry of csrc/factor_gram_f32.cu's table (its `GramStack`)."""
+    _fields_ = [("a", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("part", ctypes.c_void_p), ("part2", ctypes.c_void_p),
+                ("counters", ctypes.c_void_p), ("p", ctypes.c_int64),
+                ("pc", ctypes.c_int64)] + [
+        (name, ctypes.c_int) for name in (
+            "b", "m", "w", "pitch", "ib", "nq", "wpt", "teams", "k", "f",
+            "nsub", "first_block")]
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("factor_gram_f32")
-    p, i64 = ctypes.c_void_p, ctypes.c_int64
-    lib.factor_gram_f32.argtypes = [p, p, p, p, i64, i64, i64, p]
+    lib.factor_gram_f32.argtypes = [ctypes.POINTER(_GramStack), ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_void_p]
     lib.factor_gram_f32.restype = ctypes.c_int
-    lib.factor_gram_f32_workspace.argtypes = [i64, i64, i64]
-    lib.factor_gram_f32_workspace.restype = i64
+    for name in ("factor_gram_f32_stack_bytes", "factor_gram_f32_max_stacks"):
+        getattr(lib, name).restype = ctypes.c_int
+    if lib.factor_gram_f32_stack_bytes() != ctypes.sizeof(_GramStack) or \
+            lib.factor_gram_f32_max_stacks() != GRAM_MAX_STACKS:
+        raise RuntimeError("factor_gram_f32: the library's table differs "
+                           "from kernels/pool_distance.py's")
     return lib
 
 
-def factor_gram_f32(a: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on a contiguous f32 (B, M, P) CUDA tensor;
-    returns (B, M, M). `factor_gram_f32.launches` counts the launches."""
-    if a.device.type != "cuda":
-        raise ValueError(f"factor_gram_f32: a is on {a.device}, not CUDA")
-    if a.dtype != torch.float32:
-        raise TypeError(f"factor_gram_f32: a is {a.dtype}, not float32")
-    if a.dim() != 3:
-        raise ValueError(f"factor_gram_f32: a must be (B, M, P), got "
-                         f"{tuple(a.shape)}")
-    if not a.is_contiguous():
-        raise ValueError("factor_gram_f32: a must be contiguous")
-    b, m, p = a.shape
-    if min(b, m, p) == 0 or m > MAX_M or b > _MAX_GRID_Z:
-        raise ValueError(f"factor_gram_f32: no grid for {tuple(a.shape)} "
-                         f"(M ≤ {MAX_M})")
+class GramStack(NamedTuple):
+    """How csrc/factor_gram_f32.cu computes one (B, M, P) stack: rows in
+    `GRAM_ROWS` strided groups; item 2p + h is pair p of groups (gi ≤ gj)
+    against half h of gj's rows, a thread an item, `ib` items a block and
+    `nq` item groups; `teams` teams of `wpt` warps split a chunk's quads of
+    4 columns (quad j to team j mod teams), staged `w` columns at a time
+    in rows of `pitch` floats; P in `k` chunks of `pc` columns; a (b, item
+    group) adds its chunks in subgroups of `f`, then its `nsub`
+    subgroups. Its blocks start at `first_block`; its partials at `part`
+    and `part2`, its counters at `counters` (offsets in the launch's
+    workspace and counters)."""
+    b: int
+    m: int
+    p: int
+    w: int
+    pitch: int
+    ib: int
+    nq: int
+    wpt: int
+    teams: int
+    pc: int
+    k: int
+    f: int
+    nsub: int
+    first_block: int
+    part: int
+    part2: int
+    counters: int
+
+    @property
+    def groups(self) -> int:
+        """(b, item group) sums, each over all of P."""
+        return self.b * self.nq
+
+    @property
+    def blocks(self) -> int:
+        return self.groups * self.k
+
+    @property
+    def rows(self) -> int:
+        """M padded to the groups: the rows of a ring slot."""
+        return -(-self.m // GRAM_ROWS) * GRAM_ROWS
+
+    @property
+    def smem_floats(self) -> int:
+        """Dynamic shared memory a block: the ring, reused for the teams'
+        sums."""
+        return max(GRAM_STAGES * self.rows * self.pitch,
+                   self.teams * self.ib * GRAM_RED_PITCH)
+
+
+class GramPlan(NamedTuple):
+    """One launch of csrc/factor_gram_f32.cu: `stacks` in the caller's
+    order, `order` the block order (indices into `stacks`), `grid` blocks,
+    `workspace` floats of partials, `counters` ints, `smem` bytes."""
+    stacks: Tuple[GramStack, ...]
+    order: Tuple[int, ...]
+    grid: int
+    workspace: int
+    counters: int
+    smem: int
+
+
+def _gram_items(m: int) -> int:
+    """Items of an M-row Gram: two a pair of row groups gi ≤ gj."""
+    groups = -(-m // GRAM_ROWS)
+    return groups * (groups + 1)
+
+
+@functools.lru_cache(maxsize=64)
+def gram_plan(shapes: Tuple[Tuple[int, int, int], ...]) -> GramPlan:
+    """The plan of one launch over stacks of `shapes` (B, M, P), a function
+    of the shapes alone (so the summation order, and the bits, are too).
+    The columns of all stacks over `GRAM_TARGET_BLOCKS` give a block's
+    share; each stack's P goes in chunks of at most that many columns (a
+    multiple of its stage width, and at least one ring of stages), so one
+    launch fills the card whether it holds one large stack or many small
+    ones; at most `GRAM_MAX_F`² chunks. A (b, item group) split into k > 1
+    chunks has its last block add them in order where k ≤ `GRAM_MAX_F`;
+    beyond, it adds them in subgroups of f = ⌈√k⌉ (each subgroup's last
+    block, then the last of those), so no block adds more than
+    `GRAM_MAX_F` partials. Blocks go stack by stack, the stacks with the
+    most chunks first. Raises where the kernel takes no such call."""
+    if not 1 <= len(shapes) <= GRAM_MAX_STACKS:
+        raise ValueError(f"gram_plan: {len(shapes)} stacks; a launch takes "
+                         f"1..{GRAM_MAX_STACKS}")
+    stacks = []
+    for b, m, p in shapes:
+        if not (1 <= m <= MAX_M and b >= 1 and p >= 1):
+            raise ValueError(f"gram_plan: no grid for ({b}, {m}, {p}) "
+                             f"(1 ≤ M ≤ {MAX_M}, B and P ≥ 1)")
+        items = _gram_items(m)
+        nq = -(-items // GRAM_THREADS)
+        ib = -(-items // nq)
+        wpt = -(-ib // 32)
+        teams = GRAM_THREADS // 32 // wpt
+        # quads a stage: a multiple of the teams, within the slot's floats
+        # beside a row's padding; a row's pitch an odd number of quads
+        room = GRAM_STAGE_FLOATS // (-(-m // GRAM_ROWS) * GRAM_ROWS) // 4 - 2
+        wq = max(1, room // teams) * teams
+        stacks.append(GramStack(b, m, p, 4 * wq, 4 * (wq + 1 + wq % 2), ib,
+                                nq, wpt, teams, *[0] * 8))
+    share = -(-sum(st.b * st.nq * st.p for st in stacks) //
+              GRAM_TARGET_BLOCKS)
+    for i, st in enumerate(stacks):
+        k = min(-(-st.p // share), GRAM_MAX_F ** 2)
+        pc = max(-(-(-(-st.p // k)) // st.w) * st.w, GRAM_STAGES * st.w)
+        k = -(-st.p // pc)
+        f = k if k <= GRAM_MAX_F else math.isqrt(k - 1) + 1
+        stacks[i] = st._replace(pc=pc, k=k, f=f, nsub=-(-k // f))
+    order = tuple(sorted(range(len(stacks)), key=lambda i: -stacks[i].k))
+    first = part = counters = 0
+    for i in order:
+        st = stacks[i]
+        values = st.ib * GRAM_ITEM
+        n_part = st.groups * st.k * values if st.k > 1 else 0
+        n_part2 = st.groups * st.nsub * values if st.nsub > 1 else 0
+        stacks[i] = st._replace(first_block=first, part=part,
+                                part2=part + n_part, counters=counters)
+        first += st.blocks
+        part += n_part + n_part2
+        if st.k > 1:
+            counters += st.groups * (st.nsub + 1 if st.nsub > 1 else 1)
+    if first > _MAX_GRID_X or counters > GRAM_COUNTERS:
+        raise ValueError(f"gram_plan: {first} blocks and {counters} "
+                         f"counters exceed the kernel's limits for {shapes}")
+    return GramPlan(tuple(stacks), order, first, part, counters,
+                    4 * max(st.smem_floats for st in stacks))
+
+
+def factor_gram_f32(stacks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """Launch the CUDA kernel over a list of contiguous f32 (B, M, P) CUDA
+    tensors on one device; returns their (B, M, M) Grams. One launch (one
+    more per `GRAM_MAX_STACKS` stacks); `factor_gram_f32.launches` counts
+    them."""
+    if not stacks:
+        return []
+    device = stacks[0].device
+    for i, a in enumerate(stacks):
+        if a.device.type != "cuda" or a.device != device:
+            raise ValueError(f"factor_gram_f32: stack {i} is on {a.device}, "
+                             f"not CUDA (or not stack 0's {device})")
+        if a.dtype != torch.float32:
+            raise TypeError(f"factor_gram_f32: stack {i} is {a.dtype}, not "
+                            "float32")
+        if a.dim() != 3:
+            raise ValueError(f"factor_gram_f32: stack {i} must be (B, M, P), "
+                             f"got {tuple(a.shape)}")
+        if not a.is_contiguous():
+            raise ValueError(f"factor_gram_f32: stack {i} must be contiguous")
     lib = _lib()
-    n_tiles = -(-m // TILE)
-    out = torch.empty((b, m, m), device=a.device, dtype=torch.float32)
-    part = torch.empty(lib.factor_gram_f32_workspace(b, m, p),
-                       device=a.device, dtype=torch.float32)
-    counters = torch.zeros(b * n_tiles * n_tiles, device=a.device,
-                           dtype=torch.int32)
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.factor_gram_f32(a.data_ptr(), out.data_ptr(),
-                                  part.data_ptr(), counters.data_ptr(),
-                                  b, m, p, stream)
-    if err != 0:
-        raise RuntimeError(f"factor_gram_f32: launch failed with CUDA error "
-                           f"{err}")
-    factor_gram_f32.launches += 1
-    return out
+    outs = [torch.empty((a.shape[0], a.shape[1], a.shape[1]), device=device,
+                        dtype=torch.float32) for a in stacks]
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for t0 in range(0, len(stacks), GRAM_MAX_STACKS):
+            table = stacks[t0:t0 + GRAM_MAX_STACKS]
+            plan = gram_plan(tuple(tuple(a.shape) for a in table))
+            part = torch.empty(plan.workspace, device=device,
+                               dtype=torch.float32)
+            counters = build.counters(device, stream, GRAM_COUNTERS)
+            entries = (_GramStack * len(table))()
+            for slot, i in enumerate(plan.order):
+                st = plan.stacks[i]
+                entries[slot] = _GramStack(
+                    table[i].data_ptr(), outs[t0 + i].data_ptr(),
+                    part.data_ptr() + 4 * st.part,
+                    part.data_ptr() + 4 * st.part2,
+                    counters.data_ptr() + 4 * st.counters, st.p, st.pc, st.b,
+                    st.m, st.w, st.pitch, st.ib, st.nq, st.wpt, st.teams,
+                    st.k, st.f, st.nsub, st.first_block)
+            err = lib.factor_gram_f32(entries, len(table), plan.grid,
+                                      plan.smem, stream)
+            if err != 0:
+                raise RuntimeError(f"factor_gram_f32: launch failed with "
+                                   f"CUDA error {err}")
+            factor_gram_f32.launches += 1
+    return outs
 
 
 factor_gram_f32.launches = 0
+
+
+def factor_gram_group(stacks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """A·Aᵀ over the trailing axis of every (B, M, P) stack, routed by the
+    tensors' device: one launch of the kernel for CUDA stacks, the plain
+    version stack by stack for CPU stacks."""
+    route = _device_type(stacks, "factor_gram_group") if stacks else "cpu"
+    if route == "cuda":
+        return factor_gram_f32(stacks)
+    if route == "cpu":
+        return [factor_gram_ref(a) for a in stacks]
+    raise ValueError(f"factor_gram_group: no route for tensors on {route}")
 
 
 def factor_gram(a: torch.Tensor) -> torch.Tensor:
@@ -121,11 +311,7 @@ def factor_gram(a: torch.Tensor) -> torch.Tensor:
     plain version on the CPU."""
     if a.dim() == 2:
         return factor_gram(a[None])[0]
-    if a.device.type == "cuda":
-        return factor_gram_f32(a)
-    if a.device.type == "cpu":
-        return factor_gram_ref(a)
-    raise ValueError(f"factor_gram: no route for a tensor on {a.device}")
+    return factor_gram_group([a])[0]
 
 
 # ---------------------------------------------------------------------------
