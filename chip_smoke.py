@@ -32,8 +32,9 @@ Phases, each failing the run with a nonzero exit:
              the paper CNN's leaves (also with the conv weights' gradients
              as the permuted views autograd hands over, read in place), on
              ragged and misaligned leaves, 100 small leaves and leaves
-             whose boundaries fall inside a block's range, each with
-             `sgd_plan`'s launches; times beside the bound and
+             whose boundaries fall inside a block's range, and in bf16:
+             the CNN's leaves, a mixed f32/bf16 set, ragged bf16 leaves;
+             each with `sgd_plan`'s launches; times beside the bound and
              `torch._fused_sgd_`, and the timing floor (an empty kernel, a
              flat `torch.add` over the same bytes, the kernel with the L2
              left clean)
@@ -50,8 +51,9 @@ Phases, each failing the run with a nonzero exit:
              shapes (BGMV also ragged and at rank 64; long sequences for
              attention, at every head dim the kernel has: 32, 64, 112,
              128; the Gram as one grouped call of a pairwise call's 20
-             stacks and each shape alone, M from 1 to 256, ragged P,
-             each Gram symmetric bit for bit), each case launched twice
+             stacks and each shape alone, M from 1 to 256, ragged P, and
+             M = 257, 320, 512 as tile pairs in one launch, each Gram
+             symmetric bit for bit), each case launched twice
              and bitwise equal; errors, times beside the bound, the plain
              version and a library call, and each BGMV kernel's device
              time at the sites
@@ -94,6 +96,20 @@ Phases, each failing the run with a nonzero exit:
 17. fig 9    — fedelmy at l2, l1, cosine, squared_l2 and without the
              regularizers through `launch` (paper Fig. 9), with exact
              GEMM and sweep launch counts
+18. compiled local phase — phase 4's run from one init three ways: per
+             step over `batch_iterator`s, per step over DataPlans
+             (`scan=False`), and captured (DataPlans: each step kind
+             captured once in a CUDA graph a run and replayed): steps/s,
+             wall time, captures and replays, exact GEMM and sweep launch
+             counts, accuracy above 0.5; the captured run's final params,
+             pool and task losses bitwise the per-step DataPlan run's;
+             20 replayed pool steps under the profiler
+19. table 1 scenarios — benchmarks/table1_accuracy.py's five methods at
+             its full scale, two seeds, on `dir_label_skew` and
+             `domain_shift`, each run through `launch(spec)`: mean ± std
+             accuracy per column, the best (a tie printed as a tie) beside
+             the reference's claim, wall time, exact launch counts and
+             captures a run; every run finite, fedelmy above chance
 
 Before the last lines it prints every measurement as one JSON object on
 a line starting "details: "; then the kernels' JSON record and the card's
@@ -370,7 +386,7 @@ def run_main_path(torch, local_step):
     if len(res.clients) != 4 or any(len(c.models) != 3
                                     for c in res.clients):
         fail("the run's records do not have 4 clients x 3 pool models")
-    if res.final_pool is None or res.final_pool.count != 4:
+    if res.final_pool is None or int(res.final_pool.count) != 4:
         fail("the final pool does not hold S+1 = 4 members")
     for k, v in res.params.items():
         if v.device.type != model.device.type or \
@@ -847,11 +863,13 @@ def profile_steps(torch, n_steps=20):
 # ---------------------------------------------------------------------------
 
 def _ulps(a, b):
-    """Largest distance in units in the last place between two f32
-    tensors of one sign pattern (their bit patterns as integers)."""
+    """Largest distance in units in the last place between two f32 (or
+    two bf16) tensors of one sign pattern (their bit patterns as
+    integers)."""
     import torch
-    ia = a.contiguous().view(torch.int32).long()
-    ib = b.contiguous().view(torch.int32).long()
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    ia = a.contiguous().view(bits).long()
+    ib = b.contiguous().view(bits).long()
     return int((ia - ib).abs().max()) if a.numel() else 0
 
 
@@ -872,7 +890,12 @@ def check_sgd(torch, local_step, ref):
     elements plus one whose pointers are not 16-byte aligned (a slice at
     offset 1, so the kernel's scalar path); 100 small leaves (two
     launches: a table holds 64); and leaves whose boundaries fall inside
-    one block's range. Each set makes the launches `sgd_plan` gives it.
+    one block's range; then bf16 leaves (f32 arithmetic, a bf16 store):
+    the CNN's leaves cast to bf16, a mixed set (the CNN's leaves
+    alternately f32 and bf16, the conv weights' gradients as views, one
+    bf16 param with an f32 gradient) in one launch, and ragged bf16 leaves
+    with a misaligned one. Each set makes the launches `sgd_plan` gives
+    it.
     Times on the CNN's leaves: kernel (contiguous gradients and the
     views), plain version and `torch._fused_sgd_` (the library yardstick,
     on copies; the port never calls it); beside them the timing floor: an
@@ -889,6 +912,9 @@ def check_sgd(torch, local_step, ref):
 
     cnn = list(build_model(get_arch("paper-cnn")).init(0).values())
     crossing = (7, 1, 13, 2, 4, 999, 3, 5000, 6, 77, 1, 300)
+    bf16 = torch.bfloat16
+    # leaf 1 (c1.w, bf16) keeps an f32 gradient
+    mixed = [p.to(bf16) if i % 2 else p for i, p in enumerate(cnn)]
     sets = {
         "cnn": (cnn, [randn(v.shape) for v in cnn]),
         "cnn_views": (cnn, _conv_grad_views(cnn, randn)),
@@ -898,6 +924,15 @@ def check_sgd(torch, local_step, ref):
                  [randn(5 + i) for i in range(100)]),
         "crossing": ([randn(n) for n in crossing],
                      [randn(n) for n in crossing]),
+        "cnn_bf16": ([p.to(bf16) for p in cnn],
+                     [randn(v.shape).to(bf16) for v in cnn]),
+        "mixed": (mixed, [g.to(p.dtype) if i != 1 else g for i, (p, g) in
+                          enumerate(zip(mixed,
+                                        _conv_grad_views(mixed, randn)))]),
+        "ragged_bf16": ([randn(n).to(bf16) for n in RAGGED_LEAVES] +
+                        [randn(10_001).to(bf16)[1:]],
+                        [randn(n).to(bf16) for n in RAGGED_LEAVES] +
+                        [randn(10_002).to(bf16)[2:]]),
     }
     rows = {}
     for name, (ps, gs) in sets.items():
@@ -1137,7 +1172,7 @@ def table1_on_card(torch, local_step):
                  f"{models} pool models and {len(res.rounds)} round "
                  f"records; expected {want['clients']} x {want['models']} "
                  f"and {want['rounds']}")
-        pool = None if res.final_pool is None else res.final_pool.count
+        pool = None if res.final_pool is None else int(res.final_pool.count)
         if pool != want["pool"]:
             fail(f"{what}: final pool {pool}; expected {want['pool']}")
         for k, v in res.params.items():
@@ -1343,6 +1378,11 @@ GRAM_PER_CALL = 1      # launches: all the stacks of a call in one
 # (16-byte copies) and ragged ones (4-byte copies)
 GRAM_M_CASES = [(2, m, p) for m in (1, 8, 40, 64, 65, 256)
                 for p in (2048, 3001)] + [(3, 40, 3001)]
+# stacks of more than 256 rows, through `factor_gram_group` as tile pairs
+# (`kernels.pool_distance.gram_tiling`), aligned and ragged P; the timed
+# one is a rank-64 pool of 5's layer stack (C·r = 320 rows, d = 2048)
+GRAM_TALL_CASES = [(2, m, p) for m in (257, 320, 512) for p in (2048, 3001)]
+GRAM_TALL_TIMED = (16, 320, 2048)
 # normwise limit of a Gram, and of lowrank_pairwise_sq's distances,
 # against the plain version's: f32 sums in another order read ~3e-7 on an
 # H100 (phase 11's pairwise distances); dropping one of the ~264 chunks
@@ -1638,8 +1678,9 @@ def _hold_gram(torch, ref, a, out, again):
 def check_factor_gram(torch, pd_mod, ref):
     """The factor-Gram kernel on the stacks of a full-width pool's
     `lowrank_pairwise_sq`, as one grouped call of all 20 (its main path)
-    and each shape alone, and at GRAM_M_CASES; every Gram held by
-    `_hold_gram`. A grouped call must launch its one kernel and no PyTorch
+    and each shape alone, at GRAM_M_CASES, and beyond 256 rows at
+    GRAM_TALL_CASES through `factor_gram_group`'s tile pairs (each in one
+    launch, `gram_launches`); every Gram held by `_hold_gram`. A grouped call must launch its one kernel and no PyTorch
     operator but allocations (`_call_work`). Times: each shape alone and
     the grouped call (also after a flush that reads, `median_ms_clean_l2`)
     beside the plain version and `torch.bmm(a, a.mT)`, summed over the 20
@@ -1686,6 +1727,41 @@ def check_factor_gram(torch, pd_mod, ref):
         max_abs = max(max_abs, cases[-1]["max_abs_err"])
     print("  gram at other M: " + ", ".join(
         f"{tuple(c['shape'])} rel {c['rel_err']:.2e}" for c in cases))
+    for shape in GRAM_TALL_CASES:
+        a = stack(*shape)
+        before = pd_mod.factor_gram_f32.launches
+        o = pd_mod.factor_gram_group([a])[0]
+        o2 = pd_mod.factor_gram_group([a])[0]
+        torch.cuda.synchronize()
+        cases.append(dict(_hold_gram(torch, ref, a, o, o2), shape=list(shape),
+                          tiles=len(pd_mod.gram_tiling(shape[1]).tiles),
+                          launches=(pd_mod.factor_gram_f32.launches -
+                                    before) // 2,
+                          want_launches=pd_mod.gram_launches([shape])))
+        max_abs = max(max_abs, cases[-1]["max_abs_err"])
+    tall = [c for c in cases if "tiles" in c]
+    print("  gram beyond 256 rows (tile pairs, one launch): " + ", ".join(
+        f"{tuple(c['shape'])} {c['tiles']} tiles, {c['launches']} launch, "
+        f"rel {c['rel_err']:.2e}" for c in tall))
+    a = stack(*GRAM_TALL_TIMED)
+    a256 = a[:, :256].contiguous()
+    b_, m_, p_ = GRAM_TALL_TIMED
+    bound_ms, bound_by, parts = _bound(4 * (a.numel() + b_ * m_ * m_),
+                                       2 * b_ * m_ * m_ * p_,
+                                       PEAK_F32_FLOPS)
+    tall_timing = dict(
+        parts, shape=list(GRAM_TALL_TIMED),
+        ms=median_ms(lambda: pd_mod.factor_gram_group([a])),
+        plain_ms=median_ms(lambda: ref.factor_gram_ref(a)),
+        library_ms=median_ms(lambda: torch.bmm(a, a.mT)),
+        at_256_ms=median_ms(lambda: pd_mod.factor_gram_f32([a256])),
+        bound_ms=bound_ms, bound_by=bound_by)
+    print(f"  gram {GRAM_TALL_TIMED} through tile pairs: kernel "
+          f"{tall_timing['ms']:.4f} ms (its first 256 rows in one stack "
+          f"{tall_timing['at_256_ms']:.4f}), plain "
+          f"{tall_timing['plain_ms']:.4f}, torch.bmm "
+          f"{tall_timing['library_ms']:.4f}, bound {bound_ms:.4f} "
+          f"({bound_by})")
 
     def grouped():
         return pd_mod.factor_gram_f32(stacks)
@@ -1702,7 +1778,8 @@ def check_factor_gram(torch, pd_mod, ref):
         bound_by="bytes" if byte_ms >= op_ms else "operations",
         bytes=sum(r["bytes"] * r["per_call"] for r in rows),
         ops=sum(r["ops"] * r["per_call"] for r in rows),
-        profile=kernel_profile(torch, grouped, keep=("factor_gram",)))
+        profile=kernel_profile(torch, grouped, keep=("factor_gram",)),
+        tall=tall_timing)
     print(f"  gram grouped call of {len(stacks)} stacks: "
           f"{call_row['work']['launches']} launch, operators "
           f"{call_row['work']['ops']}; kernel {call_row['ms']:.4f} ms "
@@ -1711,7 +1788,8 @@ def check_factor_gram(torch, pd_mod, ref):
           f"{call_row['library_ms']:.4f}, bound {call_row['bound_ms']:.4f} "
           f"({call_row['bound_by']}); {_profile_line(call_row['profile'])}")
     bad = [n for (n, _), h in zip(call, held) if not h["ok"]] + [
-        c["shape"] for c in cases if not c["ok"]]
+        c["shape"] for c in cases if not c["ok"]] + [
+        c["shape"] for c in tall if c["launches"] != c["want_launches"]]
     if bad:
         fail(f"factor_gram_f32 disagrees with its plain version, is not "
              f"deterministic or not symmetric at {bad}")
@@ -1811,6 +1889,7 @@ def serve_llama_f32(torch):
     plain = lowrank_pairwise_sq(pool, gram_fn=factor_gram_ref)
     out["pairwise_rel_err"] = float((pair - plain).norm() / plain.norm())
     out["pairwise_sq"] = pair.tolist()
+    out["rank64"] = _pairwise_rank64(torch, model)
     print(f"  f32 pool of 5 built in {build_s:.2f} s; factored vs densified "
           f"scores: normwise {out['rel_err']:.3e} (tolerance "
           f"{SERVE_F32_REL_TOL:g}), max abs {out['max_abs_err']:.3e} of "
@@ -1840,7 +1919,47 @@ def serve_llama_f32(torch):
             not out["pairwise_rel_err"] <= GRAM_REL_TOL:
         fail(f"lowrank_pairwise_sq made {out['gram_launches']} Gram launches "
              f"(expected {GRAM_PER_CALL}) or disagrees with its plain Grams")
+    r64 = out["rank64"]
+    if r64["gram_launches"] != r64["want_launches"] or \
+            not r64["pairwise_rel_err"] <= GRAM_REL_TOL:
+        fail(f"lowrank_pairwise_sq of the rank-64 pool made "
+             f"{r64['gram_launches']} Gram launches (expected "
+             f"{r64['want_launches']}) or disagrees with its plain Grams")
     del model, pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def _pairwise_rank64(torch, model):
+    """The pairwise distances of a full-width pool of 5 at rank 64 (C·r =
+    320 rows a stack: every stack through the Gram's tile pairs), against
+    the plain Grams, with the call's Gram launches."""
+    from repro_torch.core.distances import lowrank_pairwise_sq
+    from repro_torch.core.pool import LowRankDeltaPool
+    from repro_torch.kernels import pool_distance
+    from repro_torch.kernels.ref import factor_gram_ref
+
+    pool = LowRankDeltaPool.create(model.init(0), capacity=5, rank=64)
+    for seed in range(1, 5):
+        pool = pool.append(model.init(seed))
+    shapes = [tuple(f.reshape((5, -1) + tuple(f.shape[-2:])).shape[1:2]) +
+              (5 * f.shape[-1], f.shape[-2])
+              for u, v in ((pool.u[k], pool.v[k]) for k in pool.u)
+              for f in (u, v)]
+    _reset_counts()
+    pair = lowrank_pairwise_sq(pool)
+    torch.cuda.synchronize()
+    out = dict(gram_launches=_read_counts()["factor_gram_f32"],
+               want_launches=pool_distance.gram_launches(shapes),
+               rows=sorted({m for _, m, _ in shapes}),
+               substacks=len(pool_distance.gram_substacks(shapes)))
+    plain = lowrank_pairwise_sq(pool, gram_fn=factor_gram_ref)
+    out["pairwise_rel_err"] = float((pair - plain).norm() / plain.norm())
+    print(f"  rank-64 pool of 5: stacks of {out['rows']} rows as "
+          f"{out['substacks']} tile-pair stacks in {out['gram_launches']} "
+          f"Gram launches (expected {out['want_launches']}); normwise "
+          f"{out['pairwise_rel_err']:.3e} from the plain Grams")
+    del pool
     torch.cuda.empty_cache()
     return out
 
@@ -1981,7 +2100,8 @@ def serve_cnn_pools(torch, local_step, main_result):
     out = {}
     for name, (res, run) in runs.items():
         pool = res.require_final_pool()
-        row = dict(run or {}, pool=type(pool).__name__, pool_count=pool.count)
+        row = dict(run or {}, pool=type(pool).__name__,
+                   pool_count=int(pool.count))
         for dev, where in devices.items():
             p = _pool_to(pool, where)
             params = {k: v.to(where) for k, v in res.params.items()}
@@ -2005,7 +2125,8 @@ def serve_cnn_pools(torch, local_step, main_result):
         run_txt = ("" if run is None else
                    f"; {n_steps} steps in {run['wall_s']:.2f} s, gemm_f32 "
                    f"{run['gemm_launches']}")
-        print(f"  {name:8s} ({row['pool']}, {pool.count} members{run_txt}): "
+        print(f"  {name:8s} ({row['pool']}, {row['pool_count']} members"
+              f"{run_txt}): "
               + ", ".join(
                   f"{k} {row[f'{k}_card']['accuracy']:.3f} card / "
                   f"{row[f'{k}_cpu']['accuracy']:.3f} cpu "
@@ -3182,9 +3303,274 @@ def fig9_on_card(torch, local_step):
     return dict(rows=rows, best=top)
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the compiled local phase
+# ---------------------------------------------------------------------------
+
+# phase 18's routes of phase 4's run: (name, stream kind)
+COMPILED_ROUTES = (("iterator", "batch_iterator"),
+                   ("plan_per_step", "DataPlan(scan=False)"),
+                   ("plan_captured", "DataPlan"))
+# phase 18: captures a fedelmy run makes (one plain: the warm-up; one pool)
+CAPTURES_PER_FEDELMY_RUN = 2
+
+
+def _scanned_counts():
+    from repro_torch.api.trainer import ScannedPhase
+    return ScannedPhase.total_captures, ScannedPhase.total_replays
+
+
+def _reset_scanned():
+    from repro_torch.api.trainer import ScannedPhase
+    ScannedPhase.total_captures = ScannedPhase.total_replays = 0
+
+
+def compiled_phase(torch, local_step):
+    """Phase 4's run (the full-width CNN, fedelmy, 310 steps on the
+    quickstart's label-skew data) from one init three ways: per step over
+    `batch_iterator`s (phase 4's route), per step over DataPlans
+    (`scan=False`: the batch gathered on the card from rows uploaded
+    once a window, no pageable copy a step), and through the captured
+    local phase (DataPlans: each step kind captured once in a CUDA graph
+    and replayed). Each: steps/s, wall time, captures and replays, exact
+    GEMM and sweep launch counts (gated as phase 4's), final accuracy
+    above 0.5. The captured run's final params, pool and per-model task
+    losses must equal the per-step DataPlan run's bit for bit. Then 20
+    replayed pool steps under the profiler, as phase 6 profiles the
+    per-step loop."""
+    from repro_torch.api import Experiment, launch
+    from repro_torch.api.trainer import LocalTrainer
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.data import DataPlan, batch_iterator
+    from repro_torch.models import build_model
+
+    arrays, test = quickstart_data()
+    model = build_model(get_arch("paper-cnn"))
+    fed = FedConfig(n_clients=4, pool_size=3, e_local=25, e_warmup=10,
+                    learning_rate=1e-3, alpha=0.06, beta=1.0)
+    pool_steps = fed.n_clients * fed.pool_size * fed.e_local
+    n_steps = fed.e_warmup + pool_steps
+    init = model.init(0)
+    test_images = torch.from_numpy(test.images).to(model.device)
+    test_labels = torch.from_numpy(test.labels).to(model.device)
+
+    def accuracy(params):
+        with torch.no_grad():
+            logits = model.forward(params, {"images": test_images})
+        return (logits.argmax(-1) == test_labels).float().mean()
+
+    streams = {
+        "iterator": lambda: [batch_iterator(a, 64, seed=i)
+                             for i, a in enumerate(arrays)],
+        "plan_per_step": lambda: [DataPlan(a, 64, seed=i, scan=False)
+                                  for i, a in enumerate(arrays)],
+        "plan_captured": lambda: [DataPlan(a, 64, seed=i)
+                                  for i, a in enumerate(arrays)]}
+    rows, results = {}, {}
+    for name, kind in COMPILED_ROUTES:
+        its = streams[name]()
+        local_step.gemm_f32.launches = 0
+        _reset_sweep()
+        _reset_scanned()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = launch(Experiment(model=model, client_iters=its, fed=fed,
+                                strategy="fedelmy", seed=0,
+                                init_params=init, eval_fn=accuracy))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        captures, replays = _scanned_counts()
+        row = dict(streams=kind, steps=n_steps, wall_s=wall,
+                   steps_per_s=n_steps / wall, captures=captures,
+                   replays=replays, launches=local_step.gemm_f32.launches,
+                   sweep_launches=_read_sweep(),
+                   final_accuracy=res.final_metric)
+        rows[name], results[name] = row, res
+        print(f"  {name:13s} ({kind}): {n_steps} steps in {wall:.3f} s "
+              f"({row['steps_per_s']:.2f} steps/s, 4 evals included); "
+              f"{captures} captures, {replays} replays; gemm_f32 "
+              f"{row['launches']}, sweep {row['sweep_launches']}; final "
+              f"accuracy {res.final_metric:.4f}")
+        if row["launches"] != GEMM_LAUNCHES_PER_STEP * n_steps:
+            fail(f"phase 18 {name}: gemm_f32 launched {row['launches']} "
+                 f"times; expected {GEMM_LAUNCHES_PER_STEP} x {n_steps}")
+        if row["sweep_launches"] != _sweep_expected(pool_steps):
+            fail(f"phase 18 {name}: the sweep launched "
+                 f"{row['sweep_launches']}; expected "
+                 f"{_sweep_expected(pool_steps)}")
+        want_captures = CAPTURES_PER_FEDELMY_RUN if name == \
+            "plan_captured" else 0
+        want_replays = n_steps - want_captures if want_captures else 0
+        if (captures, replays) != (want_captures, want_replays):
+            fail(f"phase 18 {name}: {captures} captures and {replays} "
+                 f"replays; expected {want_captures} and {want_replays}")
+        if not res.final_metric > 0.5:
+            fail(f"phase 18 {name}: final accuracy {res.final_metric:.4f} "
+                 "is not above 0.5")
+
+    def same(a, b):
+        pa, pb = a.final_pool, b.final_pool
+        return dict(
+            params=all(torch.equal(a.params[k], b.params[k])
+                       for k in a.params),
+            pool=int(pa.count) == int(pb.count) and all(
+                torch.equal(pa.members[k], pb.members[k])
+                for k in pa.members),
+            task_losses=[m.task_loss for c in a.clients for m in c.models]
+            == [m.task_loss for c in b.clients for m in c.models])
+    bitwise = same(results["plan_per_step"], results["plan_captured"])
+    iterator_bitwise = same(results["iterator"], results["plan_per_step"])
+    print(f"  captured against per-step DataPlan run, bitwise: {bitwise}; "
+          f"per-step DataPlan against per-step iterator run: "
+          f"{iterator_bitwise}")
+    if not all(bitwise.values()):
+        fail(f"phase 18: the captured run differs from the per-step "
+             f"DataPlan run ({bitwise})")
+
+    # 20 replayed pool steps under the profiler: a client visit captures
+    # the pool step; its rows are then replayed again from row 0
+    trainer = LocalTrainer(model.loss_fn, fed)
+    trainer.local_client_train_scanned(init, DataPlan(arrays[0], 64,
+                                                      seed=0))
+    phase = trainer.scanned
+
+    def replay(n):
+        phase.ptr.zero_()
+        with phase._side_stream():
+            phase._advance("pool", n)
+    replay(3)
+    profile = _profile(torch, replay, 20, "replayed pool step")
+    base = rows["iterator"]["steps_per_s"]
+    out = dict(routes=rows, bitwise=bitwise,
+               iterator_bitwise=iterator_bitwise, replayed_pool=profile,
+               speedup_captured=rows["plan_captured"]["steps_per_s"] / base,
+               speedup_plan_per_step=rows["plan_per_step"]["steps_per_s"] /
+               base)
+    print(f"  steps/s against the iterator route: per-step DataPlan "
+          f"{out['speedup_plan_per_step']:.2f}x, captured "
+          f"{out['speedup_captured']:.2f}x")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: Table 1 through scenarios
+# ---------------------------------------------------------------------------
+
+# benchmarks/table1_accuracy.py at its `full` scale (benchmarks/common.py
+# SCALES["full"], NOISE, fed_config, label_skew_setup, domain_shift_setup),
+# copied: the benchmarks folder is not imported
+TABLE1_SCALE = dict(n_samples=2400, n_test=800, batch_size=64)
+TABLE1_SCENARIO_FED = dict(n_clients=4, pool_size=3, e_local=14,
+                           e_warmup=7, learning_rate=1e-3, alpha=0.06,
+                           beta=1.0)
+TABLE1_COLUMNS = (("label-skew", "dir_label_skew",
+                   dict(noise=2.5, partitioner_params={"beta": 0.3})),
+                  ("domain-shift", "domain_shift", dict(noise=2.0)))
+TABLE1_METHODS = ("dfedavgm", "dfedsam", "metafed", "fedseq", "fedelmy")
+TABLE1_SEEDS = (0, 1)
+# the reference's claim (benchmarks/table1_accuracy.py): FedELMY tops both
+# columns
+TABLE1_CLAIM = "fedelmy"
+# captures a run makes: one a step kind its scanned visits take (plain:
+# the warm-up and plain blocks; pool); dfedsam's SAM step is per step
+TABLE1_CAPTURES = {"dfedavgm": 1, "dfedsam": 0, "metafed": 1, "fedseq": 1,
+                   "fedelmy": 2}
+
+
+def table1_scenarios(torch, local_step):
+    """Table 1 as `benchmarks/table1_accuracy.py` runs it at its full scale,
+    through `launch(spec, model, fed=fed, strategies=(method,),
+    seeds=(seed,))` — one call a run, so each run's counts are its own:
+    each method's mean ± std accuracy a column, the best a column (a tie
+    printed as a tie), wall time a method, exact GEMM, SGD and sweep
+    launch counts and the captures a run. Gates: every run's parameters
+    and accuracy finite, its counts exact, fedelmy above chance (0.1) in
+    both columns; the ranking is reported beside the reference's claim,
+    not gated."""
+    import numpy as np
+
+    from repro_torch.api import launch
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.scenarios import get_scenario
+
+    model = build_model(get_arch("paper-cnn"))
+    fed = FedConfig(**TABLE1_SCENARIO_FED)
+    runs, table = [], {}
+    for column, scenario, kw in TABLE1_COLUMNS:
+        spec = get_scenario(scenario).replace(n_clients=4, **TABLE1_SCALE,
+                                              **kw)
+        for method in TABLE1_METHODS:
+            want = expected_run(method, fed)
+            accs, walls = [], []
+            for seed in TABLE1_SEEDS:
+                local_step.gemm_f32.launches = 0
+                local_step.sgd_f32.launches = 0
+                _reset_sweep()
+                _reset_scanned()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = launch(spec, model, fed=fed, strategies=(method,),
+                             seeds=(seed,))[0]
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                captures, replays = _scanned_counts()
+                row = dict(column=column, method=method, seed=seed,
+                           accuracy=res.final_metric, wall_s=wall,
+                           run_s=res.wall_time_s,
+                           gemm_launches=local_step.gemm_f32.launches,
+                           sgd_launches=local_step.sgd_f32.launches,
+                           sweep_launches=sum(_read_sweep().values()),
+                           captures=captures, replays=replays)
+                runs.append(row)
+                accs.append(res.final_metric)
+                walls.append(wall)
+                what = f"phase 19 {column} {method} seed {seed}"
+                if not all(bool(torch.isfinite(v).all())
+                           for v in res.params.values()) or \
+                        not math.isfinite(res.final_metric):
+                    fail(f"{what}: a parameter or the accuracy is not "
+                         "finite")
+                counts = (row["gemm_launches"], row["sgd_launches"],
+                          row["sweep_launches"])
+                expect = (8 * want["fused"], want["sgd"], want["sweep"])
+                if counts != expect:
+                    fail(f"{what}: gemm, sgd and sweep launches {counts}; "
+                         f"expected {expect}")
+                if captures != TABLE1_CAPTURES[method]:
+                    fail(f"{what}: {captures} captures; expected "
+                         f"{TABLE1_CAPTURES[method]}")
+                if method == "fedelmy" and not res.final_metric > 0.1:
+                    fail(f"{what}: accuracy {res.final_metric:.4f} is not "
+                         "above chance (0.1)")
+            table[(column, method)] = dict(
+                mean=float(np.mean(accs)), std=float(np.std(accs)),
+                accs=accs, wall_s=sum(walls))
+            print(f"  {column:12s} {method:9s} {np.mean(accs):.3f} ± "
+                  f"{np.std(accs):.3f} ({', '.join(f'{a:.3f}' for a in accs)}"
+                  f"); {sum(walls):.2f} s for {len(TABLE1_SEEDS)} runs; "
+                  f"launches a run: gemm {row['gemm_launches']}, sgd "
+                  f"{row['sgd_launches']}, sweep {row['sweep_launches']}; "
+                  f"{row['captures']} captures, {row['replays']} replays")
+    best = {}
+    for column, _, _ in TABLE1_COLUMNS:
+        top = max(table[(column, m)]["mean"] for m in TABLE1_METHODS)
+        best[column] = [m for m in TABLE1_METHODS
+                        if table[(column, m)]["mean"] == top]
+        print(f"  best {column}: " + (
+            best[column][0] if len(best[column]) == 1 else
+            "tie of " + ", ".join(best[column])) +
+            f" ({top:.3f}); the reference's claim: {TABLE1_CLAIM}")
+    return dict(
+        runs=runs, best=best, claim=TABLE1_CLAIM,
+        claim_holds={c: best[c] == [TABLE1_CLAIM] for c in best},
+        table=[dict(column=c, method=m, **v) for (c, m), v in
+               table.items()])
+
+
 def sweep_kernel_entries(main_path, pd_out):
     """The kernels line's entries of the sweep's forward and backward.
-    Launches: phase 4's main path. Times and bounds: the one sweep of an
+    Launches: the main path's run `main_path` (phase 18's captured one). Times and bounds: the one sweep of an
     Eq. 9 pool step at the main path's table (capacity 4, d1 and d2
     together)."""
     entries = []
@@ -3308,14 +3694,25 @@ def main(argv):
           "and without the regularizers")
     fig9 = fig9_on_card(torch, local_step)
 
+    # phases 18-19: the compiled local phase; Table 1 through scenarios
+    print("[18] the compiled local phase: phase 4's run over batch_iterator, "
+          "per-step DataPlan and captured DataPlan streams")
+    compiled = compiled_phase(torch, local_step)
+    print("[19] Table 1 through launch(spec) at benchmarks/table1_accuracy.py"
+          "'s full scale")
+    table1_scen = table1_scenarios(torch, local_step)
+
     step_rows = [r for r in rows if r["main_path"]]
     byte_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[0] for r in step_rows)
     flop_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[1] for r in step_rows)
+    # the GEMM's and the sweep's launches: phase 18's captured run of the
+    # main path (per capture × replays, plus the warm-up steps)
+    captured = compiled["routes"]["plan_captured"]
     kernels = {"kernels": [{
         "name": "gemm_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gemm_f32.cu",
         "replaces": "src/repro/kernels/local_step.py:113",
-        "launches": main_path["launches"],
+        "launches": captured["launches"],
         "max_abs_err": max_abs,
         # the 8 products of one training step at batch 64, summed
         "ms": sum(r["ms"] for r in step_rows),
@@ -3334,7 +3731,7 @@ def main(argv):
         "bound_by": sgd_timing["bound_by"],
         "library_ms": sgd_timing["library_ms"]}]
         + serving_kernels(serving)["kernels"] + [gla_kernel_entry(ssm_out)]
-        + sweep_kernel_entries(main_path, pd_out)}
+        + sweep_kernel_entries(captured, pd_out)}
     # flash attention's main paths: phase 11's replays and zamba2-7b's
     # served prefill and decode steps (phase 14)
     zamba = ssm_out["ssm_serving"]["zamba2-7b"]["bf16"]
@@ -3350,6 +3747,7 @@ def main(argv):
         sgd_timing=sgd_timing, table1=table1,
         dfedsam_card_vs_cpu=sam_agreement, **serving, **ssm_out,
         pool_distance=pd_out, regularizer=regularizer, fig9=fig9,
+        compiled_phase=compiled, table1_scenarios=table1_scen,
         total_s=time.perf_counter() - t_start)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

@@ -1,6 +1,9 @@
 """`repro_torch.api` — the federated-run engine of the port:
 ``launch(Experiment(strategy=...))`` runs any of the eight registered
-strategies (paper Algorithms 1–3 and the Table 1 baselines)."""
+strategies (paper Algorithms 1–3 and the Table 1 baselines), over
+`batch_iterator` or `DataPlan` streams; ``launch(scenario_spec, model,
+fed=fed, strategies=..., seeds=...)`` runs a registered scenario's sweep
+(a `BatchResult`)."""
 from repro_torch.api.engine import (Callbacks, Experiment,
                                     warn_unsupported_fields)
 from repro_torch.api.launch import launch
@@ -8,23 +11,25 @@ from repro_torch.api.plan import (LocalBlock, StrategyPlan, Topology,
                                   interpret, per_client_seeds, tree_mean)
 from repro_torch.api.pools import (PoolBackend, backend_for, get_pool_backend,
                                    list_pool_backends, register_pool_backend)
-from repro_torch.api.results import (ClientRecord, ModelRecord, RoundRecord,
-                                     RunResult, StrategyOutput)
+from repro_torch.api.results import (BatchResult, ClientRecord, ModelRecord,
+                                     RoundRecord, RunResult, StrategyOutput)
 from repro_torch.api.strategies import (describe_strategies, get_plan,
                                         get_strategy_spec, list_strategies,
                                         register_plan, register_strategy)
-from repro_torch.api.trainer import (LocalTrainer, make_plain_step,
-                                     make_pool_step, regularized_loss)
+from repro_torch.api.trainer import (LocalTrainer, ScannedPhase,
+                                     make_plain_step, make_pool_step,
+                                     regularized_loss)
 
 __all__ = [
     "launch", "Experiment", "Callbacks", "warn_unsupported_fields",
-    "RunResult", "ClientRecord", "ModelRecord", "RoundRecord",
+    "RunResult", "BatchResult", "ClientRecord", "ModelRecord", "RoundRecord",
     "StrategyOutput", "StrategyPlan", "Topology", "LocalBlock", "interpret",
     "per_client_seeds", "tree_mean",
     "register_plan", "register_strategy", "get_plan", "get_strategy_spec",
     "list_strategies", "describe_strategies",
     "register_pool_backend", "get_pool_backend", "list_pool_backends",
     "PoolBackend",
-    "backend_for", "LocalTrainer", "make_plain_step", "make_pool_step",
+    "backend_for", "LocalTrainer", "ScannedPhase", "make_plain_step",
+    "make_pool_step",
     "regularized_loss",
 ]

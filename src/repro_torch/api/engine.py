@@ -27,8 +27,9 @@ class Callbacks:
 @dataclasses.dataclass
 class Experiment:
     """A fully specified federated run. `client_iters` are per-client
-    infinite batch streams (`repro_torch.data.batch_iterator`) on the
-    model's device."""
+    infinite batch streams on the model's device: `repro_torch.data.
+    batch_iterator`s, or `DataPlan`s, whose visits take the captured local
+    phase (`scan=True`) or the per-step loop over their device arrays."""
     model: Any                        # repro_torch.models.Model
     client_iters: Sequence[Any]
     fed: Any                          # FedConfig

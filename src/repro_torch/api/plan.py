@@ -17,9 +17,14 @@ A ``StrategyPlan`` states a federated method as data:
   ``shared_init`` (same init to every client), ``per_client_init``
   (independent inits, one seed per client from `per_client_seeds`).
 
-`interpret` runs a plan sequentially. The reference's vmapped backend
-(``interpret_batched``) is not ported, so a ``custom`` block needs only
-its ``step_factory``."""
+`interpret` runs a plan sequentially. Visits of scan-wanting `DataPlan`
+streams take the trainer's scanned local phase (plain and pool blocks,
+the warm-up; on the card each step kind captured once in a CUDA graph a
+run), as the reference routes them; custom blocks, per-model callbacks,
+`scan=False` plans and `batch_iterator` streams keep the per-step loop
+(a DataPlan serves it through the same cursor). The reference's vmapped
+backend (``interpret_batched``) is not ported, so a ``custom`` block
+needs only its ``step_factory``."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,6 +35,7 @@ import torch
 
 from repro_torch.api.results import ClientRecord, RoundRecord, StrategyOutput
 from repro_torch.api.trainer import LocalTrainer
+from repro_torch.data.plan import wants_scan
 
 Params = Dict[str, torch.Tensor]
 
@@ -233,23 +239,37 @@ def _selected_clients(exp, plan: StrategyPlan) -> List[int]:
 def interpret(experiment, plan: StrategyPlan) -> StrategyOutput:
     """Execute one Experiment through its plan, sequentially."""
     trainer = _make_trainer(experiment.model.loss_fn, experiment.fed, plan)
+    plans = [it for it in experiment.client_iters if wants_scan(it)]
+    if plans:
+        trainer.scanned.reserve(plans)
     if plan.topology.kind == "independent":
         return _interpret_independent(experiment, plan, trainer)
     return _interpret_sequenced(experiment, plan, trainer)
 
 
 def _train_visit(trainer: LocalTrainer, m: Params, it, n_steps: int):
-    """Plain training over one client stream (the per-step loop)."""
-    m, _ = trainer.train(m, it, n_steps)
+    """Plain training over one client stream: the scanned phase for a
+    scan-wanting DataPlan, else the per-step loop."""
+    if wants_scan(it):
+        m, _ = trainer.train_scanned(m, it, n_steps)
+    else:
+        m, _ = trainer.train(m, it, n_steps)
     return m
 
 
 def _run_block(trainer: LocalTrainer, block: LocalBlock, m: Params, it,
                step_fn, exp):
-    """One client visit: returns (params, pool | None, model records)."""
+    """One client visit: returns (params, pool | None, model records).
+    Scan-wanting DataPlans take the scanned phase; custom blocks and
+    per-model callbacks keep the per-step loop."""
     if block.kind == "pool":
+        if wants_scan(it) and exp.callbacks.on_model_end is None:
+            return trainer.local_client_train_scanned(m, it)
         return trainer.local_client_train(
             m, it, on_model_end=exp.callbacks.on_model_end)
+    if block.kind == "plain" and wants_scan(it):
+        m, _ = trainer.train_scanned(m, it, block.n_steps(trainer.fed))
+        return m, None, []
     m, _ = trainer.train(m, it, block.n_steps(trainer.fed), step_fn=step_fn)
     return m, None, []
 

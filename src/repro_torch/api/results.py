@@ -99,6 +99,31 @@ class RunResult:
 
 
 @dataclasses.dataclass
+class BatchResult:
+    """What `launch(scenario_spec, ...)` and `launch([experiments])`
+    return: one RunResult per experiment, in input order, plus the whole
+    sweep's wall clock. The port runs a sweep's experiments one after
+    another (it has no batched engine yet), so `n_compiled_groups` counts
+    those sequential runs — one per experiment — where the reference
+    counts the vmapped program groups of its batched run."""
+    runs: List[RunResult]
+    wall_time_s: float = 0.0
+    n_compiled_groups: int = 0
+
+    def __len__(self) -> int:
+        return len(self.runs)
+
+    def __getitem__(self, i: int) -> RunResult:
+        return self.runs[i]
+
+    def __iter__(self):
+        return iter(self.runs)
+
+    def final_metrics(self) -> List[Optional[float]]:
+        return [r.final_metric for r in self.runs]
+
+
+@dataclasses.dataclass
 class StrategyOutput:
     """What a strategy hands back to the engine (the engine adds timing
     and the final metric to build the RunResult)."""

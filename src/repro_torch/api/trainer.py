@@ -1,13 +1,25 @@
 """LocalTrainer: the optimizer, the training steps and the pool procedure
-of one run (port of the per-step path of ``repro/api/trainer.py``).
+of one run (port of ``repro/api/trainer.py``: the per-step path and the
+scanned local phase, `train_scanned` / `local_client_train_scanned`).
 
 A step takes a fresh leaf per parameter, differentiates the loss with
 `torch.autograd.grad` and applies the functional optimizer update. Every
 step is built over `fused_loss_for(loss_fn)` — for the paper CNN the
 im2col + GEMM-kernel formulation — so each conv of each step runs its
-forward and both gradients through the GEMM kernel on the card."""
+forward and both gradients through the GEMM kernel on the card. The step
+counter is an int32 tensor on the parameters' device in every path.
+
+The scanned local phase (`ScannedPhase`) runs a visit's steps over a
+`DataPlan`'s schedule rows with the batch gathered on the device. On CUDA
+each step kind (plain, pool) is captured once in a CUDA graph and
+replayed for every later step of every visit of the run; its static
+buffers are the parameters, the optimizer state, the pool (with its
+count), the step counter, the row pointer, the visit's rows and the
+client's arrays. On the CPU the same step body runs in a plain loop."""
 from __future__ import annotations
 
+import contextlib
+import gc
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -16,6 +28,9 @@ from repro_torch.api.pools import PoolBackend, backend_for
 from repro_torch.api.results import ModelRecord
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import distances as D
+from repro_torch.core.pool import _tensors
+from repro_torch.data.plan import DataPlan, gather
+from repro_torch.kernels import build
 from repro_torch.kernels.local_step import fused_loss_for
 from repro_torch.optim import make_optimizer
 from repro_torch.optim.optimizers import Optimizer
@@ -73,7 +88,8 @@ def _grad_step(objective: Callable, opt: Optimizer, params: Params,
 
 
 def make_plain_step(loss_fn: Callable, opt: Optimizer):
-    """(params, opt_state, batch, step) → (params, opt_state, task)."""
+    """(params, opt_state, batch, step) → (params, opt_state, task); `step`
+    an int or an int32 device tensor."""
 
     def step_fn(params, opt_state, batch, step):
         def objective(p):
@@ -125,24 +141,34 @@ class LocalTrainer:
               ) -> Tuple[Params, torch.Tensor]:
         """Run n_steps from a fresh optimizer state. With `pool`, the
         regularized step; `step_fn` overrides the step entirely (signature
-        (params, opt_state, batch, step), e.g. a SAM step). The returned
-        task loss is a device scalar; callers defer `float()` (a sync) to
-        record time."""
+        (params, opt_state, batch, step), e.g. a SAM step). Step s gets the
+        int32 device tensor s. The returned task loss is a device scalar;
+        callers defer `float()` (a sync) to record time."""
         params = {k: v.detach().clone() for k, v in params.items()}
         opt_state = self.opt.init(params)
         task = torch.zeros(())
+        steps = torch.arange(n_steps, dtype=torch.int32,
+                             device=next(iter(params.values())).device)
         for s in range(n_steps):
             batch = next(data_iter)
             if step_fn is not None:
                 params, opt_state, task = step_fn(params, opt_state, batch,
-                                                  s)
+                                                  steps[s])
             elif pool is None:
                 params, opt_state, task = self.plain_step(
-                    params, opt_state, batch, s)
+                    params, opt_state, batch, steps[s])
             else:
                 params, opt_state, task = self.pool_step(
-                    params, opt_state, batch, pool, s)
+                    params, opt_state, batch, pool, steps[s])
         return params, task
+
+    def train_scanned(self, params: Params, plan: DataPlan,
+                      n_steps: int) -> Tuple[Params, torch.Tensor]:
+        """Plain `train` over the plan's next n_steps schedule rows, the
+        batches gathered on the device: on CUDA the step captured once in
+        a CUDA graph and replayed (`ScannedPhase`). Bitwise the per-step
+        `train` over the same plan."""
+        return self.scanned.train(params, plan, n_steps)
 
     def local_client_train(self, m_in: Params, data_iter, *,
                            on_model_end: Optional[Callable] = None,
@@ -175,3 +201,278 @@ class LocalTrainer:
             records = [ModelRecord(index=j, task_loss=float(t))
                        for j, t in enumerate(tasks)]
         return pool.average(), pool, records
+
+    def local_client_train_scanned(self, m_in: Params, plan: DataPlan,
+                                   ) -> Tuple[Params, Any,
+                                              List[ModelRecord]]:
+        """`local_client_train` over the plan's next S·e_local schedule
+        rows: S pool models × e_local steps (pool average init, the
+        regularized step, pool append), on CUDA the step captured once in
+        a CUDA graph and replayed (`ScannedPhase`); the per-model task
+        losses come back in one sync. Bitwise the per-step path over the
+        same plan; callers needing per-model callbacks use
+        `local_client_train`."""
+        fed = self.fed
+        if not fed.use_pool:
+            params, _ = self.train_scanned(m_in, plan, fed.e_local)
+            return params, None, []
+        return self.scanned.local_client(m_in, plan)
+
+    @property
+    def scanned(self) -> "ScannedPhase":
+        """The run's scanned phase (made at first use)."""
+        if getattr(self, "_scanned", None) is None:
+            self._scanned = ScannedPhase(self)
+        return self._scanned
+
+
+# ---------------------------------------------------------------------------
+# The scanned local phase: static buffers, one step body, CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _copy_into(dst: Any, src: Any) -> None:
+    """Copy every tensor of `src` into the matching tensor of `dst` (same
+    structure: dicts, tuples, NamedTuples)."""
+    for d, s in zip(_tensors(dst), _tensors(src)):
+        d.copy_(s)
+
+
+def _clone(tree: Any) -> Any:
+    """A copy of a pytree of tensors (dicts, tuples, NamedTuples)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*[_clone(v) for v in tree])
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone(v) for v in tree)
+    return tree
+
+
+def _layout(tree: Any) -> Tuple:
+    """Shapes and dtypes of a pytree's tensors: static buffers made for one
+    layout serve every tree of it."""
+    return tuple((tuple(t.shape), t.dtype) for t in _tensors(tree))
+
+
+class ScannedPhase:
+    """The scanned local phase of one `LocalTrainer` (one run).
+
+    Static buffers — params `P`, optimizer state `O`, the pool `pool`,
+    the step counter `step` (int32), the row pointer `ptr`, the visit's
+    schedule rows `rows` and the client's arrays `arrays` — are made at
+    first use and loaded at each visit (`_load`) and pool model. `_step`
+    is the one step body: gather row `ptr`'s batch from `arrays`, take
+    the (plain or pool) step at `P`, `O`, `step`, copy the results back
+    into `P`, `O` and `task`, advance `step` and `ptr`.
+
+    On CUDA, a step kind's first step runs the body eagerly on the side
+    stream `stream` (which makes every buffer a kernel wrapper keeps per
+    stream), then the body is captured there into a CUDA graph; every
+    later step of that kind in the run is a replay. The launches a
+    capture makes count once per replay in the wrappers' counters
+    (`build.capture_counts`). A new capture is made only when a visit
+    needs more rows or larger arrays than the buffers hold (`captures`
+    counts them, `replays` the replays; the class attributes
+    `total_captures` / `total_replays` count over every instance, as the
+    kernel wrappers count launches). A capture that fails raises; there
+    is no per-step fallback. On the CPU the body runs in a plain loop."""
+
+    total_captures = 0
+    total_replays = 0
+
+    def __init__(self, trainer: LocalTrainer):
+        # the trainer's parts, not the trainer: no reference cycle keeps a
+        # finished run's graphs and buffers for the garbage collector
+        self.fed, self.opt, self.backend = (trainer.fed, trainer.opt,
+                                            trainer.backend)
+        self.plain_step, self.pool_step = (trainer.plain_step,
+                                           trainer.pool_step)
+        self.graphs: Dict[str, Any] = {}     # kind → (graph, counts)
+        self.captures = 0
+        self.replays = 0
+        self.P = self.O = self.pool = None
+        self.step = self.ptr = self.task = None
+        self.rows = self.arrays = None
+        self.stream = None
+        self._client = None                  # the plan whose arrays are in
+        self._n_max = 0
+
+    # -- buffers -------------------------------------------------------------
+
+    def reserve(self, plans: List[DataPlan]) -> None:
+        """Size the arrays buffer for the largest of the run's `plans`, so
+        that no visit outgrows it (and no step kind is captured twice)."""
+        self._n_max = max([p.n for p in plans], default=0)
+
+    def _buffers(self, params: Params, plan: DataPlan, n_rows: int) -> None:
+        """Make (or grow) the static buffers for a visit of `plan` taking
+        n_rows rows; growing drops the captured graphs."""
+        fed = self.fed
+        dev = next(iter(params.values())).device
+        if self.P is None or _layout(self.P) != _layout(params):
+            self.P = {k: torch.empty_like(v) for k, v in params.items()}
+            self.O = self.opt.init(self.P)
+            self.step = torch.zeros((), dtype=torch.int32, device=dev)
+            self.ptr = torch.zeros((), dtype=torch.int64, device=dev)
+            self.task = torch.zeros((), dtype=torch.float32, device=dev)
+            self.graphs.clear()
+        if self.rows is None or self.rows.shape[0] < n_rows or \
+                self.rows.shape[1] != plan.batch_size:
+            n_rows = max(n_rows, fed.pool_size * fed.e_local, fed.e_local,
+                         fed.e_warmup)
+            self.rows = torch.zeros((n_rows, plan.batch_size),
+                                    dtype=torch.int32, device=dev)
+            self.graphs.clear()
+        fits = self.arrays is not None and \
+            set(self.arrays) == set(plan.arrays) and all(
+                a.shape[0] >= plan.n and a.shape[1:] == b.shape[1:] and
+                a.dtype == b.dtype
+                for a, b in ((self.arrays[k], plan.arrays[k])
+                             for k in plan.arrays))
+        if not fits:
+            n = max(plan.n, self._n_max)
+            self.arrays = {k: torch.zeros((n,) + tuple(a.shape[1:]),
+                                          dtype=a.dtype, device=dev)
+                           for k, a in plan.arrays.items()}
+            self._client = None
+            self.graphs.clear()
+
+    def _load(self, params: Params, plan: DataPlan, rows: torch.Tensor
+              ) -> None:
+        """A visit's start: the client's arrays (when another client's are
+        in), its rows and the pointer at row 0."""
+        self._buffers(params, plan, rows.shape[0])
+        if self._client is not plan:
+            for k, a in plan.arrays.items():
+                self.arrays[k][:plan.n].copy_(a)
+            self._client = plan
+        self.rows[:rows.shape[0]].copy_(rows)
+        self.ptr.zero_()
+
+    def _start_model(self, params: Params) -> None:
+        """A model's start: params, a fresh optimizer state, step 0."""
+        _copy_into(self.P, params)
+        _copy_into(self.O, self.opt.init(self.P))
+        self.step.zero_()
+
+    # -- the step ------------------------------------------------------------
+
+    def _step(self, kind: str) -> None:
+        row = self.rows.index_select(0, self.ptr.reshape(1))[0]
+        batch = gather(self.arrays, row)
+        if kind == "pool":
+            p, o, task = self.pool_step(self.P, self.O, batch, self.pool,
+                                        self.step)
+        else:
+            p, o, task = self.plain_step(self.P, self.O, batch, self.step)
+        with torch.no_grad():
+            _copy_into(self.P, p)
+            _copy_into(self.O, o)
+            self.task.copy_(task)
+            self.step.add_(1)
+            self.ptr.add_(1)
+
+    def _advance(self, kind: str, n: int) -> None:
+        """n steps of `kind` from the buffers' state."""
+        if self.task.device.type != "cuda":
+            for _ in range(n):
+                self._step(kind)
+            return
+        if kind not in self.graphs and n:
+            self._step(kind)                  # the warm-up is a real step
+            n -= 1
+            self._capture(kind)
+        graph, counts = self.graphs.get(kind, (None, None))
+        for _ in range(n):
+            graph.replay()
+        if n:
+            build.add_replays(counts, n)
+            self.replays += n
+            ScannedPhase.total_replays += n
+
+    def _capture(self, kind: str) -> None:
+        """Capture the step body on the side stream (where the warm-up
+        step ran). The cycle collector is off during the capture: an
+        object it freed there (another run's graph, a pinned buffer) would
+        call the CUDA runtime outside the captured stream and void the
+        capture. (`torch.cuda.graph` would also empty the allocator's
+        caches first, which costs the run's later allocations more than
+        the capture saves.)"""
+        graph = torch.cuda.CUDAGraph()
+        was_on = gc.isenabled()
+        gc.disable()
+        try:
+            with build.capture_counts() as counts:
+                graph.capture_begin()
+                try:
+                    self._step(kind)
+                finally:
+                    graph.capture_end()
+        finally:
+            if was_on:
+                gc.enable()
+        self.graphs[kind] = (graph, counts)
+        self.captures += 1
+        ScannedPhase.total_captures += 1
+
+    @contextlib.contextmanager
+    def _side_stream(self):
+        """On CUDA, run the body on the side stream a capture needs, after
+        the current stream's work, and hand the work back to it on exit;
+        on the CPU, run it as it is."""
+        if self.task.device.type != "cuda":
+            yield
+            return
+        if self.stream is None:
+            self.stream = torch.cuda.Stream()
+        current = torch.cuda.current_stream()
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            yield
+        current.wait_stream(self.stream)
+
+    # -- the phases ----------------------------------------------------------
+
+    def train(self, params: Params, plan: DataPlan, n_steps: int
+              ) -> Tuple[Params, torch.Tensor]:
+        """Plain steps over the plan's next n_steps rows; returns (params,
+        last task loss), copies out of the buffers."""
+        rows = plan.take(n_steps)
+        self._buffers(params, plan, n_steps)
+        with self._side_stream():
+            self._load(params, plan, rows)
+            self._start_model(params)
+            self._advance("plain", n_steps)
+        return (_clone(self.P),
+                self.task.clone() if n_steps else torch.zeros(()))
+
+    def local_client(self, m_in: Params, plan: DataPlan
+                     ) -> Tuple[Params, Any, List[ModelRecord]]:
+        """The pool procedure over the plan's next S·e_local rows; returns
+        (pool average, pool, records), copies out of the buffers. The
+        task losses come back in one sync."""
+        fed = self.fed
+        s_models, e = fed.pool_size, fed.e_local
+        rows = plan.take(s_models * e)
+        self._buffers(m_in, plan, s_models * e)
+        tasks = torch.zeros((s_models,), dtype=torch.float32,
+                            device=self.task.device)
+
+        with self._side_stream():
+            self._load(m_in, plan, rows)
+            first = self.backend.create(m_in, fed)
+            if self.pool is None or _layout(self.pool) != _layout(first):
+                self.pool = _clone(first)
+                self.graphs.pop("pool", None)
+            else:
+                _copy_into(self.pool, first)
+            for j in range(s_models):
+                self._start_model(self.pool.average())   # Eq. 6 init
+                self._advance("pool", e)
+                tasks[j].copy_(self.task)
+                _copy_into(self.pool, self.pool.append(self.P))
+        records = [ModelRecord(index=j, task_loss=x)
+                   for j, x in enumerate(tasks.tolist())]
+        return self.pool.average(), _clone(self.pool), records

@@ -66,6 +66,11 @@ def _tensor(x: Any, dev: torch.device) -> torch.Tensor:
     return _from_numpy(np.asarray(x)).to(dev)
 
 
+def _count(count: Any, dev: torch.device) -> torch.Tensor:
+    """A reference pool's count as the port's: an int32 scalar on `dev`."""
+    return torch.full((), int(count), dtype=torch.int32, device=dev)
+
+
 def from_jax_lowrank_pool(pool: Any, device: DeviceLike = None):
     """A reference `LowRankDeltaPool` (jax or numpy leaves) → the port's,
     on `device`: the same base, factor stacks, dense stacks and count, so
@@ -76,7 +81,7 @@ def from_jax_lowrank_pool(pool: Any, device: DeviceLike = None):
         u={k: _tensor(a, dev) for k, a in sorted(pool.u.items())},
         v={k: _tensor(a, dev) for k, a in sorted(pool.v.items())},
         dense={k: _tensor(a, dev) for k, a in sorted(pool.dense.items())},
-        count=int(pool.count))
+        count=_count(pool.count, dev))
 
 
 def from_jax_pool(pool: Any, device: DeviceLike = None):
@@ -88,9 +93,11 @@ def from_jax_pool(pool: Any, device: DeviceLike = None):
     if kind == "LowRankDeltaPool":
         return from_jax_lowrank_pool(pool, dev)
     if kind == "ModelPool":
-        return ModelPool(from_jax_params(pool.members, dev), int(pool.count))
+        return ModelPool(from_jax_params(pool.members, dev),
+                         _count(pool.count, dev))
     if kind == "MomentPool":
         return MomentPool(from_jax_params(pool.mean, dev),
-                          _tensor(pool.sq_norm_mean, dev), int(pool.count),
+                          _tensor(pool.sq_norm_mean, dev),
+                          _count(pool.count, dev),
                           from_jax_params(pool.anchor, dev))
     raise TypeError(f"from_jax_pool: no conversion for a {kind}")

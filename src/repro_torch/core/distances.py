@@ -96,7 +96,7 @@ def d1_pool_distance(params: Params, pool: ModelPool,
         return d1_pool_sweep(params, pool, measure)
     members = {k: s.detach() for k, s in pool.members.items()}
     dists = _distance(params, members, measure, batched=True)
-    return torch.sum(dists * pool.mask()) / float(pool.count)
+    return torch.sum(dists * pool.mask()) / pool.count.to(F32)
 
 
 def d1_d2_pool_sweep(params: Params, pool: ModelPool, measure: str = "l2"
@@ -106,7 +106,8 @@ def d1_d2_pool_sweep(params: Params, pool: ModelPool, measure: str = "l2"
     `pool.first()` is member 0)."""
     stats, w_sq = tree_pool_distance_stats(params, pool.members)
     dists = distances_from_stats(stats, w_sq, measure)
-    return torch.sum(dists * pool.mask()) / float(pool.count), dists[0]
+    return (torch.sum(dists * pool.mask()) / pool.count.to(F32),
+            dists[0])
 
 
 def d1_d2_pool_distance(params: Params, pool: ModelPool,
@@ -173,7 +174,7 @@ def d1_lowrank(params: Params, pool: LowRankDeltaPool,
     else:
         raise ValueError(
             f"lowrank pool supports l2/squared_l2, got {measure!r}")
-    return torch.sum(d * pool.mask()) / float(pool.count)
+    return torch.sum(d * pool.mask()) / pool.count.to(F32)
 
 
 def lowrank_pairwise_sq(pool: LowRankDeltaPool,

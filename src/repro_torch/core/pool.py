@@ -1,7 +1,11 @@
 """The FedELMY model pools (paper §3.2; port of ``repro/core/pool.py``).
 Functional like the reference — `append` returns a new pool and leaves
 this one unchanged. Parameters are name → tensor dicts in the
-reference's leaf order (`repro_torch.convert`).
+reference's leaf order (`repro_torch.convert`). A pool's `count` is an
+int32 scalar on its device, as the reference's is: `mask()`, the average's
+weights mask/count and `append`'s slot read it there, so a training step
+captured in a CUDA graph reads the count of each replay. Only `append`'s
+fullness check reads it on the host, outside any step.
 
 * `ModelPool` — paper-faithful: a fixed-capacity stack (S+1) of full
   member parameters per leaf plus a live-member count.
@@ -26,11 +30,37 @@ Params = Dict[str, torch.Tensor]
 F32 = torch.float32
 
 
+def _count(n: int, device) -> torch.Tensor:
+    """A pool's live-member count: an int32 scalar on `device`."""
+    return torch.full((), n, dtype=torch.int32, device=device)
+
+
+def _check_room(count: torch.Tensor, capacity: int) -> None:
+    """Raise when a pool of `capacity` slots holding `count` is full (the
+    one host read of the count)."""
+    if int(count) >= capacity:
+        raise ValueError(f"pool is full ({capacity} members)")
+
+
+def _put(stack: torch.Tensor, count: torch.Tensor,
+         value: torch.Tensor) -> torch.Tensor:
+    """A copy of `stack` with slot `count` (read on the device) set to
+    `value`."""
+    return stack.index_copy(0, count.reshape(1).long(),
+                            value.detach().to(stack.dtype).unsqueeze(0))
+
+
+def _weights(mask: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """The masked mean's weights mask/count, in f32 on the device."""
+    return mask / count.to(F32)
+
+
 class ModelPool(NamedTuple):
     """`members`: leaf name → (capacity, *leaf shape) tensor; `count`: the
-    number of live members (the first `count` slots)."""
+    number of live members (the first `count` slots), an int32 scalar on
+    the members' device."""
     members: Params
-    count: int
+    count: torch.Tensor
 
     @classmethod
     def create(cls, m0: Params, capacity: int) -> "ModelPool":
@@ -40,21 +70,18 @@ class ModelPool(NamedTuple):
                             device=p.device)
             s[0] = p.detach()
             members[k] = s
-        return cls(members, 1)
+        return cls(members, _count(1, next(iter(m0.values())).device))
 
     @property
     def capacity(self) -> int:
         return next(iter(self.members.values())).shape[0]
 
     def append(self, params: Params) -> "ModelPool":
-        if self.count >= self.capacity:
-            raise ValueError(f"pool is full ({self.capacity} members)")
-        members = {}
-        for k, s in self.members.items():
-            s = s.clone()
-            s[self.count] = params[k].detach().to(s.dtype)
-            members[k] = s
-        return ModelPool(members, self.count + 1)
+        """A new pool with `params` in slot `count`."""
+        _check_room(self.count, self.capacity)
+        return ModelPool({k: _put(s, self.count, params[k])
+                          for k, s in self.members.items()},
+                         self.count + 1)
 
     def mask(self) -> torch.Tensor:
         dev = next(iter(self.members.values())).device
@@ -63,7 +90,7 @@ class ModelPool(NamedTuple):
     def average(self) -> Params:
         """Eq. 5/6: masked mean over live members — weights mask/count,
         summed in f32 over the capacity axis."""
-        w = self.mask() / float(self.count)
+        w = _weights(self.mask(), self.count)
         out = {}
         for k, s in self.members.items():
             wf = w.reshape((self.capacity,) + (1,) * (s.dim() - 1))
@@ -87,19 +114,19 @@ class MomentPool(NamedTuple):
     """Moment-form pool statistics (squared-L2 regularizer only)."""
     mean: Params                # μ, f32
     sq_norm_mean: torch.Tensor  # q = mean_t ‖w_t‖², f32 scalar
-    count: int
+    count: torch.Tensor         # int32 scalar
     anchor: Params              # m_0^i, kept exactly (d2 needs it)
 
     @classmethod
     def create(cls, m0: Params) -> "MomentPool":
         m0 = {k: v.detach() for k, v in m0.items()}
-        return cls({k: v.to(F32) for k, v in m0.items()}, _sq_norm(m0), 1,
-                   m0)
+        return cls({k: v.to(F32) for k, v in m0.items()}, _sq_norm(m0),
+                   _count(1, next(iter(m0.values())).device), m0)
 
     def append(self, params: Params) -> "MomentPool":
         """Left-fold update μ ← (n·μ + w)/(n+1) in append order (agrees
         with the stacked pool's masked mean to rounding, not bitwise)."""
-        n = float(self.count)
+        n = self.count.to(F32)
         mean = {k: (m * n + params[k].detach().to(F32)) / (n + 1)
                 for k, m in self.mean.items()}
         q = (self.sq_norm_mean * n +
@@ -182,7 +209,7 @@ class LowRankDeltaPool(NamedTuple):
     u: Dict[str, torch.Tensor]
     v: Dict[str, torch.Tensor]
     dense: Dict[str, torch.Tensor]
-    count: int
+    count: torch.Tensor              # int32 scalar
 
     @classmethod
     def create(cls, m0: Params, capacity: int,
@@ -199,7 +226,8 @@ class LowRankDeltaPool(NamedTuple):
             else:
                 dense[k] = torch.zeros((capacity,) + shape, dtype=F32,
                                        device=dev)
-        return cls({k: p.detach() for k, p in m0.items()}, u, v, dense, 1)
+        return cls({k: p.detach() for k, p in m0.items()}, u, v, dense,
+                   _count(1, next(iter(m0.values())).device))
 
     @property
     def capacity(self) -> int:
@@ -213,20 +241,17 @@ class LowRankDeltaPool(NamedTuple):
     def append(self, params: Params) -> "LowRankDeltaPool":
         """Truncated-rank append: Δ = params − base, each matrix leaf
         projected onto rank r by the range finder."""
-        if self.count >= self.capacity:
-            raise ValueError(f"pool is full ({self.capacity} members)")
+        _check_room(self.count, self.capacity)
         u, v, dense = dict(self.u), dict(self.v), dict(self.dense)
         for i, (name, b) in enumerate(self.base.items()):
             k = _leaf_key(i)
             delta = params[name].detach().to(F32) - b.to(F32)
             if k in dense:
-                dense[k] = dense[k].clone()
-                dense[k][self.count] = delta
+                dense[k] = _put(dense[k], self.count, delta)
             else:
                 ui, vi = _project_delta(delta, u[k].shape[-1], i)
-                u[k], v[k] = u[k].clone(), v[k].clone()
-                u[k][self.count] = ui
-                v[k][self.count] = vi
+                u[k] = _put(u[k], self.count, ui)
+                v[k] = _put(v[k], self.count, vi)
         return self._replace(u=u, v=v, dense=dense, count=self.count + 1)
 
     def mask(self) -> torch.Tensor:
@@ -245,7 +270,7 @@ class LowRankDeltaPool(NamedTuple):
     def average(self) -> Params:
         """Eq. 5/6 masked mean: base + Σ_t w_t·U_tV_tᵀ (dense elsewhere),
         densified once per call."""
-        w = self.mask() / float(self.count)
+        w = _weights(self.mask(), self.count)
         out = {}
         for i, (name, b) in enumerate(self.base.items()):
             k = _leaf_key(i)
@@ -297,9 +322,6 @@ def _tensors(obj: Any):
 
 def pool_nbytes(pool: Any) -> int:
     """Total bytes of the tensors a pool (or a server's members) holds —
-    the serving-memory metric. A pool's integer count is the reference's
-    int32 scalar and counts 4 bytes, as there."""
-    n = sum(t.numel() * t.element_size() for t in _tensors(pool))
-    if isinstance(getattr(pool, "count", None), int):
-        n += 4
-    return n
+    the serving-memory metric (a pool's int32 count counts 4 bytes, as
+    the reference's does)."""
+    return sum(t.numel() * t.element_size() for t in _tensors(pool))

@@ -43,3 +43,11 @@ def batch_iterator(arrays: Dict[str, np.ndarray], batch_size: int,
             idx = perm[s:s + bs]
             yield {k: torch.from_numpy(a[idx]).to(dev)
                    for k, a in arrays.items()}
+
+
+def image_batch(ds, idx=None) -> Dict[str, np.ndarray]:
+    """A `SyntheticImageDataset`'s arrays as a batch dict, all of it or the
+    rows `idx`."""
+    if idx is None:
+        return {"images": ds.images, "labels": ds.labels}
+    return {"images": ds.images[idx], "labels": ds.labels[idx]}

@@ -163,7 +163,7 @@ def bgmv_f32(x: torch.Tensor, u: torch.Tensor,
                            plan.out_cols, stream)
     if err != 0:
         raise RuntimeError(f"bgmv_f32: launch failed with CUDA error {err}")
-    bgmv_f32.launches += 1
+    build.count_launches(bgmv_f32)
     return y
 
 

@@ -9,6 +9,7 @@ its source, so an edited source never loads a stale build. Nothing here
 runs at import time."""
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -16,7 +17,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Any, Callable, Dict, Sequence
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
@@ -86,16 +87,30 @@ def build_all() -> Dict[str, str]:
     return build_sources(sorted(CSRC.glob("*.cu")))
 
 
-@functools.cache
+_counter_buffers: Dict[Any, Any] = {}
+
+
 def counters(device, stream: int, size: int):
     """`size` int32 counters for the kernels that find a group's last
     block with an integer atomic (the GEMM's split tiles, BGMV's row
     blocks, the GLA's heads), one buffer per (device, stream, size),
     zeroed once here: each group's last block sets its counter back to 0,
     so a call launches nothing but its kernels. Keyed by stream, so that
-    calls on two streams never share a counter."""
+    calls on two streams never share a counter. A buffer is made outside
+    any CUDA graph capture (a step is run once on the capturing stream
+    before it is captured); asked for the first time during a capture,
+    this raises."""
     import torch
-    return torch.zeros(size, device=device, dtype=torch.int32)
+    key = (torch.device(device), stream, size)
+    if key not in _counter_buffers:
+        if torch.cuda.is_available() and \
+                torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "build.counters: no counter buffer for this stream yet; run "
+                "the step once on the capturing stream before capturing it")
+        _counter_buffers[key] = torch.zeros(size, device=device,
+                                            dtype=torch.int32)
+    return _counter_buffers[key]
 
 
 @functools.cache
@@ -103,3 +118,41 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if needed."""
     build(name)
     return ctypes.CDLL(str(library_path(CSRC / f"{name}.cu")))
+
+
+# launches counted while a CUDA graph was being captured, by wrapper
+_captured: Dict[Callable, int] = {}
+
+
+def count_launches(wrapper: Callable, n: int = 1) -> None:
+    """Count `n` launches of a kernel wrapper in its ``launches``
+    attribute — or, while the current stream is being captured into a
+    CUDA graph (where nothing runs yet), in the capture's tally, which
+    `capture_counts` hands to the graph: each replay then adds them
+    (`add_replays`)."""
+    import torch
+    if torch.cuda.is_available() and \
+            torch.cuda.is_current_stream_capturing():
+        _captured[wrapper] = _captured.get(wrapper, 0) + n
+    else:
+        wrapper.launches += n
+
+
+@contextlib.contextmanager
+def capture_counts():
+    """Around a graph capture: yields a dict, filled on exit with the
+    launches each wrapper made in the capture (the launches one replay
+    makes)."""
+    _captured.clear()
+    counts: Dict[Callable, int] = {}
+    try:
+        yield counts
+    finally:
+        counts.update(_captured)
+        _captured.clear()
+
+
+def add_replays(counts: Dict[Callable, Any], replays: int = 1) -> None:
+    """Count `replays` replays of a graph whose capture made `counts`."""
+    for wrapper, n in counts.items():
+        wrapper.launches += n * replays

@@ -161,7 +161,7 @@ def gla_chunk_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"gla_chunk_f32: launch failed with CUDA error "
                            f"{err}")
-    gla_chunk_f32.launches += 1
+    build.count_launches(gla_chunk_f32)
     return y, state
 
 

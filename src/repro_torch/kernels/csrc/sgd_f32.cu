@@ -1,5 +1,6 @@
 // Fused SGD update for Hopper (sm_90a): out_i = p_i − lr·(g_i + wd·p_i) over
-// every parameter leaf of a model in one launch, in f32.
+// every parameter leaf of a model in one launch, in f32 arithmetic; each
+// leaf's p (and out) and g may be f32 or bf16, mixed in one launch.
 //
 // Replaces: src/repro/kernels/local_step.py:sgd_update_flat (Pallas sweep,
 // body _sgd_kernel; front sgd_update_tree). The TPU kernel needs one flat
@@ -33,12 +34,16 @@
 // Arithmetic: __fmaf_rn(-lr, __fmaf_rn(wd, p, g), p) — g + wd·p and then
 // p + (−lr)·(…), each rounded once. That is how the plain version
 // (`ref.sgd_update_ref`, torch.add with alpha) and XLA's CPU update round,
-// so the three agree bitwise.
+// so the three agree bitwise. A bf16 leaf is widened to f32 exactly (its
+// bits shifted up), updated in f32 and stored rounded to nearest even, as
+// the plain version's `.to(bfloat16)` and the reference's `astype` do; its
+// vector loads and stores move a slot's 8 bytes.
 //
 // Plain C interface for ctypes: the caller passes one table (its leaves,
 // its gradient views, its slots and the slots a block) and the grid; the
 // entry launches once on the caller's stream and returns
 // cudaGetLastError().
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,13 +52,15 @@ constexpr int SGD_MAX_VIEWS = 8;    // gradient views a table holds
 
 // the table's entries have external linkage: the C entry takes them
 struct SgdLeaf {
-  const float* p;
-  const float* g;
-  float* out;
+  const void* p;
+  const void* g;
+  void* out;
   int64_t n;      // elements
   int64_t slot0;  // the leaf's first slot in the table
-  int vec;        // bit 0: p and out 16-byte aligned; bit 1: g too
+  int vec;        // bit 0: p and out aligned to a slot (16 bytes in f32,
+                  // 8 in bf16); bit 1: g too
   int view;       // -1: g contiguous; else its index in SgdTable::view
+  int bf16;       // bit 0: p and out are bf16; bit 1: g is (else f32)
 };
 
 struct SgdView {  // g as a view of p's shape, padded to 4 dims
@@ -90,15 +97,79 @@ __device__ __forceinline__ int64_t view_offset(const SgdView& v, uint32_t e) {
   return off + static_cast<int64_t>(e) * v.stride[0];
 }
 
-__device__ __forceinline__ float4 load4(const float* __restrict__ x,
-                                        int cnt, bool vec) {
-  if (vec && cnt == 4) return __ldcs(reinterpret_cast<const float4*>(x));
+__device__ __forceinline__ float widen(unsigned short h) {
+  return __uint_as_float(static_cast<uint32_t>(h) << 16);
+}
+
+__device__ __forceinline__ unsigned short narrow(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// the cnt (1..4) elements at element offset e of x, f32 or bf16
+__device__ __forceinline__ float4 load4(const void* __restrict__ x,
+                                        int64_t e, int cnt, bool vec,
+                                        bool bf16) {
   float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
-  r.x = __ldcs(x);
-  if (cnt > 1) r.y = __ldcs(x + 1);
-  if (cnt > 2) r.z = __ldcs(x + 2);
-  if (cnt > 3) r.w = __ldcs(x + 3);
+  if (bf16) {
+    const unsigned short* h = static_cast<const unsigned short*>(x) + e;
+    if (vec && cnt == 4) {
+      const uint2 u = __ldcs(reinterpret_cast<const uint2*>(h));
+      return make_float4(__uint_as_float(u.x << 16),
+                         __uint_as_float(u.x & 0xffff0000u),
+                         __uint_as_float(u.y << 16),
+                         __uint_as_float(u.y & 0xffff0000u));
+    }
+    r.x = widen(__ldcs(h));
+    if (cnt > 1) r.y = widen(__ldcs(h + 1));
+    if (cnt > 2) r.z = widen(__ldcs(h + 2));
+    if (cnt > 3) r.w = widen(__ldcs(h + 3));
+    return r;
+  }
+  const float* f = static_cast<const float*>(x) + e;
+  if (vec && cnt == 4) return __ldcs(reinterpret_cast<const float4*>(f));
+  r.x = __ldcs(f);
+  if (cnt > 1) r.y = __ldcs(f + 1);
+  if (cnt > 2) r.z = __ldcs(f + 2);
+  if (cnt > 3) r.w = __ldcs(f + 3);
   return r;
+}
+
+// element off of a gradient view, f32 or bf16
+__device__ __forceinline__ float load1(const void* __restrict__ x,
+                                       int64_t off, bool bf16) {
+  return bf16 ? widen(__ldcs(static_cast<const unsigned short*>(x) + off))
+              : __ldcs(static_cast<const float*>(x) + off);
+}
+
+// the cnt (1..4) results at element offset e of out, f32 or bf16
+__device__ __forceinline__ void store4(void* __restrict__ out, int64_t e,
+                                       int cnt, bool vec, bool bf16,
+                                       float4 r) {
+  if (bf16) {
+    unsigned short* h = static_cast<unsigned short*>(out) + e;
+    const unsigned short hx = narrow(r.x), hy = narrow(r.y),
+                         hz = narrow(r.z), hw = narrow(r.w);
+    if (vec && cnt == 4) {
+      __stcs(reinterpret_cast<uint2*>(h),
+             make_uint2(hx | static_cast<uint32_t>(hy) << 16,
+                        hz | static_cast<uint32_t>(hw) << 16));
+      return;
+    }
+    __stcs(h, hx);
+    if (cnt > 1) __stcs(h + 1, hy);
+    if (cnt > 2) __stcs(h + 2, hz);
+    if (cnt > 3) __stcs(h + 3, hw);
+    return;
+  }
+  float* f = static_cast<float*>(out) + e;
+  if (vec && cnt == 4) {
+    __stcs(reinterpret_cast<float4*>(f), r);
+    return;
+  }
+  __stcs(f, r.x);
+  if (cnt > 1) __stcs(f + 1, r.y);
+  if (cnt > 2) __stcs(f + 2, r.z);
+  if (cnt > 3) __stcs(f + 3, r.w);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -125,17 +196,18 @@ sgd_f32_kernel(const __grid_constant__ SgdTable t, float lr, float wd) {
       const SgdLeaf& L = t.leaf[li];
       const int64_t e = (slot - L.slot0) * 4;
       const int cnt = static_cast<int>(min(static_cast<int64_t>(4), L.n - e));
-      pv[u] = load4(L.p + e, cnt, L.vec & 1);
+      pv[u] = load4(L.p, e, cnt, L.vec & 1, L.bf16 & 1);
       if (L.view < 0) {
-        gv[u] = load4(L.g + e, cnt, L.vec & 2);
+        gv[u] = load4(L.g, e, cnt, L.vec & 2, L.bf16 & 2);
       } else {
         const SgdView& v = t.view[L.view];
         const uint32_t e32 = static_cast<uint32_t>(e);
+        const bool gb = L.bf16 & 2;
         gv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
-        gv[u].x = __ldcs(L.g + view_offset(v, e32));
-        if (cnt > 1) gv[u].y = __ldcs(L.g + view_offset(v, e32 + 1));
-        if (cnt > 2) gv[u].z = __ldcs(L.g + view_offset(v, e32 + 2));
-        if (cnt > 3) gv[u].w = __ldcs(L.g + view_offset(v, e32 + 3));
+        gv[u].x = load1(L.g, view_offset(v, e32), gb);
+        if (cnt > 1) gv[u].y = load1(L.g, view_offset(v, e32 + 1), gb);
+        if (cnt > 2) gv[u].z = load1(L.g, view_offset(v, e32 + 2), gb);
+        if (cnt > 3) gv[u].w = load1(L.g, view_offset(v, e32 + 3), gb);
       }
     }
 #pragma unroll
@@ -149,15 +221,7 @@ sgd_f32_kernel(const __grid_constant__ SgdTable t, float lr, float wd) {
                                    sgd(pv[u].y, gv[u].y, lr, wd),
                                    sgd(pv[u].z, gv[u].z, lr, wd),
                                    sgd(pv[u].w, gv[u].w, lr, wd));
-      float* __restrict__ o = L.out + e;
-      if ((L.vec & 1) && cnt == 4) {
-        __stcs(reinterpret_cast<float4*>(o), r);
-      } else {
-        __stcs(o, r.x);
-        if (cnt > 1) __stcs(o + 1, r.y);
-        if (cnt > 2) __stcs(o + 2, r.z);
-        if (cnt > 3) __stcs(o + 3, r.w);
-      }
+      store4(L.out, e, cnt, L.vec & 1, L.bf16 & 1, r);
     }
   }
 }

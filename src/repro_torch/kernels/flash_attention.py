@@ -96,7 +96,7 @@ def flash_attn_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"flash_attn_f32: launch failed with CUDA error "
                            f"{err}")
-    flash_attn_f32.launches += 1
+    build.count_launches(flash_attn_f32)
     return out
 
 

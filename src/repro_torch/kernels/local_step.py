@@ -20,11 +20,12 @@
   whose native loss is not the training formulation attaches its
   im2col + GEMM twin under `FUSED_LOSS_ATTR`.
 * `sgd_update_tree` — the SGD update p − lr·(g + wd·p) over every leaf of
-  a parameter dict (`optim.sgd`'s route). On CUDA tensors it launches the
-  hand-written kernel ``csrc/sgd_f32.cu`` once for all leaves, laid out
-  by `sgd_plan` (the slots split evenly over a resident grid; gradients
-  that autograd hands as views read in place); on CPU tensors it takes
-  the plain version `ref.sgd_update_ref` per leaf.
+  a parameter dict (`optim.sgd`'s route), f32 or bf16 leaves, computed
+  in f32. On CUDA tensors it launches the hand-written kernel
+  ``csrc/sgd_f32.cu`` once for all leaves, laid out by `sgd_plan` (the
+  slots split evenly over a resident grid; gradients that autograd hands
+  as views read in place); on CPU tensors it takes the plain version
+  `ref.sgd_update_ref` per leaf.
 """
 from __future__ import annotations
 
@@ -204,7 +205,7 @@ def gemm_f32(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
                            stream)
     if err != 0:
         raise RuntimeError(f"gemm_f32: launch failed with CUDA error {err}")
-    gemm_f32.launches += 1
+    build.count_launches(gemm_f32)
     return c
 
 
@@ -282,6 +283,7 @@ SGD_MAX_LEAVES = 64
 SGD_MAX_VIEWS = 8
 SGD_BLOCKS = 2 * N_SMS
 SGD_SLOT = 4            # elements a slot
+SGD_DTYPES = (torch.float32, torch.bfloat16)   # a leaf's p and g, each
 
 
 class _SgdLeaf(ctypes.Structure):
@@ -289,7 +291,7 @@ class _SgdLeaf(ctypes.Structure):
     _fields_ = [("p", ctypes.c_void_p), ("g", ctypes.c_void_p),
                 ("out", ctypes.c_void_p), ("n", ctypes.c_int64),
                 ("slot0", ctypes.c_int64), ("vec", ctypes.c_int),
-                ("view", ctypes.c_int)]
+                ("view", ctypes.c_int), ("bf16", ctypes.c_int)]
 
 
 class _SgdView(ctypes.Structure):
@@ -387,11 +389,13 @@ def sgd_f32(params: List[torch.Tensor], grads: List[torch.Tensor], *,
             lr: float, wd: float = 0.0) -> List[torch.Tensor]:
     """Launch the CUDA kernel: a new tensor p − lr·(g + wd·p) for every
     (p, g) pair, all leaves in one launch (more only beyond the kernel's
-    table of leaves or of gradient views). Every tensor must be an f32 CUDA
-    tensor on one device, each p contiguous, each g shaped like its p and
-    either contiguous or a view of at most 4 dims (read in place, as
-    autograd hands a permuted weight's gradient); the inputs are left
-    unchanged. `sgd_f32.launches` counts the launches."""
+    table of leaves or of gradient views). Every tensor must be an f32 or
+    bf16 CUDA tensor on one device (dtypes may mix: each p's result has
+    its dtype, computed in f32 and rounded to nearest even for bf16), each
+    p contiguous, each g shaped like its p and either contiguous or a view
+    of at most 4 dims (read in place, as autograd hands a permuted
+    weight's gradient); the inputs are left unchanged. `sgd_f32.launches`
+    counts the launches."""
     if len(params) != len(grads):
         raise ValueError(f"sgd_f32: {len(params)} params but "
                          f"{len(grads)} grads")
@@ -406,9 +410,9 @@ def sgd_f32(params: List[torch.Tensor], grads: List[torch.Tensor], *,
             if t.device != device:
                 raise ValueError(f"sgd_f32: {name} {i} is on {t.device}, "
                                  f"the first param on {device}")
-            if t.dtype != torch.float32:
+            if t.dtype not in SGD_DTYPES:
                 raise TypeError(f"sgd_f32: {name} {i} is {t.dtype}, not "
-                                "float32")
+                                "float32 or bfloat16")
         if not p.is_contiguous():
             raise ValueError(f"sgd_f32: param {i} must be contiguous")
         if g.shape != p.shape:
@@ -429,12 +433,17 @@ def sgd_f32(params: List[torch.Tensor], grads: List[torch.Tensor], *,
             table_views = []
             for j, (i, slot0) in enumerate(zip(plan.leaves, plan.slot0)):
                 p, g, o = params[i], grads[i], outs[i]
-                aligned = (p.data_ptr() | o.data_ptr()) % 16 == 0
-                g_vec = views[i] is None and g.data_ptr() % 16 == 0
+                # a slot's vector: 4 elements, 16 bytes in f32, 8 in bf16
+                aligned = (p.data_ptr() | o.data_ptr()) % (
+                    4 * p.element_size()) == 0
+                g_vec = views[i] is None and \
+                    g.data_ptr() % (4 * g.element_size()) == 0
                 leaves[j] = _SgdLeaf(p.data_ptr(), g.data_ptr(),
                                      o.data_ptr(), p.numel(), slot0,
                                      int(aligned) | 2 * int(g_vec),
-                                     len(table_views) if views[i] else -1)
+                                     len(table_views) if views[i] else -1,
+                                     int(p.dtype == torch.bfloat16) |
+                                     2 * int(g.dtype == torch.bfloat16))
                 if views[i]:
                     table_views.append(_SgdView(
                         (ctypes.c_int * 4)(*views[i][0]),
@@ -446,7 +455,7 @@ def sgd_f32(params: List[torch.Tensor], grads: List[torch.Tensor], *,
             if err != 0:
                 raise RuntimeError(f"sgd_f32: launch failed with CUDA error "
                                    f"{err}")
-            sgd_f32.launches += 1
+            build.count_launches(sgd_f32)
     return outs
 
 

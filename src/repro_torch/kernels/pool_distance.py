@@ -28,7 +28,12 @@ product over the long trailing axis, a (M, P) → (M, M), or a (B, M, P) →
 On CUDA tensors both launch ``csrc/factor_gram_f32.cu`` once for all the
 stacks (f32, contiguous), laid out by `gram_plan` (its sum over P is the
 same on every run: chunk partials, added in a fixed order); on CPU
-tensors they take `ref.factor_gram_ref` stack by stack.
+tensors they take `ref.factor_gram_ref` stack by stack. The kernel takes
+M ≤ `MAX_M` rows; a taller stack goes as tiles of at most
+`GRAM_TILE_ROWS` rows (`gram_tiling`): the Gram of the stacked rows
+[A_I; A_J] of each tile pair I < J, all in the same grouped launch, gives
+A_I·A_Jᵀ as its off-diagonal block and each tile's own Gram on its
+diagonal.
 
 Nothing falls back: a CUDA tensor launches its kernel or raises."""
 from __future__ import annotations
@@ -79,6 +84,9 @@ GRAM_MAX_STACKS = 32
 GRAM_MAX_F = 16
 GRAM_TARGET_BLOCKS = 4 * N_SMS
 GRAM_COUNTERS = 1 << 16
+# a stack of more than MAX_M rows goes as tiles of at most this many rows,
+# two of which stack into one sub-stack the kernel takes
+GRAM_TILE_ROWS = MAX_M // 2
 
 Params = Dict[str, torch.Tensor]
 
@@ -286,20 +294,117 @@ def factor_gram_f32(stacks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
             if err != 0:
                 raise RuntimeError(f"factor_gram_f32: launch failed with "
                                    f"CUDA error {err}")
-            factor_gram_f32.launches += 1
+            build.count_launches(factor_gram_f32)
     return outs
 
 
 factor_gram_f32.launches = 0
 
 
+class GramTiling(NamedTuple):
+    """How a stack of M > `MAX_M` rows goes through the kernel: row
+    `tiles` (lo, hi) of at most `GRAM_TILE_ROWS` rows each, and one
+    sub-stack [A_I; A_J] per tile pair (I, J) of `pairs` (I < J). The
+    off-diagonal block (I, J) is read from pair (I, J)'s Gram; tile I's
+    diagonal block from the pair `diag[I]` (which holds I)."""
+    tiles: Tuple[Tuple[int, int], ...]
+    pairs: Tuple[Tuple[int, int], ...]
+    diag: Tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=64)
+def gram_tiling(m: int) -> GramTiling:
+    """The tiling of an M-row stack, M > `MAX_M`: ⌈M / 128⌉ tiles of
+    near-equal rows, every pair I < J of them once (so each block of the
+    upper triangle, the diagonal ones taken from the first pair that holds
+    them, is computed in exactly one place the result reads)."""
+    if m <= MAX_M:
+        raise ValueError(f"gram_tiling: M = {m} needs no tiles "
+                         f"(the kernel takes M ≤ {MAX_M})")
+    n = -(-m // GRAM_TILE_ROWS)
+    cuts = [i * m // n for i in range(n + 1)]
+    tiles = tuple(zip(cuts[:-1], cuts[1:]))
+    pairs = tuple((i, j) for i in range(n) for j in range(i + 1, n))
+    diag = tuple(next(p for p, (i, j) in enumerate(pairs) if t in (i, j))
+                 for t in range(n))
+    return GramTiling(tiles, pairs, diag)
+
+
+def gram_substacks(shapes: Sequence[Tuple[int, int, int]]
+                   ) -> List[Tuple[int, Tuple[int, int], Tuple[int, int, int]]]:
+    """The stacks the kernel takes for a call over stacks of `shapes`
+    (B, M, P): (stack index, tile pair or (-1, -1) for a whole stack of M ≤
+    `MAX_M`, sub-stack shape), in launch order."""
+    out = []
+    for i, (b, m, p) in enumerate(shapes):
+        if m <= MAX_M:
+            out.append((i, (-1, -1), (b, m, p)))
+            continue
+        tiling = gram_tiling(m)
+        for ti, tj in tiling.pairs:
+            rows = sum(hi - lo for lo, hi in (tiling.tiles[ti],
+                                              tiling.tiles[tj]))
+            out.append((i, (ti, tj), (b, rows, p)))
+    return out
+
+
+def gram_launches(shapes: Sequence[Tuple[int, int, int]]) -> int:
+    """Kernel launches of one call over stacks of `shapes`: one per
+    `GRAM_MAX_STACKS` sub-stacks."""
+    return -(-len(gram_substacks(shapes)) // GRAM_MAX_STACKS)
+
+
+def tiled_grams(stacks: Sequence[torch.Tensor], gram_fn) -> List[torch.Tensor]:
+    """Each (B, M, P) stack's Gram through `gram_fn` (a list of stacks of
+    at most `MAX_M` rows → their Grams, the kernel's call): stacks of M ≤
+    `MAX_M` whole, taller ones as `gram_tiling`'s sub-stacks, all in one
+    call; the blocks of a tiled Gram are put together with its lower
+    triangle the exact transpose of its upper one."""
+    subs = gram_substacks([tuple(a.shape) for a in stacks])
+    inputs = []
+    for i, (ti, tj), _ in subs:
+        a = stacks[i]
+        if ti < 0:
+            inputs.append(a)
+        else:
+            t = gram_tiling(a.shape[1]).tiles
+            inputs.append(torch.cat([a[:, t[ti][0]:t[ti][1]],
+                                     a[:, t[tj][0]:t[tj][1]]], 1))
+    grams = gram_fn(inputs)
+    outs: List[torch.Tensor] = [None] * len(stacks)
+    for (i, (ti, tj), _), g in zip(subs, grams):
+        if ti < 0:
+            outs[i] = g
+            continue
+        a = stacks[i]
+        m = a.shape[1]
+        if outs[i] is None:
+            outs[i] = torch.empty((a.shape[0], m, m), device=a.device,
+                                  dtype=torch.float32)
+        tiling = gram_tiling(m)
+        (li, hi_i), (lj, hj) = tiling.tiles[ti], tiling.tiles[tj]
+        mi = hi_i - li
+        out = outs[i]
+        block = g[:, :mi, mi:]
+        out[:, li:hi_i, lj:hj] = block
+        out[:, lj:hj, li:hi_i] = block.transpose(1, 2)
+        pair = tiling.pairs.index((ti, tj))
+        if tiling.diag[ti] == pair:
+            out[:, li:hi_i, li:hi_i] = g[:, :mi, :mi]
+        if tiling.diag[tj] == pair:
+            out[:, lj:hj, lj:hj] = g[:, mi:, mi:]
+    return outs
+
+
 def factor_gram_group(stacks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     """A·Aᵀ over the trailing axis of every (B, M, P) stack, routed by the
-    tensors' device: one launch of the kernel for CUDA stacks, the plain
-    version stack by stack for CPU stacks."""
+    tensors' device: the kernel for CUDA stacks, one launch for all of
+    them (`tiled_grams`: a stack of M > `MAX_M` rows as tile pairs in the
+    same launch; one launch more per `GRAM_MAX_STACKS` sub-stacks); the
+    plain version stack by stack for CPU stacks."""
     route = _device_type(stacks, "factor_gram_group") if stacks else "cpu"
     if route == "cuda":
-        return factor_gram_f32(stacks)
+        return tiled_grams(stacks, factor_gram_f32)
     if route == "cpu":
         return [factor_gram_ref(a) for a in stacks]
     raise ValueError(f"factor_gram_group: no route for tensors on {route}")
@@ -481,7 +586,7 @@ def pool_distance_f32(ws: Sequence[torch.Tensor], ms: Sequence[torch.Tensor]
             b, c, int(dtype == torch.bfloat16), plan.groups, plan.grid,
             stats.data_ptr(), wsq.data_ptr(), part.data_ptr(), part.numel(),
             counters.data_ptr(), stream, ctypes.byref(launches))
-    pool_distance_f32.launches += launches.value
+    build.count_launches(pool_distance_f32, launches.value)
     if err != 0:
         raise RuntimeError(f"pool_distance_f32: launch failed with CUDA error "
                            f"{err}")
@@ -528,7 +633,7 @@ def pool_distance_bwd_f32(ws: Sequence[torch.Tensor],
             m_member, (ctypes.c_int64 * n)(*[o.stride(0) for o in outs]), n,
             b, c, plan.groups, plan.grid, g_stats.data_ptr(),
             g_wsq.data_ptr(), stream, ctypes.byref(launches))
-    pool_distance_bwd_f32.launches += launches.value
+    build.count_launches(pool_distance_bwd_f32, launches.value)
     if err != 0:
         raise RuntimeError(f"pool_distance_bwd_f32: launch failed with CUDA "
                            f"error {err}")

@@ -8,7 +8,13 @@ Updates are functional, as in the reference: they return new tensors and
 leave their inputs unchanged. All arithmetic is f32. Adam is the
 reference's rule — coupled (L2) weight decay, bias correction from the
 runtime `step` — and deliberately not `torch.optim.Adam`; `sgd` and
-`momentum` round bitwise like the reference's updates."""
+`momentum` round bitwise like the reference's updates.
+
+`step` is an int or an int32 tensor on the parameters' device. Adam forms
+its bias correction on the device from it (`_bias_corrections`), so a
+step captured in a CUDA graph reads the step of each replay, and the
+per-step loop, which passes the same kind of tensor, computes the same
+bits."""
 from __future__ import annotations
 
 from typing import Callable, Dict, NamedTuple
@@ -76,9 +82,8 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
 
     @torch.no_grad()
     def update(params, grads, state, step):
-        t = torch.tensor(step, dtype=F32) + 1.0
-        c1 = 1.0 - b1 ** t
-        c2 = 1.0 - b2 ** t
+        c1, c2 = _bias_corrections(step, b1, b2,
+                                   next(iter(params.values())).device)
         new_p, new_m, new_v = {}, {}, {}
         for k, p in params.items():
             g = grads[k].to(F32)
@@ -94,6 +99,16 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         return new_p, {"m": new_m, "v": new_v}
 
     return Optimizer(name, init, update)
+
+
+def _bias_corrections(step, b1: float, b2: float, device):
+    """Adam's 1 − b1**t and 1 − b2**t, t = step + 1, as f32 tensors on
+    `device`, from an int32 step tensor there (an int step is first made
+    one, by a fill on the device, not a copy from the host)."""
+    if not isinstance(step, torch.Tensor):
+        step = torch.full((), step, dtype=torch.int32, device=device)
+    t = step.to(F32) + 1.0
+    return 1.0 - torch.pow(b1, t), 1.0 - torch.pow(b2, t)
 
 
 def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,

@@ -1,0 +1,281 @@
+"""The scenario compiler: `ScenarioSpec` → materialized client data →
+Experiments (port of ``repro/scenarios/compile.py``; the fleet path is
+not ported yet).
+
+    spec = get_scenario("pathological_shards")
+    exps = build_experiments(spec, model, strategies=("fedelmy", "fedseq"),
+                             seeds=(0, 1), fed=fed)
+
+`materialize(spec, seed)` draws the synthetic dataset, runs the
+registered partitioner, applies the population knobs (participation,
+dropout, stragglers) and resolves the eval-split policy, in numpy,
+bitwise as the reference does. `ScenarioData.streams()` mints fresh
+stateful per-client streams per call: the client shards go to the device
+once per materialization and are shared by every `DataPlan`, while each
+plan's shuffle cursor is its own. `scan=` routes the captured local phase
+or the per-step loop over the device arrays, `device=False` the host
+`batch_iterator` streams; all three give bitwise the same batches.
+
+`_run_scenario` (behind `repro_torch.api.launch`) runs the experiments one
+after another; the reference runs each strategy's seeds as one batched
+program, which the port does not have yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch.api.engine import Experiment, _run
+from repro_torch.api.results import BatchResult
+from repro_torch.configs.base import FedConfig
+from repro_torch.data.partition import train_val_split
+from repro_torch.data.pipeline import batch_iterator, image_batch
+from repro_torch.data.plan import DataPlan
+from repro_torch.data.synthetic import (SyntheticImageDataset,
+                                        make_domain_datasets,
+                                        make_image_dataset)
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.scenarios.registry import get_partitioner
+from repro_torch.scenarios.spec import ScenarioSpec
+
+Arrays = Dict[str, np.ndarray]
+
+
+class _ClientStreams:
+    """The stream-minting surface of `ScenarioData`: one documented
+    contract (`streams`), one device-upload cache, one tiling rule.
+    Subclasses provide `client_data`, `seed` and `_batch_size`."""
+
+    client_data: List[Arrays]
+    seed: int
+
+    @property
+    def _batch_size(self) -> int:
+        raise NotImplementedError
+
+    def _tiled_client(self, i: int) -> Arrays:
+        """Client `i`'s arrays, deterministically tiled up to one full
+        batch when smaller than `batch_size` (quantity skew, stragglers):
+        the batch shape is a pure function of the spec."""
+        c = self.client_data[i]
+        n = len(c["labels"])
+        bs = self._batch_size
+        if n < bs:
+            idx = np.tile(np.arange(n), -(-bs // n))[:bs]
+            c = {k: v[idx] for k, v in c.items()}
+        return c
+
+    def _device_clients(self, device: torch.device
+                        ) -> List[Dict[str, torch.Tensor]]:
+        """Per-client arrays on `device`, uploaded once per
+        materialization and device, shared by every DataPlan minted from
+        it."""
+        cache = self.__dict__.setdefault("_device_cache", {})
+        if device not in cache:
+            cache[device] = [
+                {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                 for k, v in self._tiled_client(i).items()}
+                for i in range(len(self.client_data))]
+        return cache[device]
+
+    def streams(self, base_seed: Optional[int] = None, *,
+                scan: bool = True, device: bool = True,
+                to: DeviceLike = None) -> List[Any]:
+        """Fresh per-client streams — THE stream contract. Call once per
+        experiment: every stream's cursor is stateful; the device arrays
+        underneath are shared (uploaded once).
+
+        device=True (default) mints device-resident `DataPlan`s on `to`
+        (the CUDA device unless named): `scan=True` routes the captured
+        local phase, `scan=False` keeps per-step dispatch over the device
+        arrays (an oracle/debug knob). device=False returns host-streaming
+        `batch_iterator`s yielding on `to` — the per-step oracle. All
+        three give bitwise the same batch sequences."""
+        base = self.seed if base_seed is None else base_seed
+        dev = resolve_device(to)
+        if device:
+            return [DataPlan(arr, self._batch_size, seed=base * 100 + i,
+                             scan=scan, device=dev)
+                    for i, arr in enumerate(self._device_clients(dev))]
+        return [batch_iterator(self._tiled_client(i), self._batch_size,
+                               seed=base * 100 + i, device=dev)
+                for i in range(len(self.client_data))]
+
+
+@dataclasses.dataclass
+class ScenarioData(_ClientStreams):
+    """One seed's materialization of a spec: per-active-client arrays plus
+    the evaluation set."""
+    spec: ScenarioSpec
+    seed: int
+    client_ids: List[int]            # original client indices (post
+                                     # participation/dropout selection)
+    client_data: List[Arrays]        # {"images", "labels"} per client
+    client_val: List[Optional[Arrays]]   # val_frac carves (None if 0)
+    eval_data: Arrays
+    n_classes: int
+
+    @property
+    def _batch_size(self) -> int:
+        return self.spec.batch_size
+
+    def eval_dataset(self) -> SyntheticImageDataset:
+        return SyntheticImageDataset(self.eval_data["images"],
+                                     self.eval_data["labels"],
+                                     self.n_classes)
+
+    def sizes(self) -> List[int]:
+        return [len(c["labels"]) for c in self.client_data]
+
+
+def _index_family_clients(spec: ScenarioSpec, seed: int, fn: Callable):
+    """Index partitioners run over one flat dataset; "holdout" eval carves
+    the test split before partitioning."""
+    ds = make_image_dataset(spec.n_samples, spec.n_classes, spec.side,
+                            spec.noise, seed=seed)
+    if spec.eval_split == "holdout":
+        train_idx, hold_idx = train_val_split(len(ds.labels),
+                                              spec.holdout_frac,
+                                              seed=seed + 13)
+        eval_arr = image_batch(ds, np.sort(hold_idx))
+        train_idx = np.sort(train_idx)
+        images, labels = ds.images[train_idx], ds.labels[train_idx]
+    else:
+        test = make_image_dataset(spec.n_test, spec.n_classes, spec.side,
+                                  spec.noise, seed=seed + 91)
+        eval_arr = image_batch(test)
+        images, labels = ds.images, ds.labels
+    parts = fn(labels, spec.n_clients, seed=seed, **spec.partitioner_params)
+    clients = [{"images": images[p], "labels": labels[p]} for p in parts]
+    return clients, eval_arr
+
+
+def _dataset_family_clients(spec: ScenarioSpec, seed: int, fn: Callable):
+    """Dataset partitioners (domain_shift / feature_shift) build their own
+    per-client datasets; the global eval set spans every domain/severity
+    rung, so the metric measures cross-shift transfer."""
+    if spec.eval_split != "global":
+        raise ValueError(
+            f"scenario {spec.name!r}: eval_split='holdout' requires an "
+            f"index partitioner; {spec.family} produces per-client "
+            "datasets — use eval_split='global'")
+    if spec.family == "domain_shift":
+        doms = make_domain_datasets(spec.n_samples // 4, spec.n_classes,
+                                    spec.side, spec.noise, seed=seed)
+        clients = fn(doms, spec.n_clients, seed=seed,
+                     **spec.partitioner_params)
+        test = make_domain_datasets(max(1, spec.n_test // 4), spec.n_classes,
+                                    spec.side, spec.noise, seed=seed + 91)
+        eval_sets = list(test.values())
+    else:                            # feature_shift ladder
+        base = make_image_dataset(spec.n_samples, spec.n_classes, spec.side,
+                                  spec.noise, seed=seed)
+        clients = fn(base, spec.n_clients, seed=seed,
+                     **spec.partitioner_params)
+        test_base = make_image_dataset(spec.n_test, spec.n_classes,
+                                       spec.side, spec.noise, seed=seed + 91)
+        eval_sets = fn(test_base, spec.n_clients, seed=seed + 91,
+                       **spec.partitioner_params)
+    eval_arr = {"images": np.concatenate([d.images for d in eval_sets]),
+                "labels": np.concatenate([d.labels for d in eval_sets])}
+    return [image_batch(c) for c in clients], eval_arr
+
+
+def materialize(spec: ScenarioSpec, seed: int = 0) -> ScenarioData:
+    """Draw the scenario's dataset, partition it, and apply the population
+    knobs. Deterministic in (spec, seed) — for `domain_shift`, within a
+    process (its partitioner draws in the order of a set of domain
+    names)."""
+    pspec = get_partitioner(spec.partitioner)
+    if pspec.kind == "indices":
+        clients, eval_arr = _index_family_clients(spec, seed, pspec.fn)
+    else:
+        clients, eval_arr = _dataset_family_clients(spec, seed, pspec.fn)
+
+    active = spec.active_clients(seed)
+    client_data, client_val = [], []
+    for c in active:
+        arr = clients[c]
+        if c in set(spec.stragglers) and spec.straggler_keep < 1.0:
+            n = len(arr["labels"])
+            keep = max(1, int(round(spec.straggler_keep * n)))
+            idx = np.sort(np.random.default_rng(seed + 17 + c).choice(
+                n, size=keep, replace=False))
+            arr = {k: v[idx] for k, v in arr.items()}
+        if spec.val_frac > 0.0:
+            tr, va = train_val_split(len(arr["labels"]), spec.val_frac,
+                                     seed=seed * 1000 + c)
+            client_val.append({k: v[va] for k, v in arr.items()})
+            arr = {k: v[tr] for k, v in arr.items()}
+        else:
+            client_val.append(None)
+        client_data.append(arr)
+    return ScenarioData(spec=spec, seed=seed, client_ids=active,
+                        client_data=client_data, client_val=client_val,
+                        eval_data=eval_arr, n_classes=spec.n_classes)
+
+
+def accuracy_eval(model, data: ScenarioData) -> Callable:
+    """Default eval_fn: full-batch argmax accuracy over the scenario's
+    eval split, on the model's device (the split uploaded once); returns
+    a device scalar (the engine's `float` is the sync)."""
+    images = torch.from_numpy(data.eval_data["images"]).to(model.device)
+    labels = torch.from_numpy(data.eval_data["labels"]).to(model.device)
+
+    def acc(params):
+        with torch.no_grad():
+            logits = model.forward(params, {"images": images})
+        return (logits.argmax(-1) == labels).float().mean()
+    return acc
+
+
+def build_experiments(spec: ScenarioSpec, model, *,
+                      fed: FedConfig,
+                      strategies: Sequence[str] = ("fedelmy",),
+                      seeds: Sequence[int] = (0,),
+                      shots: int = 1,
+                      eval_builder: Optional[Callable] = None,
+                      strategy_options: Optional[Dict[str, Dict]] = None,
+                      scan: bool = True,
+                      ) -> List[Experiment]:
+    """Compile a scenario sweep into Experiments: one per (strategy, seed)
+    in that order, sharing one materialization per seed but minting fresh
+    streams (DataPlans on the model's device) per experiment; seed s is
+    the Experiment's seed (`model.init(s)`). `fed.n_clients` becomes the
+    spec's active count. `scan=False` keeps the per-step loop over the
+    device-resident shards (an oracle/debug knob)."""
+    fed = dataclasses.replace(fed, n_clients=spec.n_active)
+    build_eval = eval_builder if eval_builder is not None else accuracy_eval
+    datas = {seed: materialize(spec, seed) for seed in seeds}
+    evals = {seed: build_eval(model, datas[seed]) for seed in seeds}
+    opts = strategy_options or {}
+    return [Experiment(model=model,
+                       client_iters=datas[seed].streams(scan=scan,
+                                                        to=model.device),
+                       fed=fed, strategy=strategy, seed=seed,
+                       eval_fn=evals[seed], shots=shots,
+                       strategy_options=dict(opts.get(strategy, {})))
+            for strategy in strategies for seed in seeds]
+
+
+def run_experiments(experiments: Sequence[Experiment]) -> BatchResult:
+    """Run Experiments one after another (the port has no batched
+    engine yet): one `RunResult` each, in order."""
+    t0 = time.time()
+    runs = [_run(e) for e in experiments]
+    return BatchResult(runs=runs, wall_time_s=time.time() - t0,
+                       n_compiled_groups=len(runs))
+
+
+def _run_scenario(spec: ScenarioSpec, model, *, fed: FedConfig,
+                  strategies: Sequence[str] = ("fedelmy",),
+                  seeds: Sequence[int] = (0,), **kw) -> BatchResult:
+    """Compile a scenario sweep and run its experiments one after another
+    (the implementation behind `repro_torch.api.launch`)."""
+    exps = build_experiments(spec, model, fed=fed, strategies=strategies,
+                             seeds=seeds, **kw)
+    return run_experiments(exps)
