@@ -110,6 +110,29 @@ Phases, each failing the run with a nonzero exit:
              accuracy per column, the best (a tie printed as a tie) beside
              the reference's claim, wall time, exact launch counts and
              captures a run; every run finite, fedelmy above chance
+20. batched sweeps — (a) the GEMM with a run axis: the CNN's 8 step
+             products and a ragged shape at B = 2, 5 and 9 runs (and an
+             operand the runs share), each batched launch bitwise B
+             single launches, with times beside B × the single launch,
+             B × the bound and `torch.bmm`; SGD over B runs' stacked
+             leaves in one launch, bitwise B updates; (b) the sweep's (B, ·)
+             autograd route (`torch.func.vmap` over B runs' leaves and
+             pools, capacity 4, B = 2 and 9): one forward and one
+             backward launch, stats and ∂w bitwise B single-run calls and
+             within the kernel's bounds of the plain versions, kernel
+             times beside B × the single-run ones and B × the bound;
+             (c) one batched step of each kind (fused plain and pool,
+             native, anchored, SAM) at B = 2 and 9 within 1e-5 of the
+             single steps, decisions pinned; Table 1's seed axis: each
+             of the five methods' seeds as one group through
+             `launch(exp, axes=BatchAxes(seeds=...))` at phase 19's
+             label-skew data and scale, 5 groups, exact launch counts
+             and captures a group, each run against its sequential run
+             and two one-ulp control runs (where the controls stay within
+             0.01 of its accuracy, the batched run within 0.01 beyond
+             their move), `batch_speedup` for fedelmy;
+             (d) Fig. 10's 3 × 3 (α, β) grid as one group of 9 fedelmy
+             runs, held as in (c), the accuracies and the speedup
 
 Before the last lines it prints every measurement as one JSON object on
 a line starting "details: "; then the kernels' JSON record and the card's
@@ -2834,8 +2857,8 @@ def _cnn_table(torch, capacity, count, seed0):
 
 
 def _hold_backward(torch, pd_mod, ref, name, ws, ms, g_stats, g_wsq):
-    """One backward case against `pool_distance_stats_bwd_ref` per leaf,
-    elementwise within (4C + 4)·2⁻²³ of the sum of the absolute terms (both
+    """One backward case against `pool_distance_stats_bwd_ref` per leaf
+    and run, elementwise within (4C + 4)·2⁻²³ of the sum of the absolute terms (both
     sides round each member's three terms and the sum once or twice); a
     second call gives the same bits."""
     outs = pd_mod.pool_distance_bwd_f32(ws, ms, g_stats, g_wsq)
@@ -2843,20 +2866,21 @@ def _hold_backward(torch, pd_mod, ref, name, ws, ms, g_stats, g_wsq):
     torch.cuda.synchronize()
     repeat = all(torch.equal(a, b) for a, b in zip(outs, again))
     c = ms[0].shape[1]
-    gs, gl, gd = (g_stats[0, i][:, None] for i in range(3))
     worst, max_abs, finite = 0.0, 0.0, True
-    for w, m, out in zip(ws, ms, outs):
-        want = ref.pool_distance_stats_bwd_ref(
-            w[0], m[0], g_stats[0, 0], g_stats[0, 1], g_stats[0, 2],
-            g_wsq=g_wsq[0])
-        r = w[0][None] - m[0]
-        terms = ((2 * gs * r).abs() + gl.abs() + (gd * m[0]).abs()).sum(0) \
-            + (2 * g_wsq[0] * w[0]).abs()
-        bound = (4 * c + 4) * 2.0 ** -23 * terms.double()
-        err = (out[0].double() - want.double()).abs()
-        worst = max(worst, float((err / bound.clamp_min(1e-30)).max()))
-        max_abs = max(max_abs, float(err.max()))
-        finite = finite and bool(torch.isfinite(out).all())
+    for b in range(ws[0].shape[0]):
+        gs, gl, gd = (g_stats[b, i][:, None] for i in range(3))
+        for w, m, out in zip(ws, ms, outs):
+            want = ref.pool_distance_stats_bwd_ref(
+                w[b], m[b], g_stats[b, 0], g_stats[b, 1], g_stats[b, 2],
+                g_wsq=g_wsq[b])
+            r = w[b][None] - m[b]
+            terms = ((2 * gs * r).abs() + gl.abs() +
+                     (gd * m[b]).abs()).sum(0) + (2 * g_wsq[b] * w[b]).abs()
+            bound = (4 * c + 4) * 2.0 ** -23 * terms.double()
+            err = (out[b].double() - want.double()).abs()
+            worst = max(worst, float((err / bound.clamp_min(1e-30)).max()))
+            max_abs = max(max_abs, float(err.max()))
+            finite = finite and bool(torch.isfinite(out[b]).all())
     print(f"  sweep backward {name:19s}: worst error {worst:.2e} of its "
           f"bound, max abs {max_abs:.3e}; repeat "
           f"{'bitwise' if repeat else 'DIFFERS'}")
@@ -3568,6 +3592,602 @@ def table1_scenarios(torch, local_step):
                table.items()])
 
 
+# ---------------------------------------------------------------------------
+# phase 20: batched sweeps — a run axis through the GEMM and the sweep
+# ---------------------------------------------------------------------------
+
+BATCH_GEMM_RUNS = (2, 5, 9)
+BATCH_SWEEP_RUNS = (2, 9)
+BATCH_SWEEP_CAPACITY = 4
+# benchmarks/fig10_pool_heatmap.py:26-27
+FIG10_ALPHAS = (0.02, 0.06, 0.18)
+FIG10_BETAS = (0.25, 1.0, 4.0)
+# one batched step against the B single steps from the same states: each
+# run's gradient within STEP_REL_TOL of the single step's, per leaf,
+# normwise (phase 5's per-step tolerance), through the step's loss with
+# the single forward's ReLU and max-pool decisions pinned (`pinned_loss`,
+# as phase 5 holds the card to the CPU): the GEMM and the sweep are
+# bitwise per run, the step's other operators (cuBLAS's batched fc
+# products, the bias and loss reductions, cuDNN's grouped convs) round
+# differently from their single-run forms, and a near-tie decision that
+# falls the other way moves a whole gradient term (counted, not held).
+STEP_RUNS = (2, 9)
+STEP_REL_TOL = 1e-5
+# a whole batched run against its sequential run: where both control runs
+# (the sequential run from an init whose first c1.w element is one ulp up,
+# and one ulp down) end within BATCH_ACC_TOL of its accuracy, the batched
+# run must end within BATCH_ACC_TOL of it beyond the controls' larger move
+# (the batched run is one more rounding of the same run; the native
+# forward's cuDNN weight gradients are not even repeatable from one
+# process to the next). Elsewhere one rounding already moves the run
+# further than that (full-width training carries a rounding difference
+# through max-pool and ReLU decisions and Adam's normalised small
+# gradients until it is the size of the distance moved: phase 5's slice;
+# PERF.md §6), and the batched run's distances are printed beside the
+# controls'.
+BATCH_ACC_TOL = 0.01
+
+
+def _step_products(torch, gen, runs, shape):
+    """One conv's products of a training step, at `runs` runs: (name,
+    operands, transpose flags, per-run (M, K, N))."""
+    name, m, k, n, needs_da = shape
+    a = torch.randn(runs, m, k, device=CARD, generator=gen)
+    b = torch.randn(runs, k, n, device=CARD, generator=gen)
+    g = torch.randn(runs, m, n, device=CARD, generator=gen)
+    prods = [("fwd", a, b, False, False, (m, k, n))]
+    if needs_da:
+        prods.append(("dA", g, b, False, True, (m, n, k)))
+    prods.append(("dB", a, g, True, False, (k, m, n)))
+    return prods
+
+
+def batched_gemm(torch, local_step):
+    """Phase 20 (a): each product of the CNN's step (and the ragged shape)
+    at B runs in one launch, bitwise the B single launches, at every B of
+    BATCH_GEMM_RUNS; once a B, an operand the runs share (run stride 0).
+    Times of the step's 8 products summed: the batched launches, B × the
+    single launch, B × the bound, `torch.bmm` on the same operands."""
+    gen = torch.Generator(device=CARD).manual_seed(20)
+    rows, steps = [], []
+    for runs in BATCH_GEMM_RUNS:
+        step = dict(runs=runs, ms=0.0, single_ms=0.0, bound_ms=0.0,
+                    bmm_ms=0.0)
+        for shape in MAIN_SHAPES + [RAGGED_SHAPE]:
+            for prod, x, y, ta, tb, (m, k, n) in _step_products(
+                    torch, gen, runs, shape):
+                before = local_step.gemm_f32.launches
+                out = local_step.gemm_f32(x, y, trans_a=ta, trans_b=tb)
+                if local_step.gemm_f32.launches - before != 1:
+                    fail(f"phase 20 gemm {shape[0]} {prod} × {runs}: not "
+                         "one launch")
+                singles = [local_step.gemm_f32(x[i], y[i], trans_a=ta,
+                                               trans_b=tb)
+                           for i in range(runs)]
+                shared = local_step.gemm_f32(
+                    x, y[:1].expand(runs, *y.shape[1:]), trans_a=ta,
+                    trans_b=tb)
+                shared_one = local_step.gemm_f32(x[-1], y[0], trans_a=ta,
+                                                 trans_b=tb)
+                torch.cuda.synchronize()
+                bitwise = all(torch.equal(out[i], singles[i])
+                              for i in range(runs))
+                shared_ok = torch.equal(shared[-1], shared_one)
+                if not (bitwise and shared_ok):
+                    fail(f"phase 20 gemm {shape[0]} {prod} × {runs}: the "
+                         "batched launch differs from single launches "
+                         f"(runs {bitwise}, shared operand {shared_ok})")
+                row = dict(runs=runs, conv=shape[0], product=prod, m=m, k=k,
+                           n=n, plan=list(local_step.gemm_plan(m, n, k)),
+                           bitwise=True)
+                if shape[0] != "ragged":
+                    xo = x.transpose(1, 2) if ta else x
+                    yo = y.transpose(1, 2) if tb else y
+                    row.update(
+                        ms=median_ms(lambda: local_step.gemm_f32(
+                            x, y, trans_a=ta, trans_b=tb)),
+                        single_ms=median_ms(lambda: local_step.gemm_f32(
+                            x[0], y[0], trans_a=ta, trans_b=tb)),
+                        bmm_ms=median_ms(lambda: torch.bmm(xo, yo)),
+                        bound_ms=max(bound_parts_s(m, k, n)) * 1e3)
+                    step["ms"] += row["ms"]
+                    step["single_ms"] += runs * row["single_ms"]
+                    step["bound_ms"] += runs * row["bound_ms"]
+                    step["bmm_ms"] += row["bmm_ms"]
+                rows.append(row)
+        steps.append(step)
+        print(f"  gemm × {runs} runs, the step's 8 products: batched "
+              f"{step['ms']:.4f} ms, {runs} × single {step['single_ms']:.4f}"
+              f" ms, {runs} × bound {step['bound_ms']:.4f} ms, torch.bmm "
+              f"{step['bmm_ms']:.4f} ms; every product and the ragged one "
+              "bitwise single launches (and with a shared operand)")
+    return dict(products=rows, steps=steps)
+
+
+def batched_sgd(torch, local_step):
+    """Phase 20 (a, SGD): dfedsam's batched update — the CNN's 10 leaves of
+    B runs stacked (B, *shape), f32 — in one launch, bitwise the B
+    single-run updates, at B of BATCH_SWEEP_RUNS; its time beside B × the
+    single update and B × the bound (each element read from p and g and
+    written once)."""
+    from repro_torch.api.trainer import stack_trees
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    model = build_model(get_arch("paper-cnn"))
+    gen = torch.Generator(device=CARD).manual_seed(23)
+    out = []
+    for runs in BATCH_SWEEP_RUNS:
+        ps = [model.init(700 + i) for i in range(runs)]
+        gs = [{k: torch.randn(v.shape, device=CARD, generator=gen)
+               for k, v in p.items()} for p in ps]
+        names = list(ps[0])
+        sp, sg = stack_trees(ps), stack_trees(gs)
+        before = local_step.sgd_f32.launches
+        new = local_step.sgd_f32([sp[k] for k in names],
+                                 [sg[k] for k in names], lr=SGD_LR, wd=SGD_WD)
+        launches = local_step.sgd_f32.launches - before
+        singles = [local_step.sgd_f32([p[k] for k in names],
+                                      [g[k] for k in names], lr=SGD_LR,
+                                      wd=SGD_WD) for p, g in zip(ps, gs)]
+        torch.cuda.synchronize()
+        if launches != 1 or not all(torch.equal(a[i], b) for i in range(runs)
+                                    for a, b in zip(new, singles[i])):
+            fail(f"phase 20 sgd × {runs}: {launches} launches; the stacked "
+                 "update must be one launch, bitwise the single updates")
+        n_el = runs * sum(v.numel() for v in ps[0].values())
+        row = dict(runs=runs, launches=launches,
+                   ms=median_ms(lambda: local_step.sgd_f32(
+                       [sp[k] for k in names], [sg[k] for k in names],
+                       lr=SGD_LR, wd=SGD_WD)),
+                   single_ms=median_ms(lambda: local_step.sgd_f32(
+                       [ps[0][k] for k in names], [gs[0][k] for k in names],
+                       lr=SGD_LR, wd=SGD_WD)),
+                   bound_ms=3 * n_el * 4 / PEAK_BYTES * 1e3)
+        print(f"  sgd × {runs} runs (the CNN's leaves stacked): 1 launch, "
+              f"bitwise the single updates; {row['ms']:.4f} ms ({runs} × "
+              f"single {runs * row['single_ms']:.4f}, bound "
+              f"{row['bound_ms']:.4f})")
+        out.append(row)
+    return out
+
+
+def batched_sweep(torch, pd_mod, ref):
+    """Phase 20 (b): the sweep's autograd route at B runs — d1/d2's stats
+    of B runs' full-width CNN leaves against B pools of capacity 4 (3
+    members), under `torch.func.vmap`, and ∂w of a random ḡ through
+    autograd: one forward and one backward launch; stats, Σw² and ∂w
+    bitwise B single-run calls of the route (the plan is the run's), and
+    the kernels at the route's table within their bounds of the plain
+    versions (`_hold_stats`, `_hold_backward`). Times: the kernels at the
+    B-run table beside B × a one-run table and B × the bound."""
+    from repro_torch.api.trainer import stack_trees
+    from repro_torch.configs import get_arch
+    from repro_torch.core.pool import ModelPool
+    from repro_torch.models import build_model
+    model = build_model(get_arch("paper-cnn"))
+    gen = torch.Generator(device=CARD).manual_seed(21)
+    out = []
+
+    def stats_of(p, m):
+        stats, wsq = pd_mod.tree_pool_distance_stats(p, m)
+        return torch.stack([stats[k] for k in pd_mod.STATS]), wsq
+
+    for runs in BATCH_SWEEP_RUNS:
+        pools = []
+        for i in range(runs):
+            pool = ModelPool.create(model.init(300 + 10 * i),
+                                    BATCH_SWEEP_CAPACITY)
+            for j in (1, 2):
+                pool = pool.append(model.init(300 + 10 * i + j))
+            pools.append(pool)
+        params = stack_trees([model.init(400 + i) for i in range(runs)])
+        members = stack_trees([p.members for p in pools])
+        c = BATCH_SWEEP_CAPACITY
+        g_stats = torch.randn((runs, 4, c), device=CARD, generator=gen)
+        g_wsq = torch.randn((runs,), device=CARD, generator=gen)
+        leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        _reset_sweep()
+        stats, wsq = torch.func.vmap(stats_of)(leaves, members)
+        grads = torch.autograd.grad(
+            (stats * g_stats).sum() + (wsq * g_wsq).sum(),
+            list(leaves.values()))
+        torch.cuda.synchronize()
+        launches = _read_sweep()
+        if launches != {"forward": 1, "backward": 1}:
+            fail(f"phase 20 sweep × {runs}: launches {launches}; expected "
+                 "one forward and one backward")
+        for i in range(runs):
+            one = {k: v[i].clone().requires_grad_(True)
+                   for k, v in params.items()}
+            s_i, w_i = stats_of(one, pools[i].members)
+            g_i = torch.autograd.grad((s_i * g_stats[i]).sum() +
+                                      w_i * g_wsq[i], list(one.values()))
+            if not (torch.equal(stats[i], s_i) and torch.equal(wsq[i], w_i)
+                    and all(torch.equal(a[i], b) for a, b in zip(grads,
+                                                                  g_i))):
+                fail(f"phase 20 sweep × {runs}: run {i} differs from its "
+                     "single-run call")
+        names = list(params)
+        ws = [params[k].reshape(runs, -1) for k in names]
+        ms = [members[k].reshape(runs, c, -1) for k in names]
+        held, kstats, kwsq = _hold_stats(torch, pd_mod, ref,
+                                         f"route × {runs} runs", ws, ms)
+        if not (torch.equal(kstats, stats.detach()) and
+                torch.equal(kwsq, wsq.detach())):
+            fail(f"phase 20 sweep × {runs}: the route's stats are not the "
+                 "kernel's at its table")
+        held_bwd = _hold_backward(torch, pd_mod, ref, f"route × {runs}",
+                                  ws, ms, g_stats, g_wsq)
+        kgrads = pd_mod.pool_distance_bwd_f32(ws, ms, g_stats, g_wsq)
+        if not all(torch.equal(a.reshape(runs, -1), b)
+                   for a, b in zip(grads, kgrads)):
+            fail(f"phase 20 sweep × {runs}: the route's ∂w is not the "
+                 "kernel's at its table")
+        p_el = sum(w.shape[1] for w in ws)
+        fwd_bound = _bound(runs * ((c + 1) * p_el * 4 + (4 * c + 1) * 4),
+                           runs * p_el * (8 * c + 2), PEAK_F32_FLOPS)
+        bwd_bound = _bound(runs * ((c + 2) * p_el * 4 + (4 * c + 1) * 4),
+                           runs * p_el * (7 * c + 2), PEAK_F32_FLOPS)
+        one_ws, one_ms = [w[:1] for w in ws], [m[:1] for m in ms]
+        row = dict(
+            runs=runs, capacity=c, elements=p_el, stats=held,
+            backward=held_bwd,
+            forward_ms=median_ms(lambda: pd_mod.pool_distance_f32(ws, ms)),
+            forward_single_ms=median_ms(
+                lambda: pd_mod.pool_distance_f32(one_ws, one_ms)),
+            forward_bound_ms=fwd_bound[0],
+            backward_ms=median_ms(lambda: pd_mod.pool_distance_bwd_f32(
+                ws, ms, g_stats, g_wsq)),
+            backward_single_ms=median_ms(lambda: pd_mod.pool_distance_bwd_f32(
+                one_ws, one_ms, g_stats[:1], g_wsq[:1])),
+            backward_bound_ms=bwd_bound[0])
+        print(f"  sweep route × {runs} runs: 1 forward + 1 backward launch, "
+              "bitwise single-run calls; forward "
+              f"{row['forward_ms']:.4f} ms ({runs} × single "
+              f"{runs * row['forward_single_ms']:.4f}, bound "
+              f"{row['forward_bound_ms']:.4f}), backward "
+              f"{row['backward_ms']:.4f} ms ({runs} × single "
+              f"{runs * row['backward_single_ms']:.4f}, bound "
+              f"{row['backward_bound_ms']:.4f})")
+        out.append(row)
+    return out
+
+
+def expected_group(strategy, fed):
+    """What one batched group of `strategy` launches: a run's counts
+    (`expected_run`), for every B — the launches serve all runs — except
+    that the independent topologies step their clients together too (the
+    run and client axes are one), so their per-client work is counted
+    once."""
+    want = dict(expected_run(strategy, fed))
+    n = fed.n_clients
+    if strategy in ("dfedavgm", "dfedsam"):
+        for key in ("fused", "custom", "sgd", "sweep"):
+            want[key] //= n
+    return want
+
+
+def _leaf_rel(a, b):
+    """The largest over leaves of ‖a − b‖ / ‖b‖ (0 where both are 0)."""
+    return max(float((a[k].double() - b[k].double()).norm()) /
+               max(float(b[k].double().norm()), 1e-30) for k in b)
+
+
+def _control(exp, direction):
+    """`exp` from an init whose first c1.w element is one ulp up
+    (`direction` +1) or down (-1): what one rounding does to its run."""
+    import dataclasses
+
+    import torch
+
+    def init(seed, init=exp.model.init):
+        params = dict(init(seed))
+        w = params["c1.w"].clone()
+        flat = w.view(-1)
+        flat[0] = torch.nextafter(flat[0], flat[0] + direction)
+        params["c1.w"] = w
+        return params
+    return dataclasses.replace(exp, model=exp.model._replace(init=init))
+
+
+def batched_steps(torch, local_step, ref):
+    """Phase 20 (c, step): one batched step of each kind the Table 1
+    methods take against the B single steps from the same states, at B of
+    STEP_RUNS, through the step's loss with each run's decisions pinned to
+    its single forward's (`pinned_loss`; the fused loss for the plain and
+    Eq. 9 pool steps, the native `F.conv2d` loss for dfedsam's SAM step
+    and MetaFed's anchored step): the gradients under `torch.func.vmap`
+    and autograd on the stacked leaves, and the SAM step's gradient at
+    its perturbed point (`sam_update_batched` against `sam_update`). Each
+    run's within STEP_REL_TOL per leaf, normwise. Beside them, the same
+    through the model's own losses, and the decisions that fell
+    differently there."""
+    from repro_torch.api.pools import backend_for
+    from repro_torch.api.strategies import _anchored_loss
+    from repro_torch.api.trainer import hp_regularized_loss, stack_trees
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.optim.optimizers import Optimizer
+    from repro_torch.optim.sam import sam_update, sam_update_batched
+
+    model = build_model(get_arch("paper-cnn"))
+    fed = FedConfig(**TABLE1_SCENARIO_FED)
+    backend = backend_for(fed)
+    gen = torch.Generator(device=CARD).manual_seed(22)
+    # an "optimizer" whose update is the gradient: the SAM step's g_adv
+    probe = Optimizer("gradient", lambda p: (), lambda p, g, st, step: (g, st))
+
+    def with_decisions(conv):
+        def loss(p, b):
+            return pinned_loss(torch, b["decisions"], conv)(p, b)
+        return loss
+
+    losses = {}
+    for kind, conv, own in (("fused", None,
+                             local_step.fused_loss_for(model.loss_fn)),
+                            ("native", ref.conv2d_ref, model.loss_fn)):
+        for pinned in (True, False):
+            fn = with_decisions(conv) if pinned else own
+            losses[(kind, pinned)] = fn
+    regularized = {k: hp_regularized_loss(fn, fed, backend)
+                   for k, fn in losses.items()}
+    anchored = {k: _anchored_loss(fn, 0.5) for k, fn in losses.items()}
+
+    def grads(objective, params, *args, batched):
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        total = (torch.func.vmap(objective)(leaves, *args).sum() if batched
+                 else objective(leaves, *args))
+        return dict(zip(leaves, torch.autograd.grad(total,
+                                                    list(leaves.values()))))
+
+    out = []
+    for runs in STEP_RUNS:
+        ps = [model.init(500 + i) for i in range(runs)]
+        others = [model.init(600 + i) for i in range(runs)]
+        pools = [backend.create(p, fed).append(o) for p, o in zip(ps, others)]
+        alpha = torch.full((runs,), fed.alpha, device=CARD)
+        beta = torch.full((runs,), fed.beta, device=CARD)
+        batches = []
+        for p in ps:
+            images = torch.randn(64, 32, 32, 3, device=CARD, generator=gen)
+            batches.append({"images": images, "labels": torch.randint(
+                0, 10, (64,), device=CARD, generator=gen).int()})
+        row = dict(runs=runs, pinned={}, model={}, flips={})
+        for kind, conv in (("fused", None), ("native", ref.conv2d_ref)):
+            decided = [dict(b, decisions=cnn_decisions(torch, p, b["images"],
+                                                       conv))
+                       for p, b in zip(ps, batches)]
+            stacked = stack_trees(decided)
+            bat_dec = torch.func.vmap(
+                lambda p, x: cnn_decisions(torch, p, x, conv))(
+                    stack_trees(ps), stacked["images"])
+            row["flips"][kind] = sum(sum(count_flips(
+                {k: tuple(t[i] for t in v) for k, v in bat_dec.items()},
+                {k: tuple(t.cpu() for t in v)
+                 for k, v in d["decisions"].items()}).values())
+                for i, d in enumerate(decided))
+            for pinned in (True, False):
+                fn = losses[(kind, pinned)]
+                cases = {"step": (fn, [(b,) for b in decided])}
+                if kind == "fused":
+                    cases["pool step"] = (
+                        lambda p, b, pool, a, be, f=regularized[
+                            (kind, pinned)]: f(p, b, pool, a, be)[0],
+                        [(b, pl, alpha[0], beta[0])
+                         for b, pl in zip(decided, pools)])
+                else:
+                    cases["anchored step"] = (
+                        anchored[(kind, pinned)],
+                        [(b, o) for b, o in zip(decided, others)])
+                for name, (objective, args) in cases.items():
+                    columns = [stack_trees(list(a)) for a in zip(*args)]
+                    got = grads(objective, stack_trees(ps), *columns,
+                                batched=True)
+                    row["pinned" if pinned else "model"][
+                        f"{kind} {name}"] = max(_leaf_rel(
+                            {k: v[i] for k, v in got.items()},
+                            grads(objective, ps[i], *args[i], batched=False))
+                        for i in range(runs))
+                if kind == "native":
+                    step = torch.zeros((), dtype=torch.int32, device=CARD)
+                    got, _ = sam_update_batched(fn, stack_trees(ps),
+                                                stacked, probe, (), step)
+                    row["pinned" if pinned else "model"]["sam step"] = max(
+                        _leaf_rel({k: v[i] for k, v in got.items()},
+                                  sam_update(fn, ps[i], decided[i], probe,
+                                             (), step)[0])
+                        for i in range(runs))
+        print(f"  one batched step × {runs} against {runs} single steps, "
+              "largest leaf difference (normwise), decisions pinned: " +
+              ", ".join(f"{k} {v:.2e}" for k, v in row["pinned"].items()) +
+              "; the model's own losses: " +
+              ", ".join(f"{k} {v:.2e}" for k, v in row["model"].items()) +
+              f"; decisions that fell differently: {row['flips']}")
+        worst = max(row["pinned"].values())
+        if worst > STEP_REL_TOL:
+            fail(f"phase 20 steps × {runs}: {row['pinned']}; limit "
+                 f"{STEP_REL_TOL}")
+        out.append(row)
+    return out
+
+
+def _batched_vs_sequential(torch, local_step, base, axes, what, captures):
+    """`launch(base, axes=axes)` — one group — and each of its runs through
+    `launch` of its own Experiment (from `axes.expand(base)`, streams
+    built before the timed window): walls, launch counts and captures of
+    the group, and each run held to its sequential run beside two control
+    runs one rounding away (`_control`; the limit at BATCH_ACC_TOL)."""
+    from repro_torch.api import launch
+    seq_exps = axes.expand(base)
+    local_step.gemm_f32.launches = 0
+    local_step.sgd_f32.launches = 0
+    _reset_sweep()
+    _reset_scanned()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch = launch(base, axes=axes)
+    torch.cuda.synchronize()
+    batched_s = time.perf_counter() - t0
+    n_captures, replays = _scanned_counts()
+    counts = dict(gemm=local_step.gemm_f32.launches,
+                  sgd=local_step.sgd_f32.launches,
+                  sweep=sum(_read_sweep().values()))
+    if batch.n_compiled_groups != 1:
+        fail(f"{what}: {batch.n_compiled_groups} groups; expected one")
+    if n_captures != captures:
+        fail(f"{what}: {n_captures} captures; expected {captures}")
+    t0 = time.perf_counter()
+    seq = [launch(e) for e in seq_exps]
+    torch.cuda.synchronize()
+    sequential_s = time.perf_counter() - t0
+    controls = [[launch(_control(e, d)) for e in axes.expand(base)]
+                for d in (1, -1)]
+    runs = []
+    for b, q, *cs in zip(batch, seq, *controls):
+        if not all(bool(torch.isfinite(v).all()) for v in b.params.values()):
+            fail(f"{what}: a batched run's parameters are not finite")
+        d_acc = abs(b.final_metric - q.final_metric)
+        ctrl_acc = max(abs(c.final_metric - q.final_metric) for c in cs)
+        held = ctrl_acc <= BATCH_ACC_TOL
+        runs.append(dict(
+            accuracy=b.final_metric, sequential_accuracy=q.final_metric,
+            control_accuracy=[c.final_metric for c in cs],
+            accuracy_diff=d_acc, control_accuracy_diff=ctrl_acc,
+            param_rel_diff=_leaf_rel(b.params, q.params),
+            control_param_rel_diff=max(_leaf_rel(c.params, q.params)
+                                       for c in cs),
+            held=held))
+        if held and d_acc > BATCH_ACC_TOL + ctrl_acc:
+            fail(f"{what}: a batched run's accuracy is {d_acc:.4f} from its "
+                 f"sequential run's, where one rounding moves it "
+                 f"{ctrl_acc:.4f} at most; limit {BATCH_ACC_TOL} beyond "
+                 "that")
+    return dict(batched_s=batched_s, sequential_s=sequential_s,
+                batch_speedup=sequential_s / batched_s, counts=counts,
+                groups=batch.n_compiled_groups, captures=n_captures,
+                replays=replays, runs=runs)
+
+
+def batched_table1(torch, local_step):
+    """Phase 20 (c): Table 1's seed axis. Each method's seeds (0, 1) on
+    phase 19's label-skew data and scale as one group through
+    `launch(exp, axes=BatchAxes(seeds=..., client_iters_for_seed=...,
+    eval_fn_for_seed=...))` — 5 groups — and each run through `launch` of
+    its own Experiment (phase 19's route, the streams built outside the
+    timed window). Exact GEMM, SGD and sweep launches and captures a
+    group; each run held to its sequential run; `batch_speedup` =
+    sequential wall / batched wall (benchmarks/table1_accuracy.py's)."""
+    import dataclasses
+
+    from repro_torch.api import BatchAxes, Experiment
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.scenarios import accuracy_eval, get_scenario, materialize
+
+    model = build_model(get_arch("paper-cnn"))
+    column, scenario, kw = TABLE1_COLUMNS[0]
+    spec = get_scenario(scenario).replace(n_clients=4, **TABLE1_SCALE, **kw)
+    fed = dataclasses.replace(FedConfig(**TABLE1_SCENARIO_FED),
+                              n_clients=spec.n_active)
+    datas = {s: materialize(spec, s) for s in TABLE1_SEEDS}
+    evals = {s: accuracy_eval(model, datas[s]) for s in TABLE1_SEEDS}
+    out, n_groups = {}, 0
+    for method in TABLE1_METHODS:
+        base = Experiment(model=model, fed=fed, strategy=method,
+                          seed=TABLE1_SEEDS[0],
+                          client_iters=datas[TABLE1_SEEDS[0]].streams(),
+                          eval_fn=evals[TABLE1_SEEDS[0]])
+        axes = BatchAxes(seeds=TABLE1_SEEDS,
+                         client_iters_for_seed=lambda s: datas[s].streams(),
+                         eval_fn_for_seed=lambda s: evals[s])
+        what = f"phase 20 table 1 {method}"
+        row = _batched_vs_sequential(torch, local_step, base, axes, what,
+                                     TABLE1_CAPTURES[method])
+        n_groups += row["groups"]
+        want = expected_group(method, fed)
+        expect = dict(gemm=8 * want["fused"], sgd=want["sgd"],
+                      sweep=want["sweep"])
+        if row["counts"] != expect:
+            fail(f"{what}: launches {row['counts']}; expected {expect} "
+                 "(a group's, for any B)")
+        out[method] = row
+        print(f"  {column} {method:9s} seeds {TABLE1_SEEDS} one group: "
+              f"batched {row['batched_s']:.3f} s, sequential "
+              f"{row['sequential_s']:.3f} s (speedup "
+              f"{row['batch_speedup']:.2f}); accuracies "
+              + ", ".join(f"{r['accuracy']:.3f} (seq "
+                          f"{r['sequential_accuracy']:.3f}, controls "
+                          + "/".join(f"{a:.3f}" for a in
+                                     r["control_accuracy"])
+                          + ("" if r["held"] else ", not held") + ")"
+                          for r in row["runs"])
+              + "; largest leaf difference from seq "
+              f"{max(r['param_rel_diff'] for r in row['runs']):.2e} "
+              "(control "
+              f"{max(r['control_param_rel_diff'] for r in row['runs']):.2e});"
+              " "
+              f"launches {row['counts']}, {row['captures']} captures, "
+              f"{row['replays']} replays")
+    if n_groups != len(TABLE1_METHODS):
+        fail(f"phase 20 table 1: {n_groups} groups; expected "
+             f"{len(TABLE1_METHODS)}")
+    return dict(column=column, seeds=list(TABLE1_SEEDS), groups=n_groups,
+                methods=out,
+                batch_speedup=out["fedelmy"]["batch_speedup"])
+
+
+def batched_fig10(torch, local_step):
+    """Phase 20 (d): Fig. 10's 3 × 3 (α, β) grid of fedelmy on the
+    full-width paper CNN over phase 19's label-skew data (seed 0), one
+    group of 9 through `launch(exp, axes=BatchAxes(fed_grid=...))`, each
+    point held to its sequential run; the accuracies and the speedup."""
+    import dataclasses
+
+    from repro_torch.api import BatchAxes, Experiment
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.scenarios import accuracy_eval, get_scenario, materialize
+
+    model = build_model(get_arch("paper-cnn"))
+    _, scenario, kw = TABLE1_COLUMNS[0]
+    spec = get_scenario(scenario).replace(n_clients=4, **TABLE1_SCALE, **kw)
+    fed = dataclasses.replace(FedConfig(**TABLE1_SCENARIO_FED),
+                              n_clients=spec.n_active)
+    data = materialize(spec, 0)
+    grid = [{"alpha": a, "beta": b} for a in FIG10_ALPHAS
+            for b in FIG10_BETAS]
+    base = Experiment(model=model, fed=fed, strategy="fedelmy", seed=0,
+                      client_iters=data.streams(),
+                      eval_fn=accuracy_eval(model, data))
+    axes = BatchAxes(fed_grid=grid,
+                     client_iters_for_run=lambda i: data.streams())
+    row = _batched_vs_sequential(torch, local_step, base, axes,
+                                 "phase 20 fig 10", TABLE1_CAPTURES["fedelmy"])
+    want = expected_group("fedelmy", fed)
+    expect = dict(gemm=8 * want["fused"], sgd=0, sweep=want["sweep"])
+    if row["counts"] != expect:
+        fail(f"phase 20 fig 10: launches {row['counts']}; expected {expect}")
+    accs = [[row["runs"][i * len(FIG10_BETAS) + j]["accuracy"]
+             for j in range(len(FIG10_BETAS))]
+            for i in range(len(FIG10_ALPHAS))]
+    print(f"  fig 10 grid (rows α {FIG10_ALPHAS}, columns β {FIG10_BETAS}) "
+          f"as one group of {len(grid)}: " + "; ".join(
+              " ".join(f"{a:.3f}" for a in r) for r in accs) +
+          f"; batched {row['batched_s']:.3f} s, sequential "
+          f"{row['sequential_s']:.3f} s (speedup {row['batch_speedup']:.2f})"
+          f"; largest leaf difference from seq "
+          f"{max(r['param_rel_diff'] for r in row['runs']):.2e} (control "
+          f"{max(r['control_param_rel_diff'] for r in row['runs']):.2e}), "
+          "largest accuracy difference "
+          f"{max(r['accuracy_diff'] for r in row['runs']):.4f} (control "
+          f"{max(r['control_accuracy_diff'] for r in row['runs']):.4f}); "
+          "launches "
+          f"{row['counts']}, {row['captures']} captures")
+    return dict(alphas=list(FIG10_ALPHAS), betas=list(FIG10_BETAS),
+                accuracy=accs, **row)
+
+
 def sweep_kernel_entries(main_path, pd_out):
     """The kernels line's entries of the sweep's forward and backward.
     Launches: the main path's run `main_path` (phase 18's captured one). Times and bounds: the one sweep of an
@@ -3702,6 +4322,19 @@ def main(argv):
           "'s full scale")
     table1_scen = table1_scenarios(torch, local_step)
 
+    # phase 20: batched sweeps
+    print("[20] batched sweeps: the GEMM's and the sweep's run axis; Table "
+          "1's seeds and Fig. 10's grid as groups")
+    batched = dict(gemm=batched_gemm(torch, local_step),
+                   sgd=batched_sgd(torch, local_step),
+                   sweep=batched_sweep(torch, pool_distance, ref),
+                   steps=batched_steps(torch, local_step, ref),
+                   table1=batched_table1(torch, local_step),
+                   fig10=batched_fig10(torch, local_step))
+    print(f"  batch_speedup (table 1, fedelmy): "
+          f"{batched['table1']['batch_speedup']:.3f}; fig 10: "
+          f"{batched['fig10']['batch_speedup']:.3f} ({smi_line})")
+
     step_rows = [r for r in rows if r["main_path"]]
     byte_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[0] for r in step_rows)
     flop_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[1] for r in step_rows)
@@ -3748,7 +4381,7 @@ def main(argv):
         dfedsam_card_vs_cpu=sam_agreement, **serving, **ssm_out,
         pool_distance=pd_out, regularizer=regularizer, fig9=fig9,
         compiled_phase=compiled, table1_scenarios=table1_scen,
-        total_s=time.perf_counter() - t_start)))
+        batched=batched, total_s=time.perf_counter() - t_start)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(smi_line)

@@ -3,12 +3,16 @@
 strategies (paper Algorithms 1–3 and the Table 1 baselines), over
 `batch_iterator` or `DataPlan` streams; ``launch(scenario_spec, model,
 fed=fed, strategies=..., seeds=...)`` runs a registered scenario's sweep
-(a `BatchResult`)."""
+(a `BatchResult`); ``launch(experiment, axes=BatchAxes(seeds=...,
+fed_grid=...))`` and ``launch([exp, ...])`` run sweeps through the batched
+engine (`api.batch`), each group of compatible runs one batched program."""
+from repro_torch.api.batch import BatchAxes, run_batch
 from repro_torch.api.engine import (Callbacks, Experiment,
                                     warn_unsupported_fields)
 from repro_torch.api.launch import launch
 from repro_torch.api.plan import (LocalBlock, StrategyPlan, Topology,
-                                  interpret, per_client_seeds, tree_mean)
+                                  interpret, interpret_batched,
+                                  per_client_seeds, tree_mean)
 from repro_torch.api.pools import (PoolBackend, backend_for, get_pool_backend,
                                    list_pool_backends, register_pool_backend)
 from repro_torch.api.results import (BatchResult, ClientRecord, ModelRecord,
@@ -16,12 +20,17 @@ from repro_torch.api.results import (BatchResult, ClientRecord, ModelRecord,
 from repro_torch.api.strategies import (describe_strategies, get_plan,
                                         get_strategy_spec, list_strategies,
                                         register_plan, register_strategy)
-from repro_torch.api.trainer import (LocalTrainer, ScannedPhase,
-                                     make_plain_step, make_pool_step,
-                                     regularized_loss)
+from repro_torch.api.trainer import (BatchedScannedPhase, LocalTrainer,
+                                     ScannedPhase, make_batched_plain_step,
+                                     make_batched_pool_step, make_plain_step,
+                                     make_pool_step, regularized_loss,
+                                     stack_trees, unstack_tree)
 
 __all__ = [
     "launch", "Experiment", "Callbacks", "warn_unsupported_fields",
+    "BatchAxes", "run_batch", "interpret_batched", "stack_trees",
+    "unstack_tree", "BatchedScannedPhase", "make_batched_plain_step",
+    "make_batched_pool_step",
     "RunResult", "BatchResult", "ClientRecord", "ModelRecord", "RoundRecord",
     "StrategyOutput", "StrategyPlan", "Topology", "LocalBlock", "interpret",
     "per_client_seeds", "tree_mean",

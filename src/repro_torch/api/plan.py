@@ -1,5 +1,5 @@
-"""The strategy-plan IR and its sequential interpreter (port of the
-sequential backend of ``repro/api/plan.py``).
+"""The strategy-plan IR and its two interpreters (port of
+``repro/api/plan.py``).
 
 A ``StrategyPlan`` states a federated method as data:
 
@@ -22,9 +22,16 @@ streams take the trainer's scanned local phase (plain and pool blocks,
 the warm-up; on the card each step kind captured once in a CUDA graph a
 run), as the reference routes them; custom blocks, per-model callbacks,
 `scan=False` plans and `batch_iterator` streams keep the per-step loop
-(a DataPlan serves it through the same cursor). The reference's vmapped
-backend (``interpret_batched``) is not ported, so a ``custom`` block
-needs only its ``step_factory``."""
+(a DataPlan serves it through the same cursor).
+
+`interpret_batched` runs a group of experiments (`api.batch`) with a
+leading run axis: the trainer's batched steps (`torch.func.vmap` over the
+runs) and, where every stream of a visit wants it, the batched scanned
+phase (one CUDA graph a step kind for the group); independent plans
+flatten the run and client axes into one B·N axis. Each run consumes its
+own streams in the order `interpret` does. A ``custom`` block supplies a
+``batched_step_factory`` for it. There is no device mesh: a `mesh`
+raises."""
 from __future__ import annotations
 
 import dataclasses
@@ -34,8 +41,8 @@ import numpy as np
 import torch
 
 from repro_torch.api.results import ClientRecord, RoundRecord, StrategyOutput
-from repro_torch.api.trainer import LocalTrainer
-from repro_torch.data.plan import wants_scan
+from repro_torch.api.trainer import LocalTrainer, stack_trees, unstack_tree
+from repro_torch.data.plan import all_want_scan, wants_scan
 
 Params = Dict[str, torch.Tensor]
 
@@ -112,7 +119,9 @@ class LocalBlock:
     epochs_div — integer divisor of that budget (MetaFed: e_local // 2)
     anchored   — custom only: the factory receives the params at phase
                  entry (MetaFed's common model) as its anchor
-    step_factory(trainer, exp, anchor) -> step_fn
+    step_factory(trainer, exp, anchor) -> step_fn           — sequential
+    batched_step_factory(trainer, exps, anchors) -> step_fn — batched;
+                 ``anchors`` is the stacked (B, …) phase-entry params
     label      — human name for `describe_strategies`
     """
     kind: str
@@ -120,16 +129,17 @@ class LocalBlock:
     epochs_div: int = 1
     anchored: bool = False
     step_factory: Optional[Callable] = None
+    batched_step_factory: Optional[Callable] = None
     label: Optional[str] = None
 
     def __post_init__(self):
         if self.kind not in _BLOCK_KINDS:
             raise ValueError(f"unknown local block kind {self.kind!r}; "
                              f"expected one of {_BLOCK_KINDS}")
-        if self.kind == "custom" and self.step_factory is None:
-            raise ValueError("custom local blocks need a step_factory (the "
-                             "batched_step_factory of batched execution "
-                             "is not ported yet)")
+        if self.kind == "custom" and (self.step_factory is None or
+                                      self.batched_step_factory is None):
+            raise ValueError("custom local blocks need both step_factory "
+                             "and batched_step_factory")
         if self.kind == "pool" and (self.epochs != "e_local" or
                                     self.epochs_div != 1):
             raise ValueError(
@@ -211,6 +221,11 @@ def _eval(exp, params) -> Optional[float]:
     return float(exp.eval_fn(params)) if exp.eval_fn is not None else None
 
 
+def _eval_slice(e, stacked: Params, i: int) -> Optional[float]:
+    return (float(e.eval_fn(unstack_tree(stacked, i)))
+            if e.eval_fn is not None else None)
+
+
 def _resolved_init(exp, plan: StrategyPlan) -> Params:
     if plan.init_from_experiment and exp.init_params is not None:
         return exp.init_params
@@ -230,6 +245,16 @@ def _selected_clients(exp, plan: StrategyPlan) -> List[int]:
     if plan.client_selector is not None:
         return list(plan.client_selector(exp))
     return list(range(len(exp.client_iters)))
+
+
+def _alphas_betas(exps, device, repeat: int = 1
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-run (α, β) as f32 tensors on `device`, each repeated `repeat`
+    times (one per client of the flattened independent axis)."""
+    return tuple(torch.tensor([getattr(e.fed, name) for e in exps
+                               for _ in range(repeat)],
+                              dtype=torch.float32, device=device)
+                 for name in ("alpha", "beta"))
 
 
 # ---------------------------------------------------------------------------
@@ -351,3 +376,162 @@ def _interpret_independent(exp, plan: StrategyPlan,
     # interpreter
     return StrategyOutput(params=params, clients=clients,
                           final_pool=pool if plan.keep_final_pool else None)
+
+
+# ---------------------------------------------------------------------------
+# Batched backend (behind `api.batch._run_batch`)
+# ---------------------------------------------------------------------------
+
+def interpret_batched(exps: List[Any], plan: StrategyPlan,
+                      mesh=None) -> List[StrategyOutput]:
+    """Execute a group of Experiments (`api.batch` groups them) through
+    their plan with a leading run axis; one StrategyOutput a run, each
+    run's streams consumed in `interpret`'s order. No device mesh is
+    ported: a `mesh` raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "interpret_batched: mesh= (sharding a group over devices) is "
+            "not ported yet")
+    trainer = _make_trainer(exps[0].model.loss_fn, exps[0].fed, plan)
+    if plan.topology.kind == "independent":
+        return _interpret_independent_batched(exps, plan, trainer)
+    return _interpret_sequenced_batched(exps, plan, trainer)
+
+
+def _stacked_inits(exps, plan: StrategyPlan) -> Params:
+    return stack_trees([_resolved_init(e, plan) for e in exps])
+
+
+def _reserve(trainer: LocalTrainer, streams) -> None:
+    """Size the batched scanned phase's arrays for the longest shard the
+    group visits, so that every visit fits one capture a step kind."""
+    plans = [it for it in streams if wants_scan(it)]
+    if plans:
+        trainer.scanned_batched.reserve(plans)
+
+
+def _batched_visit(trainer: LocalTrainer, m: Params, its, n_steps: int,
+                   step_fn=None) -> Params:
+    """One batched plain/custom visit: all-DataPlan visits take the batched
+    scanned phase, anything else the per-step loop."""
+    if step_fn is None and all_want_scan(its):
+        m, _ = trainer.train_scanned_batched(m, its, n_steps)
+    else:
+        m, _ = trainer.train_batched(m, its, n_steps, step_fn=step_fn)
+    return m
+
+
+def _batched_pool_visit(trainer: LocalTrainer, m: Params, its, alphas,
+                        betas):
+    if all_want_scan(its):
+        return trainer.local_client_train_scanned_batched(m, its, alphas,
+                                                          betas)
+    return trainer.local_client_train_batched(m, its, alphas, betas)
+
+
+def _interpret_sequenced_batched(exps, plan: StrategyPlan,
+                                 trainer: LocalTrainer
+                                 ) -> List[StrategyOutput]:
+    fed = exps[0].fed
+    schedules = [plan.topology.schedule(e) for e in exps]
+    cycles = plan.topology.resolved_cycles(exps[0])
+    m = _stacked_inits(exps, plan)
+    alphas, betas = _alphas_betas(exps, next(iter(m.values())).device)
+    _reserve(trainer, [e.client_iters[ci]
+                       for e, s in zip(exps, schedules) for ci in s])
+    if _wants_warmup(exps[0], plan):
+        warm = [e.client_iters[s[0]] for e, s in zip(exps, schedules)]
+        m = _batched_visit(trainer, m, warm, fed.e_warmup)
+
+    clients: List[List[ClientRecord]] = [[] for _ in exps]
+    rounds: List[List[RoundRecord]] = [[] for _ in exps]
+    pools = None
+    for block in plan.phases:
+        anchors = ({k: v.detach() for k, v in m.items()} if block.anchored
+                   else None)
+        step_fn = (block.batched_step_factory(trainer, exps, anchors)
+                   if block.kind == "custom" else None)
+        for r in range(cycles):
+            for rank in range(len(schedules[0])):
+                its = [e.client_iters[s[rank]]
+                       for e, s in zip(exps, schedules)]
+                if block.kind == "pool":
+                    m, pools, recs = _batched_pool_visit(trainer, m, its,
+                                                         alphas, betas)
+                else:
+                    m = _batched_visit(trainer, m, its, block.n_steps(fed),
+                                       step_fn=step_fn)
+                    recs = [[] for _ in exps]
+                if plan.records == "clients":
+                    for i, e in enumerate(exps):
+                        clients[i].append(ClientRecord(
+                            client=int(schedules[i][rank]), rank=rank,
+                            models=recs[i],
+                            global_metric=_eval_slice(e, m, i)))
+            if plan.records == "rounds":
+                for i, e in enumerate(exps):
+                    rounds[i].append(RoundRecord(
+                        round=r, global_metric=_eval_slice(e, m, i)))
+    return [StrategyOutput(
+                params=unstack_tree(m, i), clients=clients[i],
+                rounds=rounds[i],
+                final_pool=(unstack_tree(pools, i)
+                            if plan.keep_final_pool and pools is not None
+                            else None))
+            for i in range(len(exps))]
+
+
+def _interpret_independent_batched(exps, plan: StrategyPlan,
+                                   trainer: LocalTrainer
+                                   ) -> List[StrategyOutput]:
+    """Clients within a run are independent, so the run and client axes
+    flatten into one (B·N,) run axis: every client of every run trains in
+    the same batched steps."""
+    fed = exps[0].fed
+    sel = _selected_clients(exps[0], plan)   # the group key fixes it
+    n_sel = len(sel)
+    if plan.broadcast == "per_client_init":
+        inits = []
+        for e in exps:
+            seeds = per_client_seeds(e.resolved_seed(), len(e.client_iters))
+            inits.extend(e.model.init(seeds[c]) for c in sel)
+    else:
+        m0s = [_resolved_init(e, plan) for e in exps]
+        inits = [m0 for m0 in m0s for _ in sel]
+    flat = stack_trees(inits)
+    flat_iters = [e.client_iters[c] for e in exps for c in sel]
+    _reserve(trainer, flat_iters)
+    if plan.warmup == "per_client":
+        flat = _batched_visit(trainer, flat, flat_iters, fed.e_warmup)
+
+    block = plan.phases[0]
+    recs: List[List[Any]] = [[] for _ in flat_iters]
+    pools = None
+    if block.kind == "pool":
+        alphas, betas = _alphas_betas(exps, next(iter(flat.values())).device,
+                                      repeat=n_sel)
+        flat, pools, recs = _batched_pool_visit(trainer, flat, flat_iters,
+                                                alphas, betas)
+    else:
+        step_fn = (block.batched_step_factory(trainer, exps, None)
+                   if block.kind == "custom" else None)
+        flat = _batched_visit(trainer, flat, flat_iters, block.n_steps(fed),
+                              step_fn=step_fn)
+
+    outs: List[StrategyOutput] = []
+    for i, e in enumerate(exps):
+        slices = [unstack_tree(flat, i * n_sel + k) for k in range(n_sel)]
+        clients: List[ClientRecord] = []
+        if plan.records == "clients_noeval":
+            clients = [ClientRecord(client=int(c), rank=int(c),
+                                    models=recs[i * n_sel + k])
+                       for k, c in enumerate(sel)]
+        params = (tree_mean(slices) if plan.aggregate == "tree_mean"
+                  else slices[-1])
+        # as in _interpret_independent: the run's last selected client's
+        # pool (flat index i·n_sel + n_sel − 1)
+        pool = (unstack_tree(pools, i * n_sel + n_sel - 1)
+                if plan.keep_final_pool and pools is not None else None)
+        outs.append(StrategyOutput(params=params, clients=clients,
+                                   final_pool=pool))
+    return outs

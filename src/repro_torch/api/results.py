@@ -100,12 +100,12 @@ class RunResult:
 
 @dataclasses.dataclass
 class BatchResult:
-    """What `launch(scenario_spec, ...)` and `launch([experiments])`
-    return: one RunResult per experiment, in input order, plus the whole
-    sweep's wall clock. The port runs a sweep's experiments one after
-    another (it has no batched engine yet), so `n_compiled_groups` counts
-    those sequential runs — one per experiment — where the reference
-    counts the vmapped program groups of its batched run."""
+    """What a sweep returns (`launch` of a list, a scenario or `axes=`):
+    one RunResult per experiment, in input order, plus the whole sweep's
+    wall clock (a batched run's own `wall_time_s` is its share of its
+    group's). `n_compiled_groups` counts the program groups the sweep was
+    split into, as the reference counts them: each batched group once,
+    each run that ran alone once (1 = the whole sweep in one group)."""
     runs: List[RunResult]
     wall_time_s: float = 0.0
     n_compiled_groups: int = 0

@@ -20,7 +20,9 @@ Registered here, copied field for field from the reference:
 Plain and pool blocks train over the model's fused loss (the GEMM kernel
 on the card). The SAM step and MetaFed's anchored step are built over the
 model's native ``loss_fn`` (`F.conv2d` for the paper CNN), as the
-reference builds them over its ``lax.conv`` forward."""
+reference builds them over its ``lax.conv`` forward; each has a batched
+form over a leading run axis (`_sam_step_batched`,
+`_metafed_anchor_step_batched`) for `plan.interpret_batched`."""
 from __future__ import annotations
 
 import functools
@@ -30,9 +32,9 @@ import torch
 
 from repro_torch.api.plan import LocalBlock, StrategyPlan, Topology, interpret
 from repro_torch.api.registry import Registry
-from repro_torch.api.trainer import make_plain_step
+from repro_torch.api.trainer import batched_grad_step, make_plain_step
 from repro_torch.core.distances import d2_anchor_distance, log_scale
-from repro_torch.optim.sam import sam_update
+from repro_torch.optim.sam import sam_update, sam_update_batched
 
 STRATEGIES = Registry("strategy")
 
@@ -80,18 +82,17 @@ def list_strategies() -> List[str]:
 
 def describe_strategies() -> Dict[str, Dict[str, str]]:
     """name → plan metadata (topology / local block / aggregate /
-    broadcast / supports) for every registered strategy; opaque callables
-    report a row of dashes. The port runs every plan sequentially
-    (batched execution is not ported)."""
+    broadcast / batched / supports) for every registered strategy; opaque
+    callables report a sequential-only row."""
     out: Dict[str, Dict[str, str]] = {}
     for name, spec in STRATEGIES.items():
         if spec.plan is None:
             out[name] = {"topology": "(opaque callable)",
                          "local_block": "—", "aggregate": "—",
-                         "broadcast": "—",
+                         "broadcast": "—", "batched": "no",
                          "supports": ",".join(sorted(spec.supports)) or "—"}
         else:
-            out[name] = spec.plan.describe()
+            out[name] = {**spec.plan.describe(), "batched": "yes"}
     return out
 
 
@@ -111,6 +112,19 @@ def _sam_step(trainer, exp, anchor):
     return sam_step
 
 
+def _sam_step_batched(trainer, exps, anchors):
+    rho = exps[0].strategy_options.get("rho", 0.05)
+    loss_fn = exps[0].model.loss_fn
+
+    def sam_step(params, opt_state, batch, s):
+        params, opt_state = sam_update_batched(loss_fn, params, batch,
+                                               trainer.opt, opt_state, s,
+                                               rho=rho)
+        return params, opt_state, torch.zeros(())
+
+    return sam_step
+
+
 def _anchored_loss(loss_fn, anchor_beta):
     """MetaFed pass 2: task loss + β·(distance to the common model),
     log-calibrated like the paper's d2 term."""
@@ -125,6 +139,23 @@ def _metafed_anchor_step(trainer, exp, anchor):
     anchored = _anchored_loss(exp.model.loss_fn,
                               exp.strategy_options.get("anchor_beta", 0.5))
     return make_plain_step(lambda p, b: anchored(p, b, anchor), trainer.opt)
+
+
+def _metafed_anchor_step_batched(trainer, exps, anchors):
+    # `anchors`: the stacked phase-1 results, each run's its own anchor
+    anchored = _anchored_loss(
+        exps[0].model.loss_fn,
+        exps[0].strategy_options.get("anchor_beta", 0.5))
+
+    def objective(p, batch, anchor):
+        task = anchored(p, batch, anchor)
+        return task, task
+
+    def step_fn(params, opt_state, batch, s):
+        return batched_grad_step(objective, trainer.opt, params, opt_state,
+                                 s, batch, anchors)
+
+    return step_fn
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +202,9 @@ register_plan("dfedavgm", StrategyPlan(
 
 register_plan("dfedsam", StrategyPlan(
     topology=Topology("independent"),
-    phases=(LocalBlock("custom", step_factory=_sam_step, label="sam"),),
+    phases=(LocalBlock("custom", step_factory=_sam_step,
+                       batched_step_factory=_sam_step_batched,
+                       label="sam"),),
     aggregate="tree_mean", broadcast="shared_init",
     init_from_experiment=True, supports=("init_params",),
     trainer_overrides=lambda fed: {"optimizer": "sgd",
@@ -182,6 +215,7 @@ register_plan("metafed", StrategyPlan(
     phases=(LocalBlock("plain", epochs_div=2),
             LocalBlock("custom", epochs_div=2, anchored=True,
                        step_factory=_metafed_anchor_step,
+                       batched_step_factory=_metafed_anchor_step_batched,
                        label="anchored")),
     aggregate="last", broadcast="handoff"))
 

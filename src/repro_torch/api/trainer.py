@@ -1,6 +1,7 @@
 """LocalTrainer: the optimizer, the training steps and the pool procedure
-of one run (port of ``repro/api/trainer.py``: the per-step path and the
-scanned local phase, `train_scanned` / `local_client_train_scanned`).
+of one run, or of a group of B runs with a leading run axis (port of
+``repro/api/trainer.py``: the per-step path, the scanned local phase
+`train_scanned` / `local_client_train_scanned`, and their batched forms).
 
 A step takes a fresh leaf per parameter, differentiates the loss with
 `torch.autograd.grad` and applies the functional optimizer update. Every
@@ -15,7 +16,20 @@ each step kind (plain, pool) is captured once in a CUDA graph and
 replayed for every later step of every visit of the run; its static
 buffers are the parameters, the optimizer state, the pool (with its
 count), the step counter, the row pointer, the visit's rows and the
-client's arrays. On the CPU the same step body runs in a plain loop."""
+client's arrays. On the CPU the same step body runs in a plain loop.
+
+Batched runs (`train_batched`, `local_client_train_batched` and their
+scanned forms, behind `plan.interpret_batched`) carry params, optimizer
+state, batches and pools stacked along a leading run axis (`stack_trees`
+/ `unstack_tree`). A batched step evaluates the one-run objective under
+`torch.func.vmap` over that axis, so the GEMM and the pool-distance
+sweep each take one launch for all B runs (their autograd Functions'
+vmap rules); autograd of the runs' summed objective on the stacked
+leaves gives each run its own gradient (one launch a backward product),
+and the optimizer, elementwise, updates the stacked leaves directly. α
+and β are per-run (B,) tensors. The batched scanned phase
+(`BatchedScannedPhase`) captures one CUDA graph a step kind for the whole
+group."""
 from __future__ import annotations
 
 import contextlib
@@ -28,8 +42,8 @@ from repro_torch.api.pools import PoolBackend, backend_for
 from repro_torch.api.results import ModelRecord
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import distances as D
-from repro_torch.core.pool import _tensors
-from repro_torch.data.plan import DataPlan, gather
+from repro_torch.core.pool import _check_room, _tensors
+from repro_torch.data.plan import DataPlan, gather, stack_plan_indices
 from repro_torch.kernels import build
 from repro_torch.kernels.local_step import fused_loss_for
 from repro_torch.optim import make_optimizer
@@ -112,6 +126,116 @@ def make_pool_step(loss_fn: Callable, fed: FedConfig, opt: Optimizer,
     return step_fn
 
 
+# ---------------------------------------------------------------------------
+# Batched runs: stacked trees and the vmapped steps
+# ---------------------------------------------------------------------------
+
+def _map_tree(fn: Callable, *trees: Any) -> Any:
+    """`fn` over the tensors of structurally equal pytrees (dicts, tuples,
+    NamedTuples); other leaves (None) pass through from the first."""
+    t0 = trees[0]
+    if isinstance(t0, torch.Tensor):
+        return fn(*trees)
+    if isinstance(t0, dict):
+        if any(not isinstance(t, dict) or list(t) != list(t0)
+               for t in trees):
+            raise ValueError(f"keys differ: {[list(t) for t in trees]}")
+        return {k: _map_tree(fn, *(t[k] for t in trees)) for k in t0}
+    if isinstance(t0, (tuple, list)):
+        if any(type(t) is not type(t0) or len(t) != len(t0) for t in trees):
+            raise ValueError("tuples differ in type or length")
+        parts = [_map_tree(fn, *xs) for xs in zip(*trees)]
+        return type(t0)(*parts) if hasattr(t0, "_fields") else \
+            type(t0)(parts)
+    return t0
+
+
+def stack_trees(trees: List[Any]) -> Any:
+    """Stack structurally identical pytrees (parameter dicts, batches,
+    pools) along a new leading run axis. Mismatched leaves raise."""
+    try:
+        return _map_tree(lambda *xs: torch.stack(xs), *trees)
+    except (ValueError, TypeError, RuntimeError) as e:
+        raise ValueError(
+            "run_batch requires structurally identical pytrees across the "
+            f"batch (same leaves, shapes and dtypes): {e}") from e
+
+
+def unstack_tree(tree: Any, i: int) -> Any:
+    """Run `i` of a stacked pytree (inverse of `stack_trees`)."""
+    return _map_tree(lambda x: x[i], tree)
+
+
+def batched_grad_step(objective: Callable, opt: Optimizer, params: Params,
+                      opt_state, step, *mapped):
+    """One step of B runs: ``objective(leaves, *mapped_i) -> (total,
+    task)`` is one run's, evaluated under `torch.func.vmap` over the
+    leading run axis of `params` and of every tensor in `mapped`;
+    autograd of the summed totals on the stacked leaves gives each run its
+    gradient, and the optimizer updates the stacked leaves (elementwise,
+    so each run's slice is its own update). Returns (params, opt_state,
+    (B,) task)."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    total, task = torch.func.vmap(objective)(leaves, *mapped)
+    grads = torch.autograd.grad(total.sum(), list(leaves.values()))
+    params, opt_state = opt.update(params, dict(zip(leaves, grads)),
+                                   opt_state, step)
+    return params, opt_state, task.detach()
+
+
+def make_batched_plain_step(loss_fn: Callable, opt: Optimizer):
+    """`make_plain_step` over B runs: (params, opt_state, batch, step) →
+    (params, opt_state, (B,) task), every argument but the step counter
+    with a leading run axis."""
+
+    def objective(p, batch):
+        task = loss_fn(p, batch)
+        return task, task
+
+    def step_fn(params, opt_state, batch, step):
+        return batched_grad_step(objective, opt, params, opt_state, step,
+                                 batch)
+
+    return step_fn
+
+
+def make_batched_pool_step(loss_fn: Callable, fed: FedConfig, opt: Optimizer,
+                           backend: PoolBackend):
+    """The regularized step over B runs: (params, opt_state, batch, pools,
+    alphas, betas, step) → (params, opt_state, (B,) task), with stacked
+    pools and per-run (B,) α and β (the Fig. 10 grid in one group)."""
+    full_loss = hp_regularized_loss(loss_fn, fed, backend)
+
+    def step_fn(params, opt_state, batch, pools, alphas, betas, step):
+        return batched_grad_step(full_loss, opt, params, opt_state, step,
+                                 batch, pools, alphas, betas)
+
+    return step_fn
+
+
+def batched_pool_average(pools: Any) -> Params:
+    """Eq. 5/6 of each run's pool, stacked."""
+    return torch.func.vmap(lambda pool: pool.average())(pools)
+
+
+def batched_pool_append(pools: Any, params: Params) -> Any:
+    """Each run's pool with its run's `params` appended (the runs of a
+    group hold equal counts: one check of the room for all)."""
+    first = unstack_tree(pools, 0)
+    if hasattr(first, "capacity"):
+        _check_room(first.count, first.capacity)
+    return torch.func.vmap(lambda pool, m: pool._append(m))(pools, params)
+
+
+def _model_records(task_grid: torch.Tensor, b: int
+                   ) -> List[List[ModelRecord]]:
+    """(S, B) last-step task losses → per-run ModelRecord lists, read in
+    one transfer."""
+    grid = task_grid.tolist()
+    return [[ModelRecord(index=j, task_loss=row[i])
+             for j, row in enumerate(grid)] for i in range(b)]
+
+
 class LocalTrainer:
     """Per-run training engine: optimizer + steps + pool procedure, all
     configured by the FedConfig. `optimizer` / `learning_rate` /
@@ -135,6 +259,10 @@ class LocalTrainer:
         self.plain_step = make_plain_step(step_loss, self.opt)
         self.pool_step = make_pool_step(step_loss, fed, self.opt,
                                         self.backend)
+        self.batched_plain_step = make_batched_plain_step(step_loss,
+                                                          self.opt)
+        self.batched_pool_step = make_batched_pool_step(
+            step_loss, fed, self.opt, self.backend)
 
     def train(self, params: Params, data_iter, n_steps: int, *,
               pool: Any = None, step_fn: Optional[Callable] = None
@@ -225,6 +353,95 @@ class LocalTrainer:
             self._scanned = ScannedPhase(self)
         return self._scanned
 
+    # -- batched variants (B runs, leading run axis) -------------------------
+
+    def batched_pool_create(self, m_in: Params) -> Any:
+        """Each run's pool seeded with its run's model, stacked."""
+        return torch.func.vmap(
+            lambda m: self.backend.create(m, self.fed))(m_in)
+
+    def train_batched(self, params: Params, data_iters: List[Any],
+                      n_steps: int, *, pools: Any = None,
+                      alphas: Optional[torch.Tensor] = None,
+                      betas: Optional[torch.Tensor] = None,
+                      step_fn: Optional[Callable] = None
+                      ) -> Tuple[Params, torch.Tensor]:
+        """`train` over stacked (B, …) params and B streams: each step
+        stacks one batch a run and advances every run in one batched step
+        (with `pools`, the regularized one at per-run α, β; `step_fn`, of
+        the batched signature (params, opt_state, batch, step), overrides
+        it). Returns (stacked params, (B,) last task losses)."""
+        params = {k: v.detach().clone() for k, v in params.items()}
+        opt_state = self.opt.init(params)
+        device = next(iter(params.values())).device
+        task = torch.zeros((len(data_iters),), device=device)
+        steps = torch.arange(n_steps, dtype=torch.int32, device=device)
+        for s in range(n_steps):
+            batch = stack_trees([next(it) for it in data_iters])
+            if step_fn is not None:
+                params, opt_state, task = step_fn(params, opt_state, batch,
+                                                  steps[s])
+            elif pools is None:
+                params, opt_state, task = self.batched_plain_step(
+                    params, opt_state, batch, steps[s])
+            else:
+                params, opt_state, task = self.batched_pool_step(
+                    params, opt_state, batch, pools, alphas, betas,
+                    steps[s])
+        return params, task
+
+    def local_client_train_batched(self, m_in: Params, data_iters: List[Any],
+                                   alphas: torch.Tensor, betas: torch.Tensor
+                                   ) -> Tuple[Params, Any,
+                                              List[List[ModelRecord]]]:
+        """`local_client_train` over B runs in lockstep: B pools seeded
+        from the stacked incoming models, S regularized models a run.
+        Returns (stacked pool averages, stacked pools, per-run records)."""
+        fed = self.fed
+        b = len(data_iters)
+        if not fed.use_pool:
+            params, _ = self.train_batched(m_in, data_iters, fed.e_local)
+            return params, None, [[] for _ in range(b)]
+        pools = self.batched_pool_create(m_in)
+        tasks = []
+        for _ in range(fed.pool_size):
+            m_j = batched_pool_average(pools)             # Eq. 6 init
+            m_j, task = self.train_batched(m_j, data_iters, fed.e_local,
+                                           pools=pools, alphas=alphas,
+                                           betas=betas)
+            pools = batched_pool_append(pools, m_j)
+            tasks.append(task)
+        return (batched_pool_average(pools), pools,
+                _model_records(torch.stack(tasks), b))
+
+    def train_scanned_batched(self, params: Params, plans: List[DataPlan],
+                              n_steps: int) -> Tuple[Params, torch.Tensor]:
+        """`train_scanned` over B runs: the plans' next n_steps rows each,
+        the batches gathered on the device, one batched step a step; on
+        CUDA captured once for the group (`BatchedScannedPhase`)."""
+        return self.scanned_batched.train(params, plans, n_steps)
+
+    def local_client_train_scanned_batched(self, m_in: Params,
+                                           plans: List[DataPlan],
+                                           alphas: torch.Tensor,
+                                           betas: torch.Tensor
+                                           ) -> Tuple[Params, Any,
+                                                      List[List[ModelRecord]]]:
+        """`local_client_train_scanned` over B runs (B × S × e_local
+        steps), on CUDA one graph a step kind for the group."""
+        fed = self.fed
+        if not fed.use_pool:
+            params, _ = self.train_scanned_batched(m_in, plans, fed.e_local)
+            return params, None, [[] for _ in plans]
+        return self.scanned_batched.local_client(m_in, plans, alphas, betas)
+
+    @property
+    def scanned_batched(self) -> "BatchedScannedPhase":
+        """The group's batched scanned phase (made at first use)."""
+        if getattr(self, "_scanned_batched", None) is None:
+            self._scanned_batched = BatchedScannedPhase(self)
+        return self._scanned_batched
+
 
 # ---------------------------------------------------------------------------
 # The scanned local phase: static buffers, one step body, CUDA graphs
@@ -239,15 +456,7 @@ def _copy_into(dst: Any, src: Any) -> None:
 
 def _clone(tree: Any) -> Any:
     """A copy of a pytree of tensors (dicts, tuples, NamedTuples)."""
-    if isinstance(tree, torch.Tensor):
-        return tree.clone()
-    if isinstance(tree, dict):
-        return {k: _clone(v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*[_clone(v) for v in tree])
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_clone(v) for v in tree)
-    return tree
+    return _map_tree(torch.clone, tree)
 
 
 def _layout(tree: Any) -> Tuple:
@@ -476,3 +685,136 @@ class ScannedPhase:
         records = [ModelRecord(index=j, task_loss=x)
                    for j, x in enumerate(tasks.tolist())]
         return self.pool.average(), _clone(self.pool), records
+
+
+class BatchedScannedPhase(ScannedPhase):
+    """The scanned local phase of a group of B runs on one trainer: the
+    buffers of `ScannedPhase` with a leading run axis — params `P`,
+    optimizer state `O` and pools stacked, the task losses (B,), per-run
+    `alphas` and `betas`, the visit's rows (B, n, batch) and the B
+    clients' arrays stacked and zero-padded to the longest shard the
+    group visits (`reserve`; a schedule never indexes the padding) — and
+    one CUDA graph a step kind for the whole group, captured and counted
+    as `ScannedPhase` does. The step body gathers each run's batch from
+    its own arrays and takes the batched step."""
+
+    def __init__(self, trainer: LocalTrainer):
+        super().__init__(trainer)
+        self.plain_step = trainer.batched_plain_step
+        self.pool_step = trainer.batched_pool_step
+        self.create = trainer.batched_pool_create
+        self.alphas = self.betas = None
+
+    def _buffers(self, params: Params, plans: List[DataPlan],
+                 n_rows: int) -> None:
+        fed = self.fed
+        b = len(plans)
+        dev = next(iter(params.values())).device
+        if self.P is None or _layout(self.P) != _layout(params):
+            self.P = {k: torch.empty_like(v) for k, v in params.items()}
+            self.O = self.opt.init(self.P)
+            self.step = torch.zeros((), dtype=torch.int32, device=dev)
+            self.ptr = torch.zeros((), dtype=torch.int64, device=dev)
+            self.task = torch.zeros((b,), dtype=torch.float32, device=dev)
+            self.alphas = torch.zeros((b,), dtype=torch.float32, device=dev)
+            self.betas = torch.zeros((b,), dtype=torch.float32, device=dev)
+            self.graphs.clear()
+        bs = plans[0].batch_size
+        if self.rows is None or self.rows.shape[1] < n_rows or \
+                self.rows.shape[2] != bs:
+            n_rows = max(n_rows, fed.pool_size * fed.e_local, fed.e_local,
+                         fed.e_warmup)
+            self.rows = torch.zeros((b, n_rows, bs), dtype=torch.int32,
+                                    device=dev)
+            self.graphs.clear()
+        first = plans[0].arrays
+        fits = self.arrays is not None and \
+            list(self.arrays) == list(first) and all(
+                self.arrays[k].shape[1] >= p.n and
+                self.arrays[k].shape[2:] == p.arrays[k].shape[1:] and
+                self.arrays[k].dtype == p.arrays[k].dtype
+                for p in plans for k in first)
+        if not fits:
+            n = max([p.n for p in plans] + [self._n_max])
+            self.arrays = {k: torch.zeros((b, n) + tuple(a.shape[1:]),
+                                          dtype=a.dtype, device=dev)
+                           for k, a in first.items()}
+            self._client = None
+            self.graphs.clear()
+
+    def _load(self, params: Params, plans: List[DataPlan],
+              rows: torch.Tensor) -> None:
+        self._buffers(params, plans, rows.shape[1])
+        if self._client != [id(p) for p in plans]:
+            for i, p in enumerate(plans):
+                if list(p.arrays) != list(self.arrays):
+                    raise ValueError(
+                        "batched scanned execution requires structurally "
+                        "identical client shards across the run axis: the "
+                        "plans' keys differ")
+                for k, a in p.arrays.items():
+                    self.arrays[k][i, :p.n].copy_(a)
+            self._client = [id(p) for p in plans]
+        self.rows[:, :rows.shape[1]].copy_(rows)
+        self.ptr.zero_()
+
+    def _step(self, kind: str) -> None:
+        row = self.rows.index_select(1, self.ptr.reshape(1))[:, 0]
+        batch = torch.func.vmap(gather)(self.arrays, row)
+        if kind == "pool":
+            p, o, task = self.pool_step(self.P, self.O, batch, self.pool,
+                                        self.alphas, self.betas, self.step)
+        else:
+            p, o, task = self.plain_step(self.P, self.O, batch, self.step)
+        with torch.no_grad():
+            _copy_into(self.P, p)
+            _copy_into(self.O, o)
+            self.task.copy_(task)
+            self.step.add_(1)
+            self.ptr.add_(1)
+
+    # -- the phases ----------------------------------------------------------
+
+    def train(self, params: Params, plans: List[DataPlan], n_steps: int
+              ) -> Tuple[Params, torch.Tensor]:
+        """Plain batched steps over each plan's next n_steps rows; returns
+        (stacked params, (B,) last task losses), copies of the buffers."""
+        rows = stack_plan_indices(plans, n_steps)
+        self._buffers(params, plans, n_steps)
+        with self._side_stream():
+            self._load(params, plans, rows)
+            self._start_model(params)
+            self._advance("plain", n_steps)
+        return _clone(self.P), self.task.clone()
+
+    def local_client(self, m_in: Params, plans: List[DataPlan],
+                     alphas: torch.Tensor, betas: torch.Tensor
+                     ) -> Tuple[Params, Any, List[List[ModelRecord]]]:
+        """The pool procedure of B runs over each plan's next S·e_local
+        rows; returns (stacked pool averages, stacked pools, per-run
+        records), copies of the buffers; the losses come back in one
+        sync."""
+        fed = self.fed
+        s_models, e = fed.pool_size, fed.e_local
+        rows = stack_plan_indices(plans, s_models * e)
+        self._buffers(m_in, plans, s_models * e)
+        tasks = torch.zeros((s_models, len(plans)), dtype=torch.float32,
+                            device=self.task.device)
+        with self._side_stream():
+            self._load(m_in, plans, rows)
+            self.alphas.copy_(alphas)
+            self.betas.copy_(betas)
+            first = self.create(m_in)
+            if self.pool is None or _layout(self.pool) != _layout(first):
+                self.pool = _clone(first)
+                self.graphs.pop("pool", None)
+            else:
+                _copy_into(self.pool, first)
+            for j in range(s_models):
+                self._start_model(batched_pool_average(self.pool))
+                self._advance("pool", e)
+                tasks[j].copy_(self.task)
+                _copy_into(self.pool,
+                           batched_pool_append(self.pool, self.P))
+        return (batched_pool_average(self.pool), _clone(self.pool),
+                _model_records(tasks, len(plans)))

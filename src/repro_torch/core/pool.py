@@ -5,7 +5,10 @@ reference's leaf order (`repro_torch.convert`). A pool's `count` is an
 int32 scalar on its device, as the reference's is: `mask()`, the average's
 weights mask/count and `append`'s slot read it there, so a training step
 captured in a CUDA graph reads the count of each replay. Only `append`'s
-fullness check reads it on the host, outside any step.
+fullness check reads it on the host, outside any step; `_append` is the
+append without it, the form `torch.func.vmap` takes over a run axis of
+pools (whose caller checks the room once for all runs). `create`,
+`average` and `_append` make new tensors only, so they vmap too.
 
 * `ModelPool` — paper-faithful: a fixed-capacity stack (S+1) of full
   member parameters per leaf plus a live-member count.
@@ -64,12 +67,9 @@ class ModelPool(NamedTuple):
 
     @classmethod
     def create(cls, m0: Params, capacity: int) -> "ModelPool":
-        members = {}
-        for k, p in m0.items():
-            s = torch.zeros((capacity,) + tuple(p.shape), dtype=p.dtype,
-                            device=p.device)
-            s[0] = p.detach()
-            members[k] = s
+        members = {k: torch.cat([p.detach().unsqueeze(0), torch.zeros(
+            (capacity - 1,) + tuple(p.shape), dtype=p.dtype,
+            device=p.device)]) for k, p in m0.items()}
         return cls(members, _count(1, next(iter(m0.values())).device))
 
     @property
@@ -79,6 +79,9 @@ class ModelPool(NamedTuple):
     def append(self, params: Params) -> "ModelPool":
         """A new pool with `params` in slot `count`."""
         _check_room(self.count, self.capacity)
+        return self._append(params)
+
+    def _append(self, params: Params) -> "ModelPool":
         return ModelPool({k: _put(s, self.count, params[k])
                           for k, s in self.members.items()},
                          self.count + 1)
@@ -132,6 +135,8 @@ class MomentPool(NamedTuple):
         q = (self.sq_norm_mean * n +
              _sq_norm({k: v.detach() for k, v in params.items()})) / (n + 1)
         return MomentPool(mean, q, self.count + 1, self.anchor)
+
+    _append = append           # never full: no check to leave out
 
     def average(self) -> Params:
         return {k: m.to(self.anchor[k].dtype) for k, m in self.mean.items()}
@@ -242,6 +247,9 @@ class LowRankDeltaPool(NamedTuple):
         """Truncated-rank append: Δ = params − base, each matrix leaf
         projected onto rank r by the range finder."""
         _check_room(self.count, self.capacity)
+        return self._append(params)
+
+    def _append(self, params: Params) -> "LowRankDeltaPool":
         u, v, dense = dict(self.u), dict(self.v), dict(self.dense)
         for i, (name, b) in enumerate(self.base.items()):
             k = _leaf_key(i)

@@ -128,6 +128,7 @@ def bgmv_f32(x: torch.Tensor, u: torch.Tensor,
     One launch is one call of ``csrc/bgmv_f32.cu``, which enqueues its
     shrink and expand kernels as `bgmv_plan` lays them out;
     `bgmv_f32.launches` counts the launches."""
+    build.refuse_vmapped("bgmv_f32", x, u, v)
     s, n, d_in, d_out, r, shared = _shapes(x, u, v)
     for name, t in (("x", x), ("u", u), ("v", v)):
         if t.device.type != "cuda":

@@ -113,6 +113,22 @@ def counters(device, stream: int, size: int):
     return _counter_buffers[key]
 
 
+def refuse_vmapped(name: str, *tensors) -> None:
+    """Raise where a kernel's launcher is handed a tensor that a
+    `torch.func` transform wraps (`vmap`'s batched run axis): a ctypes
+    launch cannot read it, and a launcher reached that way has no vmap
+    rule, so batched execution through its kernel is not ported yet. The
+    GEMM's and the sweep's autograd Functions have vmap rules that hand
+    their launchers the run-stacked tensors instead."""
+    import torch
+    from torch._C._functorch import is_functorch_wrapped_tensor
+    if any(isinstance(t, torch.Tensor) and is_functorch_wrapped_tensor(t)
+           for t in tensors):
+        raise NotImplementedError(
+            f"{name}: reached under torch.func.vmap; this kernel has no "
+            "vmap rule, so batched execution through it is not ported yet")
+
+
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel `name`, built first if needed."""

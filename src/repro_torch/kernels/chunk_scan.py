@@ -129,6 +129,8 @@ def gla_chunk_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch the CUDA kernel over the whole sequence in chunks of
     min(chunk, T) tokens (one launch of its two passes;
     `gla_chunk_f32.launches` counts them). Returns (y, final state)."""
+    build.refuse_vmapped("gla_chunk_f32", q, k, v, log_decay, bonus,
+                         initial_state)
     _check(q, k, v, log_decay, bonus, initial_state)
     b, t, h, kd = q.shape
     vd = v.shape[-1]

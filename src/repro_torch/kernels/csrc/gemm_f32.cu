@@ -43,6 +43,14 @@
 //    in index order (fixed order: the result does not depend on which
 //    block finishes last) and resets the counter to 0 for the next launch.
 //    No float atomics; one product is one launch.
+//  * A run axis: R independent products of one shape (the B runs of a
+//    batched training step) in one launch. Grid z is runs × slices, block
+//    z taking run z / splits and slice z % splits; run r reads A and B at
+//    r times their run strides (0 for an operand the runs share) and
+//    writes C's r-th (M, N) matrix. Each run has its own split tiles,
+//    workspace and counters, and the plan is the one product's, so a
+//    batched launch computes each run's product bit for bit as a launch
+//    of that product alone.
 //
 // Error model. Summation is two-level within a block, as the reference's
 // is: each 128-wide chunk of K sums by FMA into a fresh partial that is
@@ -174,8 +182,9 @@ template <int BM, int BN, int TM, int TN, int MIN_BLOCKS, bool TA, bool TB>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
                 float* __restrict__ C, int64_t M, int64_t N, int64_t K,
-                int64_t lda, int64_t ldb, int64_t slice_k,
-                float* __restrict__ ws, int* __restrict__ counters) {
+                int64_t lda, int64_t ldb, int64_t a_run, int64_t b_run,
+                int64_t slice_k, int splits, float* __restrict__ ws,
+                int* __restrict__ counters) {
   static_assert((BM / TM) * (BN / TN) == THREADS, "one micro-tile a thread");
   static_assert(TM % 4 == 0 && TN % 4 == 0, "micro-tiles in runs of 4");
   extern __shared__ __align__(16) float smem[];
@@ -186,9 +195,14 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   const int tid = threadIdx.x;
   const int tx = tid % (BN / TN);
   const int ty = tid / (BN / TN);
+  const int run = blockIdx.z / splits;
+  const int slice = blockIdx.z % splits;
+  A += run * a_run;
+  B += run * b_run;
+  C += run * M * N;
   const int64_t m0 = static_cast<int64_t>(blockIdx.y) * BM;
   const int64_t n0 = static_cast<int64_t>(blockIdx.x) * BN;
-  const int64_t kb = static_cast<int64_t>(blockIdx.z) * slice_k;
+  const int64_t kb = static_cast<int64_t>(slice) * slice_k;
   const int64_t ke = kb + slice_k < K ? kb + slice_k : K;
   const int n_panels = static_cast<int>((ke - kb + BK - 1) / BK);
 
@@ -267,7 +281,7 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
   cp_async_wait<0>();
 
-  if (gridDim.z == 1) {
+  if (splits == 1) {
     const bool vec_c = N % 4 == 0 && (reinterpret_cast<uintptr_t>(C) & 15) == 0;
 #pragma unroll
     for (int i = 0; i < TM; ++i) {
@@ -291,10 +305,9 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
     return;
   }
 
-  // split-K: this slice's sums to the workspace, [tile][slice][BM][BN]
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const int splits = gridDim.z;
-  float* mine = ws + (static_cast<int64_t>(tile) * splits + blockIdx.z) * BM * BN;
+  // split-K: this slice's sums to the workspace, [run][tile][slice][BM][BN]
+  const int tile = (run * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  float* mine = ws + (static_cast<int64_t>(tile) * splits + slice) * BM * BN;
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -348,8 +361,9 @@ constexpr int smem_bytes() {
 
 template <int BM, int BN, int TM, int TN, int MIN_BLOCKS, bool TA, bool TB>
 int launch(const float* A, const float* B, float* C, int64_t m, int64_t n,
-           int64_t k, int64_t lda, int64_t ldb, int64_t slice_k, int splits,
-           float* ws, int* counters, cudaStream_t s) {
+           int64_t k, int64_t lda, int64_t ldb, int64_t a_run, int64_t b_run,
+           int runs, int64_t slice_k, int splits, float* ws, int* counters,
+           cudaStream_t s) {
   // the attribute is per device: one bit per device it was set on
   static uint64_t configured = 0;
   constexpr int smem = smem_bytes<BM, BN>();
@@ -366,63 +380,76 @@ int launch(const float* A, const float* B, float* C, int64_t m, int64_t n,
   }
   const dim3 grid(static_cast<unsigned>((n + BN - 1) / BN),
                   static_cast<unsigned>((m + BM - 1) / BM),
-                  static_cast<unsigned>(splits));
-  kernel<<<grid, THREADS, smem, s>>>(A, B, C, m, n, k, lda, ldb, slice_k, ws,
-                                     counters);
+                  static_cast<unsigned>(runs * splits));
+  kernel<<<grid, THREADS, smem, s>>>(A, B, C, m, n, k, lda, ldb, a_run, b_run,
+                                     slice_k, splits, ws, counters);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int BM, int BN, int TM, int TN, int MIN_BLOCKS>
 int dispatch(const float* A, const float* B, float* C, int64_t m, int64_t n,
-             int64_t k, int trans_a, int trans_b, int64_t slice_k, int splits,
-             float* ws, int* counters, cudaStream_t s) {
+             int64_t k, int64_t a_run, int64_t b_run, int runs, int trans_a,
+             int trans_b, int64_t slice_k, int splits, float* ws,
+             int* counters, cudaStream_t s) {
   const int64_t lda = trans_a ? m : k;
   const int64_t ldb = trans_b ? k : n;
   if (trans_a) {
     if (trans_b)
-      return launch<BM, BN, TM, TN, MIN_BLOCKS, true, true>(A, B, C, m, n, k, lda, ldb,
-                                                slice_k, splits, ws, counters, s);
-    return launch<BM, BN, TM, TN, MIN_BLOCKS, true, false>(A, B, C, m, n, k, lda, ldb,
-                                               slice_k, splits, ws, counters, s);
+      return launch<BM, BN, TM, TN, MIN_BLOCKS, true, true>(
+          A, B, C, m, n, k, lda, ldb, a_run, b_run, runs, slice_k, splits, ws,
+          counters, s);
+    return launch<BM, BN, TM, TN, MIN_BLOCKS, true, false>(
+        A, B, C, m, n, k, lda, ldb, a_run, b_run, runs, slice_k, splits, ws,
+        counters, s);
   }
   if (trans_b)
-    return launch<BM, BN, TM, TN, MIN_BLOCKS, false, true>(A, B, C, m, n, k, lda, ldb,
-                                               slice_k, splits, ws, counters, s);
-  return launch<BM, BN, TM, TN, MIN_BLOCKS, false, false>(A, B, C, m, n, k, lda, ldb,
-                                              slice_k, splits, ws, counters, s);
+    return launch<BM, BN, TM, TN, MIN_BLOCKS, false, true>(
+        A, B, C, m, n, k, lda, ldb, a_run, b_run, runs, slice_k, splits, ws,
+        counters, s);
+  return launch<BM, BN, TM, TN, MIN_BLOCKS, false, false>(
+      A, B, C, m, n, k, lda, ldb, a_run, b_run, runs, slice_k, splits, ws,
+      counters, s);
 }
 
 }  // namespace
 
 // A is stored (M, K) row-major, or (K, M) when trans_a; B is stored (K, N),
-// or (N, K) when trans_b; C is (M, N) row-major. All contiguous. The plan:
-// `tile` 0, 1 or 2 for 128×128, 128×64 or 64×64 block tiles; `splits`
-// slices of `slice_k` (a multiple of 128) along K. With splits > 1, `ws`
-// holds tiles·splits·BM·BN floats and `counters` one int per tile, all 0
-// (the kernel leaves them 0).
+// or (N, K) when trans_b; C is (M, N) row-major. All contiguous. `runs`
+// products in one launch: run r reads A + r·a_run and B + r·b_run (strides
+// in floats; 0 for an operand the runs share) and writes C + r·M·N. The
+// plan: `tile` 0, 1 or 2 for 128×128, 128×64 or 64×64 block tiles;
+// `splits` slices of `slice_k` (a multiple of 128) along K. With
+// splits > 1, `ws` holds runs·tiles·splits·BM·BN floats and `counters` one
+// int per run and tile, all 0 (the kernel leaves them 0).
 extern "C" int gemm_f32(const void* a, const void* b, void* c, int64_t m,
-                        int64_t n, int64_t k, int trans_a, int trans_b,
-                        int tile, int64_t slice_k, int splits, void* ws,
-                        void* counters, void* stream) {
+                        int64_t n, int64_t k, int runs, int64_t a_run,
+                        int64_t b_run, int trans_a, int trans_b, int tile,
+                        int64_t slice_k, int splits, void* ws, void* counters,
+                        void* stream) {
   const float* A = static_cast<const float*>(a);
   const float* B = static_cast<const float*>(b);
   float* C = static_cast<float*>(c);
   float* W = static_cast<float*>(ws);
   int* cnt = static_cast<int*>(counters);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (splits < 1 || (splits > 1 && (slice_k % CHUNK_K != 0 ||
-                                    W == nullptr || cnt == nullptr)))
+  if (splits < 1 || runs < 1 || a_run < 0 || b_run < 0 ||
+      static_cast<int64_t>(runs) * splits > 65535 ||
+      (splits > 1 && (slice_k % CHUNK_K != 0 || W == nullptr ||
+                      cnt == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (tile) {
     case 0:
-      return dispatch<128, 128, 8, 8, 1>(A, B, C, m, n, k, trans_a, trans_b,
-                                      slice_k, splits, W, cnt, s);
+      return dispatch<128, 128, 8, 8, 1>(A, B, C, m, n, k, a_run, b_run, runs,
+                                         trans_a, trans_b, slice_k, splits, W,
+                                         cnt, s);
     case 1:
-      return dispatch<128, 64, 8, 4, 2>(A, B, C, m, n, k, trans_a, trans_b,
-                                     slice_k, splits, W, cnt, s);
+      return dispatch<128, 64, 8, 4, 2>(A, B, C, m, n, k, a_run, b_run, runs,
+                                        trans_a, trans_b, slice_k, splits, W,
+                                        cnt, s);
     case 2:
-      return dispatch<64, 64, 4, 4, 2>(A, B, C, m, n, k, trans_a, trans_b,
-                                    slice_k, splits, W, cnt, s);
+      return dispatch<64, 64, 4, 4, 2>(A, B, C, m, n, k, a_run, b_run, runs,
+                                       trans_a, trans_b, slice_k, splits, W,
+                                       cnt, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -54,6 +54,7 @@ def flash_attn_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch the CUDA kernel. q, k, v: one dtype (f32 or bf16), contiguous,
     on one CUDA device, no grad. `flash_attn_f32.launches` counts the
     launches."""
+    build.refuse_vmapped("flash_attn_f32", q, k, v)
     _check_shapes(q, k, v)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.device.type != "cuda":

@@ -10,9 +10,14 @@
   bounds it) with the plan `gemm_plan` chooses: block tile and split-K;
   its gradient is a `torch.autograd.Function` whose backward
   runs the same kernel for dA = G·Bᵀ and dB = Aᵀ·G through transpose
-  flags, as the reference's custom VJP runs its Pallas kernel. On a CPU
-  tensor it takes the plain version `ref.gemm_ref`. Any other device
-  raises; nothing falls back.
+  flags, as the reference's custom VJP runs its Pallas kernel. The kernel
+  takes a run axis: under `torch.func.vmap` (a batched training step's
+  B runs) the Function's vmap rule folds vmap's axis into it, so each
+  product of the step is one launch for all B runs, each run's product
+  bit for bit the one a launch of it alone computes; autograd then runs
+  the backward's products on the run-stacked tensors, one launch each.
+  On a CPU tensor it takes the plain version `ref.gemm_ref`. Any other
+  device raises; nothing falls back.
 * `maxpool2x2` — reshape + amax. `amax` splits the gradient evenly over
   ties, as the reference's `max` reduction does; `F.max_pool2d` would
   route it to one element.
@@ -58,7 +63,8 @@ _BIG_TILE_MIN_K = 4 * CHUNK_K
 _SPLIT_BLOCKS = 6 * N_SMS
 _MAX_SPLITS = 128
 _MAX_GRID_YZ = 65535   # CUDA's limit on gridDim.y and gridDim.z
-_COUNTERS = 4096       # split tiles a launch may have (one counter each)
+_COUNTERS = 4096       # split tiles a launch may have over all its runs
+                       # (one counter each)
 
 
 def fused_loss_for(loss_fn: Callable) -> Callable:
@@ -151,7 +157,8 @@ def bind_gemm(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signature of `lib.gemm_f32` (csrc/gemm_f32.cu)."""
     fn = lib.gemm_f32
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    fn.argtypes = [p, p, p, i64, i64, i64, i32, i32, i32, i64, i32, p, p, p]
+    fn.argtypes = [p, p, p, i64, i64, i64, i32, i64, i64, i32, i32, i32, i64,
+                   i32, p, p, p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -161,45 +168,71 @@ def _gemm_lib() -> ctypes.CDLL:
     return bind_gemm(build.load("gemm_f32"))
 
 
+def _run_matrices(t: torch.Tensor) -> bool:
+    """Whether each matrix of `t` (2-D, or 3-D with a leading run axis of
+    any stride) is row-major contiguous."""
+    rows, cols = t.shape[-2:]
+    return (cols <= 1 or t.stride(-1) == 1) and \
+        (rows <= 1 or t.stride(-2) == cols)
+
+
 def gemm_f32(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
              trans_b: bool = False) -> torch.Tensor:
     """Launch the CUDA kernel: op(a) @ op(b) in f32, where op transposes
     when its flag is set. `a` is stored (M, K), or (K, M) with `trans_a`;
-    `b` is stored (K, N), or (N, K) with `trans_b`. Both must be
-    contiguous f32 CUDA tensors on one device. `gemm_f32.launches` counts
-    the launches."""
+    `b` is stored (K, N), or (N, K) with `trans_b`. Both 2-D, or both 3-D
+    with a leading run axis of R: R products in one launch, (R, M, N) out,
+    each with the one product's plan, so bitwise R launches of it; a run
+    stride may be anything, 0 for an operand the runs share. Each matrix
+    row-major contiguous, f32, CUDA, one device. `gemm_f32.launches`
+    counts the launches."""
+    build.refuse_vmapped("gemm_f32", a, b)
+    if a.dim() != b.dim() or a.dim() not in (2, 3):
+        raise ValueError(f"gemm_f32: operands {tuple(a.shape)} and "
+                         f"{tuple(b.shape)}; expected both 2-D or both "
+                         "3-D (R, ·, ·)")
     for name, t in (("a", a), ("b", b)):
         if t.device.type != "cuda":
             raise ValueError(f"gemm_f32: {name} is on {t.device}, not CUDA")
         if t.dtype != torch.float32:
             raise TypeError(f"gemm_f32: {name} is {t.dtype}, not float32")
-        if t.dim() != 2:
-            raise ValueError(f"gemm_f32: {name} must be 2-D, got "
-                             f"{tuple(t.shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"gemm_f32: {name} must be contiguous")
+        if not _run_matrices(t):
+            raise ValueError(f"gemm_f32: {name}'s matrices must be "
+                             "contiguous")
     if a.device != b.device:
         raise ValueError(f"gemm_f32: operands on {a.device} and {b.device}")
-    m, k = (a.shape[1], a.shape[0]) if trans_a else a.shape
-    k2, n = (b.shape[1], b.shape[0]) if trans_b else b.shape
+    runs = a.shape[0] if a.dim() == 3 else 1
+    if a.dim() == 3 and b.shape[0] != runs:
+        raise ValueError(f"gemm_f32: {runs} runs of a, {b.shape[0]} of b")
+    m, k = (a.shape[-1], a.shape[-2]) if trans_a else a.shape[-2:]
+    k2, n = (b.shape[-1], b.shape[-2]) if trans_b else b.shape[-2:]
     if k != k2:
         raise ValueError(f"gemm_f32: inner dimensions differ: op(a) is "
                          f"({m}, {k}), op(b) is ({k2}, {n})")
-    if min(m, n, k) == 0:
-        raise ValueError(f"gemm_f32: empty product ({m}, {k}) @ ({k}, {n})")
+    if min(m, n, k, runs) == 0:
+        raise ValueError(f"gemm_f32: empty product ({m}, {k}) @ ({k}, {n}) "
+                         f"× {runs} runs")
     plan = gemm_plan(m, n, k)
+    gx, gy, _ = plan.grid(m, n)
+    if runs * plan.splits > _MAX_GRID_YZ or (
+            plan.splits > 1 and runs * gx * gy > _COUNTERS):
+        raise ValueError(f"gemm_f32: no grid for {runs} runs of ({m}, {k}) "
+                         f"@ ({k}, {n})")
+    a_run = a.stride(0) if a.dim() == 3 else 0
+    b_run = b.stride(0) if b.dim() == 3 else 0
     lib = _gemm_lib()
-    c = torch.empty((m, n), device=a.device, dtype=torch.float32)
+    c = torch.empty(a.shape[:-2] + (m, n), device=a.device,
+                    dtype=torch.float32)
     ws = counters = None
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
         if plan.splits > 1:
-            ws = torch.empty(plan.workspace(m, n), device=a.device,
+            ws = torch.empty(runs * plan.workspace(m, n), device=a.device,
                              dtype=torch.float32)
             counters = build.counters(a.device, stream, _COUNTERS)
         err = lib.gemm_f32(a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k,
-                           int(trans_a), int(trans_b), plan.tile,
-                           plan.slice_k, plan.splits,
+                           runs, a_run, b_run, int(trans_a), int(trans_b),
+                           plan.tile, plan.slice_k, plan.splits,
                            None if ws is None else ws.data_ptr(),
                            None if counters is None else counters.data_ptr(),
                            stream)
@@ -214,23 +247,43 @@ gemm_f32.launches = 0
 
 def _product(a: torch.Tensor, b: torch.Tensor, trans_a: bool = False,
              trans_b: bool = False) -> torch.Tensor:
-    """Route one product by the operands' device: the kernel on CUDA, the
-    plain version on the CPU."""
+    """Route one product (2-D, or 3-D run-stacked) by the operands'
+    device: the kernel on CUDA, the plain version on the CPU."""
     if a.device.type == "cuda":
         return gemm_f32(a, b, trans_a=trans_a, trans_b=trans_b)
     if a.device.type == "cpu":
-        return gemm_ref(a.t() if trans_a else a, b.t() if trans_b else b)
+        return gemm_ref(a.transpose(-1, -2) if trans_a else a,
+                        b.transpose(-1, -2) if trans_b else b)
     raise ValueError(f"gemm: no route for tensors on {a.device}")
 
 
+def _fold_runs(x: torch.Tensor, bdim, size: int) -> torch.Tensor:
+    """vmap's physical operand as a run-stacked (size·R, ·, ·) tensor with
+    row-major matrices: its vmapped axis first (an operand vmap does not
+    map is shared, run stride 0), folded into a run axis it already has."""
+    x = x.movedim(bdim, 0) if bdim is not None else x.expand(size, *x.shape)
+    if x.dim() == 4:
+        x = x.flatten(0, 1)
+    return x if _run_matrices(x) else x.contiguous()
+
+
 class GemmF32Function(torch.autograd.Function):
-    """f32 (M, K) @ (K, N) whose backward runs the same product route for
-    dA = G·Bᵀ and dB = Aᵀ·G (skipping the ones not needed)."""
+    """f32 op(a) @ op(b) for 2-D or run-stacked 3-D operands, whose
+    backward runs the same product route for dA = G·Bᵀ and dB = Aᵀ·G
+    (skipping the ones not needed). Under `torch.func.vmap` its rule
+    (`vmap`) folds vmap's axis into the run axis and applies the Function
+    to the run-stacked operands: one launch for every run, recorded by
+    autograd on the stacked tensors, whose backward is again one launch a
+    product."""
+    generate_vmap_rule = False
 
     @staticmethod
-    def forward(ctx, a, b):
-        ctx.save_for_backward(a, b)
+    def forward(a, b):
         return _product(a, b)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, g):
@@ -240,10 +293,20 @@ class GemmF32Function(torch.autograd.Function):
         db = _product(a, g, trans_a=True) if ctx.needs_input_grad[1] else None
         return da, db
 
+    @staticmethod
+    def vmap(info, in_dims, a, b):
+        size = info.batch_size
+        out = GemmF32Function.apply(_fold_runs(a, in_dims[0], size),
+                                    _fold_runs(b, in_dims[1], size))
+        if a.dim() - (in_dims[0] is not None) == 3:   # runs of its own
+            out = out.reshape(size, -1, *out.shape[-2:])
+        return out, 0
+
 
 def gemm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Differentiable f32 matmul: the CUDA kernel for CUDA tensors (forward
-    and both gradients), the plain version for CPU tensors."""
+    and both gradients; under `torch.func.vmap` one launch for all runs),
+    the plain version for CPU tensors."""
     return GemmF32Function.apply(a.float().contiguous(),
                                  b.float().contiguous())
 
@@ -396,6 +459,7 @@ def sgd_f32(params: List[torch.Tensor], grads: List[torch.Tensor], *,
     of at most 4 dims (read in place, as autograd hands a permuted
     weight's gradient); the inputs are left unchanged. `sgd_f32.launches`
     counts the launches."""
+    build.refuse_vmapped("sgd_f32", *params, *grads)
     if len(params) != len(grads):
         raise ValueError(f"sgd_f32: {len(params)} params but "
                          f"{len(grads)} grads")

@@ -253,6 +253,7 @@ def factor_gram_f32(stacks: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     tensors on one device; returns their (B, M, M) Grams. One launch (one
     more per `GRAM_MAX_STACKS` stacks); `factor_gram_f32.launches` counts
     them."""
+    build.refuse_vmapped("factor_gram_f32", *stacks)
     if not stacks:
         return []
     device = stacks[0].device
@@ -568,6 +569,7 @@ def pool_distance_f32(ws: Sequence[torch.Tensor], ms: Sequence[torch.Tensor]
     statistics (B, 4, C) f32 — rows sq, l1, dot, norm — and Σw² (B,) f32.
     One launch (one more per 40 leaves); `pool_distance_f32.launches`
     counts them."""
+    build.refuse_vmapped("pool_distance_f32", *ws, *ms)
     b, c, dtype = _table(ws, ms, "pool_distance_f32")
     lib = _sweep_lib()
     plan = sweep_plan(c, [w.shape[1] for w in ws], ws[0].element_size())
@@ -604,6 +606,7 @@ def pool_distance_bwd_f32(ws: Sequence[torch.Tensor],
     Σ_t ḡdot_t·m_t + 2·ḡwsq·w, with ḡ read from device memory: g_stats
     (B, 4, C) (row 3, ḡnorm, is not read) and g_wsq (B,).
     `pool_distance_bwd_f32.launches` counts the launches."""
+    build.refuse_vmapped("pool_distance_bwd_f32", *ws, *ms, g_stats, g_wsq)
     b, c, dtype = _table(ws, ms, "pool_distance_bwd_f32")
     if dtype != torch.float32:
         raise NotImplementedError(
@@ -697,56 +700,83 @@ def distances_from_stats(stats: Dict[str, torch.Tensor], w_sq_norm,
 
 
 def _leaf_table(w: Sequence[torch.Tensor], members: Sequence[torch.Tensor]):
-    """Leaf i as w (1, n_i) and members (1, C, n_i), views where the
-    layout allows it."""
-    return ([x.reshape(1, -1) for x in w],
-            [m.reshape(1, m.shape[0], -1) for m in members])
+    """Run-stacked leaves as the kernels' table: leaf i's w (R, n_i) and
+    members (R, C, n_i), views where the layout allows it."""
+    return ([x.reshape(x.shape[0], -1) for x in w],
+            [m.reshape(m.shape[0], m.shape[1], -1) for m in members])
+
+
+def _fold_runs(x: torch.Tensor, bdim, size: int) -> torch.Tensor:
+    """vmap's physical run-stacked leaf (R, …) as (size·R, …): its vmapped
+    axis first (a leaf vmap does not map is shared, run stride 0), folded
+    into the run axis."""
+    x = x.movedim(bdim, 0) if bdim is not None else x.expand(size, *x.shape)
+    return x.flatten(0, 1)
 
 
 class PoolStatsFunction(torch.autograd.Function):
-    """(members, *w) → (stats (4, C), Σw²) with a gradient for the w leaves.
-    Routed by the tensors' device: the forward and backward kernels on
-    CUDA, the plain versions on the CPU."""
+    """(members, *w) → (stats (R, 4, C), Σw² (R,)) over R runs: w leaves
+    (R, *shape), members (R, C, *shape) (any run stride; 0 for members
+    the runs share), with a gradient for the w leaves. Routed by the
+    tensors' device: the forward and backward kernels on CUDA, one launch
+    each for all R runs; the plain versions on the CPU. Under
+    `torch.func.vmap` its rule (`vmap`) folds vmap's axis into the run
+    axis and applies the Function to the run-stacked leaves, so the B runs
+    of a batched step take one forward launch, and autograd, on the
+    stacked tensors, one backward launch."""
+    generate_vmap_rule = False
 
     @staticmethod
-    def forward(ctx, members, *w):
+    def forward(members, *w):
         route = _device_type(list(w) + list(members),
                              "tree_pool_distance_stats")
-        ctx.route = route
-        ctx.save_for_backward(*w, *members)
+        ws, ms = _leaf_table(w, members)
         if route == "cuda":
-            if any(x.dtype != torch.float32 for x in w) and \
-                    any(ctx.needs_input_grad[1:]):
-                raise NotImplementedError(
-                    "tree_pool_distance_stats: the backward kernel takes f32 "
-                    "leaves; bf16 under grad has no kernel yet")
-            stats, wsq = pool_distance_f32(*_leaf_table(w, members))
-            return stats[0], wsq[0]
+            return pool_distance_f32(ws, ms)
         if route == "cpu":
-            parts = [pool_distance_stats_ref(x.reshape(-1),
-                                             m.reshape(m.shape[0], -1))
-                     for x, m in zip(w, members)]
-            stats = torch.stack([sum(p[k] for p in parts) for k in STATS])
-            wsq = sum(x.float().square().sum() for x in w)
+            parts = [pool_distance_stats_ref(x, m) for x, m in zip(ws, ms)]
+            stats = torch.stack([sum(p[k] for p in parts) for k in STATS],
+                                dim=1)
+            wsq = sum(x.float().square().sum(-1) for x in ws)
             return stats, wsq
         raise ValueError(f"tree_pool_distance_stats: no route for tensors "
                          f"on {route}")
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        members, *w = inputs
+        ctx.route = w[0].device.type
+        if ctx.route == "cuda" and any(ctx.needs_input_grad[1:]) and \
+                any(x.dtype != torch.float32 for x in w):
+            raise NotImplementedError(
+                "tree_pool_distance_stats: the backward kernel takes f32 "
+                "leaves; bf16 under grad has no kernel yet")
+        ctx.save_for_backward(*w, *members)
+
+    @staticmethod
     def backward(ctx, g_stats, g_wsq):
         saved = ctx.saved_tensors
         n = len(saved) // 2
-        w, members = saved[:n], saved[n:]
+        w = saved[:n]
+        ws, ms = _leaf_table(w, saved[n:])
         if ctx.route == "cuda":
-            grads = pool_distance_bwd_f32(*_leaf_table(w, members),
-                                          g_stats[None], g_wsq.reshape(1))
+            grads = pool_distance_bwd_f32(ws, ms, g_stats, g_wsq)
         else:
             grads = [pool_distance_stats_bwd_ref(
-                x.reshape(-1), m.reshape(m.shape[0], -1), g_stats[0],
-                g_stats[1], g_stats[2], g_wsq=g_wsq)
-                for x, m in zip(w, members)]
+                x, m, g_stats[:, 0], g_stats[:, 1], g_stats[:, 2],
+                g_wsq=g_wsq) for x, m in zip(ws, ms)]
         return (None,) + tuple(g.reshape(x.shape).to(x.dtype)
                                for g, x in zip(grads, w))
+
+    @staticmethod
+    def vmap(info, in_dims, members, *w):
+        size = info.batch_size
+        m_dims, *w_dims = in_dims
+        stats, wsq = PoolStatsFunction.apply(
+            tuple(_fold_runs(m, d, size) for m, d in zip(members, m_dims)),
+            *(_fold_runs(x, d, size) for x, d in zip(w, w_dims)))
+        return ((stats.reshape(size, -1, *stats.shape[1:]),
+                 wsq.reshape(size, -1)), (0, 0))
 
 
 def tree_pool_distance_stats(params: Params, members: Params
@@ -755,13 +785,15 @@ def tree_pool_distance_stats(params: Params, members: Params
     tensor, `members` name → (C, *shape) stack (a pool's members, or a
     one-member view of its anchor). Returns the stats dict (sq, l1, dot,
     norm; each (C,) f32) and Σw² (f32 scalar), differentiable in `params`
-    (the members are detached)."""
+    (the members are detached). Under `torch.func.vmap` over B runs'
+    params and pools it is one forward and one backward launch for all B
+    (`PoolStatsFunction.vmap`)."""
     names = list(params)
     if set(members) != set(names):
         raise ValueError(f"tree_pool_distance_stats: the members' leaves "
                          f"{sorted(members)} are not the model's "
                          f"{sorted(names)}")
     stats, wsq = PoolStatsFunction.apply(
-        tuple(members[k].detach() for k in names),
-        *(params[k] for k in names))
-    return dict(zip(STATS, stats.unbind(0))), wsq
+        tuple(members[k].detach()[None] for k in names),
+        *(params[k][None] for k in names))
+    return dict(zip(STATS, stats[0].unbind(0))), wsq[0]

@@ -13,8 +13,7 @@ eval-split policy); the registries mirror the strategy registry, and
                    strategies=("fedelmy", "fedseq"), seeds=(0, 1))
 """
 from repro_torch.scenarios.compile import (ScenarioData, accuracy_eval,
-                                           build_experiments, materialize,
-                                           run_experiments)
+                                           build_experiments, materialize)
 from repro_torch.scenarios.registry import (PARTITIONERS, SCENARIOS,
                                             PartitionerSpec,
                                             get_partitioner, get_scenario,
@@ -29,5 +28,5 @@ __all__ = [
     "register_scenario", "get_scenario", "list_scenarios", "SCENARIOS",
     "register_partitioner", "get_partitioner", "list_partitioners",
     "PARTITIONERS", "PartitionerSpec",
-    "materialize", "build_experiments", "run_experiments", "accuracy_eval",
+    "materialize", "build_experiments", "accuracy_eval",
 ]

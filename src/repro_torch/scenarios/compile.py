@@ -16,20 +16,20 @@ plan's shuffle cursor is its own. `scan=` routes the captured local phase
 or the per-step loop over the device arrays, `device=False` the host
 `batch_iterator` streams; all three give bitwise the same batches.
 
-`_run_scenario` (behind `repro_torch.api.launch`) runs the experiments one
-after another; the reference runs each strategy's seeds as one batched
-program, which the port does not have yet.
+`_run_scenario` (behind `repro_torch.api.launch`) runs the experiments
+through the batched engine (`api.batch._run_batch`), as the reference
+does: each strategy's seeds one group, one batched program.
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch.api.engine import Experiment, _run
+from repro_torch.api.batch import _run_batch
+from repro_torch.api.engine import Experiment
 from repro_torch.api.results import BatchResult
 from repro_torch.configs.base import FedConfig
 from repro_torch.data.partition import train_val_split
@@ -262,20 +262,12 @@ def build_experiments(spec: ScenarioSpec, model, *,
             for strategy in strategies for seed in seeds]
 
 
-def run_experiments(experiments: Sequence[Experiment]) -> BatchResult:
-    """Run Experiments one after another (the port has no batched
-    engine yet): one `RunResult` each, in order."""
-    t0 = time.time()
-    runs = [_run(e) for e in experiments]
-    return BatchResult(runs=runs, wall_time_s=time.time() - t0,
-                       n_compiled_groups=len(runs))
-
-
 def _run_scenario(spec: ScenarioSpec, model, *, fed: FedConfig,
                   strategies: Sequence[str] = ("fedelmy",),
-                  seeds: Sequence[int] = (0,), **kw) -> BatchResult:
-    """Compile a scenario sweep and run its experiments one after another
+                  seeds: Sequence[int] = (0,), mesh=None,
+                  **kw) -> BatchResult:
+    """Compile a scenario sweep and run it through the batched engine
     (the implementation behind `repro_torch.api.launch`)."""
     exps = build_experiments(spec, model, fed=fed, strategies=strategies,
                              seeds=seeds, **kw)
-    return run_experiments(exps)
+    return _run_batch(experiments=exps, mesh=mesh)

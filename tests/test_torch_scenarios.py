@@ -10,7 +10,8 @@
 * `build_experiments`' structure: one Experiment per (strategy, seed), in
   order, `fed.n_clients` the spec's active count, fresh DataPlan streams
   on the model's device, the eval split's accuracy.
-* `launch(spec)` on the paper CNN at width 8 / d_ff 16 (e_warmup 2,
+* `launch(spec)` (a strategy's seeds one batched group, `n_compiled_groups`
+  1 as the reference counts it) on the paper CNN at width 8 / d_ff 16 (e_warmup 2,
   e_local 4, pool_size 2, batch 8) against the reference's
   `launch(Experiment)` per seed on the same scenario's per-step streams,
   from the same init: final params atol 1e-5, per-model task losses rtol
@@ -252,7 +253,8 @@ def test_launch_spec_matches_reference_per_seed(models, scenario):
     batch = T.launch(tspec, tm, fed=FedConfig(**FED),
                      strategies=("fedelmy",), seeds=seeds)
     assert isinstance(batch, T.BatchResult)
-    assert len(batch) == batch.n_compiled_groups == len(seeds)
+    # the seeds of one strategy are one batched group, as the reference's
+    assert len(batch) == len(seeds) and batch.n_compiled_groups == 1
     jspec = JS.get_scenario(scenario).replace(**spec_kw)
     for seed, tres in zip(seeds, batch):
         data = JS.materialize(jspec, seed)
@@ -293,7 +295,7 @@ def test_launch_dispatch(models):
     with pytest.raises(ValueError, match="no registered scenario"):
         T.launch("fleet_100k", tm, fed=fed)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.launch(exps[0], axes=object())
+        T.launch(exps[0], mesh=object())
     with pytest.raises(NotImplementedError, match="not ported yet"):
         T.launch(JS.get_fleet("fleet_smoke"), tm, fed=fed)
     with pytest.raises(TypeError, match="cannot dispatch"):
