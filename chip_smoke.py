@@ -133,6 +133,29 @@ Phases, each failing the run with a nonzero exit:
              their move), `batch_speedup` for fedelmy;
              (d) Fig. 10's 3 × 3 (α, β) grid as one group of 9 fedelmy
              runs, held as in (c), the accuracies and the speedup
+21. checkpoints — (a) phase 4's params and stacked pool (capacity 4),
+             and a moment and a low-rank pool of its members, saved from
+             the card (`repro_torch.checkpoint`, the reference's npz
+             format) and loaded back bit for bit; `PoolServer.
+             from_checkpoint` scores phase 12's trace bitwise as
+             `from_pool`; (b) phase 11's llama3.2-1b factor pool (bf16
+             base) round-tripped bitwise and served from the file,
+             phase 11's requests scored bitwise as from memory with its
+             BGMV and attention launches, the file's bytes and the save
+             and load seconds; (c) `python -m repro_torch.launch.train`
+             with the reference's defaults and `--handoff-dir`: exit 0,
+             its acc= line, the handoff file read back bitwise
+22. fleets   — on the full-width paper CNN with benchmarks/common's
+             FedConfig: (a) fleet_100k as registered (cohort 32, 4
+             rounds, dfedavgm): each round's wall and accuracy,
+             clients/s, exactly 112 GEMM launches a round and one capture
+             for the sweep; (b) stopped after 2 rounds and resumed from
+             its round file: rounds [2, 3], final params bitwise (a)'s;
+             (c) fleet_1m_cyclic (cohort 64, 8 rounds) held as (a); (d)
+             dfedsam on fleet_100k: 14 SGD launches a round, one a step
+             over the 32 runs' stacked leaves; (e) round 0 of
+             fleet_smoke on the card against the CPU from one init,
+             within FLEET_RATIO_TOL of the distance moved
 
 Before the last lines it prints every measurement as one JSON object on
 a line starting "details: "; then the kernels' JSON record and the card's
@@ -146,9 +169,11 @@ sees which fault, and where SLICE_RATIO_TOL lies between them.
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -249,6 +274,24 @@ def bound_parts_s(m, k, n):
 # phase 3: the GEMM kernel against its plain version
 # ---------------------------------------------------------------------------
 
+def _hold_plain(out, want, x, y, ta, tb, k):
+    """`check_gemm`'s tolerance for one product op(x)·op(y) of inner
+    size k: the kernel's `out` within k·2⁻²³·(|A|·|B|) of the plain
+    version's `want` elementwise, and within 1e-5 of the f64 product
+    normwise. (ok, max abs error, the kernel's and the plain version's
+    normwise errors against f64.)"""
+    xa = (x.t() if ta else x).double()
+    yb = (y.t() if tb else y).double()
+    bound = k * 2.0 ** -23 * (xa.abs() @ yb.abs())
+    err = (out.double() - want.double()).abs()
+    truth = xa @ yb
+    nrm = float(truth.norm())
+    f64_err = float((out.double() - truth).norm()) / nrm
+    plain_f64_err = float((want.double() - truth).norm()) / nrm
+    ok = bool((err <= bound).all()) and f64_err <= 1e-5
+    return ok, float(err.max()), f64_err, plain_f64_err
+
+
 def check_gemm(torch, local_step, ref):
     """Every product of one training step's convs, plus a ragged shape.
     Tolerance: the kernel is within K·2⁻²³·(|A|·|B|) of the plain version
@@ -280,18 +323,9 @@ def check_gemm(torch, local_step, ref):
             torch.cuda.synchronize()
             repeat = bool(torch.equal(out, again))
             want = plain()
-            xa = (x.t() if ta else x).double()
-            yb = (y.t() if tb else y).double()
-            bound = pk * 2.0 ** -23 * (xa.abs() @ yb.abs())
-            err = (out.double() - want.double()).abs()
-            ok = bool((err <= bound).all())
-            abs_err = float(err.max())
+            ok, abs_err, f64_err, plain_f64_err = _hold_plain(
+                out, want, x, y, ta, tb, pk)
             rel_err = abs_err / max(float(want.abs().max()), 1e-30)
-            truth = xa @ yb
-            nrm = float(truth.norm())
-            f64_err = float((out.double() - truth).norm()) / nrm
-            plain_f64_err = float((want.double() - truth).norm()) / nrm
-            ok = ok and f64_err <= 1e-5
             byte_s, flop_s = bound_parts_s(pm, pk, pn)
             row = dict(conv=name, product=prod, m=pm, k=pk, n=pn,
                        plan=list(local_step.gemm_plan(pm, pn, pk)),
@@ -1987,6 +2021,19 @@ def _pairwise_rank64(torch, model):
     return out
 
 
+def llama_serving_trace(cfg):
+    """Phase 11's requests: a steady_uniform trace of 48 requests of 16
+    tokens, 2 a tick, on the card."""
+    import numpy as np
+
+    from repro_torch.serve import get_traffic, materialize_trace
+    rng = np.random.default_rng(0)
+    clients = [{"tokens": rng.integers(0, cfg.vocab_size, size=(32, 16))
+                .astype(np.int32)} for _ in range(2)]
+    return materialize_trace(get_traffic("steady_uniform").replace(
+        n_requests=48, mean_batch=2), clients, seed=0, device=CARD)
+
+
 def serve_llama_bf16(torch):
     """(b) The config's own bf16 pool replayed through `serve_trace` in
     both modes, as benchmarks/serving.py's transformer report: a
@@ -1995,20 +2042,13 @@ def serve_llama_bf16(torch):
     and read after (warm-up included: 1 + 24 forwards). A second replay
     and a `torch.profiler` pass over 8 ticks follow (where a tick's time
     goes; the profiler's own cost is in its host time)."""
-    import numpy as np
-
     from repro_torch.configs import get_arch
     from repro_torch.core.pool import pool_nbytes
-    from repro_torch.serve import (PoolServer, get_traffic, materialize_trace,
-                                   serve_trace)
+    from repro_torch.serve import PoolServer, serve_trace
 
     cfg = get_arch("llama3.2-1b")
     model, pool, build_s = _llama_pool(torch, cfg)
-    rng = np.random.default_rng(0)
-    clients = [{"tokens": rng.integers(0, cfg.vocab_size, size=(32, 16))
-                .astype(np.int32)} for _ in range(2)]
-    trace = materialize_trace(get_traffic("steady_uniform").replace(
-        n_requests=48, mean_batch=2), clients, seed=0, device=CARD)
+    trace = llama_serving_trace(cfg)
     forwards = 1 + len(trace.ticks)
     out = dict(build_s=build_s, forwards=forwards, modes={})
     for mode in ("factored", "densified"):
@@ -2074,6 +2114,20 @@ def _pool_to(pool, device):
     return type(pool)(*(move(f) for f in pool))
 
 
+def cnn_serving_trace(device):
+    """Phase 12's trace: poisson_skewed traffic of 256 requests over the
+    held-out data, split across 4 clients by the same Dirichlet(0.3)
+    label skew, on `device`."""
+    from repro_torch.data import dirichlet_partition
+    from repro_torch.serve import get_traffic, materialize_trace
+    _, test = quickstart_data()
+    parts = dirichlet_partition(test.labels, 4, 0.3, seed=1)
+    held_out = [{"images": test.images[p], "labels": test.labels[p]}
+                for p in parts]
+    traffic = get_traffic("poisson_skewed").replace(n_requests=256)
+    return materialize_trace(traffic, held_out, seed=0, device=device)
+
+
 def serve_cnn_pools(torch, local_step, main_result):
     """The paper CNN's trained pools served with poisson_skewed traffic
     over the held-out data (split across the 4 clients by the same
@@ -2087,21 +2141,15 @@ def serve_cnn_pools(torch, local_step, main_result):
     requests."""
     from repro_torch.api import Experiment, launch
     from repro_torch.configs import FedConfig, get_arch
-    from repro_torch.data import batch_iterator, dirichlet_partition
+    from repro_torch.data import batch_iterator
     from repro_torch.models import build_model
-    from repro_torch.serve import (PoolServer, get_traffic, materialize_trace,
-                                   serve_trace)
+    from repro_torch.serve import PoolServer, serve_trace
 
-    arrays, test = quickstart_data()
-    parts = dirichlet_partition(test.labels, 4, 0.3, seed=1)
-    held_out = [{"images": test.images[p], "labels": test.labels[p]}
-                for p in parts]
+    arrays, _ = quickstart_data()
     devices = {"card": CARD, "cpu": "cpu"}
     models = {k: build_model(get_arch("paper-cnn"), device=d)
               for k, d in devices.items()}
-    traffic = get_traffic("poisson_skewed").replace(n_requests=256)
-    traces = {k: materialize_trace(traffic, held_out, seed=0, device=d)
-              for k, d in devices.items()}
+    traces = {k: cnn_serving_trace(d) for k, d in devices.items()}
     base = dict(n_clients=4, pool_size=3, e_local=25, e_warmup=10,
                 learning_rate=1e-3, alpha=0.06, beta=1.0)
     runs = {"stacked": (main_result, None)}
@@ -4188,6 +4236,484 @@ def batched_fig10(torch, local_step):
                 accuracy=accs, **row)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: checkpoints
+# ---------------------------------------------------------------------------
+
+def _leaf_list(x):
+    """The tensors of a params dict or a pool, in order."""
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _leaf_list(v)]
+    if isinstance(x, tuple):
+        return [t for v in x for t in _leaf_list(v)]
+    return [x]
+
+
+def _same_bits(torch, a, b):
+    """Two params dicts or pools hold the same tensors bit for bit: the
+    same structure, dtypes, shapes and devices, equal as integers of their
+    width."""
+    width = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    la, lb = _leaf_list(a), _leaf_list(b)
+    return type(a) is type(b) and len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape and x.device == y.device
+        and torch.equal(x.view(width[x.element_size()]),
+                        y.view(width[y.element_size()]))
+        for x, y in zip(la, lb))
+
+
+def _timed(torch, fn):
+    """(fn(), seconds), the card synchronized before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _round_trip_pool(torch, pool, params_like, path):
+    """save_pool → load_pool onto the card; fails unless every leaf and
+    the count come back bit for bit. Returns the file's bytes and the
+    save and load seconds."""
+    from repro_torch.checkpoint import load_pool, save_pool
+    _, save_s = _timed(torch, lambda: save_pool(path, pool))
+    loaded, load_s = _timed(torch, lambda: load_pool(path, params_like))
+    if not _same_bits(torch, loaded, pool):
+        fail(f"{type(pool).__name__} from {path} is not the saved pool bit "
+             "for bit")
+    return dict(bytes=os.path.getsize(path), save_s=save_s, load_s=load_s)
+
+
+def checkpoint_cnn(torch, main_result, tmp):
+    """(a) Phase 4's params and stacked pool (capacity 4) saved from the
+    card and loaded onto it, bitwise; a moment and a low-rank pool (rank
+    8) of the same members likewise; `PoolServer.from_checkpoint` scores
+    phase 12's trace bitwise as `from_pool` does."""
+    from repro_torch.checkpoint import load_pytree, save_pytree
+    from repro_torch.configs import get_arch
+    from repro_torch.core.pool import LowRankDeltaPool, MomentPool
+    from repro_torch.models import build_model
+    from repro_torch.serve import PoolServer
+
+    params, pool = main_result.params, main_result.final_pool
+    path = os.path.join(tmp, "cnn_params.npz")
+    _, save_s = _timed(torch, lambda: save_pytree(path, params))
+    loaded, load_s = _timed(torch, lambda: load_pytree(
+        path, {k: torch.empty_like(v) for k, v in params.items()}))
+    if not _same_bits(torch, loaded, params):
+        fail("the CNN's params do not read back bit for bit")
+    out = {"params": dict(bytes=os.path.getsize(path), save_s=save_s,
+                          load_s=load_s)}
+    members = [{k: s[t] for k, s in pool.members.items()}
+               for t in range(int(pool.count))]
+    moment = MomentPool.create(members[0])
+    lowrank = LowRankDeltaPool.create(members[0], pool.capacity, 8)
+    for m in members[1:]:
+        moment, lowrank = moment.append(m), lowrank.append(m)
+    for name, p in (("stacked", pool), ("moment", moment),
+                    ("lowrank", lowrank)):
+        out[name] = _round_trip_pool(
+            torch, p, params, os.path.join(tmp, f"cnn_{name}.npz"))
+    model = build_model(get_arch("paper-cnn"))
+    trace = cnn_serving_trace(CARD)
+    idx = trace.flat_index()
+    want = PoolServer.from_pool(model, pool).score(trace.arrays, idx)
+    got = PoolServer.from_checkpoint(
+        model, os.path.join(tmp, "cnn_stacked.npz"), params).score(
+            trace.arrays, idx)
+    out["served_bitwise"] = all(a.tobytes() == b.tobytes()
+                                for a, b in zip(got, want))
+    print("  paper CNN: params and the stacked, moment and low-rank pools "
+          "saved from the card and loaded back bit for bit: " + "; ".join(
+              f"{k} {v['bytes'] / 1e6:.2f} MB (save {v['save_s']:.3f} s, "
+              f"load {v['load_s']:.3f} s)" for k, v in out.items()
+              if isinstance(v, dict)))
+    print(f"  from_checkpoint scores {len(idx)} requests bitwise as "
+          f"from_pool: {out['served_bitwise']}")
+    if not out["served_bitwise"]:
+        fail("PoolServer.from_checkpoint scores phase 12's trace otherwise "
+             "than PoolServer.from_pool")
+    return out
+
+
+def checkpoint_llama(torch, tmp):
+    """(b) Phase 11's full-width llama3.2-1b factor pool (bf16 base, 5
+    members at rank 8) through save_pool → load_pool (bitwise) →
+    `PoolServer.from_checkpoint`: phase 11's requests scored bitwise as by
+    the server of the pool in memory, each factored forward with phase
+    11's BGMV and attention launches; the file's bytes and the save and
+    load seconds."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve import PoolServer
+
+    cfg = get_arch("llama3.2-1b")
+    model, pool, build_s = _llama_pool(torch, cfg)
+    path = os.path.join(tmp, "llama_pool.npz")
+    out = _round_trip_pool(torch, pool, pool.base, path)
+    torch.cuda.empty_cache()
+    trace = llama_serving_trace(cfg)
+    n = len(trace.ticks)
+    scores, counts = {}, {}
+    for name, make in (
+            ("memory", lambda: PoolServer.from_pool(model, pool,
+                                                    buckets=(2,))),
+            ("checkpoint", lambda: PoolServer.from_checkpoint(
+                model, path, pool.base, buckets=(2,)))):
+        server = make()
+        if not server.factored:
+            fail(f"the {name} llama server is not factored")
+        _reset_counts()
+        scores[name] = [server.score(trace.arrays, t)[0]
+                        for t in trace.ticks]
+        torch.cuda.synchronize()
+        counts[name] = _read_counts()
+        del server
+        torch.cuda.empty_cache()
+    out.update(build_s=build_s, ticks=n, launches=counts,
+               served_bitwise=all(
+                   a.tobytes() == b.tobytes()
+                   for a, b in zip(scores["checkpoint"], scores["memory"])))
+    print(f"  llama3.2-1b factor pool (bf16 base, 5 members, rank 8): "
+          f"{out['bytes'] / 1e9:.3f} GB, save {out['save_s']:.2f} s, load "
+          f"{out['load_s']:.2f} s, read back bit for bit; {n} ticks scored "
+          f"bitwise as the pool in memory: {out['served_bitwise']}; "
+          f"launches {counts['checkpoint']}")
+    want = {"bgmv_f32": BGMV_PER_FORWARD * n,
+            "flash_attn_f32": ATTN_PER_FACTORED * n, "factor_gram_f32": 0,
+            "gla_chunk_f32": 0}
+    if counts["checkpoint"] != want or counts["memory"] != want:
+        fail(f"the llama servers launched {counts}; expected {want} "
+             f"({BGMV_PER_FORWARD} BGMV and {ATTN_PER_FACTORED} attention "
+             "a factored forward)")
+    if not out["served_bitwise"]:
+        fail("the llama pool served from its checkpoint scores otherwise "
+             "than from memory")
+    del model, pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_cli(torch, tmp):
+    """(c) `python -m repro_torch.launch.train --arch paper-cnn` with the
+    reference's defaults (4 clients, pool 3, e_local 20, 4,000 samples,
+    batch 48) and `--handoff-dir`: exit 0, its `acc=` line, the handoff
+    file read back bitwise there and loaded onto the card here."""
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    handoff = os.path.join(tmp, "handoff")
+    report = os.path.join(tmp, "train.json")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "paper-cnn", "--handoff-dir", handoff, "--out", report],
+        capture_output=True, text=True, timeout=600, env=env, cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"launch.train exited {proc.returncode}:\n"
+             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    acc = [ln for ln in lines if "acc=" in ln]
+    if not acc or not any("read back bitwise" in ln for ln in lines):
+        fail(f"launch.train printed no acc= line or no bitwise handoff:\n"
+             f"{proc.stdout[-3000:]}")
+    model = build_model(get_arch("paper-cnn"))
+    params = load_pytree(os.path.join(handoff, "m_final.npz"),
+                         model.init(0))
+    if not all(v.is_cuda and bool(torch.isfinite(v).all())
+               for v in params.values()):
+        fail("the handoff file does not load onto the card as finite "
+             "params")
+    with open(report) as f:
+        result = json.load(f)
+    print(f"  launch.train: {acc[0].strip()} ({wall:.1f} s with the "
+          "process's start); the handoff file loads onto the card")
+    return dict(wall_s=wall, acc=result["acc"], train_wall_s=result["wall_s"])
+
+
+# ---------------------------------------------------------------------------
+# phase 22: fleets
+# ---------------------------------------------------------------------------
+
+# benchmarks/common.fed_config's values at its "full" scale (n_clients is
+# the cohort's)
+FLEET_FED = dict(pool_size=3, e_local=14, e_warmup=7, learning_rate=1e-3,
+                 alpha=0.06, beta=1.0)
+# phase 22 (e): round 0 of fleet_smoke on the card against the CPU from
+# one init; the aggregates may lie at most this share of the distance
+# moved apart. Momentum SGD passes a rounding difference on linearly (no
+# Adam-like g/|g| that turns it into ±lr), so only the max-pool and ReLU
+# decisions that fall the other way at a near-tie move whole gradient
+# terms; 8 clients × 14 steps read 9.13e-4 on an NVIDIA H100 80GB HBM3 at
+# 700 W (PERF.md). 1e-2 keeps a tenfold margin on it; a client
+# trained on other data than its own lies O(1) of the distance away.
+FLEET_RATIO_TOL = 1e-2
+# phase 22 (0): the fleets' GEMM shapes — the CNN's convs at a fleet
+# client's batch (fleet_100k's and fleet_1m_cyclic's 16) — at their
+# cohorts' run axes (32 and 64 runs), and dfedsam's SGD update over
+# fleet_100k's 32 runs' stacked leaves
+FLEET_BATCH = 16
+FLEET_RUNS = (32, 64)
+FLEET_SHAPES = [(name, m // 64 * FLEET_BATCH, k, n, needs_da)
+                for name, m, k, n, needs_da in MAIN_SHAPES]
+FLEET_SGD_RUNS = 32
+
+
+def fleet_kernels(torch, local_step, ref):
+    """(0) The kernels at the fleets' shapes, before the sweeps' numbers
+    are read as theirs. Each of the step's 8 products at batch 16 with 32
+    and 64 runs in one launch: bitwise the single launches, and each run
+    within `check_gemm`'s tolerance of the plain version (the split
+    products' counters, one a split tile over all the runs, reach 4,608
+    at 64 runs of c3's weight gradient). One SGD update over 32 runs'
+    stacked leaves of the CNN in one launch, bitwise the plain version.
+    Times of the 8 products summed: the batched launches against runs ×
+    the single launch."""
+    from repro_torch.api.trainer import stack_trees
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    gen = torch.Generator(device=CARD).manual_seed(22)
+    out = dict(gemm=[], steps=[])
+    for runs in FLEET_RUNS:
+        step = dict(runs=runs, ms=0.0, single_ms=0.0, max_abs_err=0.0,
+                    max_f64_err=0.0, max_counters=0)
+        for shape in FLEET_SHAPES:
+            for prod, x, y, ta, tb, (m, k, n) in _step_products(
+                    torch, gen, runs, shape):
+                what = f"phase 22 gemm {shape[0]} {prod} × {runs}"
+                before = local_step.gemm_f32.launches
+                got = local_step.gemm_f32(x, y, trans_a=ta, trans_b=tb)
+                if local_step.gemm_f32.launches - before != 1:
+                    fail(f"{what}: not one launch")
+                singles = [local_step.gemm_f32(x[i], y[i], trans_a=ta,
+                                               trans_b=tb)
+                           for i in range(runs)]
+                torch.cuda.synchronize()
+                if not all(torch.equal(got[i], singles[i])
+                           for i in range(runs)):
+                    fail(f"{what}: the batched launch differs from the "
+                         "single launches")
+                abs_err = f64_err = 0.0
+                for i in range(runs):
+                    xi, yi = x[i], y[i]
+                    plain = ref.gemm_ref(xi.t() if ta else xi,
+                                         yi.t() if tb else yi)
+                    ok, e, f, _ = _hold_plain(got[i], plain, xi, yi, ta,
+                                              tb, k)
+                    if not ok:
+                        fail(f"{what}: run {i} disagrees with the plain "
+                             "version beyond check_gemm's bound")
+                    abs_err, f64_err = max(abs_err, e), max(f64_err, f)
+                plan = local_step.gemm_plan(m, n, k)
+                gx, gy, _ = plan.grid(m, n)
+                counters = runs * gx * gy if plan.splits > 1 else 0
+                row = dict(runs=runs, conv=shape[0], product=prod, m=m,
+                           k=k, n=n, plan=list(plan), counters=counters,
+                           bitwise_singles=True, max_abs_err=abs_err,
+                           f64_err=f64_err,
+                           ms=median_ms(lambda: local_step.gemm_f32(
+                               x, y, trans_a=ta, trans_b=tb)),
+                           single_ms=median_ms(lambda: local_step.gemm_f32(
+                               x[0], y[0], trans_a=ta, trans_b=tb)))
+                out["gemm"].append(row)
+                step["ms"] += row["ms"]
+                step["single_ms"] += runs * row["single_ms"]
+                step["max_abs_err"] = max(step["max_abs_err"], abs_err)
+                step["max_f64_err"] = max(step["max_f64_err"], f64_err)
+                step["max_counters"] = max(step["max_counters"], counters)
+        out["steps"].append(step)
+        print(f"  (0) gemm × {runs} runs at batch {FLEET_BATCH}, the step's "
+              f"8 products: bitwise the single launches, each run within "
+              f"the plain version's bound (max abs err "
+              f"{step['max_abs_err']:.3e}, normwise vs f64 "
+              f"{step['max_f64_err']:.2e}; up to {step['max_counters']} "
+              f"split-tile counters); batched {step['ms']:.4f} ms, {runs} × "
+              f"single {step['single_ms']:.4f} ms")
+
+    model = build_model(get_arch("paper-cnn"))
+    stacked = stack_trees([model.init(900 + i)
+                           for i in range(FLEET_SGD_RUNS)])
+    names = list(stacked)
+    ps = [stacked[k] for k in names]
+    gs = [torch.randn(p.shape, device=CARD, generator=gen) for p in ps]
+    before = local_step.sgd_f32.launches
+    new = local_step.sgd_f32(ps, gs, lr=SGD_LR, wd=SGD_WD)
+    launches = local_step.sgd_f32.launches - before
+    want = [ref.sgd_update_ref(p, g, lr=SGD_LR, wd=SGD_WD)
+            for p, g in zip(ps, gs)]
+    n_diff = sum(int((a != b).sum()) for a, b in zip(new, want))
+    n_el = sum(p.numel() for p in ps)
+    out["sgd"] = dict(runs=FLEET_SGD_RUNS, elements=n_el, launches=launches,
+                      n_diff=n_diff,
+                      ms=median_ms(lambda: local_step.sgd_f32(
+                          ps, gs, lr=SGD_LR, wd=SGD_WD)),
+                      bound_ms=3 * n_el * 4 / PEAK_BYTES * 1e3)
+    print(f"  (0) sgd × {FLEET_SGD_RUNS} runs (the CNN's leaves stacked, "
+          f"{n_el} elements): {launches} launch, {n_diff} elements differ "
+          f"from the plain version; {out['sgd']['ms']:.4f} ms (bound "
+          f"{out['sgd']['bound_ms']:.4f})")
+    if launches != 1 or n_diff:
+        fail(f"phase 22 sgd × {FLEET_SGD_RUNS}: {launches} launches, "
+             f"{n_diff} elements differ; the stacked update must be one "
+             "launch, bitwise the plain version")
+    return out
+
+
+def _fleet_run(torch, local_step, target, model, fed, **kw):
+    """launch(target) of a fleet with its GEMM and SGD launches, the
+    captures and replays it made and its wall time."""
+    from repro_torch.api import launch
+    from repro_torch.api.trainer import ScannedPhase
+    local_step.gemm_f32.launches = 0
+    local_step.sgd_f32.launches = 0
+    c0, r0 = ScannedPhase.total_captures, ScannedPhase.total_replays
+    res, wall = _timed(torch, lambda: launch(target, model, fed=fed, **kw))
+    return res, dict(gemm=local_step.gemm_f32.launches,
+                     sgd=local_step.sgd_f32.launches,
+                     captures=ScannedPhase.total_captures - c0,
+                     replays=ScannedPhase.total_replays - r0, wall_s=wall)
+
+
+def _fleet_row(res, counts):
+    """The sweep's numbers: clients/s over the rounds' training walls (the
+    reference's `clients_per_s`) and over the whole call's wall (the
+    cohorts' draw and upload and the evaluations included)."""
+    return dict(counts, clients_per_s=res.clients_per_s(),
+                sweep_clients_per_s=res.clients_trained / counts["wall_s"],
+                final_metric=res.final_metric,
+                rounds=[dict(round=c.round, wall_s=c.wall_time_s,
+                             accuracy=c.global_metric)
+                        for c in res.cohorts])
+
+
+def _hold_captured_sweep(name, fleet, fed, counts):
+    """A dfedavgm sweep: e_local steps a round of 8 GEMM products, one
+    capture for the whole sweep and every other step a replay."""
+    steps = fed.e_local * fleet.rounds
+    want = dict(gemm=GEMM_LAUNCHES_PER_STEP * steps, captures=1,
+                replays=steps - 1)
+    got = {k: counts[k] for k in want}
+    if got != want:
+        fail(f"{name}: {got}; expected {want} "
+             f"({GEMM_LAUNCHES_PER_STEP * fed.e_local} GEMM launches a "
+             "round, one capture for the sweep)")
+
+
+def _print_fleet(name, row):
+    rounds = ", ".join(f"r{r['round']} {r['wall_s']:.3f} s acc "
+                       f"{r['accuracy']:.4f}" for r in row["rounds"])
+    print(f"  {name}: {row['clients_per_s']:.1f} clients/s "
+          f"({row['sweep_clients_per_s']:.1f} over the call's "
+          f"{row['wall_s']:.2f} s); {rounds}; "
+          f"GEMM {row['gemm']}, SGD {row['sgd']}, captures "
+          f"{row['captures']}, replays {row['replays']}")
+
+
+def fleets_on_card(torch, local_step, ref, tmp):
+    """(0) `fleet_kernels`; (a) fleet_100k as registered (dfedavgm, eval
+    every round); (b) the same stopped after 2 rounds and resumed from its
+    round file, bitwise (a); (c) fleet_1m_cyclic as registered (a run axis
+    of 64); (d) dfedsam on fleet_100k (one SGD launch a step over the 32
+    runs' stacked leaves); (e) round 0 of fleet_smoke on the card against
+    the CPU from one init."""
+    import dataclasses
+
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.scenarios import get_fleet
+
+    out = dict(kernels=fleet_kernels(torch, local_step, ref))
+    model = build_model(get_arch("paper-cnn"))
+    f100k = get_fleet("fleet_100k")
+    fed = FedConfig(n_clients=f100k.cohort_size, **FLEET_FED)
+    full, counts = _fleet_run(torch, local_step, f100k, model, fed,
+                              eval_every=1)
+    out["fleet_100k"] = _fleet_row(full, counts)
+    _print_fleet("(a) fleet_100k (cohort 32, 4 rounds, dfedavgm)",
+                 out["fleet_100k"])
+    _hold_captured_sweep("fleet_100k", f100k, fed, counts)
+
+    ckpt = os.path.join(tmp, "fleet_100k")
+    _fleet_run(torch, local_step, f100k, model, fed, eval_every=1,
+               checkpoint_dir=ckpt, rounds=2)
+    resumed, counts = _fleet_run(torch, local_step, f100k, model, fed,
+                                 eval_every=1, checkpoint_dir=ckpt)
+    rounds = [c.round for c in resumed.cohorts]
+    bitwise = _same_bits(torch, resumed.params, full.params)
+    out["resume"] = dict(resumed_from=resumed.resumed_from, rounds=rounds,
+                         params_bitwise=bitwise,
+                         final_metric=resumed.final_metric,
+                         round_files=sorted(os.listdir(ckpt)))
+    print(f"  (b) stopped after round 1, resumed from round "
+          f"{resumed.resumed_from}: rounds {rounds}, final params bitwise "
+          f"(a)'s: {bitwise}, accuracy {resumed.final_metric:.4f} "
+          f"(a: {full.final_metric:.4f})")
+    if resumed.resumed_from != 1 or rounds != [2, 3] or not bitwise or \
+            resumed.final_metric != full.final_metric:
+        fail("the resumed fleet_100k sweep is not the uninterrupted one")
+
+    f1m = get_fleet("fleet_1m_cyclic")
+    fed64 = dataclasses.replace(fed, n_clients=f1m.cohort_size)
+    res, counts = _fleet_run(torch, local_step, f1m, model, fed64,
+                             eval_every=1)
+    out["fleet_1m_cyclic"] = _fleet_row(res, counts)
+    _print_fleet("(c) fleet_1m_cyclic (cohort 64, 8 rounds, cyclic)",
+                 out["fleet_1m_cyclic"])
+    _hold_captured_sweep("fleet_1m_cyclic", f1m, fed64, counts)
+
+    sam = f100k.replace(strategy="dfedsam")
+    res, counts = _fleet_run(torch, local_step, sam, model, fed,
+                             eval_every=1)
+    out["dfedsam"] = _fleet_row(res, counts)
+    _print_fleet("(d) fleet_100k with dfedsam", out["dfedsam"])
+    if counts["sgd"] != fed.e_local * sam.rounds:
+        fail(f"dfedsam's fleet made {counts['sgd']} SGD launches; expected "
+             f"{fed.e_local} a round: one a step over the 32 runs' stacked "
+             "leaves")
+
+    out["card_vs_cpu"] = fleet_card_vs_cpu(torch, model)
+    for row in (out["fleet_100k"], out["fleet_1m_cyclic"], out["dfedsam"]):
+        if not all(math.isfinite(r["accuracy"]) for r in row["rounds"]):
+            fail("a fleet round's accuracy is not finite")
+    return out
+
+
+def fleet_card_vs_cpu(torch, model):
+    """(e) Round 0 of fleet_smoke's cohort (8 clients of 32 samples) on the
+    full-width CNN, on the card and on the CPU (plain versions) from
+    `model.init(fleet.seed)`: the aggregates' distance over the distance
+    the CPU's moved, beside FLEET_RATIO_TOL."""
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.scenarios import get_fleet, run_fleet
+
+    fleet = get_fleet("fleet_smoke")
+    fed = FedConfig(n_clients=fleet.cohort_size, **FLEET_FED)
+    cpu_model = build_model(get_arch("paper-cnn"), device="cpu")
+    init = cpu_model.init(fleet.seed)
+    card = run_fleet(fleet, model, fed=fed, rounds=1)
+    cpu = run_fleet(fleet, cpu_model, fed=fed, rounds=1)
+    apart = sum(float((card.params[k].cpu() - v).square().sum())
+                for k, v in cpu.params.items()) ** 0.5
+    moved = sum(float((v - init[k]).square().sum())
+                for k, v in cpu.params.items()) ** 0.5
+    out = dict(apart=apart, moved=moved, ratio=apart / moved,
+               card_metric=card.final_metric, cpu_metric=cpu.final_metric)
+    print(f"  (e) fleet_smoke round 0, card against CPU: apart "
+          f"{apart:.4e} over moved {moved:.4e} = {out['ratio']:.4e} "
+          f"(tolerance {FLEET_RATIO_TOL:g}); accuracy "
+          f"{card.final_metric:.4f}"
+          f" card, {cpu.final_metric:.4f} CPU")
+    if not out["ratio"] <= FLEET_RATIO_TOL:
+        fail(f"fleet_smoke's round-0 aggregates lie {out['ratio']:.4e} of "
+             f"the distance moved apart (limit {FLEET_RATIO_TOL})")
+    return out
+
+
 def sweep_kernel_entries(main_path, pd_out):
     """The kernels line's entries of the sweep's forward and backward.
     Launches: the main path's run `main_path` (phase 18's captured one). Times and bounds: the one sweep of an
@@ -4335,6 +4861,23 @@ def main(argv):
           f"{batched['table1']['batch_speedup']:.3f}; fig 10: "
           f"{batched['fig10']['batch_speedup']:.3f} ({smi_line})")
 
+    # phases 21-22: checkpoints and fleets; their files go to one
+    # temporary directory, deleted at the end
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        print("[21] checkpoints: the CNN's params and pools, the llama3.2-1b "
+              "factor pool through from_checkpoint, launch.train's handoff")
+        checkpoints = dict(cnn=checkpoint_cnn(torch, main_result, tmp),
+                           llama=checkpoint_llama(torch, tmp),
+                           cli=checkpoint_cli(torch, tmp))
+        print("[22] fleets on the full-width paper CNN: fleet_100k, its "
+              "resume, fleet_1m_cyclic, dfedsam, card against CPU")
+        fleets = fleets_on_card(torch, local_step, ref, tmp)
+        print(f"  clients/s: fleet_100k "
+              f"{fleets['fleet_100k']['clients_per_s']:.1f}, "
+              f"fleet_1m_cyclic "
+              f"{fleets['fleet_1m_cyclic']['clients_per_s']:.1f} "
+              f"({smi_line})")
+
     step_rows = [r for r in rows if r["main_path"]]
     byte_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[0] for r in step_rows)
     flop_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[1] for r in step_rows)
@@ -4381,7 +4924,8 @@ def main(argv):
         dfedsam_card_vs_cpu=sam_agreement, **serving, **ssm_out,
         pool_distance=pd_out, regularizer=regularizer, fig9=fig9,
         compiled_phase=compiled, table1_scenarios=table1_scen,
-        batched=batched, total_s=time.perf_counter() - t_start)))
+        batched=batched, checkpoints=checkpoints, fleets=fleets,
+        total_s=time.perf_counter() - t_start)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(smi_line)

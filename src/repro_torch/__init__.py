@@ -3,7 +3,8 @@ reference it mirrors).
 
 The port keeps the reference's module names, layouts (NHWC activations,
 HWIO conv weights) and parameter leaf names, so parameters convert between
-the two packages by plain copy (`repro_torch.convert`). Entry points run on
+the two packages by plain copy (`repro_torch.convert`), and checkpoints
+are the reference's npz files (`repro_torch.checkpoint`). Entry points run on
 the CUDA device unless the caller passes ``device="cpu"``. The kernels on
 its paths are hand-written CUDA C++ for Hopper (``kernels/csrc/``): the
 f32 GEMM behind every convolution of the paper CNN's training step, the

@@ -5,7 +5,9 @@ strategies (paper Algorithms 1–3 and the Table 1 baselines), over
 fed=fed, strategies=..., seeds=...)`` runs a registered scenario's sweep
 (a `BatchResult`); ``launch(experiment, axes=BatchAxes(seeds=...,
 fed_grid=...))`` and ``launch([exp, ...])`` run sweeps through the batched
-engine (`api.batch`), each group of compatible runs one batched program."""
+engine (`api.batch`), each group of compatible runs one batched program;
+``launch(fleet_spec, model, fed=fed)`` runs a fleet's cohort rounds (a
+`FleetResult`; `checkpoint_dir=` makes it resumable)."""
 from repro_torch.api.batch import BatchAxes, run_batch
 from repro_torch.api.engine import (Callbacks, Experiment,
                                     warn_unsupported_fields)
@@ -15,8 +17,9 @@ from repro_torch.api.plan import (LocalBlock, StrategyPlan, Topology,
                                   per_client_seeds, tree_mean)
 from repro_torch.api.pools import (PoolBackend, backend_for, get_pool_backend,
                                    list_pool_backends, register_pool_backend)
-from repro_torch.api.results import (BatchResult, ClientRecord, ModelRecord,
-                                     RoundRecord, RunResult, StrategyOutput)
+from repro_torch.api.results import (BatchResult, ClientRecord, CohortRecord,
+                                     FleetResult, ModelRecord, RoundRecord,
+                                     RunResult, StrategyOutput)
 from repro_torch.api.strategies import (describe_strategies, get_plan,
                                         get_strategy_spec, list_strategies,
                                         register_plan, register_strategy)
@@ -32,6 +35,7 @@ __all__ = [
     "unstack_tree", "BatchedScannedPhase", "make_batched_plain_step",
     "make_batched_pool_step",
     "RunResult", "BatchResult", "ClientRecord", "ModelRecord", "RoundRecord",
+    "CohortRecord", "FleetResult",
     "StrategyOutput", "StrategyPlan", "Topology", "LocalBlock", "interpret",
     "per_client_seeds", "tree_mean",
     "register_plan", "register_strategy", "get_plan", "get_strategy_spec",

@@ -383,16 +383,21 @@ def _interpret_independent(exp, plan: StrategyPlan,
 # ---------------------------------------------------------------------------
 
 def interpret_batched(exps: List[Any], plan: StrategyPlan,
-                      mesh=None) -> List[StrategyOutput]:
+                      mesh=None, *, _trainer: Optional[LocalTrainer] = None
+                      ) -> List[StrategyOutput]:
     """Execute a group of Experiments (`api.batch` groups them) through
     their plan with a leading run axis; one StrategyOutput a run, each
     run's streams consumed in `interpret`'s order. No device mesh is
-    ported: a `mesh` raises."""
+    ported: a `mesh` raises. `_trainer` (`_make_trainer`'s, for this plan
+    and FedConfig) lets a caller that runs many groups of one shape —
+    `run_fleet`'s rounds — keep one trainer, and so one capture a step
+    kind, across them."""
     if mesh is not None:
         raise NotImplementedError(
             "interpret_batched: mesh= (sharding a group over devices) is "
             "not ported yet")
-    trainer = _make_trainer(exps[0].model.loss_fn, exps[0].fed, plan)
+    trainer = (_trainer if _trainer is not None else
+               _make_trainer(exps[0].model.loss_fn, exps[0].fed, plan))
     if plan.topology.kind == "independent":
         return _interpret_independent_batched(exps, plan, trainer)
     return _interpret_sequenced_batched(exps, plan, trainer)

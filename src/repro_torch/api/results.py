@@ -124,6 +124,44 @@ class BatchResult:
 
 
 @dataclasses.dataclass
+class CohortRecord:
+    """One fleet round: which registered clients took part, the round's
+    training wall clock, and (when evaluated) the global metric after the
+    round's aggregate."""
+    round: int
+    clients: List[int]
+    global_metric: Optional[float] = None
+    wall_time_s: float = 0.0
+
+
+@dataclasses.dataclass
+class FleetResult:
+    """What `repro_torch.scenarios.run_fleet` (and `launch(FleetSpec)`)
+    returns: the final global params after every cohort round, per-round
+    records and throughput accounting. `resumed_from` is the checkpointed
+    round the sweep restarted after (None for an uninterrupted run); a
+    resumed run is bitwise the uninterrupted one, so `cohorts` covers only
+    the rounds this call ran."""
+    fleet: Any                       # the FleetSpec
+    strategy: str
+    params: Any
+    fed: FedConfig
+    cohorts: List[CohortRecord] = dataclasses.field(default_factory=list)
+    final_metric: Optional[float] = None
+    wall_time_s: float = 0.0
+    resumed_from: Optional[int] = None
+
+    @property
+    def clients_trained(self) -> int:
+        return sum(len(c.clients) for c in self.cohorts)
+
+    def clients_per_s(self) -> float:
+        """Trained clients per second of cohort-training wall clock."""
+        t = sum(c.wall_time_s for c in self.cohorts)
+        return self.clients_trained / t if t > 0 else 0.0
+
+
+@dataclasses.dataclass
 class StrategyOutput:
     """What a strategy hands back to the engine (the engine adds timing
     and the final metric to build the RunResult)."""

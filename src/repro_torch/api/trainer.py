@@ -745,7 +745,10 @@ class BatchedScannedPhase(ScannedPhase):
     def _load(self, params: Params, plans: List[DataPlan],
               rows: torch.Tensor) -> None:
         self._buffers(params, plans, rows.shape[1])
-        if self._client != [id(p) for p in plans]:
+        # the plans themselves, not their ids: a trainer that outlives a
+        # group (a fleet's rounds) would see a freed plan's id again
+        if self._client is None or len(self._client) != len(plans) or \
+                any(a is not b for a, b in zip(self._client, plans)):
             for i, p in enumerate(plans):
                 if list(p.arrays) != list(self.arrays):
                     raise ValueError(
@@ -754,7 +757,7 @@ class BatchedScannedPhase(ScannedPhase):
                         "plans' keys differ")
                 for k, a in p.arrays.items():
                     self.arrays[k][i, :p.n].copy_(a)
-            self._client = [id(p) for p in plans]
+            self._client = list(plans)
         self.rows[:, :rows.shape[1]].copy_(rows)
         self.ptr.zero_()
 

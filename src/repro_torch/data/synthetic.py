@@ -1,8 +1,9 @@
 """Synthetic image data (port of ``repro/data/synthetic.py``):
 class-conditional Gaussian images over low-frequency class means, for
-label skew, and four feature-shifted domains over the same classes, for
-domain shift (the paper's PACS stand-in). Pure numpy, bitwise equal to the
-reference for the same seeds."""
+label skew; four feature-shifted domains over the same classes, for
+domain shift (the paper's PACS stand-in); and a fleet client's shard by
+client id. Pure numpy, bitwise equal to the reference for the same
+seeds."""
 from __future__ import annotations
 
 import dataclasses
@@ -35,6 +36,25 @@ def make_image_dataset(n_samples=20000, n_classes=10, side=32, noise=1.0,
     images = means[labels] + noise * rng.normal(
         size=(n_samples, side, side, 3)).astype(np.float32)
     return SyntheticImageDataset(images.astype(np.float32), labels, n_classes)
+
+
+def make_fleet_client_dataset(client_id: int, n_samples=64, n_classes=10,
+                              side=32, noise=2.5, label_beta=0.3, seed=0,
+                              means_seed=0) -> SyntheticImageDataset:
+    """One registered fleet client's local shard, a pure function of
+    (client_id, seed): its label marginal is its own Dirichlet(label_beta)
+    draw, its samples class means + noise under that marginal. A fleet
+    never materializes as a whole — only a round's cohort — and a resumed
+    sweep redraws the same bytes."""
+    means = _class_means(np.random.default_rng(means_seed), n_classes, side)
+    rng = np.random.default_rng((seed, 0xF1EE7, int(client_id)))
+    marginal = rng.dirichlet(np.full(n_classes, label_beta))
+    labels = rng.choice(n_classes, size=n_samples,
+                        p=marginal).astype(np.int32)
+    images = means[labels] + noise * rng.normal(
+        size=(n_samples, side, side, 3)).astype(np.float32)
+    return SyntheticImageDataset(images.astype(np.float32), labels,
+                                 n_classes)
 
 
 _DOMAIN_TRANSFORMS = ("photo", "art", "cartoon", "sketch")

@@ -63,8 +63,9 @@ _BIG_TILE_MIN_K = 4 * CHUNK_K
 _SPLIT_BLOCKS = 6 * N_SMS
 _MAX_SPLITS = 128
 _MAX_GRID_YZ = 65535   # CUDA's limit on gridDim.y and gridDim.z
-_COUNTERS = 4096       # split tiles a launch may have over all its runs
-                       # (one counter each)
+_COUNTERS = 65536      # split tiles a launch may have over all its runs
+                       # (one counter each; 256 KiB): a fleet cohort of 64
+                       # runs of the CNN's c3 weight gradient has 4,608
 
 
 def fused_loss_for(loss_fn: Callable) -> Callable:
@@ -153,6 +154,15 @@ def gemm_plan(m: int, n: int, k: int) -> GemmPlan:
     return plan
 
 
+def runs_fit(plan: GemmPlan, m: int, n: int, runs: int) -> bool:
+    """Whether one launch takes `runs` products of `plan` with an (m, n)
+    output: CUDA's limit on gridDim.z (runs × slices) and, split, one
+    counter a split tile over all the runs."""
+    gx, gy, _ = plan.grid(m, n)
+    return runs * plan.splits <= _MAX_GRID_YZ and (
+        plan.splits == 1 or runs * gx * gy <= _COUNTERS)
+
+
 def bind_gemm(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Declare the C signature of `lib.gemm_f32` (csrc/gemm_f32.cu)."""
     fn = lib.gemm_f32
@@ -213,9 +223,7 @@ def gemm_f32(a: torch.Tensor, b: torch.Tensor, *, trans_a: bool = False,
         raise ValueError(f"gemm_f32: empty product ({m}, {k}) @ ({k}, {n}) "
                          f"× {runs} runs")
     plan = gemm_plan(m, n, k)
-    gx, gy, _ = plan.grid(m, n)
-    if runs * plan.splits > _MAX_GRID_YZ or (
-            plan.splits > 1 and runs * gx * gy > _COUNTERS):
+    if not runs_fit(plan, m, n, runs):
         raise ValueError(f"gemm_f32: no grid for {runs} runs of ({m}, {k}) "
                          f"@ ({k}, {n})")
     a_run = a.stride(0) if a.dim() == 3 else 0

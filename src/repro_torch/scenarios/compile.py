@@ -1,6 +1,5 @@
 """The scenario compiler: `ScenarioSpec` → materialized client data →
-Experiments (port of ``repro/scenarios/compile.py``; the fleet path is
-not ported yet).
+Experiments, and the fleet path (port of ``repro/scenarios/compile.py``).
 
     spec = get_scenario("pathological_shards")
     exps = build_experiments(spec, model, strategies=("fedelmy", "fedseq"),
@@ -19,10 +18,20 @@ or the per-step loop over the device arrays, `device=False` the host
 `_run_scenario` (behind `repro_torch.api.launch`) runs the experiments
 through the batched engine (`api.batch._run_batch`), as the reference
 does: each strategy's seeds one group, one batched program.
+
+Fleet-scale federations go through the same machinery per *cohort*: a
+`FleetSpec`'s participation trace draws a cohort of clients each round,
+`materialize_cohort` builds their shards (pure functions of client id —
+the fleet itself never materializes), and `run_fleet` runs each cohort as
+one batched group (`plan.interpret_batched`'s flattened run × client
+axis) on one trainer for the whole sweep, so a captured step kind is
+captured once and replayed every round; a round file after every round
+makes the sweep preemptible.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -30,25 +39,30 @@ import torch
 
 from repro_torch.api.batch import _run_batch
 from repro_torch.api.engine import Experiment
-from repro_torch.api.results import BatchResult
+from repro_torch.api.plan import _make_trainer, interpret_batched
+from repro_torch.api.results import BatchResult, CohortRecord, FleetResult
+from repro_torch.api.strategies import get_strategy_spec
+from repro_torch.checkpoint import latest_fleet_round, save_fleet_round
 from repro_torch.configs.base import FedConfig
 from repro_torch.data.partition import train_val_split
 from repro_torch.data.pipeline import batch_iterator, image_batch
 from repro_torch.data.plan import DataPlan
 from repro_torch.data.synthetic import (SyntheticImageDataset,
                                         make_domain_datasets,
+                                        make_fleet_client_dataset,
                                         make_image_dataset)
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.scenarios.registry import get_partitioner
-from repro_torch.scenarios.spec import ScenarioSpec
+from repro_torch.scenarios.spec import FleetSpec, ScenarioSpec
 
 Arrays = Dict[str, np.ndarray]
 
 
 class _ClientStreams:
-    """The stream-minting surface of `ScenarioData`: one documented
-    contract (`streams`), one device-upload cache, one tiling rule.
-    Subclasses provide `client_data`, `seed` and `_batch_size`."""
+    """The stream-minting surface shared by `ScenarioData` and
+    `CohortData`: one documented contract (`streams`), one device-upload
+    cache, one tiling rule. Subclasses provide `client_data`, `seed` and
+    `_batch_size`."""
 
     client_data: List[Arrays]
     seed: int
@@ -130,6 +144,22 @@ class ScenarioData(_ClientStreams):
 
     def sizes(self) -> List[int]:
         return [len(c["labels"]) for c in self.client_data]
+
+
+@dataclasses.dataclass
+class CohortData(_ClientStreams):
+    """One fleet round's materialized cohort: the participation trace's
+    client ids and their shards — pure functions of (FleetSpec, round),
+    so a resumed sweep redraws the same bytes."""
+    fleet: FleetSpec
+    round: int
+    seed: int                        # stream base seed (folded per round)
+    client_ids: List[int]            # registered fleet ids, |cohort_size|
+    client_data: List[Arrays]
+
+    @property
+    def _batch_size(self) -> int:
+        return self.fleet.batch_size
 
 
 def _index_family_clients(spec: ScenarioSpec, seed: int, fn: Callable):
@@ -271,3 +301,129 @@ def _run_scenario(spec: ScenarioSpec, model, *, fed: FedConfig,
     exps = build_experiments(spec, model, fed=fed, strategies=strategies,
                              seeds=seeds, **kw)
     return _run_batch(experiments=exps, mesh=mesh)
+
+
+# ---------------------------------------------------------------------------
+# Fleet-scale execution: streaming cohorts
+# ---------------------------------------------------------------------------
+
+def materialize_cohort(fleet: FleetSpec, r: int) -> CohortData:
+    """Round r's cohort: the participation trace's ids and each
+    participant's shard. Pure in (fleet, r) — the fleet never
+    materializes; memory is O(cohort_size)."""
+    ids = fleet.cohort(r)
+    client_data = [image_batch(make_fleet_client_dataset(
+        int(c), n_samples=fleet.samples_per_client,
+        n_classes=fleet.n_classes, side=fleet.side, noise=fleet.noise,
+        label_beta=fleet.label_beta, seed=fleet.seed)) for c in ids]
+    return CohortData(fleet=fleet, round=r,
+                      seed=fleet.seed * 100003 + r * 131 + 7,
+                      client_ids=[int(c) for c in ids],
+                      client_data=client_data)
+
+
+def fleet_eval(model, fleet: FleetSpec) -> Callable:
+    """Global accuracy over a held-out draw from the fleet's generative
+    process (balanced labels), on the model's device (uploaded once);
+    returns a device scalar."""
+    test = make_image_dataset(fleet.n_test, fleet.n_classes, fleet.side,
+                              fleet.noise, seed=fleet.seed + 91)
+    images = torch.from_numpy(test.images).to(model.device)
+    labels = torch.from_numpy(test.labels).to(model.device)
+
+    def acc(params):
+        with torch.no_grad():
+            logits = model.forward(params, {"images": images})
+        return (logits.argmax(-1) == labels).float().mean()
+    return acc
+
+
+def _fleet_plan(fleet: FleetSpec):
+    """The fleet strategy's plan, checked for cohort rounds: round r's
+    aggregate is round r+1's shared init, so the plan must be
+    independent-topology, shared_init, and honor Experiment.init_params."""
+    plan = get_strategy_spec(fleet.strategy).plan
+    if plan is None or plan.topology.kind != "independent" \
+            or plan.broadcast != "shared_init" \
+            or not plan.init_from_experiment:
+        raise ValueError(
+            f"fleet strategy {fleet.strategy!r} must be a registered plan "
+            "with independent topology, shared_init broadcast, and "
+            "init_from_experiment=True (dfedavgm / dfedsam qualify): "
+            "cohort rounds thread the global aggregate through "
+            "Experiment.init_params")
+    return plan
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def run_fleet(fleet: FleetSpec, model, *, fed: FedConfig, mesh=None,
+              checkpoint_dir: Optional[str] = None,
+              eval_every: int = 0, scan: bool = True,
+              rounds: Optional[int] = None) -> FleetResult:
+    """Run a fleet sweep: each round draws the cohort, materializes its
+    shards and runs the whole cohort as one batched group
+    (`interpret_batched`'s flattened run × client axis); the round's
+    aggregate is the next round's `Experiment.init_params`. Round r's
+    Experiment seed is ``fleet.seed·100003 + r``, the round-0 init
+    ``model.init(fleet.seed)``.
+
+    One trainer serves every round, so on the card a step kind is
+    captured once for the sweep and replayed in every round (the cohort's
+    shapes are fixed by the spec). A round's wall time ends in a device
+    sync and leaves out the cohort's draw and upload.
+
+    `checkpoint_dir` makes the sweep preemptible: each round's aggregate
+    is written there, and a restarted call resumes after the newest round
+    file — bitwise the uninterrupted run. `eval_every=k` evaluates every
+    k-th round (0: the final round only); `rounds` overrides
+    `fleet.rounds` (e.g. to stop a sweep midway). No device mesh is
+    ported: a `mesh` raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_fleet: mesh= (sharding a cohort over devices) is not "
+            "ported yet")
+    t0 = time.time()
+    plan = _fleet_plan(fleet)
+    fed = dataclasses.replace(fed, n_clients=fleet.cohort_size)
+    n_rounds = fleet.rounds if rounds is None else rounds
+    acc = fleet_eval(model, fleet)
+    trainer = _make_trainer(model.loss_fn, fed, plan)
+
+    params = model.init(fleet.seed)
+    start, resumed_from = 0, None
+    if checkpoint_dir is not None:
+        r, saved = latest_fleet_round(checkpoint_dir, params)
+        if r is not None:
+            params, start, resumed_from = saved, r + 1, r
+
+    cohorts: List[CohortRecord] = []
+    for r in range(start, n_rounds):
+        cohort = materialize_cohort(fleet, r)
+        exp = Experiment(
+            model=model, client_iters=cohort.streams(scan=scan,
+                                                     to=model.device),
+            fed=fed, strategy=fleet.strategy,
+            seed=fleet.seed * 100003 + r, init_params=params)
+        _sync(model.device)
+        g0 = time.time()
+        params = interpret_batched([exp], plan, _trainer=trainer)[0].params
+        _sync(model.device)
+        wall = time.time() - g0
+        metric = None
+        if (eval_every and (r + 1) % eval_every == 0) or r == n_rounds - 1:
+            metric = float(acc(params))
+        cohorts.append(CohortRecord(round=r, clients=cohort.client_ids,
+                                    global_metric=metric, wall_time_s=wall))
+        if checkpoint_dir is not None:
+            save_fleet_round(checkpoint_dir, r, params)
+
+    final = (cohorts[-1].global_metric if cohorts
+             else float(acc(params)))
+    return FleetResult(fleet=fleet, strategy=fleet.strategy, params=params,
+                       fed=fed, cohorts=cohorts, final_metric=final,
+                       wall_time_s=time.time() - t0,
+                       resumed_from=resumed_from)

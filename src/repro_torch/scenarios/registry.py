@@ -1,6 +1,5 @@
-"""Scenario + partitioner registries, mirroring the strategy registry
-(port of ``repro/scenarios/registry.py``; the fleet catalog is not ported
-yet).
+"""Scenario, partitioner and fleet registries, mirroring the strategy
+registry (port of ``repro/scenarios/registry.py``).
 
 * Partitioners — the callables in `repro_torch.data.partition`, tagged
   with the `kind` of thing they return ("indices": per-client index
@@ -9,6 +8,7 @@ yet).
 * Scenarios — registered `ScenarioSpec` instances. A benchmark or test
   asks for `get_scenario("pathological_shards")` and (optionally)
   `replace()`s scale knobs.
+* Fleets — registered `FleetSpec` instances (`get_fleet("fleet_100k")`).
 """
 from __future__ import annotations
 
@@ -16,10 +16,11 @@ from typing import Callable, List, NamedTuple
 
 from repro_torch.api.registry import Registry
 from repro_torch.data import partition as P
-from repro_torch.scenarios.spec import ScenarioSpec
+from repro_torch.scenarios.spec import FleetSpec, ScenarioSpec
 
 SCENARIOS = Registry("scenario")
 PARTITIONERS = Registry("partitioner")
+FLEETS = Registry("fleet")
 
 PARTITIONER_KINDS = ("indices", "datasets")
 
@@ -57,6 +58,19 @@ def get_scenario(name: str) -> ScenarioSpec:
 
 def list_scenarios() -> List[str]:
     return SCENARIOS.names()
+
+
+def register_fleet(spec: FleetSpec) -> FleetSpec:
+    FLEETS.register(spec.name, spec)
+    return spec
+
+
+def get_fleet(name: str) -> FleetSpec:
+    return FLEETS.get(name)
+
+
+def list_fleets() -> List[str]:
+    return FLEETS.names()
 
 
 # ---------------------------------------------------------------------------
@@ -110,3 +124,24 @@ register_scenario(ScenarioSpec(
     name="stragglers", family="label_skew",
     partitioner="dirichlet", partitioner_params={"beta": 0.3},
     stragglers=(1, 3), straggler_keep=0.4))
+
+
+# ---------------------------------------------------------------------------
+# Built-in fleet catalog, the reference's. The fleet never materializes:
+# fleet_size is the id space the participation trace draws from; only each
+# round's cohort exists in memory.
+# ---------------------------------------------------------------------------
+
+# The benchmark fleet: 10⁵ registered clients, uniform participation.
+register_fleet(FleetSpec(
+    name="fleet_100k", fleet_size=100_000, cohort_size=32, rounds=4))
+
+# Full-coverage variant: a deterministic cyclic walk over 10⁶ clients.
+register_fleet(FleetSpec(
+    name="fleet_1m_cyclic", fleet_size=1_000_000, cohort_size=64,
+    rounds=8, participation="cyclic"))
+
+# Tiny smoke fleet for tests.
+register_fleet(FleetSpec(
+    name="fleet_smoke", fleet_size=1_000, cohort_size=8, rounds=2,
+    samples_per_client=32))

@@ -1,5 +1,6 @@
-"""`ScenarioSpec`: a declarative description of one non-IID federation
-(port of ``repro/scenarios/spec.py``; `FleetSpec` is not ported yet).
+"""`ScenarioSpec`: a declarative description of one non-IID federation,
+and `FleetSpec`, a population-scale one (port of
+``repro/scenarios/spec.py``).
 
 A spec is *data* — which heterogeneity family, which partitioner at what
 parameters, how many clients, who participates, who drops out or
@@ -19,6 +20,7 @@ import numpy as np
 FAMILIES = ("label_skew", "quantity_skew", "mixed_skew", "feature_shift",
             "domain_shift")
 EVAL_SPLITS = ("global", "holdout")
+PARTICIPATIONS = ("uniform", "cyclic")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,4 +117,72 @@ class ScenarioSpec:
     def replace(self, **kw) -> "ScenarioSpec":
         """`dataclasses.replace` convenience — benchmark configs derive
         from registered specs by overriding scale knobs."""
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetSpec:
+    """A population-scale federation, fully declaratively: a registered
+    fleet of `fleet_size` clients (10⁵–10⁶, far beyond what a run ever
+    materializes), a seeded participation trace drawing a cohort a round,
+    and an `independent`-topology strategy whose aggregate is broadcast
+    into the next round.
+
+    Every piece is a pure function of (spec, round): `cohort(r)` draws the
+    same ids on every call, each client's shard is a pure function of its
+    id (`repro_torch.data.make_fleet_client_dataset`), and the round seeds
+    fold `seed` with `r`, so a sweep resumed from a round checkpoint is
+    bitwise the uninterrupted run.
+
+    `participation`:
+      "uniform" — cohort_size ids drawn uniformly without replacement
+                  (sorted; independent draws per round)
+      "cyclic"  — a round-robin walk over the fleet, cohort r covering
+                  ids [r·cohort, (r+1)·cohort) mod fleet_size
+
+    The strategy must be a registered plan with `independent` topology and
+    a `shared_init` broadcast honoring `init_params` (dfedavgm, dfedsam);
+    `run_fleet` checks it, so specs import without the strategy registry.
+    """
+    name: str
+    fleet_size: int = 100_000
+    cohort_size: int = 32
+    rounds: int = 4
+    strategy: str = "dfedavgm"
+    participation: str = "uniform"
+    # -- per-client data scale (see make_fleet_client_dataset) ------------
+    samples_per_client: int = 64
+    n_classes: int = 10
+    side: int = 32
+    noise: float = 2.5
+    label_beta: float = 0.3
+    batch_size: int = 16
+    n_test: int = 400
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.participation not in PARTICIPATIONS:
+            raise ValueError(
+                f"unknown participation trace {self.participation!r}; "
+                f"expected one of {PARTICIPATIONS}")
+        if self.cohort_size < 1 or self.cohort_size > self.fleet_size:
+            raise ValueError(
+                f"cohort_size must be in [1, fleet_size={self.fleet_size}]"
+                f", got {self.cohort_size}")
+        if self.rounds < 1:
+            raise ValueError(f"rounds must be >= 1, got {self.rounds}")
+
+    def cohort(self, r: int) -> np.ndarray:
+        """Round r's participating client ids — deterministic in
+        (spec.seed, participation, r), independent of execution history."""
+        if self.participation == "cyclic":
+            start = (r * self.cohort_size) % self.fleet_size
+            return ((start + np.arange(self.cohort_size))
+                    % self.fleet_size).astype(np.int64)
+        rng = np.random.default_rng((self.seed, 0xC0807, r))
+        ids = rng.choice(self.fleet_size, size=self.cohort_size,
+                         replace=False)
+        return np.sort(ids).astype(np.int64)
+
+    def replace(self, **kw) -> "FleetSpec":
         return dataclasses.replace(self, **kw)

@@ -185,8 +185,12 @@ class PoolServer:
     @classmethod
     def from_checkpoint(cls, model, path: str, params_like,
                         **kw) -> "PoolServer":
-        raise NotImplementedError(
-            "PoolServer.from_checkpoint waits for the checkpoint port")
+        """Serve a pool saved with `repro_torch.checkpoint.save_pool` (or
+        the reference's): train → save → load → serve is bitwise train →
+        serve. `params_like` is one model's params (structure, dtypes and
+        device; e.g. `model.init(seed)`)."""
+        from repro_torch.checkpoint import load_pool
+        return cls.from_pool(model, load_pool(path, params_like), **kw)
 
     # -- scoring ------------------------------------------------------------
 

@@ -223,14 +223,22 @@ def test_shared_iterators_rejected_like_reference():
 
 
 def test_launch_raises_for_what_is_not_ported():
-    from repro.scenarios import get_fleet
+    from repro_torch.scenarios import get_fleet
     exp = T.Experiment(model=_torch_tiny(), client_iters=_tiny_iters("torch"),
                        fed=FedConfig(**TINY_FED))
     with pytest.raises(NotImplementedError, match="not ported yet"):
         T.launch(exp, mesh=object())
+    # fleets are ported: a fleet runs through launch; its mesh= does not
+    cnn = build_model(dataclasses.replace(get_arch("paper-cnn"), d_model=8,
+                                          d_ff=16), device="cpu")
+    fleet = get_fleet("fleet_smoke").replace(rounds=1, cohort_size=2,
+                                             samples_per_client=16,
+                                             batch_size=8, n_test=32)
+    fed = FedConfig(**dict(TINY_FED, e_local=1))
+    res = T.launch(fleet, cnn, fed=fed)
+    assert isinstance(res, T.FleetResult) and res.clients_trained == 2
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.launch(get_fleet("fleet_smoke"), _torch_tiny(),
-                 fed=FedConfig(**TINY_FED))
+        T.launch(fleet, cnn, fed=fed, mesh=object())
     with pytest.raises(NotImplementedError, match="not ported yet"):
         T.interpret_batched([exp, exp], T.get_plan("fedelmy"),
                             mesh=object())

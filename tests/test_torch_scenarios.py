@@ -292,11 +292,19 @@ def test_launch_dispatch(models):
     assert batch.final_metrics() == [r.final_metric for r in batch.runs]
     with pytest.raises(ValueError, match="model= and fed="):
         T.launch(spec, tm)
-    with pytest.raises(ValueError, match="no registered scenario"):
-        T.launch("fleet_100k", tm, fed=fed)
+    # names resolve to fleets first, then scenarios, as the reference's
+    from repro_torch.api.launch import _resolve_name
+    assert _resolve_name("fleet_100k") is TS.get_fleet("fleet_100k")
+    assert _resolve_name("dir_label_skew") is \
+        TS.get_scenario("dir_label_skew")
+    with pytest.raises(ValueError, match="neither a registered fleet"):
+        T.launch("no_such_scenario", tm, fed=fed)
     with pytest.raises(NotImplementedError, match="not ported yet"):
         T.launch(exps[0], mesh=object())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        T.launch(JS.get_fleet("fleet_smoke"), tm, fed=fed)
+    fleet = TS.get_fleet("fleet_smoke").replace(
+        rounds=1, cohort_size=2, samples_per_client=16, batch_size=8,
+        n_test=32)
+    res = T.launch(fleet, tm, fed=dataclasses.replace(fed, e_local=1))
+    assert isinstance(res, T.FleetResult) and res.clients_trained == 2
     with pytest.raises(TypeError, match="cannot dispatch"):
         T.launch(3.0)
