@@ -156,6 +156,23 @@ Phases, each failing the run with a nonzero exit:
              over the 32 runs' stacked leaves; (e) round 0 of
              fleet_smoke on the card against the CPU from one init,
              within FLEET_RATIO_TOL of the distance moved
+23. dense serving — (a) llama3.2-1b and qwen2-7b at full width and
+             depth in bf16 through `launch.steps.make_step`: prefill of a
+             2 × 512 prompt (one attention launch a layer), the grow by
+             16, 16 greedy tokens through the eager decode and through
+             the captured step (`CapturedDecode`: 1 capture, 15 replays,
+             no attention launch a step), the captured logits and tokens
+             bitwise the eager ones; prefill and decode times, tokens/s,
+             peak memory and the idle share of 4 decode steps each way;
+             (b) llama3.2-1b's ring: a 1 × 8,448 prompt past its 8,192
+             window, ring-packed and not grown, 8 tokens eager and
+             captured (bitwise); (c) the f32 twin of (b)'s weights: the
+             prefill through the kernel against `ref.attention_ref` in
+             its place, and prefill(T−1) + decode against prefill(T),
+             grown at T = 513 and on the ring at T = 8,449 … 8,456
+             through the captured f32 step; (d) granite-8b at full depth
+             and qwen2-72b at full width cut to 8 layers, as (a) without
+             the profile
 
 Before the last lines it prints every measurement as one JSON object on
 a line starting "details: "; then the kernels' JSON record and the card's
@@ -1420,7 +1437,14 @@ ATTN_SHAPES = [("serve", 10, 16, 16, 32, 8, 64, True, 8192),
                # (28 over 4 kv heads: a group of 7 packs 64 query rows
                # unevenly)
                ("hd32", 3, 777, 777, 16, 2, 32, True, 256),
-               ("hd128", 2, 1024, 1024, 28, 4, 128, True, 0)]
+               ("hd128", 2, 1024, 1024, 28, 4, 128, True, 0),
+               # phase 23's dense prefills that the rows above do not
+               # cover: granite-8b's heads (32 over 8, hd 128) and
+               # qwen2-72b's (64 over 8) at the 2 × 512 prompt, and
+               # llama3.2-1b's ring prefill, the 8,192 window at 8,448
+               ("granite", 2, 512, 512, 32, 8, 128, True, 0),
+               ("qwen72", 2, 512, 512, 64, 8, 128, True, 0),
+               ("ring8448", 1, 8448, 8448, 32, 8, 64, True, 8192)]
 # the factor stacks lowrank_pairwise_sq hands the Gram kernel at full
 # width, C·r = 40 rows: (name, B, P, stacks of this shape a call)
 GRAM_SHAPES = [("embed.u", 1, 128256, 1), ("embed.v", 1, 2048, 1),
@@ -2521,20 +2545,20 @@ def check_gla(torch, chunk_scan, ssm, ref):
     return rows, max_abs
 
 
-def _grow(cache, n):
-    """The hybrid's shared attention caches grown by `n` positions, as
-    examples/serve_batched.py's `grow` does (other leaves unchanged)."""
+def _grow(cache, n, keys=("shared_k", "shared_v")):
+    """The attention caches `keys` grown by `n` positions, as
+    examples/serve_batched.py's `grow` does (other leaves unchanged): the
+    hybrid's shared caches by default, the dense family's ("k", "v")."""
     import torch.nn.functional as F
-    return {k: F.pad(v, (0, 0, 0, 0, 0, n))
-            if k in ("shared_k", "shared_v") else v
+    return {k: F.pad(v, (0, 0, 0, 0, 0, n)) if k in keys else v
             for k, v in cache.items()}
 
 
-def _ssm_model(torch, cfg):
+def _served_model(torch, cfg, n_params):
     """The model on the card, its params from seed 0, the draw's wall time
     and its peak device memory in GB (each leaf passes through one f32
-    buffer); holds the parameter count to the full config's. The peak
-    memory statistics restart after the draw."""
+    buffer); holds the parameter count to `n_params`, the full config's.
+    The peak memory statistics restart after the draw."""
     from repro_torch.models import build_model
     model = build_model(cfg)
     torch.cuda.synchronize()
@@ -2546,9 +2570,9 @@ def _ssm_model(torch, cfg):
     init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.reset_peak_memory_stats()
     n = sum(p.numel() for p in params.values())
-    if n != SSM_PARAMS[cfg.name]:
-        fail(f"{cfg.name}: {n} parameters; the full config has "
-             f"{SSM_PARAMS[cfg.name]}")
+    if n != n_params:
+        fail(f"{cfg.name} ({cfg.n_layers} layers): {n} parameters; "
+             f"expected {n_params}")
     return model, params, build_s, init_peak_gb
 
 
@@ -2566,7 +2590,8 @@ def serve_ssm_bf16(torch, name):
     from repro_torch.launch import make_step
 
     cfg = get_arch(name)
-    model, params, build_s, init_peak_gb = _ssm_model(torch, cfg)
+    model, params, build_s, init_peak_gb = _served_model(
+        torch, cfg, SSM_PARAMS[name])
     total = SSM_PROMPT + SSM_NEW
     prefill = make_step(cfg, ShapeConfig("prefill_512", SSM_PROMPT,
                                          SSM_BATCH, "prefill"))
@@ -2667,7 +2692,8 @@ def ssm_oracle_f32(torch, name, ssm):
     from repro_torch.configs import get_arch
 
     cfg = dataclasses.replace(get_arch(name), param_dtype="float32")
-    model, params, build_s, init_peak_gb = _ssm_model(torch, cfg)
+    model, params, build_s, init_peak_gb = _served_model(
+        torch, cfg, SSM_PARAMS[name])
     t = SSM_PROMPT
     tokens = torch.from_numpy(np.random.default_rng(15).integers(
         0, cfg.vocab_size, (SSM_BATCH, t))).to(CARD)
@@ -4714,6 +4740,353 @@ def fleet_card_vs_cpu(torch, model):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: dense serving — prefill through the attention kernel, the
+# ring-buffer KV cache, one decode step captured in a CUDA graph
+# ---------------------------------------------------------------------------
+
+# (a), (d): phase 14's traffic (examples/serve_batched.py's loop at batch
+# 2): a 512-token prompt, the cache grown by 16, 16 greedy tokens
+DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 2, 512, 16
+# parameters of the served configs (jax.eval_shape of the reference's
+# init); qwen2-72b is cut to 8 of its 80 layers: its 72,706,203,648 bf16
+# parameters (145 GB) exceed the card's 80 GB, 8 layers hold 19.0 GB
+DENSE_LAYERS = {"qwen2-72b": 8}
+DENSE_PARAMS = {"llama3.2-1b": 1_235_814_400, "qwen2-7b": 7_615_616_512,
+                "granite-8b": 8_254_689_280, "qwen2-72b": 9_512_902_656}
+# attention launches per prefill (one a layer); decode steps launch none
+DENSE_PREFILL_LAUNCHES = {"llama3.2-1b": 16, "qwen2-7b": 28,
+                          "granite-8b": 36, "qwen2-72b": 8}
+# (b): a prompt past llama3.2-1b's 8,192 window, ring-packed and not
+# grown, and 8 tokens decoded on the ring (slot = pos % 8192 wraps)
+DENSE_RING_PROMPT, DENSE_RING_NEW = 8448, 8
+# (c), set before the first run (PERF.md's prediction for phase 23): the f32
+# model's last logits normwise, (1) its prefill through the kernel
+# against the same prefill with `ref.attention_ref` in the kernel's place
+# (f32 sums of up to 8,192 terms in another order, ~1e-7 relative a layer
+# call, over 16 layers); (2) prefill(T−1) + decode(1) against prefill(T)
+# (decode's plain softmax over the cache against the kernel's online one),
+# grown at T = 513 and on the ring at T = 8,449 and the 7 tokens after it
+DENSE_KERNEL_REL_TOL = 1e-4
+DENSE_ROUNDTRIP_REL_TOL = 1e-4
+
+
+def _dense_cfg(name):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    cfg = get_arch(name)
+    if name in DENSE_LAYERS:
+        cfg = dataclasses.replace(cfg, n_layers=DENSE_LAYERS[name])
+    return cfg
+
+
+def _dense_pass(torch, params, prefill, step, tokens, new, grow):
+    """Prefill of `tokens`, the cache grown by `grow`, then `new` greedy
+    tokens through `step` (the model's eager decode or the captured
+    step). Counts reset before, read after the prefill and after the
+    decode steps. Returns the walls, the counts, every step's logits
+    (copies: the captured step's buffer is overwritten) and the tokens."""
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": tokens})
+    if grow:
+        cache = _grow(cache, grow, ("k", "v"))
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter()
+    counts_pre = _read_counts()
+    tok = logits[:, -1].argmax(-1)[:, None]
+    seq, steps = [tok], []
+    t = tokens.shape[1]
+    for pos in range(t, t + new):
+        logits, cache = step(params, tok, cache, pos)
+        steps.append(logits.clone())
+        tok = logits[:, -1].argmax(-1)[:, None]
+        seq.append(tok)
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    counts = _read_counts()
+    return dict(prefill_ms=(t_pre - t0) * 1e3,
+                decode_ms_per_token=(t_end - t_pre) * 1e3 / new,
+                tokens_per_s=tokens.shape[0] * new / (t_end - t_pre),
+                launches_prefill=counts_pre,
+                launches_decode={k: counts[k] - counts_pre[k]
+                                 for k in counts}), \
+        torch.stack(steps), torch.cat(seq, 1), cache
+
+
+def _hold_dense_launches(name, label, counts_pre, counts_dec, n_layers):
+    want_dec = {k: 0 for k in counts_pre}
+    want_pre = dict(want_dec, flash_attn_f32=n_layers)
+    if counts_pre != want_pre or counts_dec != want_dec:
+        fail(f"{name} {label}: launches {counts_pre} (prefill) and "
+             f"{counts_dec} (decode steps); expected {want_pre} and "
+             f"{want_dec}")
+
+
+def serve_dense(torch, name, smi_line, profile):
+    """(a)/(d) The bf16 model at full width through the port's
+    `launch.steps.make_step`: prefill of a (2, 512) prompt, the grow by
+    16, 16 greedy decode steps, once through the model's eager decode and
+    once through the captured step (`CapturedDecode`: 1 capture, 15
+    replays); the captured logits and tokens bitwise the eager ones, the
+    attention launches exact. Then both passes again, timed (the
+    captured step replays only), and with `profile` the idle share of 4
+    decode steps of each under `torch.profiler`."""
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import make_step
+
+    cfg = _dense_cfg(name)
+    model, params, build_s, init_peak_gb = _served_model(
+        torch, cfg, DENSE_PARAMS[name])
+    total = DENSE_PROMPT + DENSE_NEW
+    prefill = make_step(cfg, ShapeConfig("prefill_512", DENSE_PROMPT,
+                                         DENSE_BATCH, "prefill"))
+    serve = make_step(cfg, ShapeConfig("decode_528", total, DENSE_BATCH,
+                                       "decode"))
+    tokens = torch.from_numpy(np.random.default_rng(23).integers(
+        0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT))).to(CARD)
+
+    def run(step):
+        return _dense_pass(torch, params, prefill, step, tokens, DENSE_NEW,
+                           DENSE_NEW)
+    eager, eager_logits, eager_seq, _ = run(model.decode)
+    captured, cap_logits, cap_seq, _ = run(serve)
+    capture_counts = dict(captures=serve.captures, replays=serve.replays,
+                          cache_loads=serve.cache_loads)
+    for label, r in (("eager", eager), ("captured", captured)):
+        _hold_dense_launches(name, label, r["launches_prefill"],
+                             r["launches_decode"], cfg.n_layers)
+    timed_eager, _, seq2, _ = run(model.decode)
+    timed_cap, _, seq3, cache = run(serve)
+    finite = bool(torch.isfinite(eager_logits).all())
+    out = dict(
+        layers=cfg.n_layers, params=sum(p.numel() for p in params.values()),
+        param_gb=sum(p.numel() * p.element_size()
+                     for p in params.values()) / 1e9,
+        build_s=build_s, init_peak_gb=init_peak_gb,
+        first_pass=dict(eager=eager, captured=captured),
+        eager=timed_eager, captured=timed_cap, capture=capture_counts,
+        bitwise_logits=bool(torch.equal(cap_logits, eager_logits)),
+        bitwise_tokens=bool(torch.equal(cap_seq, eager_seq)),
+        same_tokens_timed=bool(torch.equal(seq2, eager_seq) and
+                               torch.equal(seq3, eager_seq)),
+        max_abs_captured_vs_eager=float(
+            (cap_logits - eager_logits).abs().max()),
+        finite=finite, greedy_tokens=eager_seq[0].tolist(),
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+        nvidia_smi=smi_line)
+    if profile:
+        tok = eager_seq[:, -1:]
+        grown = {k: v.clone() for k, v in cache.items()}
+        out["profile_eager"] = _profile(
+            torch, lambda n: [model.decode(params, tok, grown,
+                                           DENSE_PROMPT + i)
+                              for i in range(n)], 4,
+            f"{name} bf16 eager decode step (batch 2; 'step' = token)")
+        out["profile_captured"] = _profile(
+            torch, lambda n: [serve(params, tok, cache, DENSE_PROMPT + i)
+                              for i in range(n)], 4,
+            f"{name} bf16 captured decode step (batch 2; 'step' = token)")
+    print(f"  {name} bf16 ({cfg.n_layers} layers, {out['params']:,} "
+          f"parameters, {out['param_gb']:.2f} GB, drawn in {build_s:.2f} s;"
+          f" {smi_line}): prefill {timed_cap['prefill_ms']:.2f} ms; decode "
+          f"eager {timed_eager['decode_ms_per_token']:.3f} ms/token "
+          f"({timed_eager['tokens_per_s']:.1f} tokens/s), captured "
+          f"{timed_cap['decode_ms_per_token']:.3f} ms/token "
+          f"({timed_cap['tokens_per_s']:.1f} tokens/s); peak "
+          f"{out['peak_gb']:.2f} GB; {capture_counts}; captured bitwise "
+          f"eager: logits {out['bitwise_logits']}, tokens "
+          f"{out['bitwise_tokens']}; launches a prefill "
+          f"{eager['launches_prefill']['flash_attn_f32']}; greedy "
+          f"{out['greedy_tokens'][:6]}")
+    if capture_counts != dict(captures=1, replays=DENSE_NEW - 1,
+                              cache_loads=1):
+        fail(f"{name}: the captured pass made {capture_counts}; expected 1 "
+             f"capture, {DENSE_NEW - 1} replays and 1 cache load")
+    if not (out["bitwise_logits"] and out["bitwise_tokens"]):
+        fail(f"{name}: the captured decode is not bitwise the eager one "
+             f"(max abs {out['max_abs_captured_vs_eager']:.3e})")
+    if not (finite and out["same_tokens_timed"]):
+        fail(f"{name}: non-finite logits or other tokens in a timed pass")
+    del model, params, serve, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _f32_twin(params):
+    """The bf16 params widened to f32 (every bf16 value is an f32 one):
+    the f32 oracle computes the bf16 model's function."""
+    return {k: v.float() for k, v in params.items()}
+
+
+def dense_ring_and_oracle(torch, smi_line):
+    """(b) llama3.2-1b bf16: a (1, 8448) prompt past the 8,192 window,
+    ring-packed by prefill and not grown, then 8 greedy tokens through
+    the eager decode and through the captured step (bitwise, exact
+    launches). (c) Its f32 twin: the prefill through the kernel against
+    the same prefill through `ref.attention_ref` at the (2, 513) prompt;
+    prefill(512) + grow + decode against prefill(513); and on the ring,
+    prefill(8448) + the 8 tokens of (b) through the captured f32 step,
+    each token's logits against prefill(p + 1)'s last logits (p = 8448
+    … 8455: the first is T = 8,449). The bf16 ring tokens' logits are
+    printed against the f32 oracle's (not gated)."""
+    import dataclasses
+    from unittest import mock
+
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.launch import make_step
+    from repro_torch.models import build_model
+    from repro_torch.models import layers
+
+    cfg = get_arch("llama3.2-1b")
+    model, params, _, _ = _served_model(torch, cfg,
+                                        DENSE_PARAMS[cfg.name])
+    t, new = DENSE_RING_PROMPT, DENSE_RING_NEW
+    tokens = torch.from_numpy(np.random.default_rng(24).integers(
+        0, cfg.vocab_size, (1, t))).to(CARD)
+    prefill = make_step(cfg, ShapeConfig("prefill_8448", t, 1, "prefill"))
+    serve = make_step(cfg, ShapeConfig("decode_8456", t + new, 1, "decode"))
+    eager, eager_logits, seq, cache = _dense_pass(
+        torch, params, prefill, model.decode, tokens, new, 0)
+    captured, cap_logits, cap_seq, _ = _dense_pass(
+        torch, params, prefill, serve, tokens, new, 0)
+    for label, r in (("ring eager", eager), ("ring captured", captured)):
+        _hold_dense_launches("llama3.2-1b", label, r["launches_prefill"],
+                             r["launches_decode"], cfg.n_layers)
+    ring = dict(prompt=t, new=new, cache_entries=cache["k"].shape[2],
+                first_pass=dict(eager=eager, captured=captured),
+                capture=dict(captures=serve.captures, replays=serve.replays,
+                             cache_loads=serve.cache_loads),
+                bitwise_logits=bool(torch.equal(cap_logits, eager_logits)),
+                bitwise_tokens=bool(torch.equal(cap_seq, seq)),
+                finite=bool(torch.isfinite(eager_logits).all()))
+    ring["eager"], _, _, _ = _dense_pass(torch, params, prefill,
+                                         model.decode, tokens, new, 0)
+    ring["captured"], _, _, own = _dense_pass(torch, params, prefill, serve,
+                                              tokens, new, 0)
+    tok = seq[:, -1:]
+    ring["profile_captured"] = _profile(
+        torch, lambda n: [serve(params, tok, own, t + new + i)
+                          for i in range(n)], 4,
+        "llama3.2-1b bf16 captured decode step on the 8,192-entry ring "
+        "(batch 1)")
+    f32 = _f32_twin(params)
+    del params, serve, cache, own
+    torch.cuda.empty_cache()
+
+    # (c) the f32 twin
+    m32 = build_model(dataclasses.replace(cfg, param_dtype="float32"))
+    short = torch.from_numpy(np.random.default_rng(25).integers(
+        0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT + 1))).to(CARD)
+    _reset_counts()
+    lk, _ = m32.prefill(f32, {"tokens": short})
+    torch.cuda.synchronize()
+    nk = _read_counts()["flash_attn_f32"]
+
+    def plain(q, k, v, *, causal=True, window=0, q_offset=0, kv_block=512):
+        return attention_ref(q, k, v, causal=causal, window=window)
+    with mock.patch.object(layers, "flash_attention", plain):
+        _reset_counts()
+        lp, _ = m32.prefill(f32, {"tokens": short})
+        torch.cuda.synchronize()
+        np_ = _read_counts()["flash_attn_f32"]
+    _, c512 = m32.prefill(f32, {"tokens": short[:, :-1]})
+    ld, _ = m32.decode(f32, short[:, -1:], _grow(c512, 1, ("k", "v")),
+                       DENSE_PROMPT)
+    del c512
+    oracle = dict(kernel_launches=nk, plain_launches=np_,
+                  kernel_vs_plain_rel_err=_normwise(lk, lp),
+                  grown_roundtrip_rel_err=_normwise(ld, lk),
+                  grown_max_abs_err=float((ld - lk).abs().max()),
+                  max_abs_logit=float(lk.abs().max()))
+    full = torch.cat([tokens, seq[:, :-1]], 1)     # prompt + the 8 tokens
+    serve32 = make_step(m32.cfg, ShapeConfig("decode_8456", t + new, 1,
+                                             "decode"))
+    _, cache = m32.prefill(f32, {"tokens": full[:, :t]})
+    ring_err, bf16_err = [], []
+    for i in range(new):
+        pos = t + i
+        got, cache = serve32(f32, full[:, pos:pos + 1], cache, pos)
+        want, _ = m32.prefill(f32, {"tokens": full[:, :pos + 1]})
+        ring_err.append(_normwise(got, want))
+        bf16_err.append(_normwise(cap_logits[i], want))
+    oracle.update(ring_roundtrip_rel_err=ring_err,
+                  ring_bf16_vs_f32_rel_err=bf16_err,
+                  ring_capture=dict(captures=serve32.captures,
+                                    replays=serve32.replays),
+                  peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print(f"  llama3.2-1b bf16 ring (1 x {t} prompt, ring of "
+          f"{ring['cache_entries']}, not grown; {smi_line}): prefill "
+          f"{ring['captured']['prefill_ms']:.2f} ms, decode eager "
+          f"{ring['eager']['decode_ms_per_token']:.3f} / captured "
+          f"{ring['captured']['decode_ms_per_token']:.3f} ms/token; "
+          f"{ring['capture']}; captured bitwise eager: logits "
+          f"{ring['bitwise_logits']}, tokens {ring['bitwise_tokens']}")
+    print(f"  llama3.2-1b f32 oracle: kernel vs attention_ref prefill "
+          f"{oracle['kernel_vs_plain_rel_err']:.3e} (tolerance "
+          f"{DENSE_KERNEL_REL_TOL:g}; attention launches {nk} / {np_}); "
+          f"prefill(512)+decode vs prefill(513) "
+          f"{oracle['grown_roundtrip_rel_err']:.3e}, on the ring "
+          f"prefill(p)+decode vs prefill(p+1) for p = {t}..{t + new - 1}: "
+          f"max {max(ring_err):.3e} (tolerance "
+          f"{DENSE_ROUNDTRIP_REL_TOL:g}); bf16 ring logits vs the f32 "
+          f"oracle {min(bf16_err):.3e}..{max(bf16_err):.3e} (not gated)")
+    if ring["capture"] != dict(captures=1, replays=new - 1, cache_loads=1):
+        fail(f"llama3.2-1b ring: the captured pass made {ring['capture']}")
+    if not (ring["bitwise_logits"] and ring["bitwise_tokens"] and
+            ring["finite"]):
+        fail("llama3.2-1b ring: the captured decode is not bitwise the "
+             "eager one, or its logits are not finite")
+    if ring["cache_entries"] != cfg.sliding_window:
+        fail(f"llama3.2-1b ring: prefill left {ring['cache_entries']} "
+             f"entries; the window is {cfg.sliding_window}")
+    if nk != cfg.n_layers or np_ != 0:
+        fail(f"f32 oracle: {nk} attention launches through the kernel and "
+             f"{np_} through attention_ref")
+    if not oracle["kernel_vs_plain_rel_err"] <= DENSE_KERNEL_REL_TOL:
+        fail("llama3.2-1b f32: the prefill through the kernel disagrees "
+             "with the one through attention_ref")
+    if not max([oracle["grown_roundtrip_rel_err"]] + ring_err) <= \
+            DENSE_ROUNDTRIP_REL_TOL:
+        fail("llama3.2-1b f32: prefill(T-1) + decode disagrees with "
+             "prefill(T)")
+    del m32, f32, serve32, cache
+    torch.cuda.empty_cache()
+    return dict(ring=ring, oracle=oracle)
+
+
+def dense_phase(torch, smi_line):
+    """Phase 23; returns its measurements by name."""
+    t0 = time.perf_counter()
+    out = {}
+    for name in ("llama3.2-1b", "qwen2-7b"):
+        out[name] = serve_dense(torch, name, smi_line, profile=True)
+    out.update(dense_ring_and_oracle(torch, smi_line))
+    for name in ("granite-8b", "qwen2-72b"):
+        out[name] = serve_dense(torch, name, smi_line, profile=False)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"  phase 23: {out['seconds']:.1f} s")
+    return out
+
+
+def dense_attention_launches(dense):
+    """Phase 23's attention launches: the prefills of every counted pass
+    (eager and captured, (a), (b) and (d))."""
+    passes = [dense[n]["first_pass"][k] for n in DENSE_PREFILL_LAUNCHES
+              for k in ("eager", "captured")]
+    passes += [dense["ring"]["first_pass"][k]
+               for k in ("eager", "captured")]
+    return sum(p[k]["flash_attn_f32"] for p in passes
+               for k in ("launches_prefill", "launches_decode"))
+
+
 def sweep_kernel_entries(main_path, pd_out):
     """The kernels line's entries of the sweep's forward and backward.
     Launches: the main path's run `main_path` (phase 18's captured one). Times and bounds: the one sweep of an
@@ -4878,6 +5251,12 @@ def main(argv):
               f"{fleets['fleet_1m_cyclic']['clients_per_s']:.1f} "
               f"({smi_line})")
 
+    # phase 23: dense serving
+    print("[23] dense serving: llama3.2-1b, qwen2-7b, granite-8b and "
+          "qwen2-72b (8 layers) in bf16 through make_step, eager and "
+          "captured decode; the ring past the window; the f32 oracle")
+    dense = dense_phase(torch, smi_line)
+
     step_rows = [r for r in rows if r["main_path"]]
     byte_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[0] for r in step_rows)
     flop_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[1] for r in step_rows)
@@ -4908,14 +5287,16 @@ def main(argv):
         "library_ms": sgd_timing["library_ms"]}]
         + serving_kernels(serving)["kernels"] + [gla_kernel_entry(ssm_out)]
         + sweep_kernel_entries(captured, pd_out)}
-    # flash attention's main paths: phase 11's replays and zamba2-7b's
-    # served prefill and decode steps (phase 14)
+    # flash attention's main paths: phase 11's replays, zamba2-7b's
+    # served prefill and decode steps (phase 14) and the dense prefills
+    # of phase 23
     zamba = ssm_out["ssm_serving"]["zamba2-7b"]["bf16"]
     for entry in kernels["kernels"]:
         if entry["name"] == "flash_attn_f32":
             entry["launches"] += sum(
                 zamba[k]["flash_attn_f32"]
                 for k in ("launches_prefill", "launches_decode"))
+            entry["launches"] += dense_attention_launches(dense)
     print("details: " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), nvidia_smi=smi_line,
         build_s=build_s, gemm=rows, main_path=main_path,
@@ -4925,7 +5306,7 @@ def main(argv):
         pool_distance=pd_out, regularizer=regularizer, fig9=fig9,
         compiled_phase=compiled, table1_scenarios=table1_scen,
         batched=batched, checkpoints=checkpoints, fleets=fleets,
-        total_s=time.perf_counter() - t_start)))
+        dense_serving=dense, total_s=time.perf_counter() - t_start)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(smi_line)

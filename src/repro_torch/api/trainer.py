@@ -33,7 +33,6 @@ group."""
 from __future__ import annotations
 
 import contextlib
-import gc
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
@@ -589,58 +588,22 @@ class ScannedPhase:
             for _ in range(n):
                 self._step(kind)
             return
-        if kind not in self.graphs and n:
-            self._step(kind)                  # the warm-up is a real step
-            n -= 1
-            self._capture(kind)
-        graph, counts = self.graphs.get(kind, (None, None))
-        for _ in range(n):
-            graph.replay()
-        if n:
-            build.add_replays(counts, n)
-            self.replays += n
-            ScannedPhase.total_replays += n
-
-    def _capture(self, kind: str) -> None:
-        """Capture the step body on the side stream (where the warm-up
-        step ran). The cycle collector is off during the capture: an
-        object it freed there (another run's graph, a pinned buffer) would
-        call the CUDA runtime outside the captured stream and void the
-        capture. (`torch.cuda.graph` would also empty the allocator's
-        caches first, which costs the run's later allocations more than
-        the capture saves.)"""
-        graph = torch.cuda.CUDAGraph()
-        was_on = gc.isenabled()
-        gc.disable()
-        try:
-            with build.capture_counts() as counts:
-                graph.capture_begin()
-                try:
-                    self._step(kind)
-                finally:
-                    graph.capture_end()
-        finally:
-            if was_on:
-                gc.enable()
-        self.graphs[kind] = (graph, counts)
-        self.captures += 1
-        ScannedPhase.total_captures += 1
-
-    @contextlib.contextmanager
-    def _side_stream(self):
-        """On CUDA, run the body on the side stream a capture needs, after
-        the current stream's work, and hand the work back to it on exit;
-        on the CPU, run it as it is."""
-        if self.task.device.type != "cuda":
-            yield
+        if not n:
             return
-        if self.stream is None:
-            self.stream = torch.cuda.Stream()
-        current = torch.cuda.current_stream()
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            yield
-        current.wait_stream(self.stream)
+        self.graphs[kind], fresh, replays = build.graph_steps(
+            self.graphs.get(kind), lambda: self._step(kind), n)
+        if fresh:
+            self.captures += 1
+            ScannedPhase.total_captures += 1
+        self.replays += replays
+        ScannedPhase.total_replays += replays
+
+    def _side_stream(self):
+        """On CUDA, run the body on the side stream a capture needs
+        (`build.side_stream`); on the CPU, run it as it is."""
+        if self.task.device.type != "cuda":
+            return contextlib.nullcontext()
+        return build.side_stream(self)
 
     # -- the phases ----------------------------------------------------------
 

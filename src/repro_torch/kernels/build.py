@@ -168,7 +168,72 @@ def capture_counts():
         _captured.clear()
 
 
+def capture_graph(body: Callable[[], Any]):
+    """Capture `body()` into a new CUDA graph on the current stream (a
+    side stream, where a warm-up run of the body went first); returns the
+    graph, the launches one replay makes (`capture_counts`) and what the
+    body returned. The cycle collector is off during the capture: an
+    object it freed there (another graph, a pinned buffer) would call the
+    CUDA runtime outside the captured stream and void the capture.
+    (`torch.cuda.graph` would also empty the allocator's caches first,
+    which costs later allocations more than the capture saves.) A capture
+    that fails raises."""
+    import gc
+
+    import torch
+    graph = torch.cuda.CUDAGraph()
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        with capture_counts() as counts:
+            graph.capture_begin()
+            try:
+                out = body()
+            finally:
+                graph.capture_end()
+    finally:
+        if was_on:
+            gc.enable()
+    return graph, counts, out
+
+
 def add_replays(counts: Dict[Callable, Any], replays: int = 1) -> None:
     """Count `replays` replays of a graph whose capture made `counts`."""
     for wrapper, n in counts.items():
         wrapper.launches += n * replays
+
+
+@contextlib.contextmanager
+def side_stream(holder: Any, device: Any = None):
+    """Run the body on `holder.stream`, the side stream a capture needs
+    (made at first use on `device`), after the current stream's work; the
+    work is handed back to the current stream on exit."""
+    import torch
+    if holder.stream is None:
+        holder.stream = torch.cuda.Stream(device)
+    current = torch.cuda.current_stream(device)
+    holder.stream.wait_stream(current)
+    with torch.cuda.stream(holder.stream):
+        yield
+    current.wait_stream(holder.stream)
+
+
+def graph_steps(captured: Any, body: Callable[[], Any], n: int = 1):
+    """n > 0 steps of `body` on the side stream through one CUDA graph.
+    `captured` is the (graph, counts) of an earlier call, or None: then
+    the first step runs eagerly (a real step, which also makes every
+    buffer a kernel wrapper keeps per stream) and the body is captured
+    after it (`capture_graph`). The other steps are replays, counted in
+    the wrappers (`add_replays`). Returns ((graph, counts), whether it
+    captured, the replays made)."""
+    fresh = captured is None
+    if fresh:
+        body()
+        n -= 1
+        graph, counts, _ = capture_graph(body)
+        captured = (graph, counts)
+    graph, counts = captured
+    for _ in range(n):
+        graph.replay()
+    add_replays(counts, n)
+    return captured, fresh, n

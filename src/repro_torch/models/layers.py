@@ -13,8 +13,10 @@ position 0: a `q_offset` (cached decode) or an input that requires grad
 (training) raises `NotImplementedError` until a backward kernel exists.
 On a CPU tensor it runs the reference's chunked online-softmax
 formulation, kv block by kv block. `decode_attention` (one query against
-a KV cache) is plain PyTorch on every device, as the reference has no
-kernel for it.
+a KV cache, with the sliding window of the dense family's ring buffer)
+is plain PyTorch on every device, as the reference has no kernel for it.
+Nothing in the decode path copies host memory to the card, so a decode
+step can be captured in a CUDA graph (`launch.steps.CapturedDecode`).
 """
 from __future__ import annotations
 
@@ -79,9 +81,10 @@ def rms_norm(scale: torch.Tensor, x: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """θ^(−2i/hd), computed on `device` from a scalar θ (exact in f32 for
+    the configs' θ): no host-to-device copy, so it runs under capture."""
     exps = torch.arange(0, head_dim, 2, dtype=ACC, device=device) / head_dim
-    return 1.0 / torch.pow(torch.tensor(theta, dtype=ACC, device=device),
-                           exps)
+    return 1.0 / torch.pow(float(theta), exps)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
@@ -170,19 +173,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cache_pos: torch.Tensor,
-                     pos: torch.Tensor) -> torch.Tensor:
-    """Single-token attention over a KV cache. q: (B, 1, H, hd); caches
-    (B, W, KV, hd); cache_pos (B, W): the absolute position of each entry
-    (−1 = empty); pos (B,): the current position. Entries after `pos`
-    are masked (the reference's sliding-window mask waits for the dense
-    family's ring-buffer decode). Scores and softmax in f32, out in q's
-    dtype."""
+                     pos: torch.Tensor, *, window: int = 0) -> torch.Tensor:
+    """Single-token attention over a (possibly ring-buffer) KV cache. q:
+    (B, 1, H, hd); caches (B, W, KV, hd); cache_pos (B, W): the absolute
+    position of each entry (−1 = empty); pos (B,): the current position.
+    An entry is valid when its position lies in [0, pos] and, with a
+    `window` > 0, after pos − window. Scores and softmax in f32, out in
+    q's dtype."""
     b, _, h, hd = q.shape
     n_kv = k_cache.shape[2]
     g = h // n_kv
     qg = q.reshape(b, n_kv, g, hd).to(ACC) * hd ** -0.5
     s = torch.einsum("bkgh,bwkh->bkgw", qg, k_cache.to(ACC))
     valid = (cache_pos >= 0) & (cache_pos <= pos[:, None])
+    if window:
+        valid &= cache_pos > pos[:, None] - window
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgw,bwkh->bkgh", p, v_cache.to(ACC))

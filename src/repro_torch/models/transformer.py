@@ -15,11 +15,28 @@ from a `torch.Generator` there: it matches the reference in distribution,
 not in values (parity tests carry the reference's init across).
 
 The dense forward carries the factored-serving hook (`models/factored.py`),
-as the reference's dense family does; the dense family's prefill and
-cached decode raise `NotImplementedError` naming their slice. The hybrid
-and RWKV6 models have the reference's whole interface: forward, loss,
-`init_cache`, `prefill` (the last position's logits and the cache) and
-one-token `decode`. Their leaves are ``embed``, ``final_norm.scale``,
+as the reference's dense family does. Every family has the reference's
+whole interface: forward, loss, `init_cache`, `prefill` (the last
+position's logits and the cache) and one-token `decode`.
+
+The dense cache is ``{"k", "v"}``, each (L, B, W, KV, hd) with W =
+`cache_len(cfg, seq_len)`. Prefill attends through `layers.
+flash_attention` (the kernel on the card) and, when the prompt is longer
+than the sliding window, ring-packs the cache to the window's W entries
+(`_ring_pack`: entry i holds the latest position ≡ i mod W). Decode
+follows the reference's arithmetic: it writes at slot pos % W (pos
+without a window) and takes entry i to hold position pos − ((pos − i) mod
+W). That is right for the two layouts prefill leaves: a prompt shorter
+than the window with the cache grown by the new tokens, and a ring-packed
+cache not grown. A grown ring cache, or a short prompt's cache not grown,
+gives the reference's wrong logits, and the port's equal them (ROADMAP
+C14). Without a window, decode at pos ≥ W raises where the reference
+clamps the write (C8). `decode` copies the cache and returns the copy;
+its attribute ``decode_into`` is the body on the cache in place with pos
+a 0-d device tensor, which `launch.steps.CapturedDecode` captures in a
+CUDA graph.
+
+The hybrid's and RWKV6's leaves are ``embed``, ``final_norm.scale``,
 ``layers.*`` (L-stacked), ``lm_head`` and, for the hybrid,
 ``shared_attn.*``. The hybrid's decode writes the new key and value into
 copies of ``shared_k``/``shared_v`` at `pos` and raises when `pos` lies
@@ -159,15 +176,43 @@ def _init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
     return p
 
 
-def _not_ported(what: str, slice_: str) -> Callable:
-    def fn(*args, **kwargs):
-        raise NotImplementedError(f"{what} is not ported yet (it arrives "
-                                  f"with {slice_})")
-    return fn
+DECODE_INTO_ATTR = "decode_into"
+
+
+def cache_len(cfg: ArchConfig, seq_len: int) -> int:
+    """The entries of a dense KV cache for `seq_len` positions: at most
+    the sliding window's."""
+    w = cfg.sliding_window
+    return min(seq_len, w) if w else seq_len
+
+
+def _ring_pack(c: torch.Tensor, t: int, w: int) -> torch.Tensor:
+    """The last w of a prompt's t positions (axis 2), rolled so that entry
+    i holds the latest position p with p % w == i."""
+    return torch.roll(c[:, :, t - w:], (t - w) % w, dims=2)
+
+
+def check_decode_pos(cfg: ArchConfig, pos, w: int) -> None:
+    """Raise for a decode position the dense cache of `w` entries cannot
+    take: a negative one, or, without a sliding window, one at or past w
+    (the reference clamps that write onto the last entry, ROADMAP C8). A
+    tensor `pos` is read to the host only where there is a bound to
+    check (no window)."""
+    if isinstance(pos, torch.Tensor) and cfg.sliding_window:
+        return
+    p = int(pos)
+    if p < 0:
+        raise ValueError(f"decode at a negative position {p}")
+    if not cfg.sliding_window and p >= w:
+        raise ValueError(
+            f"decode at position {p} past the KV cache's {w} entries "
+            "(no sliding window): grow the cache after prefill")
 
 
 def build_decoder_only(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     dev = resolve_device(device)
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    window = cfg.sliding_window
 
     def init(seed: int) -> Params:
         gen = torch.Generator(device=dev).manual_seed(int(seed))
@@ -190,10 +235,87 @@ def build_decoder_only(cfg: ArchConfig, device: DeviceLike = None) -> Model:
         x = backbone(params, batch["tokens"])
         return chunked_xent(params, cfg, x, batch["labels"])
 
-    slice_ = "the cached-decode slice"
-    return Model(cfg, init, forward, loss_fn,
-                 _not_ported("prefill", slice_), _not_ported("decode", slice_),
-                 _not_ported("init_cache", slice_), dev)
+    def init_cache(batch: int, seq_len: int, dtype=None):
+        dtype = dtype or param_dtype(cfg)
+        shape = (cfg.n_layers, batch, cache_len(cfg, seq_len), kv, hd)
+        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+    def prefill(params: Params, batch):
+        """The prompt's forward: the last position's f32 logits (B, 1, V)
+        and the cache, ring-packed when the prompt passes the window."""
+        tokens = batch["tokens"]
+        b, t = tokens.shape
+        x = params["embed"][tokens.long()]
+        positions = torch.arange(t, device=tokens.device).expand(b, t)
+        ks, vs = [], []
+        for l in range(cfg.n_layers):
+            lp = layer_params(params, l)
+            attn = sub_params(lp, "attn")
+            h = L.rms_norm(lp["ln1.scale"], x, cfg.norm_eps)
+            q, k, v = L.attn_qkv(attn, cfg, h, positions)
+            x = x + L.attn_out(attn, L.flash_attention(
+                q, k, v, causal=True, window=window))
+            h = L.rms_norm(lp["ln2.scale"], x, cfg.norm_eps)
+            x = x + L.mlp(sub_params(lp, "ffn"), h)
+            ks.append(k)
+            vs.append(v)
+        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        if window and t > window:
+            cache = {n: _ring_pack(c, t, window) for n, c in cache.items()}
+        return lm_logits(params, cfg, x[:, -1:]), cache
+
+    def decode_into(params: Params, token: torch.Tensor, cache,
+                    pos: torch.Tensor) -> torch.Tensor:
+        """One token (B, 1) at the 0-d int64 device position `pos`: writes
+        its keys and values into `cache` in place and returns the f32
+        logits (B, 1, V). It reads pos only on the device (no host sync,
+        no branch on its value) and copies nothing from the host, so a
+        CUDA graph can capture it; the caller checks pos
+        (`check_decode_pos`)."""
+        b = token.shape[0]
+        w = cache["k"].shape[2]
+        x = params["embed"][token.long()]
+        idx = torch.arange(w, device=pos.device)
+        if window:
+            slot = torch.remainder(pos, w)
+            entry_pos = pos - torch.remainder(pos - idx, w)
+        else:
+            slot, entry_pos = pos, idx
+        slot = slot.reshape(1)
+        entry_pos = entry_pos.expand(b, w)
+        positions, pos_b = pos.expand(b, 1), pos.expand(b)
+        for l in range(cfg.n_layers):
+            lp = layer_params(params, l)
+            attn = sub_params(lp, "attn")
+            h = L.rms_norm(lp["ln1.scale"], x, cfg.norm_eps)
+            q, k, v = L.attn_qkv(attn, cfg, h, positions)
+            k_l, v_l = cache["k"][l], cache["v"][l]
+            k_l.index_copy_(1, slot, k.to(k_l.dtype))
+            v_l.index_copy_(1, slot, v.to(v_l.dtype))
+            a = L.decode_attention(q, k_l, v_l, entry_pos, pos_b,
+                                   window=window)
+            x = x + L.attn_out(attn, a)
+            h = L.rms_norm(lp["ln2.scale"], x, cfg.norm_eps)
+            x = x + L.mlp(sub_params(lp, "ffn"), h)
+        return lm_logits(params, cfg, x)
+
+    def decode(params: Params, token: torch.Tensor, cache, pos):
+        """One token (B, 1) at position `pos` (an int or a 0-d integer
+        tensor on the model's device): the f32 logits (B, 1, V) and a new
+        cache (the one passed in is left as it is)."""
+        check_decode_pos(cfg, pos, cache["k"].shape[2])
+        if isinstance(pos, torch.Tensor):
+            pos = pos.to(torch.int64).reshape(())
+        else:
+            pos = torch.full((), int(pos), dtype=torch.int64,
+                             device=token.device)
+        cache = {n: c.clone() for n, c in cache.items()}
+        return decode_into(params, token, cache, pos), cache
+
+    setattr(decode, DECODE_INTO_ATTR, decode_into)
+    return Model(cfg, init, forward, loss_fn, prefill, decode, init_cache,
+                 dev)
 
 
 # ---------------------------------------------------------------------------

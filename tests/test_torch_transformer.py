@@ -130,9 +130,12 @@ def test_families_not_ported_raise():
     with pytest.raises(ValueError):
         build_model(ArchConfig(family="nonsense", **base), device="cpu")
     model = build_model(ArchConfig(family="dense", **base), device="cpu")
-    for fn in (model.prefill, model.decode, model.init_cache):
-        with pytest.raises(NotImplementedError, match="cached-decode"):
-            fn()
+    params = model.init(0)                  # the dense serving path runs
+    tokens = torch.zeros((1, 5), dtype=torch.int64)
+    assert model.init_cache(1, 5)["k"].shape == (2, 1, 5, 2, 16)
+    logits, cache = model.prefill(params, {"tokens": tokens})
+    logits, _ = model.decode(params, tokens[:, :1], cache, 4)
+    assert logits.shape == (1, 1, 100) and torch.isfinite(logits).all()
     if not torch.cuda.is_available():      # entry points default to CUDA
         with pytest.raises(RuntimeError, match="no CUDA device"):
             build_model(ArchConfig(family="dense", **base))
