@@ -56,7 +56,12 @@ Phases, each failing the run with a nonzero exit:
              symmetric bit for bit), each case launched twice
              and bitwise equal; errors, times beside the bound, the plain
              version and a library call, and each BGMV kernel's device
-             time at the sites
+             time at the sites; the attention backward
+             (`flash_attn_bwd_f32`) at BWD_SHAPES in f32 (normwise against
+             the f64 plain version) and bf16 (elementwise within one bf16
+             rounding), launched twice and bitwise, beside its bound and
+             SDPA's backward, and the forward's lse (its out bitwise the
+             forward without it)
 11. llama serving — a full-width llama3.2-1b factor pool (5 members,
              rank 8) through `PoolServer.from_pool`: f32 factored scores
              against the densified oracle with exact launch counts, the
@@ -173,6 +178,25 @@ Phases, each failing the run with a nonzero exit:
              through the captured f32 step; (d) granite-8b at full depth
              and qwen2-72b at full width cut to 8 layers, as (a) without
              the profile
+24. LM training — (a) examples/fedelmy_llm_finetune.py's llama3.2
+             variant (4 layers, d_model 512, vocab 8,192, f32) from one
+             init on the card and the CPU: one Eq. 9 pool step's task loss
+             and gradients (1e-5 normwise), a short fedelmy `launch`'s
+             records; (b) that variant at the example's FedConfig (500
+             steps): held-out perplexity after every client, each
+             client's own stream's NLL falling over its visit (and its
+             own domain's held-out NLL, printed); (c)
+             llama3.2-1b in f32 at full width and depth through
+             `launch(Experiment(strategy="fedelmy"))` over DataPlan
+             streams (54 steps of 2,048 tokens): steps/s, captures and
+             replays, exact attention forward / backward and sweep
+             launches, peak memory, held-out NLL beside ln V, every value
+             finite, a second run bitwise the first, the regularizer
+             through the sweep against the per-leaf code at 1.236 B, a
+             visit of replayed pool steps profiled; (d) ROADMAP C15:
+             dfedsam and MetaFed twice each through `launch` on the
+             full-width paper CNN, bitwise; then, printed, the same
+             pairs with the repair undone
 
 Before the last lines it prints every measurement as one JSON object on
 a line starting "details: "; then the kernels' JSON record and the card's
@@ -1736,6 +1760,177 @@ def check_flash_attention(torch, fa_mod, ref):
     return rows, max_abs
 
 
+# phase 10: the attention backward's shapes (name, B, T, H, KV, hd,
+# causal, window): llama3.2-1b's training step (phase 24 (c): 16 × 128,
+# its registered 8,192 window), long causal and windowed sequences,
+# ragged T on both sides of a tile, GQA groups of 1, 4, 7 and 8, and
+# every head dim of `HEAD_DIMS`
+BWD_SHAPES = [("llama_train", 16, 128, 32, 8, 64, True, 8192),
+              ("causal2048", 2, 2048, 32, 8, 64, True, 0),
+              ("window256", 2, 1024, 32, 8, 64, True, 256),
+              ("ragged127", 4, 127, 32, 8, 64, True, 0),
+              ("ragged129", 4, 129, 32, 8, 64, True, 0),
+              ("g1", 2, 300, 8, 8, 64, True, 0),
+              ("g8_hd32", 2, 333, 16, 2, 32, True, 100),
+              ("hd112", 2, 256, 32, 32, 112, True, 0),
+              ("hd128", 2, 512, 28, 4, 128, True, 0)]
+# f32 backward against the f64 plain version, normwise per gradient. A
+# gradient element sums ≤ 64 FFMA terms a tile over ⌈n/64⌉ tiles (n = the
+# rows, or keys, of the reduction: at T = 2,048 and a group of 4, 8,192
+# rows), so its rounding grows as (64 + n/64)·2⁻²⁴ of Σ|terms| at worst,
+# ~√(64 + n/64)·2⁻²⁴ typically: ~1e-6 at T = 2,048.
+BWD_F32_REL_TOL = 1e-5
+# the forward's lse against `attention_lse_ref` in f64, normwise
+LSE_REL_TOL = 1e-6
+
+
+def _bwd_bound(b, t, h, kv, hd, causal, window, esz, peak):
+    """(bound ms, bound_by, parts) of one backward call: 10·hd FLOP per
+    valid (query, key) pair; q, out, dout, dq at (B, T, H, hd), k, v, dk,
+    dv at (B, T, KV, hd) in the inputs' element size, lse and D f32."""
+    pairs = _pairs(t, t, causal, window) * b * h
+    nbytes = esz * (4 * b * t * h * hd + 4 * b * t * kv * hd) + \
+        2 * 4 * b * h * t
+    return _bound(nbytes, 10 * hd * pairs, peak)
+
+
+def _sdpa_backward(torch, q, k, v, dout, causal, window):
+    """The library yardstick: `torch.autograd.grad` through
+    `F.scaled_dot_product_attention` on (B, H, T, hd) with the kv heads
+    repeated, the forward taken once outside the timed call."""
+    g = q.shape[2] // k.shape[2]
+    qs = q.transpose(1, 2).contiguous().requires_grad_(True)
+    ks = k.repeat_interleave(g, dim=2).transpose(1, 2).contiguous() \
+        .requires_grad_(True)
+    vs = v.repeat_interleave(g, dim=2).transpose(1, 2).contiguous() \
+        .requires_grad_(True)
+    with torch.enable_grad():
+        out = _sdpa(torch, qs, ks, vs, causal, window)()
+    grad_out = dout.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (qs, ks, vs), grad_out,
+                                       retain_graph=True)
+
+
+def check_attention_backward(torch, fa_mod, ref):
+    """Phase 10, the backward: at each of BWD_SHAPES in f32 and bf16, the
+    forward with `return_lse` (out bitwise the call without it; lse within
+    LSE_REL_TOL normwise of `attention_lse_ref` on the inputs in f64), then
+    `flash_attn_bwd_f32` on that out and lse, launched twice (bitwise):
+    f32 against `attention_bwd_ref` in f64 on the same inputs, out and lse,
+    within BWD_F32_REL_TOL normwise for each of dq, dk, dv; bf16 within one
+    bf16 rounding, elementwise, of the plain version from the same bf16
+    inputs, which is known only as closely as its f32 and f64 forms agree:
+
+        |got − want64| ≤ 2⁻⁸·max(|want64|, |want32|) + 1e-6
+                         + |want32 − want64|.
+
+    (2⁻⁸·|want| + 1e-6 alone is tighter than f32 arithmetic at T = 2,048:
+    there the f32 plain version lies 2.03e-6 from the f64 one at an
+    element of 1.45e-4, though it rounds nothing to bf16.) The shares of
+    2⁻⁸·|want| + 1e-6 against each form are printed beside. Times (L2
+    flushed): the kernel, the plain version, SDPA's backward on the heads
+    repeated, the bound."""
+    gen = torch.Generator(device=CARD).manual_seed(24)
+    rows, max_abs = [], 0.0
+    for name, b, t, h, kv, hd, causal, window in BWD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, dout = (torch.randn(shape, device=CARD, generator=gen)
+                             .to(dtype)
+                             for shape in ((b, t, h, hd), (b, t, kv, hd),
+                                           (b, t, kv, hd), (b, t, h, hd)))
+            mask = dict(causal=causal, window=window)
+            out, lse = fa_mod.flash_attn_f32(q, k, v, return_lse=True, **mask)
+            plain_out = fa_mod.flash_attn_f32(q, k, v, **mask)
+            grads = fa_mod.flash_attn_bwd_f32(q, k, v, out, lse, dout, **mask)
+            again = fa_mod.flash_attn_bwd_f32(q, k, v, out, lse, dout, **mask)
+            torch.cuda.synchronize()
+            out_bitwise = bool(torch.equal(out, plain_out))
+            repeat = all(bool(torch.equal(x, y))
+                         for x, y in zip(grads, again))
+            want_lse = ref.attention_lse_ref(q.double(), k.double(), **mask)
+            lse_err = float((lse.double() - want_lse).norm() /
+                            want_lse.norm())
+            del plain_out, again
+            want64 = ref.attention_bwd_ref(
+                q.double(), k.double(), v.double(), out.double(),
+                lse.double(), dout.double(), **mask)
+            rel64 = [float((g.double() - w).norm() / w.norm())
+                     for g, w in zip(grads, want64)]
+            err = max(float((g.double() - w).abs().max())
+                      for g, w in zip(grads, want64))
+            shares = {}
+            if dtype == torch.float32:
+                ok = all(r <= BWD_F32_REL_TOL for r in rel64)
+                worst = max(rel64) / BWD_F32_REL_TOL
+            else:
+                worst = 0.0
+                shares = {"f32": 0.0, "f64": 0.0, "plain_f32": 0.0}
+                want32 = ref.attention_bwd_ref(q, k, v, out, lse, dout,
+                                               **mask)
+                for g, w64, w32 in zip(grads, want64, want32):
+                    g, w32 = g.double(), w32.double()
+                    gap = (g - w64).abs()
+                    limit = 2.0 ** -8 * torch.maximum(w64.abs(), w32.abs()) \
+                        + 1e-6 + (w32 - w64).abs()
+                    worst = max(worst, float((gap / limit).max()))
+                    for key, a, w in (("f32", g, w32), ("f64", g, w64),
+                                      ("plain_f32", w32, w64)):
+                        shares[key] = max(shares[key], float((
+                            (a - w).abs() / (2.0 ** -8 * w.abs() + 1e-6))
+                            .max()))
+                del want32
+                ok = worst <= 1.0
+            del want64
+            peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
+                else PEAK_F32_FLOPS
+            bound_ms, bound_by, parts = _bwd_bound(
+                b, t, h, kv, hd, causal, window, q.element_size(), peak)
+            reps = 10 if t >= 1024 else 25
+            row = dict(parts, shape=name, b=b, t=t, h=h, kv=kv, hd=hd,
+                       causal=causal, window=window, dtype=str(dtype),
+                       out_bitwise_with_lse=out_bitwise, lse_rel_err=lse_err,
+                       rel_err_f64=dict(zip("qkv", rel64)),
+                       max_abs_err=err, worst_share_of_limit=worst,
+                       bf16_share_of_one_rounding=shares,
+                       within_tolerance=ok, bitwise_repeat=repeat,
+                       ms=median_ms(lambda: fa_mod.flash_attn_bwd_f32(
+                           q, k, v, out, lse, dout, **mask), reps=reps),
+                       plain_ms=median_ms(lambda: ref.attention_bwd_ref(
+                           q, k, v, out, lse, dout, **mask), reps=reps),
+                       library_ms=median_ms(_sdpa_backward(
+                           torch, q, k, v, dout, causal, window), reps=reps),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            rows.append(row)
+            print(f"  attn bwd {name:11s} {str(dtype)[6:]:8s}: out with lse "
+                  f"{'bitwise' if out_bitwise else 'DIFFERS'}, lse "
+                  f"{lse_err:.2e}; dq/dk/dv vs f64 "
+                  + "/".join(f"{r:.2e}" for r in rel64) +
+                  f", {worst:.3f} of the limit"
+                  + (f" (2⁻⁸·|want| + 1e-6 of the f32 / f64 plain version: "
+                     f"{shares['f32']:.3f} / {shares['f64']:.3f}; the f32 "
+                     f"plain version's own of the f64: "
+                     f"{shares['plain_f32']:.3f})"
+                     if shares else "") + ", repeat "
+                  f"{'bitwise' if repeat else 'DIFFERS'}; kernel "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, sdpa "
+                  f"bwd {row['library_ms']:.4f}, bound {bound_ms:.4f} "
+                  f"({bound_by})")
+            if not out_bitwise:
+                fail(f"flash_attn_f32 {name} {dtype}: the output with lse "
+                     "differs from the output without it")
+            if not lse_err <= LSE_REL_TOL:
+                fail(f"flash_attn_f32 {name} {dtype}: lse {lse_err:.3e} "
+                     f"from attention_lse_ref (limit {LSE_REL_TOL})")
+            if not ok:
+                fail(f"flash_attn_bwd_f32 {name} {dtype} disagrees with its "
+                     "plain version beyond the stated tolerance")
+            if not repeat:
+                fail(f"flash_attn_bwd_f32 {name} {dtype}: two launches on "
+                     "the same inputs differ")
+            max_abs = max(max_abs, err)
+    return rows, max_abs
+
+
 def _hold_gram(torch, ref, a, out, again):
     """A Gram against its plain version: elementwise within
     P·2⁻²³·(|A|·|A|ᵀ), normwise within GRAM_REL_TOL (the elementwise bound
@@ -2239,10 +2434,11 @@ def serve_cnn_pools(torch, local_step, main_result):
 def serving_phases(torch, local_step, main_result, bgmv, flash_attention,
                    pool_distance, ref):
     """Phases 10-12; returns their measurements by name."""
-    print("[10] bgmv_f32, flash_attn_f32 and factor_gram_f32 against their "
-          "plain versions")
+    print("[10] bgmv_f32, flash_attn_f32 (forward and backward) and "
+          "factor_gram_f32 against their plain versions")
     bgmv_rows, bgmv_err = check_bgmv(torch, bgmv, ref)
     attn_rows, attn_err = check_flash_attention(torch, flash_attention, ref)
+    bwd_rows, bwd_err = check_attention_backward(torch, flash_attention, ref)
     gram_rows, gram_call, gram_cases, gram_err = check_factor_gram(
         torch, pool_distance, ref)
     print("[11] full-width llama3.2-1b factor pool (capacity 5, rank 8) "
@@ -2253,6 +2449,7 @@ def serving_phases(torch, local_step, main_result, bgmv, flash_attention,
     cnn = serve_cnn_pools(torch, local_step, main_result)
     return dict(bgmv=bgmv_rows, bgmv_max_abs_err=bgmv_err,
                 attention=attn_rows, attention_max_abs_err=attn_err,
+                attention_bwd=bwd_rows, attention_bwd_max_abs_err=bwd_err,
                 gram=gram_rows, gram_call=gram_call, gram_cases=gram_cases,
                 gram_max_abs_err=gram_err,
                 llama_f32=llama_f32, llama_bf16=llama_bf16, cnn_serving=cnn)
@@ -5113,6 +5310,463 @@ def sweep_kernel_entries(main_path, pd_out):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# phase 24: dense LM training through the engine
+# ---------------------------------------------------------------------------
+
+# examples/fedelmy_llm_finetune.py's traffic: 4 Markov domains of 128
+# sequences of 128 tokens; a domain's first 112 sequences are its client's
+# stream at batch 16, its last 16 the held-out set (the example's seed-99
+# held-out set shares no transition matrix with training, so its NLL
+# cannot fall below chance; the held-out set here is the same chains')
+LM_DOMAINS, LM_SEQS, LM_T, LM_BATCH, LM_HELD = 4, 512, 128, 16, 16
+LM_FED = dict(n_clients=4, pool_size=2, learning_rate=3e-4, alpha=0.06,
+              beta=1.0)
+# (a): card against CPU on the example's variant
+LM_GRAD_REL_TOL = 1e-5
+# (b): the sequences of a client's stream its fit is read on
+LM_FIT_SEQS = 32
+LM_LOSS_RTOL, LM_NLL_RTOL = 1e-4, 1e-3
+# (c): the full-width run, cut from the example's e_warmup 20 / e_local 60
+# for the run's time limit: 6 + 4 × 2 × 6 = 54 steps
+LM_FULL_FED = dict(LM_FED, e_warmup=6, e_local=6)
+# phase 16's limits for the regularizer through the sweep against the
+# per-leaf code: value and gradient per leaf, normwise
+SWEEP_VALUE_TOL, SWEEP_GRAD_TOL = 1e-5, 1e-4
+
+
+def _lm_variant(torch):
+    """examples/fedelmy_llm_finetune.py's llama3.2 family member: 4 layers,
+    d_model 512, 8 over 4 heads, hd 64, d_ff 2,048, vocab 8,192, no
+    window, f32."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(
+        get_arch("llama3.2-1b"), n_layers=4, d_model=512, n_heads=8,
+        n_kv_heads=4, d_ff=2048, head_dim=64, vocab_size=8192,
+        sliding_window=0, param_dtype="float32")
+
+
+def lm_data(vocab):
+    """(the clients' arrays, the held-out batch) of the example's traffic
+    at `vocab`."""
+    import numpy as np
+
+    from repro_torch.data import make_lm_dataset
+    domains = make_lm_dataset(n_seqs=LM_SEQS, seq_len=LM_T, vocab=vocab,
+                              n_domains=LM_DOMAINS, seed=0)
+    train = [{"tokens": d.tokens[:-LM_HELD, :-1],
+              "labels": d.tokens[:-LM_HELD, 1:]} for d in domains]
+    held = {"tokens": np.concatenate([d.tokens[-LM_HELD:, :-1]
+                                      for d in domains]),
+            "labels": np.concatenate([d.tokens[-LM_HELD:, 1:]
+                                      for d in domains])}
+    return train, held
+
+
+def _attn_wrappers():
+    from repro_torch.kernels import flash_attention
+    return {"forward": flash_attention.flash_attn_f32,
+            "backward": flash_attention.flash_attn_bwd_f32}
+
+
+def _lm_launch(torch, model, train, held, fed, device, init=None, seed=0):
+    """fedelmy through `launch` over DataPlan streams on `device`, the
+    held-out NLL by `lm_eval_fn` after every client; (result, wall s,
+    attention and sweep launches, captures, replays)."""
+    from repro_torch.api import Experiment, launch
+    from repro_torch.api.trainer import ScannedPhase
+    from repro_torch.data import DataPlan
+    from repro_torch.models import lm_eval_fn
+
+    attn = _attn_wrappers()
+    for fn in attn.values():
+        fn.launches = 0
+    _reset_sweep()
+    c0, r0 = ScannedPhase.total_captures, ScannedPhase.total_replays
+    plans = [DataPlan(a, LM_BATCH, seed=i, device=device)
+             for i, a in enumerate(train)]
+    if device == CARD:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = launch(Experiment(model=model, client_iters=plans, fed=fed,
+                            strategy="fedelmy", seed=seed, init_params=init,
+                            eval_fn=lm_eval_fn(model, held)))
+    if device == CARD:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return dict(res=res, wall_s=wall,
+                attention={k: fn.launches for k, fn in attn.items()},
+                sweep=_read_sweep(),
+                captures=ScannedPhase.total_captures - c0,
+                replays=ScannedPhase.total_replays - r0)
+
+
+def _records(res):
+    return dict(task_loss=[m.task_loss for c in res.clients
+                           for m in c.models],
+                held_out_nll=[-c.global_metric for c in res.clients])
+
+
+def _pool_step_grads(torch, model, fed, params, pool, batch):
+    """Task loss and every leaf's gradient of the Eq. 9 objective (the
+    trainer's `hp_regularized_loss`) at `params`."""
+    from repro_torch.api.pools import backend_for
+    from repro_torch.api.trainer import hp_regularized_loss
+    objective = hp_regularized_loss(model.loss_fn, fed, backend_for(fed))
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in params.items()}
+    total, task = objective(leaves, batch, pool, fed.alpha, fed.beta)
+    grads = torch.autograd.grad(total, list(leaves.values()))
+    return float(task.detach()), {k: g.detach().cpu()
+                                  for k, g in zip(leaves, grads)}
+
+
+def lm_card_vs_cpu(torch, train, held):
+    """(a) The example's variant from one init on both devices: one Eq. 9
+    pool step with a pool of 2 (task loss and each leaf's gradient within
+    LM_GRAD_REL_TOL normwise of the CPU's), then a short `launch`
+    (e_warmup 2, e_local 2) whose ClientRecord task losses lie within
+    LM_LOSS_RTOL and held-out NLLs within LM_NLL_RTOL of the CPU's."""
+    from repro_torch.api.pools import backend_for
+    from repro_torch.configs import FedConfig
+    from repro_torch.models import build_model
+
+    cfg = _lm_variant(torch)
+    models = {d: build_model(cfg, device=d) for d in (CARD, "cpu")}
+    fed = FedConfig(**dict(LM_FED, e_warmup=2, e_local=2))
+    backend = backend_for(fed)
+    inits = [models["cpu"].init(s) for s in (0, 1)]
+    batch = {k: torch.from_numpy(v[:LM_BATCH]) for k, v in train[0].items()}
+    out = {}
+    for dev in (CARD, "cpu"):
+        m0, m1 = ({k: v.to(dev) for k, v in p.items()} for p in inits)
+        pool = backend.create(m0, fed).append(m1)
+        out[dev] = _pool_step_grads(
+            torch, models[dev], fed, pool.average(), pool,
+            {k: v.to(dev) for k, v in batch.items()})
+    (task_card, g_card), (task_cpu, g_cpu) = out[CARD], out["cpu"]
+    grad_err = {k: float((g_card[k] - g_cpu[k]).norm() / g_cpu[k].norm())
+                for k in g_cpu}
+    task_err = abs(task_card - task_cpu) / abs(task_cpu)
+    print(f"  (a) one Eq. 9 pool step, card vs CPU: task loss {task_card:.6f}"
+          f" vs {task_cpu:.6f} ({task_err:.2e}); gradients normwise max "
+          f"{max(grad_err.values()):.2e} ({max(grad_err, key=grad_err.get)})")
+    if task_err > LM_GRAD_REL_TOL or max(grad_err.values()) > LM_GRAD_REL_TOL:
+        fail(f"phase 24 (a): the pool step's task loss ({task_err:.3e}) or "
+             f"a gradient ({max(grad_err.values()):.3e}) lies beyond "
+             f"{LM_GRAD_REL_TOL} of the CPU's")
+    runs = {dev: _lm_launch(torch, models[dev], train, held, fed, dev,
+                            init={k: v.to(dev) for k, v in inits[0].items()})
+            for dev in (CARD, "cpu")}
+    rec = {dev: _records(r["res"]) for dev, r in runs.items()}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(
+        rec[CARD]["task_loss"], rec["cpu"]["task_loss"]))
+    nll_err = max(abs(a - b) / abs(b) for a, b in zip(
+        rec[CARD]["held_out_nll"], rec["cpu"]["held_out_nll"]))
+    print(f"  (a) launch e_warmup 2 / e_local 2, card vs CPU: task losses "
+          f"within {loss_err:.2e}, held-out NLL within {nll_err:.2e} "
+          f"(card {rec[CARD]['held_out_nll']}, CPU "
+          f"{rec['cpu']['held_out_nll']})")
+    if len(rec[CARD]["task_loss"]) != LM_DOMAINS * fed.pool_size or \
+            loss_err > LM_LOSS_RTOL or nll_err > LM_NLL_RTOL:
+        fail(f"phase 24 (a): the short run's records differ between card "
+             f"and CPU (task loss {loss_err:.3e}, NLL {nll_err:.3e})")
+    return dict(task_rel_err=task_err, grad_rel_err=grad_err,
+                launch_task_loss_rel_err=loss_err,
+                launch_nll_rel_err=nll_err, records=rec,
+                wall_s={d: r["wall_s"] for d, r in runs.items()})
+
+
+def lm_example(torch, train, held):
+    """(b) The example's variant at its own FedConfig (e_warmup 20, e_local
+    60: 500 steps) on the card. Held-out perplexity (within-domain)
+    before training and after every client, printed; each client's own
+    stream's NLL (its first LM_FIT_SEQS sequences) after its visit, which
+    must lie below the initial model's. The held-out perplexity is not
+    gated: on this traffic (112 sequences a domain, a 8,192-token chain
+    of 32 successors a token) the model memorizes its clients'
+    sequences, and the held-out perplexity rises (PERF.md, PR 26)."""
+    from repro_torch.api import Callbacks, Experiment, launch
+    from repro_torch.configs import FedConfig
+    from repro_torch.data import DataPlan
+    from repro_torch.models import build_model, lm_eval_fn
+
+    model = build_model(_lm_variant(torch))
+    fed = FedConfig(**dict(LM_FED, e_warmup=20, e_local=60))
+    init = model.init(0)
+    fits = [lm_eval_fn(model, {k: v[:LM_FIT_SEQS] for k, v in a.items()})
+            for a in train]
+    own_held = [lm_eval_fn(model, {k: v[i * LM_HELD:(i + 1) * LM_HELD]
+                                   for k, v in held.items()})
+                for i in range(LM_DOMAINS)]
+    initial = math.exp(-float(lm_eval_fn(model, held)(init)))
+    fit_before = [-float(f(init)) for f in fits]
+    own_before = [-float(f(init)) for f in own_held]
+    fit_after, own_after = {}, {}
+
+    def on_client_end(rec, params):
+        fit_after[rec.client] = -float(fits[rec.client](params))
+        own_after[rec.client] = -float(own_held[rec.client](params))
+
+    for wrapper in _attn_wrappers().values():
+        wrapper.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = launch(Experiment(
+        model=model, fed=fed, strategy="fedelmy", init_params=init,
+        client_iters=[DataPlan(a, LM_BATCH, seed=i)
+                      for i, a in enumerate(train)],
+        eval_fn=lm_eval_fn(model, held),
+        callbacks=Callbacks(on_client_end=on_client_end)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ppl = [math.exp(x) for x in _records(res)["held_out_nll"]]
+    fit = [fit_after[c] for c in range(LM_DOMAINS)]
+    own = [own_after[c] for c in range(LM_DOMAINS)]
+    steps = fed.e_warmup + LM_DOMAINS * fed.pool_size * fed.e_local
+    print(f"  (b) held-out perplexity: initial {initial:.2f}, after each "
+          f"client " + ", ".join(f"{x:.2f}" for x in ppl) +
+          f" (vocab {model.cfg.vocab_size}); each client's own stream, NLL "
+          f"before / after its visit: " + ", ".join(
+              f"{a:.4f} / {b:.4f}" for a, b in zip(fit_before, fit)) +
+          "; its own domain's held-out sequences: " + ", ".join(
+              f"{a:.4f} / {b:.4f}" for a, b in zip(own_before, own)) +
+          f"; {steps} steps in {wall:.2f} s")
+    if not all(b < a for a, b in zip(fit_before, fit)):
+        fail("phase 24 (b): a client's own stream's NLL did not fall below "
+             "the initial model's over its visit")
+    return dict(initial_ppl=initial, ppl_after_client=ppl,
+                fit_nll_before=fit_before, fit_nll_after=fit,
+                own_held_nll_before=own_before, own_held_nll_after=own,
+                steps=steps, wall_s=wall)
+
+
+def _finite(params):
+    return all(bool(v.isfinite().all()) for v in params.values())
+
+
+def lm_full_width(torch, smi_line):
+    """(c) llama3.2-1b in f32 at full width and depth (1.236 B) through
+    `launch(Experiment(strategy="fedelmy"))` over DataPlan streams (each
+    step kind captured once), LM_FULL_FED: steps/s, captures and replays,
+    the attention forward and backward and the sweep launched exactly as
+    counted, peak memory, held-out NLL after every client beside ln V,
+    every value finite; one pool step's d1/d2 through the sweep against
+    the per-leaf code at full width; a second run bitwise the first
+    (params and records); the idle share of a visit of replayed pool
+    steps under the profiler."""
+    import dataclasses
+
+    from repro_torch.api.trainer import LocalTrainer
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.data import DataPlan
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import EVAL_ROWS
+
+    cfg = dataclasses.replace(get_arch("llama3.2-1b"), param_dtype="float32")
+    model = build_model(cfg)
+    fed = FedConfig(**LM_FULL_FED)
+    train, held = lm_data(cfg.vocab_size)
+    n_params = sum(v.numel() for v in model.init(0).values())
+    torch.cuda.empty_cache()
+    steps = fed.e_warmup + LM_DOMAINS * fed.pool_size * fed.e_local
+    pool_steps = LM_DOMAINS * fed.pool_size * fed.e_local
+    # held-out scoring after each client, in chunks of EVAL_ROWS rows
+    evals = LM_DOMAINS * -(-LM_DOMAINS * LM_HELD // EVAL_ROWS)
+    want_attn = {"forward": cfg.n_layers * (steps + evals),
+                 "backward": cfg.n_layers * steps}
+    want_sweep = _sweep_expected(pool_steps)
+    runs = []
+    for i in range(2):
+        torch.cuda.reset_peak_memory_stats()
+        run = _lm_launch(torch, model, train, held, fed, CARD)
+        run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        res = run.pop("res")
+        run["records"] = _records(res)
+        run["finite"] = _finite(res.params) and all(
+            math.isfinite(x) for v in run["records"].values() for x in v)
+        run["steps_per_s"] = steps / run["wall_s"]
+        if i == 0:
+            params = {k: v.cpu() for k, v in res.params.items()}
+        else:
+            run["bitwise_first"] = all(
+                torch.equal(params[k], v.cpu()) for k, v in res.params.items()
+            ) and run["records"] == runs[0]["records"]
+            sweep_check = lm_sweep_at_full_width(torch, res, fed)
+        del res
+        torch.cuda.empty_cache()
+        runs.append(run)
+        print(f"  (c) run {i + 1}: {steps} steps in {run['wall_s']:.2f} s "
+              f"({run['steps_per_s']:.3f} steps/s), {run['captures']} "
+              f"captures, {run['replays']} replays, peak "
+              f"{run['peak_gb']:.2f} GB; attention {run['attention']}, sweep "
+              f"{run['sweep']}; held-out NLL after each client "
+              + ", ".join(f"{x:.4f}" for x in run["records"]["held_out_nll"])
+              + f" (ln V = {math.log(cfg.vocab_size):.4f}) ({smi_line})")
+        if not run["finite"]:
+            fail("phase 24 (c): a non-finite parameter, loss or NLL")
+        if run["attention"] != want_attn or run["sweep"] != want_sweep:
+            fail(f"phase 24 (c): launches {run['attention']} / "
+                 f"{run['sweep']}, want {want_attn} (n_layers × (steps + "
+                 f"eval chunks) forward, n_layers × steps backward) / "
+                 f"{want_sweep}")
+        if run["captures"] != 2 or run["replays"] != steps - 2:
+            fail(f"phase 24 (c): {run['captures']} captures and "
+                 f"{run['replays']} replays, want 2 and {steps - 2}")
+    if not runs[1]["bitwise_first"]:
+        fail("phase 24 (c): a second identical run differs from the first")
+    # a visit of replayed pool steps under the profiler
+    trainer = LocalTrainer(model.loss_fn, fed)
+    p = {k: v.to(CARD) for k, v in params.items()}
+    del params
+    plan = DataPlan(train[0], LM_BATCH, seed=0)
+    trainer.local_client_train_scanned(p, plan, None)  # captures
+    visit = _profile(torch, lambda n: trainer.local_client_train_scanned(
+        p, plan, None), fed.pool_size * fed.e_local,
+        "(c) a visit of replayed pool steps", watch=("flash_attn",
+                                                     "attn_bwd",
+                                                     "pool_distance"))
+    del trainer, p
+    torch.cuda.empty_cache()
+    return dict(n_params=n_params, steps=steps, runs=runs,
+                want_attention=want_attn, want_sweep=want_sweep,
+                sweep_check=sweep_check, replayed_visit=visit)
+
+
+def lm_sweep_at_full_width(torch, res, fed):
+    """One Eq. 9 regularizer at the run's final params and pool (3 members
+    of 1.236 B) through the joint sweep against the per-leaf code, both on
+    the card: value within SWEEP_VALUE_TOL, each leaf's gradient within
+    SWEEP_GRAD_TOL normwise, as phase 16 holds the CNN."""
+    task = torch.tensor(math.log(128256.0), device=CARD)
+    measure = fed.distance_measure
+    _reset_sweep()
+    value, grads, dists = _regularizer(torch, res.params, res.final_pool,
+                                       measure, task, fed)
+    launches = sum(_read_sweep().values())
+    grads = {k: g.cpu() for k, g in grads.items()}
+    with per_leaf_route():
+        value_pl, grads_pl, dists_pl = _regularizer(
+            torch, res.params, res.final_pool, measure, task, fed)
+    grad_err = {k: float((grads[k] - g.cpu()).norm() / g.cpu().norm())
+                for k, g in grads_pl.items()}
+    value_err = _rel_or_exact(value, value_pl)
+    print(f"  (c) the regularizer at full width ({measure}): sweep {value!r}"
+          f" vs per leaf {value_pl!r} ({value_err:.2e}), d1/d2 {dists} vs "
+          f"{dists_pl}; gradients normwise max {max(grad_err.values()):.2e}; "
+          f"{launches} sweep launches")
+    if value_err > SWEEP_VALUE_TOL or \
+            max(grad_err.values()) > SWEEP_GRAD_TOL:
+        fail(f"phase 24 (c): the regularizer through the sweep lies "
+             f"{value_err:.3e} (gradient {max(grad_err.values()):.3e}) from "
+             "the per-leaf code")
+    return dict(value=value, value_per_leaf=value_pl, value_rel_err=value_err,
+                dists=dists, dists_per_leaf=dists_pl, grad_rel_err=grad_err,
+                launches=launches)
+
+
+def c15_repeat(torch):
+    """(d) ROADMAP C15: dfedsam and MetaFed, each twice through `launch` on
+    the full-width paper CNN with phase 8's label-skew data, FedConfig and
+    seed; each pair bitwise equal in params and in every ClientRecord.
+    Then, as a control (printed, not gated), the same pairs with the
+    repair undone in this process (the steps without flags, the forward
+    under the TF32-off flags alone, as before the repair)."""
+    from repro_torch.api import Experiment, launch
+    from repro_torch.configs import FedConfig, get_arch
+    from repro_torch.data import batch_iterator
+    from repro_torch.models import build_model
+
+    model = build_model(get_arch("paper-cnn"))
+    fed = FedConfig(**TABLE1_FED)
+    arrays, test = quickstart_data()
+    test_images = torch.from_numpy(test.images).to(CARD)
+    test_labels = torch.from_numpy(test.labels).to(CARD)
+
+    def accuracy(params):
+        with torch.no_grad():
+            logits = model.forward(params, {"images": test_images})
+        return (logits.argmax(-1) == test_labels).float().mean()
+
+    def pair(strategy):
+        results = []
+        for _ in range(2):
+            res = launch(Experiment(
+                model=model, fed=fed, strategy=strategy, seed=0,
+                eval_fn=accuracy,
+                client_iters=[batch_iterator(a, 64, seed=i)
+                              for i, a in enumerate(arrays)]))
+            results.append(({k: v.cpu() for k, v in res.params.items()},
+                            [(c.client, c.global_metric,
+                              [m.task_loss for m in c.models])
+                             for c in res.clients], res.final_metric))
+        (p0, r0, acc0), (p1, r1, acc1) = results
+        same = all(torch.equal(p0[k], p1[k]) for k in p0) and r0 == r1
+        return dict(bitwise=same, accuracy=[acc0, acc1])
+
+    out = {}
+    for strategy in ("dfedsam", "metafed"):
+        out[strategy] = run = pair(strategy)
+        print(f"  (d) C15: {strategy} twice: "
+              f"{'bitwise' if run['bitwise'] else 'DIFFERS'} (accuracy "
+              f"{run['accuracy'][0]:.4f}, {run['accuracy'][1]:.4f})")
+        if not run["bitwise"]:
+            fail(f"phase 24 (d): two {strategy} runs from one seed differ "
+                 "(ROADMAP C15)")
+    from unittest import mock
+
+    from repro_torch.api import strategies
+    from repro_torch.models import cnn
+
+    def before():
+        return torch.backends.cudnn.flags(enabled=True, allow_tf32=False)
+
+    with mock.patch.object(strategies, "native_conv_flags",
+                           contextlib.nullcontext), \
+            mock.patch.object(cnn, "native_conv_flags", before):
+        for strategy in ("dfedsam", "metafed"):
+            run = out[strategy]["control"] = pair(strategy)
+            print(f"  (d) control, the repair undone: {strategy} twice: "
+                  f"{'bitwise' if run['bitwise'] else 'differs'} (accuracy "
+                  f"{run['accuracy'][0]:.4f}, {run['accuracy'][1]:.4f})")
+    return out
+
+
+def lm_phase(torch, smi_line):
+    """Phase 24; returns its measurements by part."""
+    train, held = lm_data(_lm_variant(torch).vocab_size)
+    t0 = time.perf_counter()
+    out = dict(card_vs_cpu=lm_card_vs_cpu(torch, train, held))
+    out["example"] = lm_example(torch, train, held)
+    out["full_width"] = lm_full_width(torch, smi_line)
+    out["c15"] = c15_repeat(torch)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def attention_bwd_entry(serving, lm):
+    """The kernels line's entry of the attention backward: launches from
+    phase 24 (c)'s first run; times, bound and SDPA's backward at its
+    shape in f32 (phase 10's `llama_train` row: one layer's backward)."""
+    row = next(r for r in serving["attention_bwd"]
+               if r["shape"] == "llama_train" and r["dtype"] ==
+               "torch.float32")
+    entry = {
+        "name": "flash_attn_bwd_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attn_bwd_f32.cu",
+        "replaces": "src/repro/models/layers.py:84",
+        "launches": lm["full_width"]["runs"][0]["attention"]["backward"],
+        "max_abs_err": serving["attention_bwd_max_abs_err"],
+        "ms": row["ms"], "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"]}
+    if not entry["launches"]:
+        fail("flash_attn_bwd_f32 was launched no time on its main path")
+    return entry
+
+
 def main(argv):
     """No arguments: every phase. ``--planted-faults``: phases 1-2, then
     `planted_faults` (a calibration of phase 5's checks; no result line)."""
@@ -5257,6 +5911,12 @@ def main(argv):
           "captured decode; the ring past the window; the f32 oracle")
     dense = dense_phase(torch, smi_line)
 
+    # phase 24: LM training on the card, and C15's check
+    print("[24] dense LM training through launch: the example's variant "
+          "card vs CPU and at its FedConfig; llama3.2-1b f32 at full width "
+          "and depth; C15 (dfedsam and MetaFed repeat bitwise)")
+    lm = lm_phase(torch, smi_line)
+
     step_rows = [r for r in rows if r["main_path"]]
     byte_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[0] for r in step_rows)
     flop_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[1] for r in step_rows)
@@ -5286,7 +5946,8 @@ def main(argv):
         "bound_by": sgd_timing["bound_by"],
         "library_ms": sgd_timing["library_ms"]}]
         + serving_kernels(serving)["kernels"] + [gla_kernel_entry(ssm_out)]
-        + sweep_kernel_entries(captured, pd_out)}
+        + sweep_kernel_entries(captured, pd_out)
+        + [attention_bwd_entry(serving, lm)]}
     # flash attention's main paths: phase 11's replays, zamba2-7b's
     # served prefill and decode steps (phase 14) and the dense prefills
     # of phase 23
@@ -5297,6 +5958,8 @@ def main(argv):
                 zamba[k]["flash_attn_f32"]
                 for k in ("launches_prefill", "launches_decode"))
             entry["launches"] += dense_attention_launches(dense)
+            entry["launches"] += \
+                lm["full_width"]["runs"][0]["attention"]["forward"]
     print("details: " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), nvidia_smi=smi_line,
         build_s=build_s, gemm=rows, main_path=main_path,
@@ -5306,7 +5969,8 @@ def main(argv):
         pool_distance=pd_out, regularizer=regularizer, fig9=fig9,
         compiled_phase=compiled, table1_scenarios=table1_scen,
         batched=batched, checkpoints=checkpoints, fleets=fleets,
-        dense_serving=dense, total_s=time.perf_counter() - t_start)))
+        dense_serving=dense, lm_training=lm,
+        total_s=time.perf_counter() - t_start)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(smi_line)

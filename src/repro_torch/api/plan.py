@@ -283,15 +283,18 @@ def _train_visit(trainer: LocalTrainer, m: Params, it, n_steps: int):
 
 
 def _run_block(trainer: LocalTrainer, block: LocalBlock, m: Params, it,
-               step_fn, exp):
+               step_fn, exp, pool_out: Optional[str] = "copy"):
     """One client visit: returns (params, pool | None, model records).
     Scan-wanting DataPlans take the scanned phase; custom blocks and
-    per-model callbacks keep the per-step loop."""
+    per-model callbacks keep the per-step loop. `pool_out` is how a pool
+    visit hands its pool back (`ScannedPhase.local_client`; None drops
+    it)."""
     if block.kind == "pool":
         if wants_scan(it) and exp.callbacks.on_model_end is None:
-            return trainer.local_client_train_scanned(m, it)
-        return trainer.local_client_train(
+            return trainer.local_client_train_scanned(m, it, pool_out)
+        m, pool, models = trainer.local_client_train(
             m, it, on_model_end=exp.callbacks.on_model_end)
+        return m, (pool if pool_out is not None else None), models
     if block.kind == "plain" and wants_scan(it):
         m, _ = trainer.train_scanned(m, it, block.n_steps(trainer.fed))
         return m, None, []
@@ -321,9 +324,14 @@ def _interpret_sequenced(exp, plan: StrategyPlan,
                    if block.kind == "custom" else None)
         for r in range(cycles):
             for rank, ci in enumerate(schedule):
+                # only the last visit's pool is kept (handed over by the
+                # scanned phase, not copied); the others' are not made
+                last = r == cycles - 1 and rank == len(schedule) - 1
+                keep = block.kind == "pool" and plan.keep_final_pool and last
                 m, block_pool, models = _run_block(
-                    trainer, block, m, exp.client_iters[ci], step_fn, exp)
-                if block.kind == "pool":
+                    trainer, block, m, exp.client_iters[ci], step_fn, exp,
+                    "hand_over" if keep else None)
+                if keep:
                     pool = block_pool
                 if plan.records == "clients":
                     rec = ClientRecord(client=int(ci), rank=rank,

@@ -22,7 +22,11 @@ on the card). The SAM step and MetaFed's anchored step are built over the
 model's native ``loss_fn`` (`F.conv2d` for the paper CNN), as the
 reference builds them over its ``lax.conv`` forward; each has a batched
 form over a leading run axis (`_sam_step_batched`,
-`_metafed_anchor_step_batched`) for `plan.interpret_batched`."""
+`_metafed_anchor_step_batched`) for `plan.interpret_batched`. Each runs
+whole, forward and `torch.autograd.grad`, under `cnn.native_conv_flags`
+(`_repeatable`), so that cuDNN's backward algorithms are deterministic
+too and a run repeats bit for bit on the card; on the CPU the flags
+change nothing."""
 from __future__ import annotations
 
 import functools
@@ -34,6 +38,7 @@ from repro_torch.api.plan import LocalBlock, StrategyPlan, Topology, interpret
 from repro_torch.api.registry import Registry
 from repro_torch.api.trainer import batched_grad_step, make_plain_step
 from repro_torch.core.distances import d2_anchor_distance, log_scale
+from repro_torch.models.cnn import native_conv_flags
 from repro_torch.optim.sam import sam_update, sam_update_batched
 
 STRATEGIES = Registry("strategy")
@@ -100,6 +105,21 @@ def describe_strategies() -> Dict[str, Dict[str, str]]:
 # Custom step factories (DFedSAM's SAM step, MetaFed's anchored penalty)
 # ---------------------------------------------------------------------------
 
+def _repeatable(factory):
+    """A step factory whose steps run whole under `native_conv_flags`:
+    the forward and the `torch.autograd.grad` that differentiates it."""
+    @functools.wraps(factory)
+    def make(*args):
+        step = factory(*args)
+
+        def step_fn(*step_args):
+            with native_conv_flags():
+                return step(*step_args)
+        return step_fn
+    return make
+
+
+@_repeatable
 def _sam_step(trainer, exp, anchor):
     rho = exp.strategy_options.get("rho", 0.05)
     loss_fn = exp.model.loss_fn
@@ -112,6 +132,7 @@ def _sam_step(trainer, exp, anchor):
     return sam_step
 
 
+@_repeatable
 def _sam_step_batched(trainer, exps, anchors):
     rho = exps[0].strategy_options.get("rho", 0.05)
     loss_fn = exps[0].model.loss_fn
@@ -135,12 +156,14 @@ def _anchored_loss(loss_fn, anchor_beta):
     return loss
 
 
+@_repeatable
 def _metafed_anchor_step(trainer, exp, anchor):
     anchored = _anchored_loss(exp.model.loss_fn,
                               exp.strategy_options.get("anchor_beta", 0.5))
     return make_plain_step(lambda p, b: anchored(p, b, anchor), trainer.opt)
 
 
+@_repeatable
 def _metafed_anchor_step_batched(trainer, exps, anchors):
     # `anchors`: the stacked phase-1 results, each run's its own anchor
     anchored = _anchored_loss(

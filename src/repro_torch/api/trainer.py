@@ -41,12 +41,12 @@ from repro_torch.api.pools import PoolBackend, backend_for
 from repro_torch.api.results import ModelRecord
 from repro_torch.configs.base import FedConfig
 from repro_torch.core import distances as D
-from repro_torch.core.pool import _check_room, _tensors
+from repro_torch.core.pool import ModelPool, _check_room, _tensors
 from repro_torch.data.plan import DataPlan, gather, stack_plan_indices
 from repro_torch.kernels import build
 from repro_torch.kernels.local_step import fused_loss_for
 from repro_torch.optim import make_optimizer
-from repro_torch.optim.optimizers import Optimizer
+from repro_torch.optim.optimizers import Optimizer, apply_in_place
 
 Params = Dict[str, torch.Tensor]
 
@@ -89,26 +89,31 @@ def regularized_loss(loss_fn: Callable, fed: FedConfig,
 
 
 def _grad_step(objective: Callable, opt: Optimizer, params: Params,
-               opt_state, step: int):
+               opt_state, step: int, in_place: bool = False):
     """Differentiate ``objective(leaves) -> (total, task)`` at `params`
-    and apply one optimizer update; returns (params, opt_state, task)."""
+    and apply one optimizer update; returns (params, opt_state, task).
+    `in_place` writes the update into `params` and `opt_state` themselves
+    (`apply_in_place`: the same bits) and returns them."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     total, task = objective(leaves)
-    grads = torch.autograd.grad(total, list(leaves.values()))
-    params, opt_state = opt.update(params, dict(zip(leaves, grads)),
-                                   opt_state, step)
+    grads = dict(zip(leaves, torch.autograd.grad(total,
+                                                 list(leaves.values()))))
+    if in_place:
+        apply_in_place(opt, params, grads, opt_state, step)
+    else:
+        params, opt_state = opt.update(params, grads, opt_state, step)
     return params, opt_state, task.detach()
 
 
 def make_plain_step(loss_fn: Callable, opt: Optimizer):
-    """(params, opt_state, batch, step) → (params, opt_state, task); `step`
-    an int or an int32 device tensor."""
+    """(params, opt_state, batch, step, in_place=False) → (params,
+    opt_state, task); `step` an int or an int32 device tensor."""
 
-    def step_fn(params, opt_state, batch, step):
+    def step_fn(params, opt_state, batch, step, in_place=False):
         def objective(p):
             task = loss_fn(p, batch)
             return task, task
-        return _grad_step(objective, opt, params, opt_state, step)
+        return _grad_step(objective, opt, params, opt_state, step, in_place)
 
     return step_fn
 
@@ -118,9 +123,9 @@ def make_pool_step(loss_fn: Callable, fed: FedConfig, opt: Optimizer,
     """Regularized step; the pool rides along as an argument."""
     full_loss = regularized_loss(loss_fn, fed, backend)
 
-    def step_fn(params, opt_state, batch, pool, step):
+    def step_fn(params, opt_state, batch, pool, step, in_place=False):
         return _grad_step(lambda p: full_loss(p, batch, pool), opt, params,
-                          opt_state, step)
+                          opt_state, step, in_place)
 
     return step_fn
 
@@ -330,6 +335,7 @@ class LocalTrainer:
         return pool.average(), pool, records
 
     def local_client_train_scanned(self, m_in: Params, plan: DataPlan,
+                                   pool_out: Optional[str] = "copy"
                                    ) -> Tuple[Params, Any,
                                               List[ModelRecord]]:
         """`local_client_train` over the plan's next S·e_local schedule
@@ -338,12 +344,13 @@ class LocalTrainer:
         a CUDA graph and replayed (`ScannedPhase`); the per-model task
         losses come back in one sync. Bitwise the per-step path over the
         same plan; callers needing per-model callbacks use
-        `local_client_train`."""
+        `local_client_train`. `pool_out` says how the pool comes back
+        (`ScannedPhase.local_client`)."""
         fed = self.fed
         if not fed.use_pool:
             params, _ = self.train_scanned(m_in, plan, fed.e_local)
             return params, None, []
-        return self.scanned.local_client(m_in, plan)
+        return self.scanned.local_client(m_in, plan, pool_out)
 
     @property
     def scanned(self) -> "ScannedPhase":
@@ -458,6 +465,20 @@ def _clone(tree: Any) -> Any:
     return _map_tree(torch.clone, tree)
 
 
+def _append_into(pool: Any, params: Params) -> None:
+    """`pool.append(params)` written into `pool`: a stacked pool slot by
+    slot, one leaf at a time (no second pool at once); the other forms
+    through their `append` and a copy."""
+    if not isinstance(pool, ModelPool):
+        _copy_into(pool, pool.append(params))
+        return
+    _check_room(pool.count, pool.capacity)
+    slot = pool.count.reshape(1).long()
+    for k, s in pool.members.items():
+        s.index_copy_(0, slot, params[k].detach().to(s.dtype).unsqueeze(0))
+    pool.count.add_(1)
+
+
 def _layout(tree: Any) -> Tuple:
     """Shapes and dtypes of a pytree's tensors: static buffers made for one
     layout serve every tree of it."""
@@ -472,8 +493,11 @@ class ScannedPhase:
     schedule rows `rows` and the client's arrays `arrays` — are made at
     first use and loaded at each visit (`_load`) and pool model. `_step`
     is the one step body: gather row `ptr`'s batch from `arrays`, take
-    the (plain or pool) step at `P`, `O`, `step`, copy the results back
-    into `P`, `O` and `task`, advance `step` and `ptr`.
+    the (plain or pool) step at `P`, `O`, `step` with the update written
+    into `P` and `O` in place, copy the task loss into `task`, advance
+    `step` and `ptr`. A pool model's start and its append also write into
+    the buffers (`_append_into`), so the phase holds one copy of the
+    parameters, the optimizer state and the pool.
 
     On CUDA, a step kind's first step runs the body eagerly on the side
     stream `stream` (which makes every buffer a kernel wrapper keeps per
@@ -484,8 +508,11 @@ class ScannedPhase:
     needs more rows or larger arrays than the buffers hold (`captures`
     counts them, `replays` the replays; the class attributes
     `total_captures` / `total_replays` count over every instance, as the
-    kernel wrappers count launches). A capture that fails raises; there
-    is no per-step fallback. On the CPU the body runs in a plain loop."""
+    kernel wrappers count launches). The graphs of the step kinds share
+    one memory pool: a step leaves nothing of its own alive, so one kind's
+    replay may reuse what another's left free. A capture that fails
+    raises; there is no per-step fallback. On the CPU the body runs in a
+    plain loop."""
 
     total_captures = 0
     total_replays = 0
@@ -522,6 +549,7 @@ class ScannedPhase:
         if self.P is None or _layout(self.P) != _layout(params):
             self.P = {k: torch.empty_like(v) for k, v in params.items()}
             self.O = self.opt.init(self.P)
+            self.pool = None            # the pool's layout follows P's
             self.step = torch.zeros((), dtype=torch.int32, device=dev)
             self.ptr = torch.zeros((), dtype=torch.int64, device=dev)
             self.task = torch.zeros((), dtype=torch.float32, device=dev)
@@ -560,10 +588,33 @@ class ScannedPhase:
         self.ptr.zero_()
 
     def _start_model(self, params: Params) -> None:
-        """A model's start: params, a fresh optimizer state, step 0."""
+        """A model's start: params, a fresh optimizer state (zeros, as
+        every optimizer's `init` makes it, written in place), step 0."""
         _copy_into(self.P, params)
-        _copy_into(self.O, self.opt.init(self.P))
+        for t in _tensors(self.O):
+            t.zero_()
         self.step.zero_()
+
+    def _start_pool(self, m_in: Params) -> None:
+        """A visit's start: `backend.create(m_in, fed)` in the pool buffer.
+        A stacked pool is refilled in place (slot 0 the incoming model,
+        the other slots zeros, count 1), so that no second pool exists at
+        once; another form is created and copied in. Without a buffer (the
+        first visit, or new parameter buffers) the created pool becomes
+        it: a stacked pool's members are its own, the other forms keep
+        `m_in` as their anchor or base and are copied."""
+        if self.pool is None:
+            first = self.backend.create(m_in, self.fed)
+            self.pool = first if isinstance(first, ModelPool) \
+                else _clone(first)
+            self.graphs.pop("pool", None)
+        elif isinstance(self.pool, ModelPool):
+            for k, s in self.pool.members.items():
+                s[0].copy_(m_in[k])
+                s[1:].zero_()
+            self.pool.count.fill_(1)
+        else:
+            _copy_into(self.pool, self.backend.create(m_in, self.fed))
 
     # -- the step ------------------------------------------------------------
 
@@ -571,13 +622,12 @@ class ScannedPhase:
         row = self.rows.index_select(0, self.ptr.reshape(1))[0]
         batch = gather(self.arrays, row)
         if kind == "pool":
-            p, o, task = self.pool_step(self.P, self.O, batch, self.pool,
-                                        self.step)
+            _, _, task = self.pool_step(self.P, self.O, batch, self.pool,
+                                        self.step, in_place=True)
         else:
-            p, o, task = self.plain_step(self.P, self.O, batch, self.step)
+            _, _, task = self.plain_step(self.P, self.O, batch, self.step,
+                                         in_place=True)
         with torch.no_grad():
-            _copy_into(self.P, p)
-            _copy_into(self.O, o)
             self.task.copy_(task)
             self.step.add_(1)
             self.ptr.add_(1)
@@ -590,8 +640,9 @@ class ScannedPhase:
             return
         if not n:
             return
+        shared = next((g.pool() for g, _ in self.graphs.values()), None)
         self.graphs[kind], fresh, replays = build.graph_steps(
-            self.graphs.get(kind), lambda: self._step(kind), n)
+            self.graphs.get(kind), lambda: self._step(kind), n, pool=shared)
         if fresh:
             self.captures += 1
             ScannedPhase.total_captures += 1
@@ -620,11 +671,17 @@ class ScannedPhase:
         return (_clone(self.P),
                 self.task.clone() if n_steps else torch.zeros(()))
 
-    def local_client(self, m_in: Params, plan: DataPlan
+    def local_client(self, m_in: Params, plan: DataPlan,
+                     pool_out: Optional[str] = "copy"
                      ) -> Tuple[Params, Any, List[ModelRecord]]:
         """The pool procedure over the plan's next S·e_local rows; returns
-        (pool average, pool, records), copies out of the buffers. The
-        task losses come back in one sync."""
+        (pool average, pool, records), the average a copy out of the
+        buffers. The pool comes back as `pool_out` says: "copy", a copy;
+        None, not at all (a caller that keeps only a later visit's pool);
+        "hand_over", the pool buffer itself, which the phase lets go of
+        (and its pool graph with it: a later visit makes a new buffer and
+        captures again), for a run's last visit, so that no second pool
+        exists at once. The task losses come back in one sync."""
         fed = self.fed
         s_models, e = fed.pool_size, fed.e_local
         rows = plan.take(s_models * e)
@@ -634,20 +691,24 @@ class ScannedPhase:
 
         with self._side_stream():
             self._load(m_in, plan, rows)
-            first = self.backend.create(m_in, fed)
-            if self.pool is None or _layout(self.pool) != _layout(first):
-                self.pool = _clone(first)
-                self.graphs.pop("pool", None)
-            else:
-                _copy_into(self.pool, first)
+            self._start_pool(m_in)
             for j in range(s_models):
                 self._start_model(self.pool.average())   # Eq. 6 init
                 self._advance("pool", e)
                 tasks[j].copy_(self.task)
-                _copy_into(self.pool, self.pool.append(self.P))
+                _append_into(self.pool, self.P)
         records = [ModelRecord(index=j, task_loss=x)
                    for j, x in enumerate(tasks.tolist())]
-        return self.pool.average(), _clone(self.pool), records
+        avg, pool = self.pool.average(), None
+        if pool_out == "copy":
+            pool = _clone(self.pool)
+        elif pool_out == "hand_over":
+            pool, self.pool = self.pool, None
+            self.graphs.pop("pool", None)
+        elif pool_out is not None:
+            raise ValueError(f"pool_out {pool_out!r}: 'copy', "
+                             "'hand_over' or None")
+        return avg, pool, records
 
 
 class BatchedScannedPhase(ScannedPhase):

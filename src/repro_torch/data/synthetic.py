@@ -1,13 +1,14 @@
-"""Synthetic image data (port of ``repro/data/synthetic.py``):
+"""Synthetic data (port of ``repro/data/synthetic.py``):
 class-conditional Gaussian images over low-frequency class means, for
 label skew; four feature-shifted domains over the same classes, for
-domain shift (the paper's PACS stand-in); and a fleet client's shard by
-client id. Pure numpy, bitwise equal to the reference for the same
-seeds."""
+domain shift (the paper's PACS stand-in); a fleet client's shard by
+client id; and Markov-chain token streams, one transition matrix a
+domain, for the language-model clients. Pure numpy, bitwise equal to
+the reference for the same seeds."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -17,6 +18,12 @@ class SyntheticImageDataset:
     images: np.ndarray   # (N, H, W, 3) float32
     labels: np.ndarray   # (N,) int32
     n_classes: int
+
+
+@dataclasses.dataclass
+class SyntheticTextDataset:
+    tokens: np.ndarray   # (N, T+1) int32 — shifted for next-token prediction
+    vocab: int
 
 
 def _class_means(rng, n_classes, side=32, scale=1.0):
@@ -99,4 +106,29 @@ def make_domain_datasets(n_per_domain=4000, n_classes=10, side=32, noise=0.8,
             size=(n_per_domain, side, side, 3)).astype(np.float32)
         out[d] = SyntheticImageDataset(
             apply_domain(imgs, d).astype(np.float32), labels, n_classes)
+    return out
+
+
+def make_lm_dataset(n_seqs=2048, seq_len=256, vocab=1024, n_domains=1,
+                    seed=0) -> List[SyntheticTextDataset]:
+    """Markov-chain token streams; each domain gets its own transition
+    matrix (feature shift for the LLM FL examples): a sparse row of 32
+    successors a token, Dirichlet(0.5) weights. Two calls with different
+    seeds share no transition matrix, so a held-out set that is to
+    measure what training learned comes from the training domains' own
+    streams (sequences set aside), not from another seed."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n_domains):
+        trans = rng.dirichlet(np.full(32, 0.5), size=vocab)
+        cols = rng.integers(0, vocab, size=(vocab, 32))
+        seqs = np.empty((n_seqs // n_domains, seq_len + 1), np.int32)
+        state = rng.integers(0, vocab, size=n_seqs // n_domains)
+        seqs[:, 0] = state
+        for t in range(1, seq_len + 1):
+            choice = (rng.random(state.shape[0])[:, None] <
+                      np.cumsum(trans[state], -1)).argmax(-1)
+            state = cols[state, choice].astype(np.int32)
+            seqs[:, t] = state
+        out.append(SyntheticTextDataset(seqs, vocab))
     return out

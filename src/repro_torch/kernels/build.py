@@ -168,13 +168,16 @@ def capture_counts():
         _captured.clear()
 
 
-def capture_graph(body: Callable[[], Any]):
+def capture_graph(body: Callable[[], Any], pool: Any = None):
     """Capture `body()` into a new CUDA graph on the current stream (a
     side stream, where a warm-up run of the body went first); returns the
     graph, the launches one replay makes (`capture_counts`) and what the
-    body returned. The cycle collector is off during the capture: an
-    object it freed there (another graph, a pinned buffer) would call the
-    CUDA runtime outside the captured stream and void the capture.
+    body returned. `pool`, another graph's `pool()`, makes the new graph
+    allocate from that graph's memory pool: for graphs that never run at
+    once and leave nothing alive that the other reads. The cycle
+    collector is off during the capture: an object it freed there
+    (another graph, a pinned buffer) would call the CUDA runtime outside
+    the captured stream and void the capture.
     (`torch.cuda.graph` would also empty the allocator's caches first,
     which costs later allocations more than the capture saves.) A capture
     that fails raises."""
@@ -186,7 +189,10 @@ def capture_graph(body: Callable[[], Any]):
     gc.disable()
     try:
         with capture_counts() as counts:
-            graph.capture_begin()
+            if pool is None:
+                graph.capture_begin()
+            else:
+                graph.capture_begin(pool=pool)
             try:
                 out = body()
             finally:
@@ -218,19 +224,20 @@ def side_stream(holder: Any, device: Any = None):
     current.wait_stream(holder.stream)
 
 
-def graph_steps(captured: Any, body: Callable[[], Any], n: int = 1):
+def graph_steps(captured: Any, body: Callable[[], Any], n: int = 1,
+                pool: Any = None):
     """n > 0 steps of `body` on the side stream through one CUDA graph.
     `captured` is the (graph, counts) of an earlier call, or None: then
     the first step runs eagerly (a real step, which also makes every
     buffer a kernel wrapper keeps per stream) and the body is captured
-    after it (`capture_graph`). The other steps are replays, counted in
-    the wrappers (`add_replays`). Returns ((graph, counts), whether it
-    captured, the replays made)."""
+    after it (`capture_graph`, into `pool` when given). The other steps
+    are replays, counted in the wrappers (`add_replays`). Returns
+    ((graph, counts), whether it captured, the replays made)."""
     fresh = captured is None
     if fresh:
         body()
         n -= 1
-        graph, counts, _ = capture_graph(body)
+        graph, counts, _ = capture_graph(body, pool)
         captured = (graph, counts)
     graph, counts = captured
     for _ in range(n):

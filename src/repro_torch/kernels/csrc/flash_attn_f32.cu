@@ -64,6 +64,13 @@
 // over its 4 lanes with warp shuffles, writes its probabilities to shared
 // memory, and accumulates p·v for 16 of the hd columns over all 64 keys.
 //
+// With a non-null `lse` (f32, (B, H, Tq)) each query row also writes the
+// log-sum-exp of its scaled, masked scores, m + log(l) in the units of the
+// scores above, for the backward kernel (flash_attn_bwd_f32.cu) to
+// recompute P = exp(S − lse); a row with no valid key (m still −1e30)
+// writes +inf, so that its P is exactly 0 there. The output is computed
+// by the same instructions with or without it.
+//
 // Plain C interface for ctypes; returns cudaGetLastError(). q, k, v and
 // out start on 16-byte boundaries (the wrapper checks q, k and v).
 #include <cuda_bf16.h>
@@ -73,6 +80,12 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
+
+// the row's log-sum-exp from its running max and sum, +inf for a row that
+// saw no valid key
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m > 0.5f * NEG_INF ? m + logf(l) : __int_as_float(0x7f800000);
+}
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -161,7 +174,8 @@ __global__ void __launch_bounds__(TC_THREADS)
 flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
                        const __nv_bfloat16* __restrict__ v,
-                       __nv_bfloat16* __restrict__ o, int tq, int tk, int h,
+                       __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int tq, int tk, int h,
                        int kv, int causal, int window, float scale) {
   static_assert(HD % 16 == 0, "head dim in k16 steps and pairs of n8 blocks");
   constexpr int S = HD + TC_PAD;  // bf16 per shared row
@@ -339,6 +353,9 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     const int r = r0 + warp * 16 + lane / 4 + 8 * i;
     if (r >= rows) continue;
     const float den = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && lane % 4 == 0)
+      lse[((size_t)b * h + kvh * g + r % g) * tq + r / g] =
+          row_lse(m[i], l[i]);
     __nv_bfloat16* orow =
         o + (((size_t)b * tq + r / g) * h + kvh * g + r % g) * HD +
         2 * (lane % 4);
@@ -351,8 +368,9 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int HD>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
-                int64_t b, int64_t tq, int64_t tk, int64_t h, int64_t kv,
-                int causal, int64_t window, float scale, cudaStream_t st) {
+                float* lse, int64_t b, int64_t tq, int64_t tk, int64_t h,
+                int64_t kv, int causal, int64_t window, float scale,
+                cudaStream_t st) {
   // the attribute is per device: one bit per device it was set on
   static uint64_t configured = 0;
   constexpr size_t smem = tc_smem_bytes<HD>();
@@ -373,7 +391,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   flash_attn_bf16_kernel<HD><<<grid, TC_THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      (int)tq, (int)tk, (int)h, (int)kv, causal, (int)window, scale);
+      lse, (int)tq, (int)tk, (int)h, (int)kv, causal, (int)window, scale);
   return (int)cudaGetLastError();
 }
 
@@ -397,8 +415,9 @@ constexpr size_t smem_bytes() {
 template <int HD>
 __global__ void __launch_bounds__(THREADS)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ o, int tq,
-                  int tk, int h, int kv, int causal, int window, float scale) {
+                  const float* __restrict__ v, float* __restrict__ o,
+                  float* __restrict__ lse, int tq, int tk, int h, int kv,
+                  int causal, int window, float scale) {
   extern __shared__ float smem[];
   float* ks = smem;                          // [BK][HD + 1]
   float* vs = ks + BK * (HD + 1);            // [BK][HD]
@@ -490,6 +509,8 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (live) {
     const float den = fmaxf(l, 1e-30f);
+    if (lse != nullptr && lane == 0)
+      lse[((size_t)b * h + hh) * tq + qpos] = row_lse(m, l);
     float* orow = o + (((size_t)b * tq + qpos) * h + hh) * HD + lane;
 #pragma unroll
     for (int c = 0; c < COLS; ++c) orow[LANES * c] = acc[c] / den;
@@ -498,8 +519,9 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int HD>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
-               int64_t b, int64_t tq, int64_t tk, int64_t h, int64_t kv,
-               int causal, int64_t window, float scale, cudaStream_t st) {
+               float* lse, int64_t b, int64_t tq, int64_t tk, int64_t h,
+               int64_t kv, int causal, int64_t window, float scale,
+               cudaStream_t st) {
   // the attribute is per device: one bit per device it was set on
   static uint64_t configured = 0;
   constexpr size_t smem = smem_bytes<HD>();
@@ -517,42 +539,44 @@ int launch_f32(const void* q, const void* k, const void* v, void* o,
   const dim3 grid((unsigned)((tq + BQ - 1) / BQ), (unsigned)h, (unsigned)b);
   flash_attn_kernel<HD><<<grid, THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), (int)tq, (int)tk,
-      (int)h, (int)kv, causal, (int)window, scale);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, (int)tq,
+      (int)tk, (int)h, (int)kv, causal, (int)window, scale);
   return (int)cudaGetLastError();
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int bf16,
-           int64_t b, int64_t tq, int64_t tk, int64_t h, int64_t kv,
-           int causal, int64_t window, float scale, cudaStream_t st) {
-  return bf16 ? launch_bf16<HD>(q, k, v, o, b, tq, tk, h, kv, causal, window,
-                                scale, st)
-              : launch_f32<HD>(q, k, v, o, b, tq, tk, h, kv, causal, window,
-                               scale, st);
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int bf16, int64_t b, int64_t tq, int64_t tk, int64_t h,
+           int64_t kv, int causal, int64_t window, float scale,
+           cudaStream_t st) {
+  return bf16 ? launch_bf16<HD>(q, k, v, o, lse, b, tq, tk, h, kv, causal,
+                                window, scale, st)
+              : launch_f32<HD>(q, k, v, o, lse, b, tq, tk, h, kv, causal,
+                               window, scale, st);
 }
 
 }  // namespace
 
 extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
-                              void* o, int bf16, int64_t b, int64_t tq,
-                              int64_t tk, int64_t h, int64_t kv, int64_t hd,
-                              int causal, int64_t window, float scale,
-                              void* stream) {
+                              void* o, void* lse, int bf16, int64_t b,
+                              int64_t tq, int64_t tk, int64_t h, int64_t kv,
+                              int64_t hd, int causal, int64_t window,
+                              float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (hd) {
     case 32:
-      return launch<32>(q, k, v, o, bf16, b, tq, tk, h, kv, causal, window,
+      return launch<32>(q, k, v, o, l, bf16, b, tq, tk, h, kv, causal, window,
                         scale, st);
     case 64:
-      return launch<64>(q, k, v, o, bf16, b, tq, tk, h, kv, causal, window,
+      return launch<64>(q, k, v, o, l, bf16, b, tq, tk, h, kv, causal, window,
                         scale, st);
     case 112:  // zamba2's shared attention block, 3584 / 32 heads
-      return launch<112>(q, k, v, o, bf16, b, tq, tk, h, kv, causal, window,
-                         scale, st);
+      return launch<112>(q, k, v, o, l, bf16, b, tq, tk, h, kv, causal,
+                         window, scale, st);
     case 128:
-      return launch<128>(q, k, v, o, bf16, b, tq, tk, h, kv, causal, window,
-                         scale, st);
+      return launch<128>(q, k, v, o, l, bf16, b, tq, tk, h, kv, causal,
+                         window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

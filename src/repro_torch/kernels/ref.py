@@ -19,8 +19,13 @@ def conv2d_ref(x: torch.Tensor, w: torch.Tensor,
                b: torch.Tensor) -> torch.Tensor:
     """SAME stride-1 NHWC conv with HWIO weights via `F.conv2d` — the
     independent oracle for `local_step.conv2d_gemm`. On a CUDA tensor it
-    runs with cuDNN's TF32 off, so it stays an f32 reference."""
-    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+    runs with cuDNN's TF32 off, so it stays an f32 reference, and with
+    deterministic algorithms and no benchmark search, so it repeats bit
+    for bit. These flags hold for the forward only: a caller that
+    differentiates it holds the same flags around its `autograd.grad`
+    (`models.cnn.native_conv_flags`)."""
+    with torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                    deterministic=True, allow_tf32=False):
         y = F.conv2d(x.float().permute(0, 3, 1, 2),
                      w.float().permute(3, 2, 0, 1), padding="same")
     return y.permute(0, 2, 3, 1) + b
@@ -52,23 +57,85 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Dense softmax attention with f32 scores, out in q's dtype — the
     flash-attention kernel's plain version. q: (B, Tq, H, hd); k, v:
     (B, Tk, KV, hd); query head h reads kv head h // (H / KV)."""
-    b, tq, h, hd = q.shape
-    tk, n_kv = k.shape[1], k.shape[2]
-    g = h // n_kv
-    qf = q.float() * hd ** -0.5
-    kf = k.float().repeat_interleave(g, dim=2)
+    g = q.shape[2] // k.shape[2]
+    s = _scaled_scores(q, k, torch.float32)
+    mask = _attention_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
     vf = v.float().repeat_interleave(g, dim=2)
-    s = torch.einsum("bthd,bshd->bhts", qf, kf)
-    q_pos = torch.arange(tq, device=q.device)[:, None]
-    k_pos = torch.arange(tk, device=q.device)[None, :]
-    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    return torch.einsum("bhts,bshd->bthd", p, vf).to(q.dtype)
+
+
+def _attention_mask(tq, tk, causal, window, device):
+    q_pos = torch.arange(tq, device=device)[:, None]
+    k_pos = torch.arange(tk, device=device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=device)
     if causal:
         mask &= q_pos >= k_pos
     if window:
         mask &= q_pos - k_pos < window
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhts,bshd->bthd", p, vf).to(q.dtype)
+    return mask
+
+
+def _scaled_scores(q, k, dt):
+    """scale·q·kᵀ per query head, (B, H, Tq, Tk) in `dt`, kv heads
+    repeated over their group."""
+    hd = q.shape[-1]
+    g = q.shape[2] // k.shape[2]
+    kf = k.to(dt).repeat_interleave(g, dim=2)
+    return torch.einsum("bthd,bshd->bhts", q.to(dt) * hd ** -0.5, kf)
+
+
+def attention_lse_ref(q: torch.Tensor, k: torch.Tensor, *,
+                      causal: bool = True, window: int = 0) -> torch.Tensor:
+    """The log-sum-exp of each query row's scaled, masked scores, (B, H,
+    Tq) in f32 (f64 for f64 inputs): the forward kernel's ``lse`` output.
+    A row with no valid key reads +inf, the kernel's sentinel (its P is
+    exactly 0 in the backward)."""
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    s = _scaled_scores(q, k, dt)
+    mask = _attention_mask(q.shape[1], k.shape[1], causal, window, q.device)
+    lse = torch.logsumexp(torch.where(mask, s, torch.full_like(s, NEG_INF)),
+                          dim=-1)
+    return torch.where(mask.any(-1), lse, torch.full_like(lse, torch.inf))
+
+
+def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      out: torch.Tensor, lse: torch.Tensor,
+                      dout: torch.Tensor, *, causal: bool = True,
+                      window: int = 0):
+    """The attention backward kernel's plain version: (dq, dk, dv) of
+    `attention_ref` at `out` (its output) and `lse` (`attention_lse_ref`,
+    or the forward kernel's), for the output gradient `dout`, by the
+    explicit formulas
+
+        D = rowsum(dO∘O),  P = exp(S − lse) on valid keys (0 elsewhere),
+        dV = Σ_group Pᵀ·dO,  dP = dO·Vᵀ,  dS = P∘(dP − D),
+        dQ = scale·dS·K,  dK = scale·Σ_group dSᵀ·Q,
+
+    with S the scaled scores and scale = hd^-1/2. In f32 (f64 for f64
+    inputs), returned in that type; a row with no valid key (lse = +inf)
+    has P = 0, so its dq is 0 and it adds nothing to dk and dv."""
+    dt = torch.float64 if q.dtype == torch.float64 else torch.float32
+    b, tq, h, hd = q.shape
+    tk, n_kv = k.shape[1], k.shape[2]
+    g = h // n_kv
+    scale = hd ** -0.5
+    s = _scaled_scores(q, k, dt)
+    mask = _attention_mask(tq, tk, causal, window, q.device)
+    p = torch.where(mask, torch.exp(s - lse.to(dt)[..., None]),
+                    torch.zeros_like(s))
+    do, o = dout.to(dt), out.to(dt)
+    kf = k.to(dt).repeat_interleave(g, dim=2)
+    vf = v.to(dt).repeat_interleave(g, dim=2)
+    d = torch.sum(do * o, dim=-1).transpose(1, 2)            # (B, H, Tq)
+    dv = torch.einsum("bhts,bthd->bshd", p, do)
+    dp = torch.einsum("bthd,bshd->bhts", do, vf)
+    ds = p * (dp - d[..., None])
+    dq = scale * torch.einsum("bhts,bshd->bthd", ds, kf)
+    dk = scale * torch.einsum("bhts,bthd->bshd", ds, q.to(dt))
+    return (dq, dk.reshape(b, tk, n_kv, g, hd).sum(3),
+            dv.reshape(b, tk, n_kv, g, hd).sum(3))
 
 
 def abs_ref(x: torch.Tensor) -> torch.Tensor:

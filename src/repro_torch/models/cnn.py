@@ -11,8 +11,12 @@ Two formulations of one network:
 * ``forward`` — `F.conv2d` + max-pool, the counterpart of the reference's
   `lax.conv` graph, used for evaluation and by the steps the strategies
   build over ``loss_fn`` itself (DFedSAM's SAM step, MetaFed's anchored
-  step), as in the reference. It runs with cuDNN's TF32 off so the card
-  computes in f32, as the reference does.
+  step), as in the reference. It runs under `native_conv_flags`: cuDNN's
+  TF32 off, so the card computes in f32 as the reference does, and
+  deterministic algorithms, so a step repeats bit for bit. The steps hold
+  the same flags around their `torch.autograd.grad` as well, since the
+  convs' backward picks its algorithms under the flags in force when
+  autograd runs it, after this forward's block has exited.
 * ``fused_forward`` — im2col + the GEMM kernel and reshape-max
   (`kernels/local_step`), attached to ``loss_fn`` under `FUSED_LOSS_ATTR`; the
   trainer builds every step over it, so each conv's forward and both of
@@ -34,6 +38,15 @@ from repro_torch.kernels.local_step import (FUSED_LOSS_ATTR, conv2d_gemm,
 from repro_torch.models.base import Model, Params, he_normal
 
 _CONVS = ("c1", "c2", "c3")
+
+
+def native_conv_flags():
+    """cuDNN's flags for the native formulation, as a context manager:
+    enabled, TF32 off, no benchmark search, deterministic algorithms. It
+    sets nothing process-wide; hold it around a forward *and* the
+    `torch.autograd.grad` that differentiates it."""
+    return torch.backends.cudnn.flags(enabled=True, benchmark=False,
+                                      deterministic=True, allow_tf32=False)
 
 
 class _Affine(nn.Module):
@@ -73,7 +86,7 @@ class PaperCNN(nn.Module):
                 x = maxpool2x2(F.relu(conv2d_gemm(x, layer.w, layer.b)))
             return self._head(x)
         x = x.permute(0, 3, 1, 2)                      # NCHW for cuDNN
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with native_conv_flags():
             for name in _CONVS:
                 layer = getattr(self, name)
                 x = F.conv2d(x, layer.w.permute(3, 2, 0, 1), layer.b,

@@ -8,13 +8,16 @@ accumulates in f32 and is cast back to the activation dtype exactly where
 the reference casts (`preferred_element_type=f32` there): `matmul_f32`.
 
 `flash_attention` routes by device. On a CUDA tensor it launches the
-hand-written kernel (`kernels/flash_attention.py`), forward only and from
-position 0: a `q_offset` (cached decode) or an input that requires grad
-(training) raises `NotImplementedError` until a backward kernel exists.
-On a CPU tensor it runs the reference's chunked online-softmax
-formulation, kv block by kv block. `decode_attention` (one query against
-a KV cache, with the sliding window of the dense family's ring buffer)
-is plain PyTorch on every device, as the reference has no kernel for it.
+hand-written kernels (`kernels/flash_attention.py`) from position 0 (a
+`q_offset`, cached decode, raises `NotImplementedError`): the forward
+kernel alone, or, where an input requires grad (training), the
+`FlashAttention` autograd Function, whose backward is the attention
+backward kernel. On a CPU tensor it runs the reference's chunked
+online-softmax formulation, kv block by kv block, and autograd
+differentiates it as `jax.grad` differentiates the reference's.
+`decode_attention` (one query against a KV cache, with the sliding
+window of the dense family's ring buffer) is plain PyTorch on every
+device, as the reference has no kernel for it.
 Nothing in the decode path copies host memory to the card, so a decode
 step can be captured in a CUDA graph (`launch.steps.CapturedDecode`).
 """
@@ -26,7 +29,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention import flash_attn_f32
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attn_f32)
 
 ACC = torch.float32
 NEG_INF = -1e30
@@ -152,19 +156,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Causal / sliding-window GQA attention. q: (B, Tq, H, hd); k, v:
     (B, Tk, KV, hd). q_offset: absolute position of q[0] relative to k[0].
     window: 0 = full; > 0 = only keys fewer than `window` positions back.
-    CUDA: the flash-attention kernel (see the module docstring for what
-    raises); CPU: the chunked formulation."""
+    CUDA: the flash-attention kernels (see the module docstring); CPU:
+    the chunked formulation."""
     if q.device.type == "cuda":
         if q_offset:
             raise NotImplementedError(
                 "flash_attention on CUDA starts at position 0; cached "
                 "decode (q_offset != 0) waits for its kernel")
-        if any(t.requires_grad for t in (q, k, v)):
-            raise NotImplementedError(
-                "flash_attention on CUDA is forward-only; transformer "
-                "training on the card waits for a backward kernel")
-        return flash_attn_f32(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=causal, window=window)
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            return FlashAttention.apply(q, k, v, causal, window)[0]
+        return flash_attn_f32(q, k, v, causal=causal, window=window)
     if q.device.type == "cpu":
         return _chunked_attention(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset, kv_block=kv_block)

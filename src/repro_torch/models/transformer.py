@@ -78,16 +78,29 @@ def layer_params(params: Params, l: int) -> Params:
     return {k: v[l] for k, v in sub_params(params, "layers").items()}
 
 
+EVAL_ROWS = 16
+
+
 def lm_eval_fn(model: Model, test_batch: Dict) -> Callable:
     """Held-out evaluation for an LM client: the mean negative NLL over a
     fixed {tokens, labels} batch (higher is better, as `Experiment.eval_fn`
-    expects)."""
+    expects). The batch is scored EVAL_ROWS sequences at a time and the
+    chunks' losses averaged by their rows (the whole batch's mean, summed
+    in another order): a full-vocabulary model's f32 logits for the whole
+    held-out set need not exist at once."""
     batch = {k: torch.as_tensor(v).to(model.device)
              for k, v in test_batch.items()}
+    n = next(iter(batch.values())).shape[0]
+    starts = range(0, n, EVAL_ROWS)
 
     def nll(params):
         with torch.no_grad():
-            return -model.loss_fn(params, batch)
+            if n <= EVAL_ROWS:
+                return -model.loss_fn(params, batch)
+            total = sum(model.loss_fn(params, {k: v[i:i + EVAL_ROWS]
+                                               for k, v in batch.items()})
+                        * min(EVAL_ROWS, n - i) for i in starts)
+            return -total / n
     return nll
 
 
