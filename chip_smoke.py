@@ -57,7 +57,8 @@ Phases, each failing the run with a nonzero exit:
              and bitwise equal; errors, times beside the bound, the plain
              version and a library call, and each BGMV kernel's device
              time at the sites; the attention backward
-             (`flash_attn_bwd_f32`) at BWD_SHAPES in f32 (normwise against
+             (`flash_attn_bwd_f32`) at BWD_SHAPES (phase 25's 4,096-token
+             layer call among them) in f32 (normwise against
              the f64 plain version) and bf16 (elementwise within one bf16
              rounding), launched twice and bitwise, beside its bound and
              SDPA's backward, and the forward's lse (its out bitwise the
@@ -89,10 +90,12 @@ Phases, each failing the run with a nonzero exit:
              grid in f32 and bf16, ragged P, a batched form against single
              runs, the paper CNN's 10 leaves at capacity 4 and 6 and its
              one-member sweep, 45 ragged leaves (two launches); the
-             backward at the CNN's table and C = 2, 3, 6, 11; errors
+             backward at the CNN's table and C = 2, 3, 6, 11, in f32 and
+             on bf16 leaves (within one bf16 rounding more); errors
              within the kernel's summation bound (`SweepPlan.chain`),
              times of the pool step's one sweep and the one-member sweep
-             beside the bound, the plain version and `torch.cdist`
+             beside the bound, the plain version and `torch.cdist`,
+             and both on bf16 leaves
 16. regularizer — −α·log_scale(d1) + β·log_scale(d2) at full width for
              each distance measure, through the joint d1/d2 sweep and
              through separate d1 and d2 sweeps (d2 the one-member sweep)
@@ -197,6 +200,27 @@ Phases, each failing the run with a nonzero exit:
              dfedsam and MetaFed twice each through `launch` on the
              full-width paper CNN, bitwise; then, printed, the same
              pairs with the repair undone
+25. train step — the FedELMY train step (`launch.make_step(cfg,
+             train shape)`) in bf16: (a) the bf16 product's backward
+             (`matmul_f32` under grad) at two of (b)'s shapes against
+             the f64 product of the same f32 cotangent; the example's
+             llama3.2 variant
+             at seq 512, batch 8, both pool forms, REPRO_MICROBATCH 1
+             and 2, one step on the card and on the CPU against the f32
+             oracle (Adam's m per leaf, task); (b) llama3.2-1b at full
+             width and depth at train_4k's 4,096-token sequences (global
+             batch cut to 16, REPRO_MICROBATCH=8), the moment pool: a
+             warm-up and 3 timed steps, exact attention and sweep launches
+             a step, every sweep backward on bf16 leaves, steps/s,
+             tokens/s, the model FLOP rate, peak memory, a second run
+             bitwise, one step profiled; (c) the exact pool (capacity 6,
+             3 live), 2 steps, its C = 6 sweep's columns, the regularizer
+             through the joint and the separate sweeps against per-leaf
+             plain sums at 1.236 B bf16 leaves; (d) the f32 twin
+             (REPRO_MICROBATCH=16): (b)'s first gradient within 5e-2
+             normwise and its task within 5e-3; (e) the bf16 sweep
+             backward at full width (C = 1 and 6) against its plain
+             version
 
 Before the last lines it prints every measurement as one JSON object on
 a line starting "details: "; then the kernels' JSON record and the card's
@@ -1761,11 +1785,14 @@ def check_flash_attention(torch, fa_mod, ref):
 
 
 # phase 10: the attention backward's shapes (name, B, T, H, KV, hd,
-# causal, window): llama3.2-1b's training step (phase 24 (c): 16 × 128,
-# its registered 8,192 window), long causal and windowed sequences,
+# causal, window): llama3.2-1b's training steps (phase 24 (c): 16 × 128;
+# phase 25: 4,096-token sequences, 2 a microbatch, here 1 so that the
+# f64 plain version fits; both with the registered 8,192 window), long
+# causal and windowed sequences,
 # ragged T on both sides of a tile, GQA groups of 1, 4, 7 and 8, and
 # every head dim of `HEAD_DIMS`
 BWD_SHAPES = [("llama_train", 16, 128, 32, 8, 64, True, 8192),
+              ("train4k", 1, 4096, 32, 8, 64, True, 8192),
               ("causal2048", 2, 2048, 32, 8, 64, True, 0),
               ("window256", 2, 1024, 32, 8, 64, True, 256),
               ("ragged127", 4, 127, 32, 8, 64, True, 0),
@@ -1776,9 +1803,9 @@ BWD_SHAPES = [("llama_train", 16, 128, 32, 8, 64, True, 8192),
               ("hd128", 2, 512, 28, 4, 128, True, 0)]
 # f32 backward against the f64 plain version, normwise per gradient. A
 # gradient element sums ≤ 64 FFMA terms a tile over ⌈n/64⌉ tiles (n = the
-# rows, or keys, of the reduction: at T = 2,048 and a group of 4, 8,192
+# rows, or keys, of the reduction: at T = 4,096 and a group of 4, 16,384
 # rows), so its rounding grows as (64 + n/64)·2⁻²⁴ of Σ|terms| at worst,
-# ~√(64 + n/64)·2⁻²⁴ typically: ~1e-6 at T = 2,048.
+# ~√(64 + n/64)·2⁻²⁴ typically: ~1e-6 at T = 4,096.
 BWD_F32_REL_TOL = 1e-5
 # the forward's lse against `attention_lse_ref` in f64, normwise
 LSE_REL_TOL = 1e-6
@@ -3127,39 +3154,63 @@ def _cnn_table(torch, capacity, count, seed0):
     return model.init(seed0), pool
 
 
-def _hold_backward(torch, pd_mod, ref, name, ws, ms, g_stats, g_wsq):
+def _hold_backward(torch, pd_mod, ref, name, ws, ms, g_stats, g_wsq,
+                   slice_size=None):
     """One backward case against `pool_distance_stats_bwd_ref` per leaf
-    and run, elementwise within (4C + 4)·2⁻²³ of the sum of the absolute terms (both
-    sides round each member's three terms and the sum once or twice); a
-    second call gives the same bits."""
+    and run, elementwise within (4C + 4)·2⁻²³ of the sum of the absolute
+    terms (both sides round each member's three terms and the sum once or
+    twice); for bf16 leaves (read widened by both sides) also one bf16
+    rounding of the plain result, 2⁻⁸·|want|; ∂w in the leaves' dtype, the
+    plan's launches (one a table of 40 leaves) each call, and a second
+    call gives the same bits. The plain version is elementwise along a
+    leaf, so it may be held `slice_size` elements at a time (its f32
+    temporaries at full width)."""
+    before = pd_mod.pool_distance_bwd_f32.launches
     outs = pd_mod.pool_distance_bwd_f32(ws, ms, g_stats, g_wsq)
     again = pd_mod.pool_distance_bwd_f32(ws, ms, g_stats, g_wsq)
+    launched = pd_mod.pool_distance_bwd_f32.launches - before
     torch.cuda.synchronize()
+    plan = pd_mod.sweep_plan(ms[0].shape[1], [w.shape[1] for w in ws],
+                             ws[0].element_size())
     repeat = all(torch.equal(a, b) for a, b in zip(outs, again))
     c = ms[0].shape[1]
+    bf16 = ws[0].dtype == torch.bfloat16
     worst, max_abs, finite = 0.0, 0.0, True
     for b in range(ws[0].shape[0]):
         gs, gl, gd = (g_stats[b, i][:, None] for i in range(3))
         for w, m, out in zip(ws, ms, outs):
-            want = ref.pool_distance_stats_bwd_ref(
-                w[b], m[b], g_stats[b, 0], g_stats[b, 1], g_stats[b, 2],
-                g_wsq=g_wsq[b])
-            r = w[b][None] - m[b]
-            terms = ((2 * gs * r).abs() + gl.abs() +
-                     (gd * m[b]).abs()).sum(0) + (2 * g_wsq[b] * w[b]).abs()
-            bound = (4 * c + 4) * 2.0 ** -23 * terms.double()
-            err = (out[b].double() - want.double()).abs()
-            worst = max(worst, float((err / bound.clamp_min(1e-30)).max()))
-            max_abs = max(max_abs, float(err.max()))
-            finite = finite and bool(torch.isfinite(out[b]).all())
-    print(f"  sweep backward {name:19s}: worst error {worst:.2e} of its "
-          f"bound, max abs {max_abs:.3e}; repeat "
-          f"{'bitwise' if repeat else 'DIFFERS'}")
-    if worst > 1.0 or not finite or not repeat:
+            step = slice_size or w.shape[1]
+            for lo in range(0, w.shape[1], step):
+                sl = slice(lo, lo + step)
+                wb, mb, ob = w[b, sl], m[b, :, sl], out[b, sl]
+                wf, mf = wb.float(), mb.float()
+                want = ref.pool_distance_stats_bwd_ref(
+                    wb, mb, g_stats[b, 0], g_stats[b, 1], g_stats[b, 2],
+                    g_wsq=g_wsq[b])
+                r = wf[None] - mf
+                terms = ((2 * gs * r).abs() + gl.abs() +
+                         (gd * mf).abs()).sum(0) + (2 * g_wsq[b] * wf).abs()
+                del r, mf
+                bound = (4 * c + 4) * 2.0 ** -23 * terms.double()
+                if bf16:
+                    bound = bound + 2.0 ** -8 * want.double().abs()
+                err = (ob.double() - want.double()).abs()
+                worst = max(worst,
+                            float((err / bound.clamp_min(1e-30)).max()))
+                max_abs = max(max_abs, float(err.max()))
+                finite = finite and bool(torch.isfinite(ob).all()) and \
+                    out.dtype == w.dtype
+    print(f"  sweep backward {name:24s}: worst error {worst:.2e} of its "
+          f"bound, max abs {max_abs:.3e}; {launched} launches for 2 calls; "
+          f"repeat {'bitwise' if repeat else 'DIFFERS'}")
+    if worst > 1.0 or not finite or not repeat or \
+            launched != 2 * len(plan.tables):
         fail(f"pool_distance_bwd_f32 {name} disagrees with its plain "
-             "version beyond the stated bound (or is not finite, or a "
-             "second call differs)")
-    return dict(name=name, worst_share_of_bound=worst, max_abs_err=max_abs)
+             "version beyond the stated bound (or is not finite or not in "
+             "the leaves' dtype, or a second call differs, or it launched "
+             f"{launched} times for 2 calls of {len(plan.tables)})")
+    return dict(name=name, worst_share_of_bound=worst, max_abs_err=max_abs,
+                dtype=str(ws[0].dtype), launches=launched)
 
 
 def _call_work(torch, fn, counter):
@@ -3194,19 +3245,21 @@ def _sweep_timing(torch, pd_mod, ref, ws, ms, library):
     counters, say)."""
     c = ms[0].shape[1]
     p = sum(w.shape[1] for w in ws)
-    plan = pd_mod.sweep_plan(c, [w.shape[1] for w in ws], 4)
+    esz = ws[0].element_size()
+    plan = pd_mod.sweep_plan(c, [w.shape[1] for w in ws], esz)
     gen = torch.Generator(device=CARD).manual_seed(16)
     g_stats = torch.randn((1, 4, c), device=CARD, generator=gen)
     g_wsq = torch.randn((1,), device=CARD, generator=gen)
-    fwd_bound = _bound((c + 1) * p * 4 + (4 * c + 1) * 4,
+    fwd_bound = _bound((c + 1) * p * esz + (4 * c + 1) * 4,
                        p * (8 * c + 2), PEAK_F32_FLOPS)
-    bwd_bound = _bound((c + 2) * p * 4 + (4 * c + 1) * 4, p * (7 * c + 2),
+    bwd_bound = _bound((c + 2) * p * esz + (4 * c + 1) * 4, p * (7 * c + 2),
                        PEAK_F32_FLOPS)
 
     def forward():
         return pd_mod.pool_distance_f32(ws, ms)
 
-    flat = torch.randn((c + 1) * p, device=CARD, generator=gen)
+    flat = torch.randn((c + 1) * p, device=CARD, generator=gen).to(
+        ws[0].dtype)
 
     def backward():
         return pd_mod.pool_distance_bwd_f32(ws, ms, g_stats, g_wsq)
@@ -3219,12 +3272,14 @@ def _sweep_timing(torch, pd_mod, ref, ws, ms, library):
         fail(f"a sweep call launched {kernels}; expected its one kernel "
              "and no PyTorch operator but allocations")
     return dict(
-        members=c, elements=p, chunks=plan.total_blocks, slots=plan.slots,
+        members=c, elements=p, dtype=str(ws[0].dtype),
+        chunks=plan.total_blocks, slots=plan.slots,
         groups=plan.groups, kernels=kernels,
         read_same_bytes_ms=median_ms(lambda: flat.sum()),
         forward=dict(ms=median_ms(forward),
                      plain_ms=median_ms(lambda: _stats_plain(ref, ws, ms)),
-                     library_ms=median_ms(library), bound_ms=fwd_bound[0],
+                     library_ms=median_ms(library) if library else None,
+                     bound_ms=fwd_bound[0],
                      bound_by=fwd_bound[1],
                      profile=kernel_profile(torch, forward,
                                             keep=("pool_distance",)),
@@ -3235,6 +3290,7 @@ def _sweep_timing(torch, pd_mod, ref, ws, ms, library):
                 w[0], m[0], g_stats[0, 0], g_stats[0, 1], g_stats[0, 2],
                 g_wsq=g_wsq[0]) for w, m in zip(ws, ms)]),
             library_ms=None, bound_ms=bwd_bound[0], bound_by=bwd_bound[1],
+            launches_a_call=kernels["backward"]["launches"],
             profile=kernel_profile(torch, backward, keep=("pool_distance",)),
             **bwd_bound[2]))
 
@@ -3321,38 +3377,47 @@ def check_pool_distance(torch, pd_mod, ref):
 
     # backward at the main path's table, then at the flat and ragged
     # shapes (C = 2, 3, 6 and 11: two passes of 8 members) and the 45 leaves
+    # each case in f32, then on the same values rounded to bf16 (the
+    # backward's bf16 leaves: the train step's)
     live = pool.mask()
     g_stats = rn(1, 4, 4) * live            # the empty slot's ḡ is 0
     g_wsq = rn(1)
-    bwd_rows = [_hold_backward(torch, pd_mod, ref, "capacity 4", ws, ms,
-                               g_stats, g_wsq)]
     anchor = pool.first()
     ws0, _ = _sweep_table(list(anchor.values()), [])
-    bwd_rows.append(_hold_backward(torch, pd_mod, ref, "w = member 0",
-                                   [x.contiguous() for x in ws0], ms,
-                                   g_stats, g_wsq))
-    bwd_rows.append(_hold_backward(torch, pd_mod, ref, "d2, w = anchor",
-                                   [x.contiguous() for x in ws0], ms_d2,
-                                   rn(1, 4, 1), g_wsq))
-    bwd_cases = [(f"flat C={c} P={p}", c, [p]) for c, p in PD_FLAT_SHAPES]
-    bwd_cases += [(f"ragged C=3 P={p}", 3, [p]) for p in PD_RAGGED_P]
-    bwd_cases.append((f"{len(PD_WIDE_SIZES)} ragged leaves C=3", 3,
-                      PD_WIDE_SIZES))
-    for name, c, sizes in bwd_cases:
-        bwd_rows.append(_hold_backward(
-            torch, pd_mod, ref, name, [rn(1, n) for n in sizes],
-            [rn(1, c, n) for n in sizes], rn(1, 4, c), rn(1)))
+    ws0 = [x.contiguous() for x in ws0]
+    bwd_cases = [("capacity 4", ws, ms, g_stats, g_wsq),
+                 ("w = member 0", ws0, ms, g_stats, g_wsq),
+                 ("d2, w = anchor", ws0, ms_d2, rn(1, 4, 1), g_wsq)]
+    shapes = [(f"flat C={c} P={p}", c, [p]) for c, p in PD_FLAT_SHAPES]
+    shapes += [(f"ragged C=3 P={p}", 3, [p]) for p in PD_RAGGED_P]
+    shapes.append((f"{len(PD_WIDE_SIZES)} ragged leaves C=3", 3,
+                   PD_WIDE_SIZES))
+    bwd_cases += [(name, [rn(1, n) for n in sizes],
+                   [rn(1, c, n) for n in sizes], rn(1, 4, c), rn(1))
+                  for name, c, sizes in shapes]
+    bwd_rows = []
+    for dt in ("f32", "bf16"):
+        cast = (lambda x: x.bfloat16()) if dt == "bf16" else (lambda x: x)
+        for name, cws, cms, gs, gw in bwd_cases:
+            bwd_rows.append(_hold_backward(
+                torch, pd_mod, ref, f"{name} {dt}", [cast(x) for x in cws],
+                [cast(x) for x in cms], gs, gw))
 
     # times at the main path's table: the pool step's one sweep (capacity
     # 4) and the one-member sweep (MetaFed's anchored d2)
     wf = torch.cat([x.reshape(-1) for x in params.values()])
     mf = torch.cat([s.reshape(4, -1) for s in pool.members.values()], 1)
+    bf = [x.bfloat16() for x in ws]
     timing = {
         "pool_step": _sweep_timing(torch, pd_mod, ref, ws, ms,
                                    lambda: torch.cdist(wf[None], mf, p=2)),
         "one_member": _sweep_timing(
             torch, pd_mod, ref, ws, ms_d2,
-            lambda: torch.cdist(wf[None], mf[:1], p=2))}
+            lambda: torch.cdist(wf[None], mf[:1], p=2)),
+        "pool_step_bf16": _sweep_timing(
+            torch, pd_mod, ref, bf, [x.bfloat16() for x in ms], None),
+        "one_member_bf16": _sweep_timing(
+            torch, pd_mod, ref, bf, [x.bfloat16() for x in ms_d2], None)}
     # the timing's own floor: a sweep over one element
     one = rn(1, 1)
     timing["one_element_ms"] = median_ms(
@@ -3362,7 +3427,8 @@ def check_pool_distance(torch, pd_mod, ref):
           f"the one-member sweep's "
           f"{timing['one_member']['read_same_bytes_ms']:.4f} ms; a "
           f"one-element sweep {timing['one_element_ms']:.4f} ms")
-    for key in ("pool_step", "one_member"):
+    for key in ("pool_step", "one_member", "pool_step_bf16",
+                "one_member_bf16"):
         t = timing[key]
         for way in ("forward", "backward"):
             r = t[way]
@@ -5746,6 +5812,660 @@ def lm_phase(torch, smi_line):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: the FedELMY train step (make_step("train")) in bf16
+# ---------------------------------------------------------------------------
+
+# train_4k (4,096-token sequences, global batch 256) cut to 16 rows for
+# the run's time limit, in TRAIN_MICRO row blocks (REPRO_MICROBATCH): 8
+# microbatches of 2 × 4,096 tokens, 65,536 tokens a step
+TRAIN_T, TRAIN_ROWS, TRAIN_MICRO = 4096, 16, 8
+TRAIN_STEPS = 3                 # timed steps, after one warm-up step
+TRAIN_EXACT_STEPS = 2
+TRAIN_ORACLE_MICRO = 16         # (d): the f32 twin's microbatches
+# m1 and m2: m0 plus seeded Gaussian noise at this share of each leaf's RMS
+TRAIN_NOISE = 1e-3
+# (a): the example's variant at seq 512, batch 8; each bf16 gradient
+# (Adam's m after one step) within TRAIN_GRAD_TOL normwise per leaf of
+# the f32 oracle on the CPU, the card's at most twice the CPU port's + 1e-3
+TRAIN_VARIANT_T, TRAIN_VARIANT_ROWS = 512, 8
+TRAIN_GRAD_TOL = 3e-2
+# (d): (b)'s first step's gradient against the f32 twin's at full width
+TRAIN_ORACLE_GRAD_TOL = 5e-2
+TRAIN_TASK_TOL = 5e-3
+# (e): the full-width check of the bf16 backward walks each leaf in
+# slices of this many elements (the plain version's f32 temporaries)
+TRAIN_SLICE = 1 << 24
+# (c): the regularizer's gradient on bf16 leaves through the sweeps
+# against the plain one in f64: the joint sweep rounds its f32 gradient
+# to bf16 once, the separate sweeps once a distance and again summing the
+# two in bf16, each rounding up to 2⁻⁹ of an element, so within 2⁻⁷
+# normwise
+TRAIN_SWEEP_GRAD_TOL = 2.0 ** -7
+# (a): the bf16 product's backward at two of (b)'s shapes (name, rows,
+# d_in, d_out, w a transposed view): a microbatch's MLP up-projection and
+# one loss chunk's unembedding through the tied embedding
+PRODUCT_SHAPES = (("mlp_up", 2 * 4096, 2048, 8192, False),
+                  ("unembed", 2 * 512, 2048, 128256, True))
+
+
+@contextlib.contextmanager
+def _env(**values):
+    """Environment variables set for the block, restored after it."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update({k: str(v) for k, v in values.items()})
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _noisy_member(torch, params, seed):
+    """m0 plus Gaussian noise at TRAIN_NOISE of each leaf's RMS, drawn from
+    a generator seeded `seed` on the params' device, in the leaf's dtype."""
+    dev = next(iter(params.values())).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for k, x in params.items():
+        xf = x.float()
+        rms = xf.square().mean().sqrt()
+        out[k] = (xf + TRAIN_NOISE * rms * torch.randn(
+            x.shape, generator=gen, device=dev)).to(x.dtype)
+    return out
+
+
+def _train_pool(torch, form, m0, members, pool_size):
+    """The step's pool around m0: the moment pool of m0 and `members`, or
+    the exact pool of pool_size + 1 slots with them appended."""
+    from repro_torch.core.pool import ModelPool, MomentPool
+    pool = (MomentPool.create(m0) if form == "moment"
+            else ModelPool.create(m0, pool_size + 1))
+    for m in members:
+        pool = pool.append(m)
+    return pool
+
+
+def _train_batch(torch, vocab, t, rows, device):
+    """`make_lm_dataset`'s one-domain stream of `rows` sequences, as
+    `batch_specs_for` lays out a train batch: int32 tokens and labels."""
+    from repro_torch.data import make_lm_dataset
+    s = make_lm_dataset(n_seqs=rows, seq_len=t, vocab=vocab, n_domains=1,
+                        seed=0)[0].tokens
+    return {"tokens": torch.from_numpy(s[:, :-1].copy()).to(device),
+            "labels": torch.from_numpy(s[:, 1:].copy()).to(device)}
+
+
+def _leaf_errs(got, want):
+    """Per-leaf normwise errors of `got` against `want`, and over all
+    leaves as one vector."""
+    errs, num, den = {}, 0.0, 0.0
+    for k, w in want.items():
+        g = got[k].double().cpu()
+        w = w.double().cpu()
+        d, n = float((g - w).norm()), float(w.norm())
+        errs[k] = d / n if n else d
+        num, den = num + d * d, den + n * n
+    return errs, math.sqrt(num / den)
+
+
+def product_backward_check(torch, smi_line):
+    """(a) The bf16 product's backward on the card: `layers.matmul_f32`
+    under grad (`_MatmulF32Out`, g in two bf16 terms) at PRODUCT_SHAPES,
+    dx and dw against the f64 products of the same f32 cotangent g, each
+    element within one bf16 rounding plus 2⁻¹⁶·|g|·|w| (what the two
+    terms and f32 sums may add). Beside it, printed and not gated, the
+    route that rounds g once to bf16 first, held to the same bound, and
+    both routes' times."""
+    from repro_torch.models import layers
+    gen = torch.Generator(device=CARD).manual_seed(27)
+    rows = []
+
+    def held(got, a, b):
+        want = a.double() @ b.double()
+        bound = 2.0 ** -8 * want.abs() + 2.0 ** -16 * (
+            a.double().abs() @ b.double().abs())
+        return float(((got.double() - want).abs() / bound).max())
+
+    for name, m, k, n, transposed in PRODUCT_SHAPES:
+        x = torch.randn((m, k), device=CARD, generator=gen).bfloat16() \
+            .requires_grad_(True)
+        leaf = (torch.randn((n, k) if transposed else (k, n), device=CARD,
+                            generator=gen) * k ** -0.5).bfloat16() \
+            .requires_grad_(True)
+        w = leaf.T if transposed else leaf
+        g = torch.randn((m, n), device=CARD, generator=gen)
+        with torch.enable_grad():
+            y = layers.matmul_f32(x, w)
+        dx, dw = torch.autograd.grad(y, (x, w), g, retain_graph=True)
+        xd, wd = x.detach(), w.detach()
+        worst = max(held(dx, g, wd.T), held(dw, xd.T, g))
+        gb = g.bfloat16()
+        one = max(held(torch.mm(gb, wd.T, out_dtype=torch.float32)
+                       .bfloat16(), g, wd.T),
+                  held(torch.mm(xd.T, gb, out_dtype=torch.float32)
+                       .bfloat16(), xd.T, g))
+        del dx, dw, gb
+        two_ms = median_ms(lambda: torch.autograd.grad(
+            y, (x, w), g, retain_graph=True), reps=10)
+        one_ms = median_ms(lambda: (
+            torch.mm(g.bfloat16(), wd.T, out_dtype=torch.float32)
+            .bfloat16(),
+            torch.mm(xd.T, g.bfloat16(), out_dtype=torch.float32)
+            .bfloat16()), reps=10)
+        rows.append(dict(shape=name, rows=m, d_in=k, d_out=n,
+                         worst_share_of_bound=worst,
+                         one_term_share_of_bound=one, ms=two_ms,
+                         one_term_ms=one_ms))
+        print(f"  (a) bf16 product backward {name} {m}×{k}→{n}: dx, dw "
+              f"{worst:.3f} of the bound (g rounded once to bf16 first: "
+              f"{one:.1f}); {two_ms:.4f} ms (g rounded once: {one_ms:.4f}"
+              f" ms) ({smi_line})")
+        if worst > 1.0:
+            fail(f"phase 25 (a): the bf16 product's backward at {name} "
+                 f"lies {worst:.3f} of its bound from the f64 product")
+        del x, leaf, w, g, y, xd, wd
+        torch.cuda.empty_cache()
+    return rows
+
+
+def train_step_variant(torch, smi_line):
+    """(a) The example's llama3.2 variant in bf16 (4 layers, d_model 512,
+    vocab 8,192, no window) at seq 512 and batch 8, both pool forms,
+    REPRO_MICROBATCH 1 and 2: one step from m0 on the card, the same step
+    of the port on the CPU, and the f32 oracle (the f32 twin on the same
+    values widened) on the CPU. Each bf16 gradient (Adam's m) within
+    TRAIN_GRAD_TOL per leaf of the oracle's, the card's within twice the
+    CPU's + 1e-3; tasks within TRAIN_TASK_TOL of the oracle's."""
+    import dataclasses
+
+    from repro_torch.configs import FedConfig, ShapeConfig
+    from repro_torch.launch import make_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+
+    cfg = dataclasses.replace(_lm_variant(torch), param_dtype="bfloat16")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    shape = ShapeConfig("train_512", TRAIN_VARIANT_T, TRAIN_VARIANT_ROWS,
+                        "train")
+    fed = FedConfig()
+    opt = make_optimizer(fed.optimizer, fed.learning_rate, fed.weight_decay)
+    m0 = build_model(cfg, "cpu").init(0)
+    members = [_noisy_member(torch, m0, s) for s in (1, 2)]
+    batch = _train_batch(torch, cfg.vocab_size, TRAIN_VARIANT_T,
+                         TRAIN_VARIANT_ROWS, "cpu")
+    out = []
+    for form in ("moment", "exact"):
+        for micro in (1, 2):
+            row = dict(form=form, micro=micro)
+            runs = {}
+            for key, c, dev, widen in (("card", cfg, CARD, False),
+                                       ("cpu", cfg, "cpu", False),
+                                       ("oracle", cfg32, "cpu", True)):
+                def put(p):
+                    return {k: (v.float() if widen else v).to(dev)
+                            for k, v in p.items()}
+                with _env(REPRO_MICROBATCH=micro):
+                    step = make_step(c, shape, fed, device=dev)
+                p = put(m0)
+                pool = _train_pool(torch, form, p, [put(m) for m in members],
+                                   fed.pool_size)
+                _, o, task = step(p, opt.init(p), {k: v.to(dev) for k, v in
+                                                   batch.items()}, pool, 0)
+                runs[key] = ({k: v.cpu() for k, v in o["m"].items()},
+                             float(task))
+            oracle_m, oracle_task = runs["oracle"]
+            for key in ("card", "cpu"):
+                errs, total = _leaf_errs(runs[key][0], oracle_m)
+                row[key] = dict(grad_err=errs, grad_err_total=total,
+                                task=runs[key][1], task_err=abs(
+                                    runs[key][1] - oracle_task) /
+                                abs(oracle_task))
+            row["oracle_task"] = oracle_task
+            worst = max(row["card"]["grad_err"].values())
+            print(f"  (a) {form:6s} REPRO_MICROBATCH={micro}: gradient vs "
+                  f"the f32 oracle, worst leaf card {worst:.3e} / CPU "
+                  f"{max(row['cpu']['grad_err'].values()):.3e} (all leaves "
+                  f"{row['card']['grad_err_total']:.3e} / "
+                  f"{row['cpu']['grad_err_total']:.3e}); task card "
+                  f"{row['card']['task']:.6f}, CPU {row['cpu']['task']:.6f},"
+                  f" oracle {oracle_task:.6f} ({smi_line})")
+            bad = [k for k, e in row["card"]["grad_err"].items()
+                   if e > 2 * row["cpu"]["grad_err"][k] + 1e-3 or
+                   e > TRAIN_GRAD_TOL or
+                   row["cpu"]["grad_err"][k] > TRAIN_GRAD_TOL]
+            if bad or row["card"]["task_err"] > TRAIN_TASK_TOL or \
+                    row["cpu"]["task_err"] > TRAIN_TASK_TOL:
+                fail(f"phase 25 (a) {form} micro {micro}: leaves {bad} or "
+                     f"the task lie beyond their bounds: {row}")
+            out.append(row)
+    return out
+
+
+def _train_counters():
+    wrappers = dict(_attn_wrappers())
+    sweep = _sweep_wrappers()
+    return {"attention": wrappers, "sweep": sweep}
+
+
+def _reset_train_counts():
+    for group in _train_counters().values():
+        for fn in group.values():
+            fn.launches = 0
+
+
+def _read_train_counts():
+    return {g: {k: fn.launches for k, fn in group.items()}
+            for g, group in _train_counters().items()}
+
+
+class _SweepSpy:
+    """The sweep's library with its backward entry watched: the element
+    type (f32 or bf16) of each backward call, from the call's own
+    argument. Everything else is the library's."""
+
+    def __init__(self, lib):
+        self.lib, self.backward_types = lib, []
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def pool_distance_bwd_f32(self, *args):
+        self.backward_types.append("bf16" if args[11] else "f32")
+        return self.lib.pool_distance_bwd_f32(*args)
+
+
+def _train_run(torch, step, params, opt, batch, pool, n_steps, keep_first):
+    """`n_steps` chained steps from `params` and a fresh Adam state (step
+    0, 1, …): each step's host seconds (synchronized), its attention and
+    sweep launches and its task; Adam's m after step 0 on the CPU when
+    `keep_first`. Returns (params, opt_state, per-step records, first m)."""
+    p, o, first, rows = params, opt.init(params), None, []
+    for i in range(n_steps):
+        _reset_train_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, o, task = step(p, o, batch, pool, i)
+        torch.cuda.synchronize()
+        rows.append(dict(s=time.perf_counter() - t0, task=float(task),
+                         **_read_train_counts()))
+        if i == 0 and keep_first:
+            first = {k: v.cpu() for k, v in o["m"].items()}
+    return p, o, rows, first
+
+
+def _attention_flops(cfg, rows, t):
+    """Attention's products in a step, beside 6·N a token: QKᵀ and PV over
+    the causal half of the T × T square, 2·T²·hd a head forward and twice
+    that backward, so 6·T²·hd a head, layer and sequence."""
+    return 6 * cfg.n_layers * rows * t * t * cfg.n_heads * \
+        cfg.resolved_head_dim
+
+
+def _hold_counts(label, rows, want):
+    for i, r in enumerate(rows):
+        got = dict(attention=r["attention"], sweep=r["sweep"])
+        if got != want:
+            fail(f"phase 25 {label}: step {i} launched {got}, want {want}")
+
+
+def train_step_full_width(torch, smi_line):
+    """(b)–(e) llama3.2-1b in bf16 at full width and depth through
+    `make_step(cfg, train_4k cut to 16 rows)` with REPRO_MICROBATCH=8. (b)
+    The moment form: a warm-up step and TRAIN_STEPS timed steps chained,
+    exact attention (16 × 8 forward and backward) and sweep (1 + 1)
+    launches a step, every backward launch on bf16 leaves, peak memory, a
+    second run bitwise the first, one step under the profiler. (c) The
+    exact form (capacity 6, 3 live members): TRAIN_EXACT_STEPS steps, the
+    same counts, its C = 6 sweep's columns against one-member sweeps. (d)
+    The f32 twin (REPRO_MICROBATCH=16) on the same values widened: (b)'s
+    first gradient and task against it. (e) The bf16 sweep backward at
+    full width against its plain version (C = 1 and 6)."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import FedConfig, ShapeConfig, get_arch
+    from repro_torch.kernels import pool_distance as pd_mod
+    from repro_torch.launch import make_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+
+    cfg = get_arch("llama3.2-1b")
+    shape = ShapeConfig("train_4k", TRAIN_T, TRAIN_ROWS, "train")
+    fed = FedConfig()
+    opt = make_optimizer(fed.optimizer, fed.learning_rate, fed.weight_decay)
+    model = build_model(cfg)
+    params = model.init(0)
+    n_params = sum(v.numel() for v in params.values())
+    batch = _train_batch(torch, cfg.vocab_size, TRAIN_T, TRAIN_ROWS, CARD)
+    tokens = TRAIN_ROWS * TRAIN_T
+    flops = 6 * n_params * tokens + _attention_flops(cfg, TRAIN_ROWS,
+                                                     TRAIN_T)
+    want = dict(attention={"forward": cfg.n_layers * TRAIN_MICRO,
+                           "backward": cfg.n_layers * TRAIN_MICRO},
+                sweep={"forward": 1, "backward": 1})
+    plan = {c: pd_mod.sweep_plan(c, [v.numel() for v in params.values()], 2)
+            for c in (1, fed.pool_size + 1)}
+    print(f"  llama3.2-1b bf16, {n_params} parameters, {TRAIN_ROWS} × "
+          f"{TRAIN_T} tokens a step in {TRAIN_MICRO} microbatches; the "
+          "sweep's plans: " + ", ".join(
+              f"C = {c}: {len(p.tables)} launch(es) of {p.tables} chunks, "
+              f"G = {p.groups}" for c, p in plan.items()) +
+          f" ({smi_line})")
+    with _env(REPRO_MICROBATCH=TRAIN_MICRO):
+        step = make_step(cfg, shape, fed)
+    out = dict(n_params=n_params, tokens_per_step=tokens,
+               flops_per_step=flops, want=want)
+
+    # (b) the moment form
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    pool = _train_pool(torch, "moment", params,
+                       [_noisy_member(torch, params, s) for s in (1, 2)],
+                       fed.pool_size)
+    spy = _SweepSpy(pd_mod._sweep_lib())
+    with mock.patch.object(pd_mod, "_sweep_lib", lambda: spy):
+        p1, o1, rows, first_m = _train_run(
+            torch, step, params, opt, batch, pool, 1 + TRAIN_STEPS, True)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _hold_counts("(b)", rows, want)
+    if spy.backward_types != ["bf16"] * len(rows):
+        fail(f"phase 25 (b): sweep backward calls on {spy.backward_types}, "
+             "want one on bf16 leaves a step")
+    timed = sum(r["s"] for r in rows[1:])
+    rate = TRAIN_STEPS / timed
+    first = dict(params={k: v.cpu() for k, v in p1.items()},
+                 m={k: v.cpu() for k, v in o1["m"].items()},
+                 v={k: v.cpu() for k, v in o1["v"].items()},
+                 tasks=[r["task"] for r in rows])
+    del p1, o1
+    torch.cuda.empty_cache()
+    p2, o2, rows2, _ = _train_run(torch, step, params, opt, batch, pool,
+                                  1 + TRAIN_STEPS, False)
+    bitwise = [r["task"] for r in rows2] == first["tasks"] and all(
+        torch.equal(first["params"][k], v.cpu()) for k, v in p2.items()) \
+        and all(torch.equal(first[n][k], v.cpu())
+                for n in ("m", "v") for k, v in o2[n].items())
+    del p2, o2
+    torch.cuda.empty_cache()
+    finite = all(math.isfinite(t) for t in first["tasks"]) and \
+        _finite(first["params"])
+    moment = dict(
+        steps=rows, steps_per_s=rate, tokens_per_s=rate * tokens,
+        model_flops_per_s=rate * flops,
+        peak_share=rate * flops / PEAK_BF16_FLOPS, peak_gb=peak,
+        second_run_bitwise=bitwise, finite=finite,
+        backward_types=spy.backward_types)
+    print(f"  (b) moment form: {TRAIN_STEPS} steps in {timed:.3f} s "
+          f"({rate:.4f} steps/s, {rate * tokens:.1f} tokens/s; warm-up "
+          f"{rows[0]['s']:.3f} s), model FLOP rate "
+          f"{rate * flops / 1e12:.2f} TFLOP/s ({moment['peak_share']:.4f} "
+          f"of the dense bf16 peak), peak {peak:.2f} GB; tasks "
+          + ", ".join(f"{t:.6f}" for t in first["tasks"]) +
+          f"; launches a step {want}; sweep backward on "
+          f"{sorted(set(spy.backward_types))}; second run "
+          f"{'bitwise' if bitwise else 'DIFFERS'} ({smi_line})")
+    if not finite:
+        fail("phase 25 (b): a non-finite task or parameter")
+    if not bitwise:
+        fail("phase 25 (b): a second run of the same steps differs")
+    state = opt.init(params)
+
+    def profiled(n):
+        for _ in range(n):
+            step(params, state, batch, pool, 0)
+    moment["profile"] = _profile(torch, profiled, 1,
+                                 "(b) one moment-form step",
+                                 watch=("flash_attn", "attn_bwd",
+                                        "pool_distance"))
+    del state
+    out["moment"] = moment
+    final_params = first["params"]
+    del pool, first
+    torch.cuda.empty_cache()
+
+    # (c) the exact form
+    torch.cuda.reset_peak_memory_stats()
+    members = [_noisy_member(torch, params, s) for s in (1, 2)]
+    pool = _train_pool(torch, "exact", params, members, fed.pool_size)
+    del members
+    spy = _SweepSpy(pd_mod._sweep_lib())
+    with mock.patch.object(pd_mod, "_sweep_lib", lambda: spy):
+        p3, o3, rows, _ = _train_run(torch, step, params, opt, batch, pool,
+                                     TRAIN_EXACT_STEPS, False)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _hold_counts("(c)", rows, want)
+    if spy.backward_types != ["bf16"] * len(rows):
+        fail(f"phase 25 (c): sweep backward calls on {spy.backward_types}")
+    del o3
+    columns = exact_columns(torch, p3, pool)
+    regularizer = sweep_value_full_width(torch, p3, pool, fed,
+                                         cfg.vocab_size)
+    del p3
+    timed = sum(r["s"] for r in rows[1:])
+    rate = (TRAIN_EXACT_STEPS - 1) / timed
+    out["exact"] = dict(steps=rows, steps_per_s=rate,
+                        tokens_per_s=rate * tokens, peak_gb=peak,
+                        count=int(pool.count), capacity=pool.capacity,
+                        columns=columns, regularizer=regularizer)
+    print(f"  (c) exact form (capacity {pool.capacity}, {int(pool.count)} "
+          f"live): {rate:.4f} steps/s ({rate * tokens:.1f} tokens/s; first "
+          f"step {rows[0]['s']:.3f} s), peak {peak:.2f} GB; tasks "
+          + ", ".join(f"{r['task']:.6f}" for r in rows) + f" ({smi_line})")
+    out["sweep_full_width"] = sweep_bwd_full_width(
+        torch, pd_mod, final_params, params, pool, smi_line)
+    del pool
+    torch.cuda.empty_cache()
+
+    # (d) the f32 oracle
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    with _env(REPRO_MICROBATCH=TRAIN_ORACLE_MICRO):
+        step32 = make_step(cfg32, shape, fed)
+    del step
+    p32 = {k: v.float() for k, v in params.items()}
+    members = [{k: v.float() for k, v in _noisy_member(
+        torch, params, s).items()} for s in (1, 2)]
+    pool32 = _train_pool(torch, "moment", p32, members, fed.pool_size)
+    del members
+    t0 = time.perf_counter()
+    _, o32, task32 = step32(p32, opt.init(p32), batch, pool32, 0)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    errs, total = _leaf_errs(first_m, o32["m"])
+    task_err = abs(moment["steps"][0]["task"] - float(task32)) / \
+        abs(float(task32))
+    del o32, p32, pool32
+    torch.cuda.empty_cache()
+    out["oracle"] = dict(grad_err=errs, grad_err_total=total,
+                         task=float(task32), task_err=task_err, s=oracle_s)
+    print(f"  (d) the f32 twin's step ({oracle_s:.2f} s): (b)'s first "
+          f"gradient within {total:.3e} normwise (worst leaf "
+          f"{max(errs.values()):.3e}, {max(errs, key=errs.get)}), task "
+          f"{moment['steps'][0]['task']:.6f} vs {float(task32):.6f} "
+          f"({task_err:.2e}) ({smi_line})")
+    if total > TRAIN_ORACLE_GRAD_TOL or task_err > TRAIN_TASK_TOL:
+        fail(f"phase 25 (d): the bf16 step lies {total:.3e} (gradient) / "
+             f"{task_err:.3e} (task) from the f32 twin")
+    return out
+
+
+def _plain_regularizer(torch, params, pool, fed, task):
+    """The Eq. 9 regularizer (l2) from per-leaf plain sums, the sweep and
+    its kernels bypassed: sq_t = Σ (w − m_t)² over every leaf and slot t
+    of the leaves widened (f64 sums, TRAIN_SLICE elements at a time), d_t
+    = sqrt(sq_t + 1e-12), d1 the live slots' mean, d2 = d_0, value −α·
+    log_scale(d1) + β·log_scale(d2). Returns (value, (d1, d2), ∂value/∂sq)
+    in f64: a leaf's gradient is 2Σ_t (∂value/∂sq_t)·(w − m_t)."""
+    from repro_torch.core import distances as D
+    sq = torch.zeros(pool.capacity, dtype=torch.float64, device=CARD)
+    for k, w in params.items():
+        w = w.reshape(-1)
+        for t in range(pool.capacity):
+            m = pool.members[k][t].reshape(-1)
+            for lo in range(0, w.numel(), TRAIN_SLICE):
+                sl = slice(lo, lo + TRAIN_SLICE)
+                sq[t] += (w[sl].double() - m[sl].double()).square().sum()
+    sq.requires_grad_(True)
+    with torch.enable_grad():
+        d = torch.sqrt(sq + 1e-12)
+        mask = pool.mask().double()
+        d1, d2 = (d * mask).sum() / mask.sum(), d[0]
+        value = (-fed.alpha * D.log_scale(d1, task) +
+                 fed.beta * D.log_scale(d2, task))
+        (g_sq,) = torch.autograd.grad(value, sq)
+    return (float(value.detach()), (float(d1.detach()), float(d2.detach())),
+            g_sq)
+
+
+def sweep_value_full_width(torch, params, pool, fed, vocab):
+    """(c) The Eq. 9 regularizer on bf16 leaves at full width: (c)'s
+    params after its steps and the exact pool (C = 6, 3 live), d1 and d2
+    from the joint sweep (the exact form's route) and from separate
+    sweeps (d2's the one-member sweep of the anchor, C = 1, the moment
+    form's route), each against `_plain_regularizer` on the same card
+    tensors: value, d1 and d2 within SWEEP_VALUE_TOL, each leaf's
+    gradient within TRAIN_SWEEP_GRAD_TOL normwise of the plain one (f64,
+    slice by slice), and one sweep forward and backward (two of each
+    separate)."""
+    task = torch.tensor(math.log(float(vocab)), device=CARD)
+    value_pl, dists_pl, g_sq = _plain_regularizer(torch, params, pool, fed,
+                                                  task.double())
+    out = dict(plain=dict(value=value_pl, dists=dists_pl))
+    for route, joint in (("joint", True), ("separate", False)):
+        _reset_sweep()
+        value, grads, dists = _regularizer(torch, params, pool, "l2", task,
+                                           fed, joint=joint)
+        launches = _read_sweep()
+        grad_err = {}
+        for k, g in grads.items():
+            g, w = g.reshape(-1), params[k].reshape(-1)
+            num = den = 0.0
+            for lo in range(0, w.numel(), TRAIN_SLICE):
+                sl = slice(lo, lo + TRAIN_SLICE)
+                want = torch.zeros(g[sl].shape, dtype=torch.float64,
+                                   device=CARD)
+                for t in range(pool.capacity):
+                    want += 2 * g_sq[t] * (w[sl].double() - pool.members[k][
+                        t].reshape(-1)[sl].double())
+                num += float((g[sl].double() - want).square().sum())
+                den += float(want.square().sum())
+            grad_err[k] = math.sqrt(num / den) if den else math.sqrt(num)
+        del grads
+        value_err = _rel_or_exact(value, value_pl)
+        dist_err = [_rel_or_exact(a, b) for a, b in zip(dists, dists_pl)]
+        worst = max(grad_err, key=grad_err.get)
+        print(f"  (c) the regularizer on bf16 leaves, {route} sweep: "
+              f"{value!r} vs the per-leaf plain sums {value_pl!r} "
+              f"({value_err:.2e}), d1/d2 {dists} vs {dists_pl}; gradients "
+              f"normwise max {grad_err[worst]:.2e} ({worst}); sweep "
+              f"launches {launches}")
+        calls = 1 if joint else 2
+        if value_err > SWEEP_VALUE_TOL or max(dist_err) > SWEEP_VALUE_TOL \
+                or grad_err[worst] > TRAIN_SWEEP_GRAD_TOL or \
+                launches != {"forward": calls, "backward": calls}:
+            fail(f"phase 25 (c): the regularizer through the {route} sweep "
+                 f"lies {value_err:.3e} (d1/d2 {dist_err}, gradient "
+                 f"{grad_err[worst]:.3e}) from the per-leaf plain sums, or "
+                 f"it launched {launches}, want {calls} of each")
+        out[route] = dict(value=value, dists=dists, value_rel_err=value_err,
+                          dist_rel_err=dist_err, grad_rel_err=grad_err,
+                          launches=launches)
+    return out
+
+
+def exact_columns(torch, params, pool):
+    """The exact pool's C = 6 sweep (3 live members, 3 empty slots) at full
+    width: each live column's sq against that member's one-member sweep,
+    each empty column's against Σw² (its member is zeros), within 1e-5
+    relative (two plans' f32 sums of 1.236 B terms)."""
+    from repro_torch.kernels.pool_distance import tree_pool_distance_stats
+    with torch.no_grad():
+        stats, wsq = tree_pool_distance_stats(params, pool.members)
+        got = [float(x) for x in stats["sq"]]
+        want = []
+        for t in range(pool.capacity):
+            if t < int(pool.count):
+                one, _ = tree_pool_distance_stats(
+                    params, {k: v[t:t + 1] for k, v in pool.members.items()})
+                want.append(float(one["sq"][0]))
+            else:
+                want.append(float(wsq))
+    errs = [abs(g - w) / abs(w) for g, w in zip(got, want)]
+    print(f"  (c) the C = {pool.capacity} sweep's sq columns against "
+          "one-member sweeps (live) and Σw² (empty): " + ", ".join(
+              f"{e:.1e}" for e in errs))
+    if max(errs) > 1e-5:
+        fail(f"phase 25 (c): the C = 6 sweep's columns {got} differ from "
+             f"{want}")
+    return dict(sq=got, want=want, rel_err=errs)
+
+
+def sweep_bwd_full_width(torch, pd_mod, final, params, pool, smi_line):
+    """(e) The bf16 sweep backward at full width: w = (b)'s params after
+    its last step, members its anchor (C = 1, d2's table) and the exact
+    pool's (C = 6, 3 live); random ḡ (the empty slots' 0). Held as phase
+    15 holds it (`_hold_backward`, TRAIN_SLICE elements at a time); kernel
+    ms (median of 5) beside the bytes bound."""
+    from repro_torch.kernels import ref
+    w = {k: v.to(CARD) for k, v in final.items()}
+    names = list(w)
+    gen = torch.Generator(device=CARD).manual_seed(25)
+    rows = []
+    for c, members in ((1, {k: v.unsqueeze(0) for k, v in params.items()}),
+                       (pool.capacity, pool.members)):
+        ws = [w[k].reshape(1, -1) for k in names]
+        ms = [members[k].reshape(1, c, -1) for k in names]
+        g_stats = torch.randn((1, 4, c), device=CARD, generator=gen)
+        if c > 1:
+            g_stats = g_stats * pool.mask()
+        g_wsq = torch.randn((1,), device=CARD, generator=gen)
+        held = _hold_backward(torch, pd_mod, ref, f"full width C={c} bf16",
+                              ws, ms, g_stats, g_wsq,
+                              slice_size=TRAIN_SLICE)
+        launches = held["launches"] // 2
+        p = sum(x.numel() for x in ws)
+        bound = _bound((c + 2) * p * 2 + (4 * c + 1) * 4, p * (7 * c + 2),
+                       PEAK_F32_FLOPS)
+        ms_ = median_ms(lambda: pd_mod.pool_distance_bwd_f32(
+            ws, ms, g_stats, g_wsq), reps=5, warmup=1)
+        row = dict(members=c, elements=p, launches_a_call=launches,
+                   worst_share_of_bound=held["worst_share_of_bound"],
+                   max_abs_err=held["max_abs_err"], ms=ms_,
+                   bound_ms=bound[0], bound_by=bound[1])
+        print(f"  (e) bf16 sweep backward at full width, C = {c}: "
+              f"{launches} launch(es) a call, {ms_:.4f} ms (bound "
+              f"{bound[0]:.4f}, {bound[1]}) ({smi_line})")
+        rows.append(row)
+    return rows
+
+
+def train_step_phase(torch, smi_line):
+    """Phase 25; returns its measurements by part."""
+    t0 = time.perf_counter()
+    out = dict(product_backward=product_backward_check(torch, smi_line),
+               variant=train_step_variant(torch, smi_line))
+    out.update(train_step_full_width(torch, smi_line))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def train_step_launches(train):
+    """Phase 25's launches by wrapper name: (b)'s first run and (c)."""
+    names = {"attention": {"forward": "flash_attn_f32",
+                           "backward": "flash_attn_bwd_f32"},
+             "sweep": {"forward": "pool_distance_f32",
+                       "backward": "pool_distance_bwd_f32"}}
+    total = {}
+    for row in train["moment"]["steps"] + train["exact"]["steps"]:
+        for group, by_way in names.items():
+            for way, name in by_way.items():
+                total[name] = total.get(name, 0) + row[group][way]
+    return total
+
+
 def attention_bwd_entry(serving, lm):
     """The kernels line's entry of the attention backward: launches from
     phase 24 (c)'s first run; times, bound and SDPA's backward at its
@@ -5917,6 +6637,13 @@ def main(argv):
           "and depth; C15 (dfedsam and MetaFed repeat bitwise)")
     lm = lm_phase(torch, smi_line)
 
+    # phase 25: the FedELMY train step in bf16
+    print("[25] the FedELMY train step (make_step('train')) in bf16: the "
+          "example's variant card vs CPU vs the f32 oracle; llama3.2-1b at "
+          "train_4k's 4,096-token sequences, moment and exact pools; the "
+          "f32 twin; the bf16 sweep backward at full width")
+    train = train_step_phase(torch, smi_line)
+
     step_rows = [r for r in rows if r["main_path"]]
     byte_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[0] for r in step_rows)
     flop_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[1] for r in step_rows)
@@ -5960,6 +6687,16 @@ def main(argv):
             entry["launches"] += dense_attention_launches(dense)
             entry["launches"] += \
                 lm["full_width"]["runs"][0]["attention"]["forward"]
+    # phase 25's train steps: (b)'s first run and (c)
+    for entry in kernels["kernels"]:
+        entry["launches"] += train_step_launches(train).get(entry["name"],
+                                                            0)
+        if entry["name"] == "pool_distance_bwd_f32":
+            # bf16 leaves: the CNN's table of the pool step (phase 15)
+            entry["bf16_ms"] = \
+                pd_out["timing"]["pool_step_bf16"]["backward"]["ms"]
+            entry["bf16_bound_ms"] = \
+                pd_out["timing"]["pool_step_bf16"]["backward"]["bound_ms"]
     print("details: " + json.dumps(dict(
         device=torch.cuda.get_device_name(0), nvidia_smi=smi_line,
         build_s=build_s, gemm=rows, main_path=main_path,
@@ -5969,7 +6706,7 @@ def main(argv):
         pool_distance=pd_out, regularizer=regularizer, fig9=fig9,
         compiled_phase=compiled, table1_scenarios=table1_scen,
         batched=batched, checkpoints=checkpoints, fleets=fleets,
-        dense_serving=dense, lm_training=lm,
+        dense_serving=dense, lm_training=lm, train_step=train,
         total_s=time.perf_counter() - t_start)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

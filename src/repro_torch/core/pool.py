@@ -145,10 +145,13 @@ class MomentPool(NamedTuple):
         return self.anchor
 
     def mean_sq_distance(self, params: Params) -> torch.Tensor:
-        """mean_t ‖w − w_t‖² = ‖w‖² − 2⟨w, μ⟩ + q (exact)."""
-        wsq = _sq_norm(params)
-        dot = sum(torch.sum(p.to(F32) * self.mean[k])
-                  for k, p in params.items())
+        """mean_t ‖w − w_t‖² = ‖w‖² − 2⟨w, μ⟩ + q (exact). Each leaf is
+        widened to f32 once for both sums, so the gradient 2w − 2μ of a
+        bf16 leaf is formed in f32 and rounded once: rounded term by term,
+        w's and μ's terms cancel to bf16 noise where w lies near μ."""
+        wide = {k: p.to(F32) for k, p in params.items()}
+        wsq = _sq_norm(wide)
+        dot = sum(torch.sum(p * self.mean[k]) for k, p in wide.items())
         return torch.clamp_min(wsq - 2.0 * dot + self.sq_norm_mean, 0.0)
 
 

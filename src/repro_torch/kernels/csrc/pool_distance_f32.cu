@@ -8,7 +8,10 @@
 //   ∂/∂w = 2Σ_t ḡsq_t·(w − m_t) + Σ_t ḡl1_t·s(w − m_t) + Σ_t ḡdot_t·m_t
 //          + 2·ḡwsq·w,   s(x) = +1 for x ≥ 0, −1 otherwise
 // (JAX's derivative of |x|); ḡnorm has no term, the members carry no
-// gradient. f32 only. The Eq. 9 step's d1 and d2 share one call of each:
+// gradient. w and the members are read in f32 or bf16 as the forward reads
+// them, the sum is formed in f32 in the same order for both, and ∂w is
+// written in the leaves' type: a bf16 ∂w is the f32 sum rounded once
+// (round to nearest even). The Eq. 9 step's d1 and d2 share one call of each:
 // d2's anchor is the pool's member 0, and autograd adds both terms' ḡ into
 // the one (4, C) ḡ.
 //
@@ -24,8 +27,9 @@
 // Bound on an H100 SXM: bytes. The forward reads w and the C members once,
 // (C + 1)·P·4 bytes at f32 (the paper CNN's P = 1,422,218 at capacity 4:
 // 28.4 MB, 8.5 µs at 3.35 TB/s) for ~8 operations an element and member;
-// the backward reads them again and writes ∂w, (C + 2)·P·4 bytes. What the
-// design does about it:
+// the backward reads them again and writes ∂w, (C + 2)·P·4 bytes (half
+// that in bf16: llama3.2-1b's 1.236 B parameters at C = 1 are 7.4 GB, 2.2
+// ms). What the design does about it:
 //
 // * One resident wave of blocks that walk the chunks. A launch has
 //   min(chunks, 2·132) blocks (__launch_bounds__ keeps two on each SM);
@@ -91,7 +95,7 @@ constexpr int BLOCKS_PER_SM = 2;
 struct Leaf {
   const void* w;        // run 0's w
   const void* m;        // run 0's member 0
-  float* out;           // run 0's ∂w (backward)
+  void* out;            // run 0's ∂w (backward), of the leaves' type
   int64_t n;            // elements of the leaf
   int64_t w_run;        // elements between two runs' w
   int64_t m_run;        // … between two runs' member 0
@@ -147,20 +151,40 @@ __device__ __forceinline__ void load_chunk(const T* p, int64_t len,
   }
 }
 
-template <int G>
-__device__ __forceinline__ void store_chunk(float* p, int64_t len,
-                                            int aligned,
+__device__ __forceinline__ void from_f32(float x, float* p) { *p = x; }
+__device__ __forceinline__ void from_f32(float x, __nv_bfloat16* p) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// Four elements as one store: 16 bytes of f32, or 8 bytes of bf16, each
+// value rounded once to nearest even.
+__device__ __forceinline__ void store4(float* p, const float v[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, const float v[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const uint32_t*>(&a);
+  raw.y = *reinterpret_cast<const uint32_t*>(&b);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
+
+// This thread's 4·G values of the chunk at p, as load_chunk lays them out
+// (the len elements inside the leaf; nothing past them).
+template <typename T, int G>
+__device__ __forceinline__ void store_chunk(T* p, int64_t len, int aligned,
                                             const float v[4 * G]) {
 #pragma unroll
   for (int k = 0; k < G; ++k) {
     const int64_t e = 4 * (threadIdx.x + k * THREADS);
     if (aligned && e + 3 < len) {
-      *reinterpret_cast<float4*>(p + e) =
-          make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
+      store4(p + e, v + 4 * k);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        if (e + j < len) p[e + j] = v[4 * k + j];
+        if (e + j < len) from_f32(v[4 * k + j], p + e + j);
     }
   }
 }
@@ -299,7 +323,7 @@ pool_distance_kernel(const __grid_constant__ Table table, int c,
   }
 }
 
-template <int MC, int G>
+template <typename T, int MC, int G>
 __global__ void __launch_bounds__(THREADS, BLOCKS_PER_SM)
 pool_distance_bwd_kernel(const __grid_constant__ Table table, int c,
                          const float* __restrict__ g_stats,
@@ -313,17 +337,17 @@ pool_distance_bwd_kernel(const __grid_constant__ Table table, int c,
   for (int64_t k = blockIdx.x; k < table.chunks; k += gridDim.x) {
     const Place p = place<G>(table, k);
     const Leaf& l = *p.leaf;
-    const float* wp = static_cast<const float*>(l.w) + b * l.w_run + p.start;
-    const float* mp = static_cast<const float*>(l.m) + b * l.m_run + p.start;
+    const T* wp = static_cast<const T*>(l.w) + b * l.w_run + p.start;
+    const T* mp = static_cast<const T*>(l.m) + b * l.m_run + p.start;
     float w[E], acc[E];
-    load_chunk<float, G>(wp, p.len, l.aligned, w);
+    load_chunk<T, G>(wp, p.len, l.aligned, w);
     for (int t0 = 0; t0 < c; t0 += MC) {
       float m[MC][E], gs2[MC], gl[MC], gd[MC];
 #pragma unroll
       for (int u = 0; u < MC; ++u) {
         if (t0 + u < c) {
-          load_chunk<float, G>(mp + (t0 + u) * l.m_member, p.len, l.aligned,
-                               m[u]);
+          load_chunk<T, G>(mp + (t0 + u) * l.m_member, p.len, l.aligned,
+                           m[u]);
           gs2[u] = 2.f * __ldg(g + t0 + u);
           gl[u] = __ldg(g + c + t0 + u);
           gd[u] = __ldg(g + 2 * c + t0 + u);
@@ -345,7 +369,8 @@ pool_distance_bwd_kernel(const __grid_constant__ Table table, int c,
         }
       }
     }
-    store_chunk<G>(l.out + b * l.o_run + p.start, p.len, l.aligned, acc);
+    store_chunk<T, G>(static_cast<T*>(l.out) + b * l.o_run + p.start, p.len,
+                      l.aligned, acc);
   }
 }
 
@@ -390,7 +415,7 @@ std::vector<Table> pack(const Args& a, int esz, int64_t chunk) {
     Leaf& leaf = t.leaf[t.n_leaves++];
     leaf.w = a.w[i];
     leaf.m = a.m[i];
-    leaf.out = a.out ? static_cast<float*>(a.out[i]) : nullptr;
+    leaf.out = a.out ? a.out[i] : nullptr;
     leaf.n = a.n[i];
     leaf.w_run = a.w_run[i];
     leaf.m_run = a.m_run[i];
@@ -443,11 +468,11 @@ int forward(const Args& a, float* stats, float* wsq, float* part,
   });
 }
 
-template <int MC, int G>
+template <typename T, int MC, int G>
 int backward(const Args& a, const float* g_stats, const float* g_wsq) {
-  const std::vector<Table> tables = pack(a, sizeof(float), 4 * THREADS * G);
+  const std::vector<Table> tables = pack(a, sizeof(T), 4 * THREADS * G);
   return launch_all(a, tables, [&](const Table& t, int64_t blocks) {
-    pool_distance_bwd_kernel<MC, G>
+    pool_distance_bwd_kernel<T, MC, G>
         <<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(a.b)),
            THREADS, 0, a.stream>>>(t, a.c, g_stats, g_wsq);
   });
@@ -498,16 +523,18 @@ extern "C" int pool_distance_f32(const void* const* w, const void* const* m,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// Backward (f32). out: host array of device pointers to each leaf's ∂w of
-// run 0, o_run its run stride; g_stats (B, 4, C) and g_wsq (B,) f32 in
-// device memory (row 3 of g_stats, ḡnorm, is not read); g, grid as above.
+// Backward. w, m as the forward's (f32, or bf16 when bf16 != 0); out: host
+// array of device pointers to each leaf's ∂w of run 0, of the leaves' type,
+// o_run its run stride; g_stats (B, 4, C) and g_wsq (B,) f32 in device
+// memory (row 3 of g_stats, ḡnorm, is not read); g, grid as above.
 extern "C" int pool_distance_bwd_f32(const void* const* w,
                                      const void* const* m, void* const* out,
                                      const int64_t* n, const int64_t* w_run,
                                      const int64_t* m_run,
                                      const int64_t* m_member,
                                      const int64_t* o_run, int n_leaves,
-                                     int b, int c, int g, int64_t grid,
+                                     int b, int c, int bf16, int g,
+                                     int64_t grid,
                                      const float* g_stats,
                                      const float* g_wsq, void* stream,
                                      int* launches) {
@@ -516,8 +543,10 @@ extern "C" int pool_distance_bwd_f32(const void* const* w,
   const Args a{w, m, out, n, w_run, m_run, m_member, o_run, n_leaves, b, c,
                grid, static_cast<cudaStream_t>(stream), launches};
   const int mc = std::min(c, ROUND);
-#define SWEEP_BACKWARD(MC, G) \
-  if (mc == MC && g == G) return backward<MC, G>(a, g_stats, g_wsq);
+#define SWEEP_BACKWARD(MC, G)                                             \
+  if (mc == MC && g == G)                                                 \
+    return bf16 ? backward<__nv_bfloat16, MC, G>(a, g_stats, g_wsq)       \
+                : backward<float, MC, G>(a, g_stats, g_wsq);
   SWEEP_INSTANCES(SWEEP_BACKWARD)
 #undef SWEEP_BACKWARD
   return static_cast<int>(cudaErrorInvalidValue);

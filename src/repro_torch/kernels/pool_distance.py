@@ -15,9 +15,11 @@ and pool (C, P) → (C,) each, or w (B, P) and pool (B, C, P) → (B, C);
 (`PoolStatsFunction`: the members carry none, ḡnorm has no term). On CUDA
 tensors both launch the hand-written kernels ``csrc/pool_distance_f32.cu``
 (one forward launch, f32 or bf16 in, f32 sums that repeat bit for bit;
-the backward f32 only), laid out by `sweep_plan`; on CPU tensors they
-take the plain versions `ref.pool_distance_stats_ref` and
-`ref.pool_distance_stats_bwd_ref`.
+the backward reads the same f32 or bf16 leaves, sums in f32 and writes ∂w
+in the leaves' type, a bf16 ∂w rounded once), laid out by `sweep_plan`;
+on CPU tensors they take the plain versions `ref.pool_distance_stats_ref`
+and `ref.pool_distance_stats_bwd_ref` (∂w in f32, rounded once to the
+leaves' type).
 
 **The factor Gram.** Pairwise member distances of a `LowRankDeltaPool`
 reduce to Gram matrices over the stacked factors: with A = [U_1ᵀ; …;
@@ -434,8 +436,8 @@ def _sweep_lib() -> ctypes.CDLL:
                                       ctypes.POINTER(i)]
     lib.pool_distance_f32.restype = i
     lib.pool_distance_bwd_f32.argtypes = [ptrs, ptrs, ptrs, ints, ints, ints,
-                                          ints, ints, i, i, i, i, i64, p, p,
-                                          p, ctypes.POINTER(i)]
+                                          ints, ints, i, i, i, i, i, i64, p,
+                                          p, p, ctypes.POINTER(i)]
     lib.pool_distance_bwd_f32.restype = i
     return lib
 
@@ -601,17 +603,14 @@ pool_distance_f32.launches = 0
 def pool_distance_bwd_f32(ws: Sequence[torch.Tensor],
                           ms: Sequence[torch.Tensor], g_stats: torch.Tensor,
                           g_wsq: torch.Tensor) -> List[torch.Tensor]:
-    """Launch the backward sweep over the same table (f32 leaves only):
+    """Launch the backward sweep over the same table (f32 or bf16 leaves):
     ∂w_i (B, n_i) = 2Σ_t ḡsq_t·(w − m_t) + Σ_t ḡl1_t·s(w − m_t) +
-    Σ_t ḡdot_t·m_t + 2·ḡwsq·w, with ḡ read from device memory: g_stats
-    (B, 4, C) (row 3, ḡnorm, is not read) and g_wsq (B,).
+    Σ_t ḡdot_t·m_t + 2·ḡwsq·w, summed in f32 and returned in the leaves'
+    dtype (a bf16 ∂w rounded once), with ḡ read from device memory:
+    g_stats (B, 4, C) (row 3, ḡnorm, is not read) and g_wsq (B,).
     `pool_distance_bwd_f32.launches` counts the launches."""
     build.refuse_vmapped("pool_distance_bwd_f32", *ws, *ms, g_stats, g_wsq)
     b, c, dtype = _table(ws, ms, "pool_distance_bwd_f32")
-    if dtype != torch.float32:
-        raise NotImplementedError(
-            "pool_distance_bwd_f32 takes f32 leaves; a bf16 model under "
-            "grad has no backward kernel yet")
     dev = ws[0].device
     g_stats = g_stats.to(device=dev, dtype=torch.float32).contiguous()
     g_wsq = g_wsq.to(device=dev, dtype=torch.float32).contiguous()
@@ -619,13 +618,12 @@ def pool_distance_bwd_f32(ws: Sequence[torch.Tensor],
         raise ValueError(f"pool_distance_bwd_f32: ḡ is {tuple(g_stats.shape)}"
                          f" and {tuple(g_wsq.shape)}; expected ({b}, 4, {c}) "
                          f"and ({b},)")
-    outs = [torch.empty(w.shape, device=dev, dtype=torch.float32)
-            for w in ws]
+    outs = [torch.empty(w.shape, device=dev, dtype=dtype) for w in ws]
     n = len(ws)
     ptrs = ctypes.c_void_p * n
     launches = ctypes.c_int(0)
     lib = _sweep_lib()
-    plan = sweep_plan(c, [w.shape[1] for w in ws], 4)
+    plan = sweep_plan(c, [w.shape[1] for w in ws], ws[0].element_size())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         sizes, w_run, m_run, m_member = _strides(ws, ms)
@@ -634,8 +632,9 @@ def pool_distance_bwd_f32(ws: Sequence[torch.Tensor],
             ptrs(*[m.data_ptr() for m in ms]),
             ptrs(*[o.data_ptr() for o in outs]), sizes, w_run, m_run,
             m_member, (ctypes.c_int64 * n)(*[o.stride(0) for o in outs]), n,
-            b, c, plan.groups, plan.grid, g_stats.data_ptr(),
-            g_wsq.data_ptr(), stream, ctypes.byref(launches))
+            b, c, int(dtype == torch.bfloat16), plan.groups, plan.grid,
+            g_stats.data_ptr(), g_wsq.data_ptr(), stream,
+            ctypes.byref(launches))
     build.count_launches(pool_distance_bwd_f32, launches.value)
     if err != 0:
         raise RuntimeError(f"pool_distance_bwd_f32: launch failed with CUDA "
@@ -746,11 +745,6 @@ class PoolStatsFunction(torch.autograd.Function):
     def setup_context(ctx, inputs, output):
         members, *w = inputs
         ctx.route = w[0].device.type
-        if ctx.route == "cuda" and any(ctx.needs_input_grad[1:]) and \
-                any(x.dtype != torch.float32 for x in w):
-            raise NotImplementedError(
-                "tree_pool_distance_stats: the backward kernel takes f32 "
-                "leaves; bf16 under grad has no kernel yet")
         ctx.save_for_backward(*w, *members)
 
     @staticmethod

@@ -1,6 +1,23 @@
-"""Serving step functions (port of the prefill and decode kinds of
+"""Step functions and their input specs (port of
 ``repro/launch/steps.py``).
 
+    train   → train_step(params, opt_state, batch, pool, step) → (params,
+              opt_state, task): the FedELMY train step. The task loss
+              (the model's `fused_loss_for` twin) plus −α·log_scale(d1) +
+              β·log_scale(d2) with the l2 measure, then an Adam update
+              (`optim.make_optimizer` from the FedConfig; f32 moments,
+              the new params cast to the params' dtype). d1 and d2 come
+              from the pool: a `MomentPool` (the default form) gives d1 =
+              sqrt(mean_sq_distance + 1e-12) and d2 through the sweep over
+              its anchor on the card; a stacked `ModelPool` gives both
+              from one sweep (`core.distances.d1_d2_pool_distance`, the
+              same math as the reference's two calls). With
+              ``REPRO_MICROBATCH`` = N > 1 (read when `make_step` is
+              called) the batch's rows go as N contiguous blocks, each
+              block's task gradient summed into f32 in block order, task
+              the blocks' mean; the regularizers' gradient is taken once,
+              with task detached, and added in f32. The step runs eagerly
+              and is functional: the caller's tensors are not changed.
     prefill → prefill_step(params, batch): the full prompt's forward,
               returning the last position's logits and the KV/SSM cache.
     decode  → serve_step(params, token, cache, pos): ONE token against the
@@ -10,24 +27,119 @@
               on the card, replayed every token. The hybrid's and RWKV6's
               decode run eagerly (their decode takes a host position).
 
-The ``train`` kind (the FedELMY train step with the moment-form pool)
-waits for the transformer training slice; the reference's
-`ShapeDtypeStruct` input specs serve its dry-run only and have no
-counterpart here."""
+`input_specs(cfg, shape, fed)` gives every argument of that step as
+tensors on the meta device, shapes and dtypes with nothing allocated:
+the counterpart of the reference's `jax.ShapeDtypeStruct` specs, under the
+reference's keys. The params come from the model's own `init`, run on
+fake tensors (`param_specs_for`), so specs and init cannot drift; the
+pool's form follows ``REPRO_POOL_FORM`` ("moment" by default; "exact" is a
+`ModelPool` of `pool_size` + 1 slots), as in the reference."""
 from __future__ import annotations
 
-from typing import Callable, Tuple
+import os
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.configs.base import ArchConfig, FedConfig, ShapeConfig
+from repro_torch.core.distances import (d1_d2_pool_distance, d1_moment,
+                                        d2_anchor_distance, log_scale)
+from repro_torch.core.pool import ModelPool, MomentPool
 from repro_torch.device import DeviceLike
 from repro_torch.kernels import build
+from repro_torch.kernels.local_step import fused_loss_for
 from repro_torch.models import build_model
 from repro_torch.models.base import Model, Params
 from repro_torch.models.transformer import (DECODE_INTO_ATTR, cache_len,
                                             check_decode_pos)
+from repro_torch.optim import make_optimizer
 
+I32 = torch.int32
+F32 = torch.float32
+META = torch.device("meta")
+
+
+# ---------------------------------------------------------------------------
+# Input specs (meta tensors: shapes and dtypes, nothing allocated)
+# ---------------------------------------------------------------------------
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=META)
+
+
+def _abstract(fn: Callable[[], Dict[str, torch.Tensor]]
+              ) -> Dict[str, torch.Tensor]:
+    """The name → tensor dict `fn()` returns, run on fake tensors (nothing
+    allocated, no kernel run), as meta tensors of the same shapes and
+    dtypes."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with FakeTensorMode():
+        out = fn()
+    return {k: _spec(tuple(v.shape), v.dtype) for k, v in out.items()}
+
+
+def batch_specs_for(cfg: ArchConfig, shape: ShapeConfig
+                    ) -> Dict[str, torch.Tensor]:
+    """The batch of a `shape.kind` step: images and labels for the CNN;
+    int32 tokens (and labels for train) of (B, T) for a language model;
+    one token (B, 1) and a 0-d position for decode. (The reference's
+    encoder-decoder source embeddings wait for that family's slice.)"""
+    b, t = shape.global_batch, shape.seq_len
+    if cfg.family == "cnn":
+        return {"images": _spec((b, 32, 32, 3), F32),
+                "labels": _spec((b,), I32)}
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": _spec((b, t), I32)}
+        if shape.kind == "train":
+            specs["labels"] = _spec((b, t), I32)
+        return specs
+    return {"token": _spec((b, 1), I32), "pos": _spec((), I32)}
+
+
+def cache_specs_for(cfg: ArchConfig, shape: ShapeConfig
+                    ) -> Dict[str, torch.Tensor]:
+    """The model's `init_cache(B, T)` as meta tensors."""
+    model = build_model(cfg, "cpu")
+    return _abstract(lambda: model.init_cache(shape.global_batch,
+                                              shape.seq_len))
+
+
+def param_specs_for(cfg: ArchConfig) -> Params:
+    """The model's `init` as meta tensors: the same names, shapes and
+    dtypes as real params, from the same code."""
+    model = build_model(cfg, "cpu")
+    return _abstract(lambda: model.init(0))
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig,
+                fed: Optional[FedConfig] = None) -> Dict[str, Any]:
+    """Every argument of the step that `make_step` returns, as meta
+    tensors: params, opt_state, batch, pool and step for train (the pool
+    by ``REPRO_POOL_FORM``); params and batch for prefill; params, token,
+    cache and pos for decode."""
+    fed = fed or FedConfig()
+    params = param_specs_for(cfg)
+    if shape.kind == "train":
+        opt = make_optimizer(fed.optimizer, fed.learning_rate,
+                             fed.weight_decay)
+        if os.environ.get("REPRO_POOL_FORM", "moment") == "exact":
+            # paper-faithful pool: S + 1 stacked full copies
+            pool = ModelPool.create(params, fed.pool_size + 1)
+        else:
+            pool = MomentPool.create(params)
+        return {"params": params, "opt_state": opt.init(params),
+                "batch": batch_specs_for(cfg, shape), "pool": pool,
+                "step": _spec((), I32)}
+    if shape.kind == "prefill":
+        return {"params": params, "batch": batch_specs_for(cfg, shape)}
+    b = batch_specs_for(cfg, shape)
+    return {"params": params, "token": b["token"],
+            "cache": cache_specs_for(cfg, shape), "pos": b["pos"]}
+
+
+# ---------------------------------------------------------------------------
+# Steps
+# ---------------------------------------------------------------------------
 
 class CapturedDecode:
     """The dense family's decode step on static buffers: the token (B, 1)
@@ -123,16 +235,84 @@ class CapturedDecode:
         return self.logits, self.cache
 
 
+def _row_blocks(batch: Dict[str, torch.Tensor], n: int
+                ) -> List[Dict[str, torch.Tensor]]:
+    """The batch's n contiguous row blocks in order, views: the blocks of
+    the reference's ``a.reshape(n, B // n, …)``."""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"REPRO_MICROBATCH={n} does not divide the batch's "
+                         f"{rows} rows")
+    r = rows // n
+    return [{k: v[i * r:(i + 1) * r] for k, v in batch.items()}
+            for i in range(n)]
+
+
+def _grads(loss: torch.Tensor, leaves: Params) -> Params:
+    return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+
+
+def _make_train_step(model: Model, fed: FedConfig, regularizers: bool,
+                     n_micro: int) -> Callable:
+    """The FedELMY train step of `model` (see the module docstring), with
+    the task gradient accumulated over `n_micro` row blocks."""
+    opt = make_optimizer(fed.optimizer, fed.learning_rate, fed.weight_decay)
+    step_loss = fused_loss_for(model.loss_fn)
+
+    def reg_terms(p: Params, task: torch.Tensor, pool) -> torch.Tensor:
+        if isinstance(pool, ModelPool):
+            d1, d2 = d1_d2_pool_distance(p, pool, "l2")
+        else:
+            d1 = d1_moment(p, pool)
+            d2 = d2_anchor_distance(p, pool.first(), "l2")
+        return (-fed.alpha * log_scale(d1, task)
+                + fed.beta * log_scale(d2, task))
+
+    def train_step(params: Params, opt_state, batch, pool, step
+                   ) -> Tuple[Params, Any, torch.Tensor]:
+        leaves = {k: v.detach().requires_grad_(True)
+                  for k, v in params.items()}
+        if n_micro > 1:
+            grads = {k: torch.zeros(v.shape, dtype=F32, device=v.device)
+                     for k, v in params.items()}
+            t_sum = torch.zeros((), dtype=F32,
+                                device=next(iter(params.values())).device)
+            for block in _row_blocks(batch, n_micro):
+                t = step_loss(leaves, block)
+                for k, g in _grads(t, leaves).items():
+                    grads[k].add_(g)
+                t_sum = t_sum + t.detach()
+            task = t_sum / n_micro
+            for g in grads.values():
+                g.div_(n_micro)
+            if regularizers:
+                for k, g in _grads(reg_terms(leaves, task, pool),
+                                   leaves).items():
+                    grads[k].add_(g.to(F32))
+        else:
+            task = step_loss(leaves, batch)
+            total = task + reg_terms(leaves, task, pool) if regularizers \
+                else task
+            grads = _grads(total, leaves)
+            task = task.detach()
+        params, opt_state = opt.update(params, grads, opt_state, step)
+        return params, opt_state, task
+
+    return train_step
+
+
 def make_step(cfg: ArchConfig, shape: ShapeConfig,
+              fed: Optional[FedConfig] = None, regularizers: bool = True, *,
               device: DeviceLike = None) -> Callable:
     """The step function of `shape.kind` for `cfg`'s model on `device`
-    (the CUDA device by default); a dense decode step is a
-    `CapturedDecode` at the shape's batch and sequence length."""
-    if shape.kind == "train":
-        raise NotImplementedError(
-            "make_step('train') is not ported yet (it arrives with the "
-            "transformer training slice)")
+    (the CUDA device by default): the train step (``REPRO_MICROBATCH``
+    read here), prefill, or decode (a `CapturedDecode` at the shape's
+    batch and sequence length for the dense family)."""
     model = build_model(cfg, device)
+    if shape.kind == "train":
+        return _make_train_step(model, fed or FedConfig(), regularizers,
+                                int(os.environ.get("REPRO_MICROBATCH",
+                                                   "1")))
     if shape.kind == "prefill":
         def prefill_step(params, batch):
             return model.prefill(params, batch)

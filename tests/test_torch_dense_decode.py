@@ -229,8 +229,10 @@ def test_make_step_matches_model(models, name, t, grow):
     _, _, tm, tp, tokens = models[name]
     cfg = tm.cfg
     prompt = {"tokens": torch.from_numpy(tokens[:, :t])}
-    prefill = make_step(cfg, ShapeConfig("p", t, 2, "prefill"), "cpu")
-    serve = make_step(cfg, ShapeConfig("d", t + grow, 2, "decode"), "cpu")
+    prefill = make_step(cfg, ShapeConfig("p", t, 2, "prefill"),
+                        device="cpu")
+    serve = make_step(cfg, ShapeConfig("d", t + grow, 2, "decode"),
+                      device="cpu")
     assert isinstance(serve, CapturedDecode)
     logits, cache = prefill(tp, prompt)
     want_l, want_c = tm.prefill(tp, prompt)
