@@ -60,9 +60,10 @@ Phases, each failing the run with a nonzero exit:
              (`flash_attn_bwd_f32`) at BWD_SHAPES (phase 25's 4,096-token
              layer call among them) in f32 (normwise against
              the f64 plain version) and bf16 (elementwise within one bf16
-             rounding), launched twice and bitwise, beside its bound and
-             SDPA's backward, and the forward's lse (its out bitwise the
-             forward without it)
+             rounding; the bf16 route on the tensor cores, its time
+             printed beside its earlier FFMA route's), launched twice and
+             bitwise, beside its bound and SDPA's backward, and the
+             forward's lse (its out bitwise the forward without it)
 11. llama serving — a full-width llama3.2-1b factor pool (5 members,
              rank 8) through `PoolServer.from_pool`: f32 factored scores
              against the densified oracle with exact launch counts, the
@@ -1801,6 +1802,13 @@ BWD_SHAPES = [("llama_train", 16, 128, 32, 8, 64, True, 8192),
               ("g8_hd32", 2, 333, 16, 2, 32, True, 100),
               ("hd112", 2, 256, 32, 32, 112, True, 0),
               ("hd128", 2, 512, 28, 4, 128, True, 0)]
+# the bf16 route's times at BWD_SHAPES when it ran in FFMA on f32 shared
+# tiles, before its tensor-core design (chip_smoke.py phase 10, NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md §6 row 6b), printed beside this run's
+BWD_BF16_FFMA_MS = {"llama_train": 0.4633, "train4k": 14.9630,
+                    "causal2048": 7.7137, "window256": 1.0792,
+                    "ragged127": 0.2083, "ragged129": 0.2437, "g1": 0.1687,
+                    "g8_hd32": 0.2802, "hd112": 0.4549, "hd128": 2.2972}
 # f32 backward against the f64 plain version, normwise per gradient. A
 # gradient element sums ≤ 64 FFMA terms a tile over ⌈n/64⌉ tiles (n = the
 # rows, or keys, of the reduction: at T = 4,096 and a group of 4, 16,384
@@ -1939,7 +1947,10 @@ def check_attention_backward(torch, fa_mod, ref):
                      f"{shares['plain_f32']:.3f})"
                      if shares else "") + ", repeat "
                   f"{'bitwise' if repeat else 'DIFFERS'}; kernel "
-                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, sdpa "
+                  f"{row['ms']:.4f} ms"
+                  + (f" (FFMA route before: {BWD_BF16_FFMA_MS[name]:.4f})"
+                     if dtype == torch.bfloat16 else "") +
+                  f", plain {row['plain_ms']:.4f}, sdpa "
                   f"bwd {row['library_ms']:.4f}, bound {bound_ms:.4f} "
                   f"({bound_by})")
             if not out_bitwise:
@@ -6469,10 +6480,12 @@ def train_step_launches(train):
 def attention_bwd_entry(serving, lm):
     """The kernels line's entry of the attention backward: launches from
     phase 24 (c)'s first run; times, bound and SDPA's backward at its
-    shape in f32 (phase 10's `llama_train` row: one layer's backward)."""
-    row = next(r for r in serving["attention_bwd"]
-               if r["shape"] == "llama_train" and r["dtype"] ==
-               "torch.float32")
+    shape in f32 (phase 10's `llama_train` row: one layer's backward),
+    and beside them the bf16 route's (on the tensor cores) at phase 25's
+    layer call (`train4k`)."""
+    rows = {(r["shape"], r["dtype"]): r for r in serving["attention_bwd"]}
+    row = rows["llama_train", "torch.float32"]
+    bf16 = rows["train4k", "torch.bfloat16"]
     entry = {
         "name": "flash_attn_bwd_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attn_bwd_f32.cu",
@@ -6481,7 +6494,12 @@ def attention_bwd_entry(serving, lm):
         "max_abs_err": serving["attention_bwd_max_abs_err"],
         "ms": row["ms"], "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
-        "library_ms": row["library_ms"]}
+        "library_ms": row["library_ms"],
+        "note": "bf16 on the tensor cores (mma.sync; P and dS in three "
+                "bf16 terms), f32 in FFMA",
+        "bf16_train4k": {key: bf16[key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "worst_share_of_limit")}}
     if not entry["launches"]:
         fail("flash_attn_bwd_f32 was launched no time on its main path")
     return entry

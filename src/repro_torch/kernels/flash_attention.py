@@ -12,7 +12,8 @@ softmax over key tiles.
 With ``return_lse=True`` it also returns each row's log-sum-exp (B, H,
 Tq) in f32, +inf on a row with no valid key. `flash_attn_bwd_f32`
 launches the backward ``csrc/flash_attn_bwd_f32.cu`` (Δ, dK/dV, dQ:
-three deterministic kernels, no atomics). Their plain versions are
+three deterministic kernels, no atomics; bf16 on the tensor cores, with
+P and dS in three bf16 terms, f32 in FFMA). Their plain versions are
 `ref.attention_ref`, `ref.attention_lse_ref` and `ref.attention_bwd_ref`.
 
 `FlashAttention` is the autograd Function over the two: its forward

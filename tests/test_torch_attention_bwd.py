@@ -6,7 +6,12 @@ differentiates) and its log-sum-exp, and against torch autograd of
 `ref.attention_ref`; a torch emulation of the two CUDA kernels' tiling
 (P recomputed from lse, dK/dV a key tile over the group's query rows, dQ
 a row tile over the forward's key tiles, both with the kernels' skipping
-rules) against the plain version; the CPU route of
+rules) against the plain version (the f32 kernels); an emulation of
+the bf16 kernels' arithmetic (bf16 operands, exact products in f32 sums,
+key-major Sᵀ and dPᵀ tiles, P and dS in three bf16 terms, each tile's
+product from 0 added into f32 running sums) held to chip_smoke.py phase
+10's elementwise bf16 limit against the plain version in f64, with one
+and two terms missing it; the CPU route of
 `models/layers.flash_attention` under autograd; and the launchers' and
 the autograd Function's refusals (the kernels run only on the card).
 
@@ -295,3 +300,205 @@ def test_launchers_and_function_refuse_what_the_kernels_cannot_take():
         torch.func.vmap(lambda x: FA.flash_attn_bwd_f32(
             x, x, x, x, lse, x))(q[None].expand(2, -1, -1, -1, -1))
     assert FA.flash_attn_bwd_f32.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# the bf16 route's arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+def _bf16_limit_share(got, q, k, v, out, lse, do, causal, window):
+    """chip_smoke.py phase 10's bf16 limit, elementwise and unchanged:
+    |got − want64| ≤ 2⁻⁸·max(|want64|, |want32|) + 1e-6 + |want32 −
+    want64|, with want64 the plain version on the bf16 inputs in f64 and
+    want32 the same in f32. Returns each gradient's worst share of it."""
+    mask = dict(causal=causal, window=window)
+    want64 = attention_bwd_ref(q.double(), k.double(), v.double(),
+                               out.double(), lse.double(), do.double(),
+                               **mask)
+    want32 = attention_bwd_ref(q, k, v, out, lse, do, **mask)
+    shares = []
+    for g, w64, w32 in zip(got, want64, want32):
+        w32 = w32.double()
+        limit = 2.0 ** -8 * torch.maximum(w64.abs(), w32.abs()) + 1e-6 \
+            + (w32 - w64).abs()
+        shares.append(float(((g.double() - w64).abs() / limit).max()))
+    return shares
+
+
+def _terms(x, n):
+    """x (f32) as n bf16 terms, each the bf16 rounding of what the earlier
+    ones leave (the kernel's split3 for n = 3), widened to f32."""
+    out, rest = [], x
+    for _ in range(n):
+        term = rest.bfloat16().float()
+        out.append(term)
+        rest = rest - term
+    return out
+
+
+def _tile_product(x, b, n_terms):
+    """A tile's product from 0: x in `n_terms` bf16 terms times the bf16
+    B (exact products, f32 sums)."""
+    t = torch.zeros(x.shape[:-1] + b.shape[-1:])
+    for term in _terms(x, n_terms):
+        t = t + term @ b
+    return t
+
+
+def _chunked_scores(a, b):
+    """a·bᵀ over the head dim as the bf16 kernels sum S and dP: each
+    16-wide chunk's products (exact) summed from 0, the chunks added in
+    f32 in order."""
+    s = a[..., :16] @ b[..., :16].transpose(-1, -2)
+    for c in range(16, a.shape[-1], 16):
+        s = s + a[..., c:c + 16] @ b[..., c:c + 16].transpose(-1, -2)
+    return s
+
+
+def _grouped(x, kv):
+    """(B, T, H, ·) → (B, KV, T·G, ·): row r of kv head j is position
+    r // G of query head j·G + r % G, the kernels' position-major rows."""
+    b, t, h = x.shape[:3]
+    g = h // kv
+    return x.reshape(b, t, kv, g, -1).permute(0, 2, 1, 3, 4).reshape(
+        b, kv, t * g, -1)
+
+
+def _emulated_bf16_backward(q, k, v, out, do, lse, causal, window,
+                            n_terms=3):
+    """dq, dk, dv as the bf16 kernels compute them: bf16 operands (exact
+    products in f32 sums; S and dP by 16-wide chunks of the head dim),
+    scores scaled after the product, key-major Sᵀ
+    and dPᵀ tiles in the dK/dV pass (64 keys × 64 rows; 32 rows past hd
+    64) and row-major S, dP tiles in the dQ pass (64 rows × 64 keys), P
+    and dS in `n_terms` bf16 terms, each tile's product from 0 added into
+    f32 running sums, dK and dQ scaled once at the end, every gradient
+    rounded to bf16 once."""
+    bsz, tq, h, hd = q.shape
+    tk, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    rows = tq * g
+    scale = float(np.float32(hd ** -0.5))
+    rt = 64 if hd <= 64 else 32
+    delta = (do.float() * out.float()).sum(-1)               # (B, Tq, H)
+    qg, dog = _grouped(q.float(), kv), _grouped(do.float(), kv)
+    lg = _grouped(lse.transpose(1, 2)[..., None], kv)[..., 0]
+    dg = _grouped(delta[..., None], kv)[..., 0]
+    kf, vf = (x.float().transpose(1, 2) for x in (k, v))    # (B, KV, Tk, hd)
+    pos = torch.arange(rows) // g
+
+    def tile(r0, nr, k0):
+        """P and dS (nr rows × 64 keys) of one tile, masked; rows past the
+        last and keys past Tk read 0."""
+        r = torch.arange(r0, r0 + nr)
+        kp = torch.arange(k0, k0 + BK)
+        qt, dot = (torch.zeros(bsz, kv, nr, hd) for _ in range(2))
+        lt, dt = torch.zeros(bsz, kv, nr), torch.zeros(bsz, kv, nr)
+        live = r < rows
+        qt[:, :, live], dot[:, :, live] = qg[:, :, r[live]], dog[:, :, r[live]]
+        lt[:, :, live], dt[:, :, live] = lg[:, :, r[live]], dg[:, :, r[live]]
+        kt, vt = (torch.zeros(bsz, kv, BK, hd) for _ in range(2))
+        kl = kp < tk
+        kt[:, :, kl], vt[:, :, kl] = kf[:, :, kp[kl]], vf[:, :, kp[kl]]
+        valid = _valid(torch.where(live, pos[r.clamp(max=rows - 1)], -1),
+                       kp, tk, causal, window)
+        return qt, dot, lt, dt, kt, vt, valid
+
+    def p_ds(s, dp, lt, dt, valid):
+        p = torch.where(valid, torch.exp(s * scale - lt[..., None]), 0.0)
+        return p, p * (dp - dt[..., None])
+
+    dk = torch.zeros(bsz, kv, tk, hd)
+    dv = torch.zeros(bsz, kv, tk, hd)
+    for k0 in range(0, tk, BK):                              # dK/dV blocks
+        k_last = min(k0 + BK, tk) - 1
+        q_lo = k0 if causal else 0
+        q_hi = min(tq - 1, k_last + window - 1) if window > 0 else tq - 1
+        acc_k, acc_v = torch.zeros(bsz, kv, BK, hd), torch.zeros(bsz, kv,
+                                                                 BK, hd)
+        for r0 in range(q_lo * g, min(rows, (q_hi + 1) * g), rt):
+            qt, dot, lt, dt, kt, vt, valid = tile(r0, rt, k0)
+            st, dpt = _chunked_scores(kt, qt), _chunked_scores(vt, dot)
+            p, ds = p_ds(st.transpose(-1, -2), dpt.transpose(-1, -2), lt,
+                         dt, valid)
+            acc_v = acc_v + _tile_product(p.transpose(-1, -2), dot, n_terms)
+            acc_k = acc_k + _tile_product(ds.transpose(-1, -2), qt, n_terms)
+        n = min(BK, tk - k0)
+        dk[:, :, k0:k0 + n] = scale * acc_k[:, :, :n]
+        dv[:, :, k0:k0 + n] = acc_v[:, :, :n]
+    dq = torch.zeros(bsz, kv, rows, hd)
+    n_kt = -(-tk // BK)
+    for r0 in range(0, rows, BQ):                            # dQ blocks
+        q_first, q_last = r0 // g, (min(r0 + BQ, rows) - 1) // g
+        kt_end = min(n_kt, q_last // BK + 1) if causal else n_kt
+        kt_begin = max(0, q_first - window + 1) // BK if window > 0 else 0
+        acc = torch.zeros(bsz, kv, BQ, hd)
+        for kt_ in range(kt_begin, kt_end):
+            qt, dot, lt, dt, kt, vt, valid = tile(r0, BQ, kt_ * BK)
+            _, ds = p_ds(_chunked_scores(qt, kt), _chunked_scores(dot, vt),
+                         lt, dt, valid)
+            acc = acc + _tile_product(ds, kt, n_terms)
+        n = min(BQ, rows - r0)
+        dq[:, :, r0:r0 + n] = scale * acc[:, :, :n]
+    dq = dq.reshape(bsz, kv, tq, g, hd).permute(0, 2, 1, 3, 4).reshape(
+        bsz, tq, h, hd)
+    return (dq.bfloat16(), dk.transpose(1, 2).bfloat16(),
+            dv.transpose(1, 2).bfloat16())
+
+
+# (b, tq, tk, h, kv, hd, causal, window): groups 1, 4 and 8; T ragged on
+# both sides of a 64-key tile (and of the 64-row tiles: 63·4, 65·4, 129·8
+# rows); a window; bidirectional; rows with no valid key (Tq > Tk with a
+# window: lse = +inf)
+BF16_CASES = {
+    "g1_t63": (2, 63, 63, 4, 4, 32, True, 0),
+    "g4_t65": (1, 65, 65, 8, 2, 64, True, 0),
+    "g4_t127": (1, 127, 127, 8, 2, 64, True, 0),
+    "g8_t129_window": (1, 129, 129, 16, 2, 32, True, 40),
+    "g4_bidirectional": (1, 70, 70, 8, 2, 64, False, 0),
+    "g2_dead_rows": (1, 12, 5, 4, 2, 32, False, 3),
+}
+
+
+def _bf16_inputs(case, seed):
+    b, tq, tk, h, kv, hd, causal, window = case
+    q, k, v, do = (torch.from_numpy(x).bfloat16()
+                   for x in _inputs(b, tq, tk, h, kv, hd, seed))
+    if tq != tk:
+        rng = np.random.default_rng(seed + 1)
+        k, v = (torch.from_numpy(rng.normal(size=(b, tk, kv, hd)).astype(
+            np.float32)).bfloat16() for _ in range(2))
+    out = attention_ref(q, k, v, causal=causal, window=window)
+    lse = attention_lse_ref(q, k, causal=causal, window=window)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.parametrize("name", list(BF16_CASES))
+def test_bf16_route_emulation_within_phase10_limit(name):
+    """The bf16 kernels' arithmetic (P and dS in three bf16 terms) meets
+    phase 10's bf16 limit at every element of dq, dk and dv."""
+    case = BF16_CASES[name]
+    causal, window = case[6], case[7]
+    q, k, v, out, lse, do = _bf16_inputs(case, seed=len(name))
+    assert out.dtype == torch.bfloat16
+    got = _emulated_bf16_backward(q, k, v, out, do, lse, causal, window)
+    for g, t in zip(got, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == torch.bfloat16
+        assert torch.isfinite(g.float()).all()
+    shares = _bf16_limit_share(got, q, k, v, out, lse, do, causal, window)
+    assert max(shares) <= 1.0, shares
+
+
+@pytest.mark.parametrize("name", ["g4_t127", "g8_t129_window"])
+def test_p_and_ds_in_fewer_terms_miss_phase10_limit(name):
+    """FlashAttention-2's rounding of P and dS to bf16 before the products
+    misses the limit by far, and a two-term split misses it too: three
+    terms are the fewest that carry P and dS as an f32 would."""
+    case = BF16_CASES[name]
+    causal, window = case[6], case[7]
+    q, k, v, out, lse, do = _bf16_inputs(case, seed=len(name))
+    worst = {n: max(_bf16_limit_share(
+        _emulated_bf16_backward(q, k, v, out, do, lse, causal, window,
+                                n_terms=n), q, k, v, out, lse, do, causal,
+        window)) for n in (1, 2, 3)}
+    assert worst[1] > 100 and worst[2] > 1.0 >= worst[3], worst
