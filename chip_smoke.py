@@ -78,7 +78,16 @@ Phases, each failing the run with a nonzero exit:
              bonus) and zamba2-7b (scalar decay), bf16 and f32, ragged T
              and a nonzero initial state, a strong decay, K = 48 and
              V = 40, each case launched twice and bitwise equal; errors,
-             times, bounds, and each pass's device time
+             times, bounds, and each pass's device time; (b) the GLA
+             backward kernel (`gla_chunk_bwd_f32`) against its plain
+             version in f64 at the full-width training layer calls of
+             both models (2 × 4,096 tokens), ragged T from a nonzero
+             state, a strong decay, K = 48 and V = 40, bf16 and f32
+             (every gradient normwise: dq, dk, dv, d log_decay, d bonus;
+             at the training calls Σ_t d log_decay against a running sum
+             over T in f32), each case launched twice and bitwise equal;
+             times beside the
+             bound and the plain backward, each pass's device time
 14. SSM serving — rwkv6-7b and zamba2-7b at full width and depth in bf16
              through `launch.steps.make_step`: prefill of a 2 × 512
              prompt, the grow, 16 greedy decode steps, with exact GLA and
@@ -222,6 +231,24 @@ Phases, each failing the run with a nonzero exit:
              normwise and its task within 5e-3; (e) the bf16 sweep
              backward at full width (C = 1 and 6) against its plain
              version
+26. SSM training — the train step of rwkv6-7b and zamba2-7b through
+             `launch.make_step(cfg, train_4k cut to 16 rows)`, the GLA
+             under grad through `chunk_scan.GLAChunked` (the chunk kernel
+             forward, the GLA backward kernel): (a) the reduced configs
+             in f32, one step on the card and the CPU from one init (task
+             and every leaf's gradient within 1e-4 normwise, exact GLA
+             launches on the card, none on the CPU); (b) rwkv6-7b at full
+             width cut to 4 of 32 layers and (c) zamba2-7b at full width
+             cut to 9 Mamba2 layers with the tied block after every 3,
+             in bf16, REPRO_MICROBATCH=8, the moment pool: a warm-up and
+             3 timed steps, exact GLA forward and backward (layers × 8),
+             attention (applications × 8) and sweep (one forward and one
+             backward a leaf dtype: 2 + 2) launches a step, every value
+             finite, steps/s, tokens/s, the model FLOP
+             rate (6·N a token plus the GLA's and attention's products),
+             peak memory, a second run bitwise, one step profiled; (d)
+             each model at 2 layers, the bf16 step's first gradient
+             against its f32 twin's (5e-2 normwise, task 5e-3)
 
 Before the last lines it prints every measurement as one JSON object on
 a line starting "details: "; then the kernels' JSON record and the card's
@@ -1530,14 +1557,18 @@ SERVE_ARGMAX_MIN = 0.99
 CNN_SERVE_AGREE_MIN = 0.98
 
 
-def _bound(bytes_, ops, peak):
+def _bound(bytes_, ops, peak, bf16_ops=0):
     """(bound ms, what bounds it, its parts) of one launch that moves
-    `bytes_` and does `ops` operations at `peak` per second."""
-    byte_s, op_s = bytes_ / PEAK_BYTES, ops / peak
+    `bytes_` and does `ops` operations at `peak` per second, and besides
+    them `bf16_ops` products of two bf16 operands at the bf16 peak."""
+    byte_s = bytes_ / PEAK_BYTES
+    op_s = ops / peak + bf16_ops / PEAK_BF16_FLOPS
+    parts = dict(bytes=bytes_, ops=ops, byte_ms=byte_s * 1e3,
+                 op_ms=op_s * 1e3)
+    if bf16_ops:
+        parts["bf16_ops"] = bf16_ops
     return (max(byte_s, op_s) * 1e3,
-            "bytes" if byte_s >= op_s else "operations",
-            dict(bytes=bytes_, ops=ops, byte_ms=byte_s * 1e3,
-                 op_ms=op_s * 1e3))
+            "bytes" if byte_s >= op_s else "operations", parts)
 
 
 def _short_name(name):
@@ -2666,44 +2697,53 @@ def _gla_cases():
     return out
 
 
+def _gla_inputs(torch, gen, b, t, h, kd, vd, per_channel, init, decay,
+                dtype):
+    """Phase 13's inputs, as the models make them: q, k, v ~ N(0, 1)
+    (zamba2's q and k one (B, T, 1, K) tensor broadcast over the heads,
+    stride 0); RWKV6's log decay −exp(N(0, 1) − 1) per channel and bonus
+    exp(0.1·N), Mamba2's −softplus(N(0, 1)) per head; the strong decay
+    −exp(min(1.5·N + 1.5, 3)) per channel and −exp(min(N + 2, 3)) per
+    head; an N(0, 1) initial state with `init`. q, k, v in `dtype`."""
+    import torch.nn.functional as F
+
+    def rn(*shape):
+        return torch.randn(shape, device=CARD, generator=gen)
+    strong = decay == "strong"
+    if per_channel:
+        q, k = rn(b, t, h, kd), rn(b, t, h, kd)
+        ld = -torch.exp((1.5 * rn(b, t, h, kd) + 1.5).clamp(max=3.0)
+                        if strong else rn(b, t, h, kd) - 1.0)
+        bonus = torch.exp(0.1 * rn(h, kd))
+    else:
+        q = rn(b, t, 1, kd).expand(b, t, h, kd)
+        k = rn(b, t, 1, kd).expand(b, t, h, kd)
+        ld = (-torch.exp((rn(b, t, h) + 2.0).clamp(max=3.0)) if strong
+              else -F.softplus(rn(b, t, h)))
+        bonus = None
+    v = rn(b, t, h, vd)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    s0 = rn(b, h, kd, vd) if init else None
+    return q, k, v, ld, bonus, s0
+
+
 def check_gla(torch, chunk_scan, ssm, ref):
     """The GLA chunk kernel against its plain version
     (`ssm.gla_chunked_plain`) at the full-width layer calls of both
     models, in bf16 and f32 inputs, at T = 512 from a zero state and at a
     ragged T = 500 from a nonzero one; the f32 T = 512 cases also against
     the step-by-step recurrence; then GLA_EXTRA_CASES (strong decay, K =
-    48 and V = 40). Inputs as the models make them: q, k, v ~ N(0, 1)
-    (zamba2's q and k one (B, T, 1, K) tensor broadcast over the heads,
-    stride 0); RWKV6's log decay −exp(N(0, 1) − 1) per channel and bonus
-    exp(0.1·N), Mamba2's −softplus(N(0, 1)) per head; the strong decay
-    −exp(min(1.5·N + 1.5, 3)) per channel and −exp(min(N + 2, 3)) per
-    head. Every case is launched twice and must be bitwise equal. Times:
+    48 and V = 40). Inputs from `_gla_inputs`. Every case is launched
+    twice and must be bitwise equal. Times:
     the kernel and the plain version, L2 flushed; the bound from the
     bytes read and written and the operations `_gla_ops` counts; at the
     models' T = 512 calls a `kernel_profile` (each pass's device time)."""
-    import torch.nn.functional as F
     gen = torch.Generator(device=CARD).manual_seed(13)
-
-    def rn(*shape):
-        return torch.randn(shape, device=CARD, generator=gen)
     rows, max_abs = [], 0.0
     for (name, b, t, h, kd, vd, chunk, per_channel, init, decay, dtype,
          per_prefill) in _gla_cases():
-        strong = decay == "strong"
-        if per_channel:
-            q, k = rn(b, t, h, kd), rn(b, t, h, kd)
-            ld = -torch.exp((1.5 * rn(b, t, h, kd) + 1.5).clamp(max=3.0)
-                            if strong else rn(b, t, h, kd) - 1.0)
-            bonus = torch.exp(0.1 * rn(h, kd))
-        else:
-            q = rn(b, t, 1, kd).expand(b, t, h, kd)
-            k = rn(b, t, 1, kd).expand(b, t, h, kd)
-            ld = (-torch.exp((rn(b, t, h) + 2.0).clamp(max=3.0)) if strong
-                  else -F.softplus(rn(b, t, h)))
-            bonus = None
-        v = rn(b, t, h, vd)
-        q, k, v = (x.to(dtype) for x in (q, k, v))
-        s0 = rn(b, h, kd, vd) if init else None
+        q, k, v, ld, bonus, s0 = _gla_inputs(
+            torch, gen, b, t, h, kd, vd, per_channel, init, decay, dtype)
 
         def kernel():
             return chunk_scan.gla_chunk_f32(
@@ -2777,6 +2817,210 @@ def check_gla(torch, chunk_scan, ssm, ref):
             fail(f"gla_chunk_f32 {name} {dtype} T={t}: two launches on the "
                  "same inputs differ")
         max_abs = max(max_abs, row["max_abs_err"])
+    return rows, max_abs
+
+
+# phase 13 (b): the GLA backward at (name, B, T, H, K, V, chunk L,
+# per-channel decay + bonus, initial state, decay): the full-width
+# training layer calls of rwkv6-7b (per-channel decay, bonus, L 32) and
+# zamba2-7b (scalar decay, L 128, q and k broadcast over the 112 heads) at
+# train_4k's 4,096 tokens, then a ragged T from a nonzero initial state,
+# phase 13's strong decay and K = 48 / V = 40; each in bf16 and f32
+GLA_BWD_CASES = [
+    ("rwkv6", 2, 4096, 64, 64, 64, 32, True, False, "model"),
+    ("zamba2", 2, 4096, 112, 64, 64, 128, False, False, "model"),
+    ("rwkv6-ragged", 2, 500, 64, 64, 64, 32, True, True, "model"),
+    ("zamba2-ragged", 2, 500, 112, 64, 64, 128, False, True, "model"),
+    ("rwkv6-strong", 2, 512, 64, 64, 64, 32, True, True, "strong"),
+    ("zamba2-strong", 2, 512, 112, 64, 64, 128, False, True, "strong"),
+    ("k48v40-pre", 2, 500, 8, 48, 40, 32, True, True, "model"),
+    ("k48v40-post", 2, 500, 8, 48, 40, 128, False, True, "model")]
+# normwise limits of the kernel against `gla_chunked_bwd_plain` in f64 on
+# the same inputs. f32: dq, dk, dv and d log_decay L·K·2⁻²³, phase 13's
+# forward limit (sums of up to L·K terms in f32 in another order, the
+# entering states carrying the forward's own; d log_decay's reverse sum
+# runs over one chunk's tokens, the later chunks entering as one ⟨dS, S⟩);
+# d bonus (L·K + B·T)·2⁻²³ (a sum over B·T tokens). bf16 inputs: dq, dk
+# and dv add one bf16 rounding (2⁻⁸: the kernel rounds its f32 value
+# once); d log_decay and d bonus stay f32, from f32 dq and dk.
+GLA_BWD_GRADS = ("dq", "dk", "dv", "dlog_decay", "dbonus")
+# the decay's sum over the sequence at the training layer calls (T ≥ this:
+# 128 and 32 chunks), what Mamba2's A_log and RWKV6's decay base sum:
+# Σ_t d log_decay for each (b, h) and channel, normwise against f64, at
+# most GLA_BWD_SUM_SHARE of the same error of a control that runs ∂/∂G
+# (the kernel's own, as d log_decay_t − d log_decay_{t+1}) through a
+# reverse running sum over all T tokens in f32, the order a first build
+# of the kernel took and phase 26 (a) caught only through zamba2's A_log.
+# tests/test_torch_gla_bwd.py holds the plain backward (the kernel's
+# order) to the same limit at these shapes with fewer heads; at T ≤ 512
+# the two orders do not differ.
+GLA_BWD_SUM_T = 4096
+GLA_BWD_SUM_SHARE = 0.5
+
+
+def _gla_bwd_tols(b, t, kd, chunk, dtype):
+    import torch
+    f32 = chunk * kd * 2.0 ** -23
+    qkv = f32 + (BF16_ROUNDING if dtype == torch.bfloat16 else 0.0)
+    return dict(dq=qkv, dk=qkv, dv=qkv, dlog_decay=f32,
+                dbonus=(chunk * kd + b * t) * 2.0 ** -23)
+
+
+def _decay_sum_errs(torch, dld, want):
+    """(the kernel's, the control's) normwise error of Σ_t d log_decay
+    against f64 `want`: the control the reverse running sum over all T
+    tokens in f32 (numpy's sequential accumulate) of the kernel's own
+    ∂/∂G_t = d log_decay_t − d log_decay_{t+1}."""
+    import numpy as np
+    dg = dld - torch.cat([dld[:, 1:], torch.zeros_like(dld[:, :1])], 1)
+    dg = np.flip(dg.float().cpu().numpy(), 1)
+    serial = torch.from_numpy(np.flip(np.cumsum(dg, 1, dtype=np.float32),
+                                      1).copy())
+    total = want.sum(1)
+    return (_normwise(dld.double().sum(1), total),
+            _normwise(serial.double().sum(1), total.cpu()))
+
+
+def _gla_bwd_ops(b, t, h, kd, vd, chunk, per_channel, pre, bf16):
+    """(operations at the f32 peak, operations at the bf16 peak) the GLA's
+    backward needs (a fused multiply-add is 2, an exponential 1): per
+    chunk and (b, h), for each pair the mask keeps (j ≤ i, or j < i under
+    pre) the scores 2·K, dP 2·V, dq's and dk's intra-chunk terms 2·K each,
+    dv's 2·V, per channel K exponentials (the scalar decay one); four
+    products of 2·L·K·V (dq's and dk's state terms, dv's, the reverse
+    state pass's Q_c) and the state recurrence 2·K·V; the decay's q ⊙ dq,
+    k ⊙ dk and reverse sum 5·L·K; under pre the bonus diagonal 7·L·K +
+    4·L·V. With `bf16` inputs the products of two bf16 inputs count at the
+    bf16 peak: dP = dy·vᵀ, the scalar decay's scores q·kᵀ (a per-channel
+    decay enters each pair's product in f32) and under pre the bonus's
+    dy·v (2·V a token); the rest has an f32 operand. The ragged tail
+    counts its valid tokens only."""
+    total = two_bf16 = 0
+    for start in range(0, t, chunk):
+        n = min(chunk, t - start)
+        pairs = n * (n - 1) // 2 if pre else n * (n + 1) // 2
+        ops = pairs * (6 * kd + 4 * vd + (kd if per_channel else 1))
+        ops += 8 * n * kd * vd + 2 * kd * vd + 5 * n * kd
+        ops += (7 * n * kd + 4 * n * vd) if pre else 0
+        total += ops
+        two_bf16 += pairs * (2 * vd + (0 if per_channel else 2 * kd)) \
+            + (2 * n * vd if pre else 0)
+    if not bf16:
+        return total * b * h, 0
+    return (total - two_bf16) * b * h, two_bf16 * b * h
+
+
+def check_gla_bwd(torch, chunk_scan, ssm):
+    """(b) The GLA backward kernel (`gla_chunk_bwd_f32`) against its plain
+    version (`ssm.gla_chunked_bwd_plain`) in f64 on the same inputs, at
+    GLA_BWD_CASES in bf16 and f32 (`_gla_inputs` and a cotangent dy ~
+    N(0, 1)): the entering states from the forward
+    kernel (`gla_chunk_f32(..., return_states=True)`), every gradient
+    normwise within `_gla_bwd_tols` (d log_decay normwise only: the first
+    token's exact 0 under a zero initial state is a rounding residue in
+    both), at T ≥ GLA_BWD_SUM_T Σ_t d log_decay against its running-sum
+    control (`_decay_sum_errs`), every case launched twice and bitwise
+    equal. Times: the kernel and the plain version in f32 (L2 flushed),
+    the bound from the bytes read and written and `_gla_bwd_ops` (for
+    bf16 inputs, their products of two bf16 inputs at the bf16 peak); at
+    the full-width layer calls a `kernel_profile` (each pass's device
+    time)."""
+    gen = torch.Generator(device=CARD).manual_seed(131)
+    rows, max_abs = [], 0.0
+    for name, b, t, h, kd, vd, chunk, per_channel, init, decay in \
+            GLA_BWD_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, ld, bonus, s0 = _gla_inputs(
+                torch, gen, b, t, h, kd, vd, per_channel, init, decay, dtype)
+            dy = torch.randn((b, t, h, vd), device=CARD,
+                             generator=gen).to(dtype)
+            _, _, states = chunk_scan.gla_chunk_f32(
+                q, k, v, ld, chunk=chunk, bonus=bonus, initial_state=s0,
+                return_states=True)
+
+            def kernel():
+                return chunk_scan.gla_chunk_bwd_f32(
+                    q, k, v, ld, dy, states, chunk=chunk, bonus=bonus)
+
+            def plain():
+                return ssm.gla_chunked_bwd_plain(
+                    q, k, v, ld, dy, chunk=chunk, bonus=bonus,
+                    initial_state=s0)
+            got = kernel()
+            again = kernel()
+            torch.cuda.synchronize()
+            bitwise = all(x is None or torch.equal(x, y)
+                          for x, y in zip(got, again))
+            del again
+            want = ssm.gla_chunked_bwd_plain(
+                *(x.double() for x in (q, k, v, ld, dy)), chunk=chunk,
+                bonus=None if bonus is None else bonus.double(),
+                initial_state=None if s0 is None else s0.double())
+            tols = _gla_bwd_tols(b, t, kd, chunk, dtype)
+            errs, abs_errs = {}, {}
+            for g, x, w in zip(GLA_BWD_GRADS, got, want):
+                if w is None:
+                    continue
+                errs[g] = _normwise(x, w)
+                abs_errs[g] = float((x.double() - w).abs().max())
+            finite = all(bool(torch.isfinite(x.float()).all())
+                         for x in got if x is not None)
+            sum_ok, sums = True, {}
+            if t >= GLA_BWD_SUM_T:
+                sums = dict(zip(("kernel", "control"),
+                                _decay_sum_errs(torch, got[3], want[3])))
+                sum_ok = sums["kernel"] <= GLA_BWD_SUM_SHARE * sums["control"]
+            del want
+            ok = finite and sum_ok and all(errs[g] <= tols[g] for g in errs)
+            n_chunks = -(-t // min(chunk, t))
+            nbytes = (sum(_distinct_bytes(x) for x in (q, k, v, dy, ld))
+                      + states.numel() * 4
+                      + sum(x.numel() * x.element_size()
+                            for x in got if x is not None)
+                      + (bonus.numel() * 4 if bonus is not None else 0))
+            f32_ops, bf16_ops = _gla_bwd_ops(
+                b, t, h, kd, vd, chunk, per_channel, bonus is not None,
+                dtype == torch.bfloat16)
+            bound_ms, bound_by, parts = _bound(nbytes, f32_ops,
+                                               PEAK_F32_FLOPS, bf16_ops)
+            row = dict(model=name, dtype=str(dtype), b=b, t=t, h=h, k=kd,
+                       v=vd, chunk=chunk, chunks=n_chunks,
+                       per_channel=per_channel, initial_state=init,
+                       decay=decay, rel_err=errs, tol=tols,
+                       abs_err=abs_errs, dlog_decay_sum_err=sums,
+                       bitwise_repeat=bitwise,
+                       finite=finite, within_tolerance=ok, **parts,
+                       bound_ms=bound_ms, bound_by=bound_by,
+                       ms=median_ms(kernel, reps=10, warmup=2),
+                       plain_ms=median_ms(plain, reps=3, warmup=1))
+            if decay == "model" and not init:
+                row["profile"] = kernel_profile(torch, kernel,
+                                                keep=("gla_bwd",), reps=5)
+            rows.append(row)
+            print(f"  gla bwd {name:13s} {str(dtype)[6:]:8s} T={t}"
+                  f"{' s0' if init else '   '}: " + ", ".join(
+                      f"{g} {e:.2e}/{tols[g]:.1e}" for g, e in errs.items())
+                  + f" normwise, repeat "
+                  f"{'bitwise' if bitwise else 'DIFFERS'}; kernel "
+                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, bound "
+                  f"{bound_ms:.4f} ({bound_by})")
+            if sums:
+                print(f"    Σ_t dlog_decay {sums['kernel']:.2e} normwise, "
+                      f"control (running sum over T in f32) "
+                      f"{sums['control']:.2e}: limit "
+                      f"{GLA_BWD_SUM_SHARE} of it")
+            if "profile" in row:
+                print(f"    {_profile_line(row['profile'])}")
+            if not ok:
+                fail(f"gla_chunk_bwd_f32 {name} {dtype} T={t} disagrees "
+                     "with its plain version beyond the stated tolerance "
+                     f"(or is not finite): {errs}, Σ_t dlog_decay {sums}")
+            if not bitwise:
+                fail(f"gla_chunk_bwd_f32 {name} {dtype} T={t}: two launches "
+                     "on the same inputs differ")
+            max_abs = max([max_abs] + list(abs_errs.values()))
+            del got, states, q, k, v, ld, dy
+            torch.cuda.empty_cache()
     return rows, max_abs
 
 
@@ -3016,13 +3260,17 @@ def ssm_phases(torch, chunk_scan, ssm, ref):
     print("[13] gla_chunk_f32 against its plain version at the full-width "
           "layer calls")
     gla_rows, gla_err = check_gla(torch, chunk_scan, ssm, ref)
+    print("[13b] gla_chunk_bwd_f32 against its plain version in f64 at the "
+          "full-width training layer calls")
+    bwd_rows, bwd_err = check_gla_bwd(torch, chunk_scan, ssm)
     print("[14] rwkv6-7b and zamba2-7b served at full width and depth: "
           "make_step prefill, grow, greedy decode")
     served = {}
     for name in ("rwkv6-7b", "zamba2-7b"):
         served[name] = dict(bf16=serve_ssm_bf16(torch, name),
                             f32=ssm_oracle_f32(torch, name, ssm))
-    return dict(gla=gla_rows, gla_max_abs_err=gla_err, ssm_serving=served)
+    return dict(gla=gla_rows, gla_max_abs_err=gla_err, gla_bwd=bwd_rows,
+                gla_bwd_max_abs_err=bwd_err, ssm_serving=served)
 
 
 def gla_kernel_entry(ssm_out):
@@ -6056,10 +6304,16 @@ def train_step_variant(torch, smi_line):
     return out
 
 
+def _gla_wrappers():
+    from repro_torch.kernels import chunk_scan
+    return {"forward": chunk_scan.gla_chunk_f32,
+            "backward": chunk_scan.gla_chunk_bwd_f32}
+
+
 def _train_counters():
     wrappers = dict(_attn_wrappers())
     sweep = _sweep_wrappers()
-    return {"attention": wrappers, "sweep": sweep}
+    return {"attention": wrappers, "sweep": sweep, "gla": _gla_wrappers()}
 
 
 def _reset_train_counts():
@@ -6117,10 +6371,11 @@ def _attention_flops(cfg, rows, t):
 
 
 def _hold_counts(label, rows, want):
+    """Each step's launches of the wrapper groups `want` names."""
     for i, r in enumerate(rows):
-        got = dict(attention=r["attention"], sweep=r["sweep"])
+        got = {group: r[group] for group in want}
         if got != want:
-            fail(f"phase 25 {label}: step {i} launched {got}, want {want}")
+            fail(f"{label}: step {i} launched {got}, want {want}")
 
 
 def train_step_full_width(torch, smi_line):
@@ -6182,7 +6437,7 @@ def train_step_full_width(torch, smi_line):
         p1, o1, rows, first_m = _train_run(
             torch, step, params, opt, batch, pool, 1 + TRAIN_STEPS, True)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    _hold_counts("(b)", rows, want)
+    _hold_counts("phase 25 (b)", rows, want)
     if spy.backward_types != ["bf16"] * len(rows):
         fail(f"phase 25 (b): sweep backward calls on {spy.backward_types}, "
              "want one on bf16 leaves a step")
@@ -6248,7 +6503,7 @@ def train_step_full_width(torch, smi_line):
         p3, o3, rows, _ = _train_run(torch, step, params, opt, batch, pool,
                                      TRAIN_EXACT_STEPS, False)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    _hold_counts("(c)", rows, want)
+    _hold_counts("phase 25 (c)", rows, want)
     if spy.backward_types != ["bf16"] * len(rows):
         fail(f"phase 25 (c): sweep backward calls on {spy.backward_types}")
     del o3
@@ -6463,18 +6718,22 @@ def train_step_phase(torch, smi_line):
     return out
 
 
+def _launches_by_wrapper(rows):
+    """Train-step records' launches (`_train_run`) summed by wrapper
+    name."""
+    total = {}
+    for row in rows:
+        for group, by_way in _train_counters().items():
+            for way, fn in by_way.items():
+                total[fn.__name__] = total.get(fn.__name__, 0) + \
+                    row[group][way]
+    return total
+
+
 def train_step_launches(train):
     """Phase 25's launches by wrapper name: (b)'s first run and (c)."""
-    names = {"attention": {"forward": "flash_attn_f32",
-                           "backward": "flash_attn_bwd_f32"},
-             "sweep": {"forward": "pool_distance_f32",
-                       "backward": "pool_distance_bwd_f32"}}
-    total = {}
-    for row in train["moment"]["steps"] + train["exact"]["steps"]:
-        for group, by_way in names.items():
-            for way, name in by_way.items():
-                total[name] = total.get(name, 0) + row[group][way]
-    return total
+    return _launches_by_wrapper(train["moment"]["steps"] +
+                                train["exact"]["steps"])
 
 
 def attention_bwd_entry(serving, lm):
@@ -6502,6 +6761,355 @@ def attention_bwd_entry(serving, lm):
             "max_abs_err", "worst_share_of_limit")}}
     if not entry["launches"]:
         fail("flash_attn_bwd_f32 was launched no time on its main path")
+    return entry
+
+
+# ---------------------------------------------------------------------------
+# phase 26: SSM training on the card
+# ---------------------------------------------------------------------------
+
+# (b), (c): the full configs at full width, cut in depth for the card's 80
+# GB and the run's time limit: rwkv6-7b to 4 of its 32 layers; zamba2-7b
+# to 9 of its 81 Mamba2 layers with the tied block after every 3 (the
+# full config's three applications, so its gradient still sums over three
+# uses)
+SSM_TRAIN_CUTS = {"rwkv6-7b": dict(n_layers=4),
+                  "zamba2-7b": dict(n_layers=9, shared_attn_every=3)}
+# (d): each model at 2 layers (zamba2-7b's tied block after each, as
+# `reduced()` places it) against its f32 twin
+SSM_ORACLE_CUTS = {"rwkv6-7b": dict(n_layers=2),
+                   "zamba2-7b": dict(n_layers=2, shared_attn_every=1)}
+# (a): the reduced configs in f32 at train_4k's 4,096 tokens, 4 rows in 2
+# row blocks, one step on the card (GLA kernels) and on the CPU (autograd
+# of the plain GLA). Task and each leaf's gradient (Adam's m) normwise
+# within 1e-4: phase 14's limit for the f32 GLA kernel against the plain
+# GLA through a model's depth (the two differ only in the order of f32
+# sums, ~1e-7 relative a layer call, grown through the layers and the
+# backward).
+SSM_CVC_ROWS, SSM_CVC_MICRO = 4, 2
+SSM_CVC_TOL = 1e-4
+
+
+def _ssm_cfg(name, **cut):
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch(name), **cut)
+
+
+def _ssm_layer_shape(cfg):
+    """(heads, K, V, chunk, per_channel, pre, attention applications) of
+    a config's GLA layer calls at train_4k."""
+    from repro_torch.models import ssm
+    if cfg.family == "ssm":                      # RWKV6
+        h = cfg.d_model // cfg.ssm.head_dim
+        return (h, cfg.ssm.head_dim, cfg.ssm.head_dim, min(32, TRAIN_T),
+                True, True, 0)
+    dm = ssm.mamba2_dims(cfg)                    # Mamba2 (+ tied block)
+    apps = cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every \
+        else 0
+    return (dm.n_heads, dm.state, dm.head_dim,
+            min(cfg.ssm.chunk_size, TRAIN_T), False, False, apps)
+
+
+def _gla_products(b, t, h, kd, vd, chunk, pre):
+    """The GLA's products in one layer's forward and backward (3× the
+    forward's, as 6·N counts a weight's): per chunk and (b, h) the
+    inter-chunk and state products 4·L·K·V and, for each pair the mask
+    keeps, the scores and the intra-chunk product 2·(K + V)."""
+    total = 0
+    for start in range(0, t, chunk):
+        n = min(chunk, t - start)
+        pairs = n * (n - 1) // 2 if pre else n * (n + 1) // 2
+        total += 4 * n * kd * vd + 2 * pairs * (kd + vd)
+    return 3 * total * b * h
+
+
+def _ssm_want(cfg, params):
+    """Launches a step: the GLA's forward and backward once a layer and
+    microbatch, attention's once a tied-block application and
+    microbatch, the sweep's once a leaf dtype (the bf16 models keep some
+    leaves in f32: two)."""
+    apps = _ssm_layer_shape(cfg)[-1]
+    n_gla = cfg.n_layers
+    n_types = len({v.dtype for v in params.values()})
+    return dict(gla={"forward": n_gla * TRAIN_MICRO,
+                     "backward": n_gla * TRAIN_MICRO},
+                attention={"forward": apps * TRAIN_MICRO,
+                           "backward": apps * TRAIN_MICRO},
+                sweep={"forward": n_types, "backward": n_types})
+
+
+def ssm_train_card_vs_cpu(torch, name, smi_line):
+    """(a) The reduced config in f32 from one init: one train step at
+    train_4k's 4,096 tokens (SSM_CVC_ROWS rows in SSM_CVC_MICRO row
+    blocks, the moment pool) on the card, through the GLA kernels (exact
+    forward and backward launches), and on the CPU, through autograd of
+    the plain GLA; the task and each leaf's gradient (Adam's m) within
+    SSM_CVC_TOL normwise."""
+    from repro_torch.configs import FedConfig, ShapeConfig, get_arch
+    from repro_torch.launch import make_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+
+    cfg = get_arch(name).reduced()
+    shape = ShapeConfig("train_4k", TRAIN_T, SSM_CVC_ROWS, "train")
+    fed = FedConfig()
+    opt = make_optimizer(fed.optimizer, fed.learning_rate, fed.weight_decay)
+    m0 = build_model(cfg, "cpu").init(0)
+    members = [_noisy_member(torch, m0, s) for s in (1, 2)]
+    batch = _train_batch(torch, cfg.vocab_size, TRAIN_T, SSM_CVC_ROWS, "cpu")
+    runs = {}
+    for dev in (CARD, "cpu"):
+        with _env(REPRO_MICROBATCH=SSM_CVC_MICRO):
+            step = make_step(cfg, shape, fed, device=dev)
+        p = {k: v.to(dev) for k, v in m0.items()}
+        pool = _train_pool(torch, "moment", p,
+                           [{k: v.to(dev) for k, v in m.items()}
+                            for m in members], fed.pool_size)
+        _reset_train_counts()
+        t0 = time.perf_counter()
+        _, o, task = step(p, opt.init(p), {k: v.to(dev) for k, v in
+                                           batch.items()}, pool, 0)
+        if dev == CARD:
+            torch.cuda.synchronize()
+        runs[dev] = ({k: v.cpu() for k, v in o["m"].items()}, float(task),
+                     _read_train_counts()["gla"], time.perf_counter() - t0)
+    errs, total = _leaf_errs(runs[CARD][0], runs["cpu"][0])
+    task_err = abs(runs[CARD][1] - runs["cpu"][1]) / abs(runs["cpu"][1])
+    want = {"forward": cfg.n_layers * SSM_CVC_MICRO,
+            "backward": cfg.n_layers * SSM_CVC_MICRO}
+    out = dict(config=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               grad_err=errs, grad_err_total=total, task_card=runs[CARD][1],
+               task_cpu=runs["cpu"][1], task_err=task_err,
+               gla_launches=runs[CARD][2], cpu_gla_launches=runs["cpu"][2],
+               card_s=runs[CARD][3], cpu_s=runs["cpu"][3])
+    worst = max(errs, key=errs.get)
+    print(f"  (a) {name} reduced ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}) f32, {SSM_CVC_ROWS} × {TRAIN_T} tokens: card vs "
+          f"CPU worst leaf {errs[worst]:.3e} ({worst}), all leaves "
+          f"{total:.3e}, task {runs[CARD][1]:.6f} vs {runs['cpu'][1]:.6f} "
+          f"({task_err:.2e}); tolerance {SSM_CVC_TOL:g}; GLA launches "
+          f"{runs[CARD][2]} on the card, {runs['cpu'][2]} on the CPU "
+          f"({smi_line})")
+    if runs[CARD][2] != want or runs["cpu"][2] != {"forward": 0,
+                                                   "backward": 0}:
+        fail(f"phase 26 (a) {name}: GLA launches {runs[CARD][2]} on the "
+             f"card (want {want}) and {runs['cpu'][2]} on the CPU")
+    if errs[worst] > SSM_CVC_TOL or task_err > SSM_CVC_TOL or \
+            not math.isfinite(total):
+        fail(f"phase 26 (a) {name}: the card's step lies {errs[worst]:.3e} "
+             f"(leaf {worst}) / {task_err:.3e} (task) from the CPU's")
+    return out
+
+
+def ssm_train_full_width(torch, name, smi_line):
+    """(b), (c) The config at full width cut to SSM_TRAIN_CUTS in bf16
+    through `make_step(cfg, train_4k cut to 16 rows)` with
+    REPRO_MICROBATCH=8, the moment pool: a warm-up step and TRAIN_STEPS
+    timed steps chained (the main path: counts reset before each step),
+    exact GLA forward and backward launches (layers × 8), attention
+    (applications × 8) and sweep (one each a leaf dtype) a step, peak
+    memory, every value finite, a second run bitwise the first, one step
+    under the profiler."""
+    from repro_torch.configs import FedConfig, ShapeConfig
+    from repro_torch.launch import make_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+
+    cfg = _ssm_cfg(name, **SSM_TRAIN_CUTS[name])
+    shape = ShapeConfig("train_4k", TRAIN_T, TRAIN_ROWS, "train")
+    fed = FedConfig()
+    opt = make_optimizer(fed.optimizer, fed.learning_rate, fed.weight_decay)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = build_model(cfg)
+    params = model.init(0)
+    n_params = sum(v.numel() for v in params.values())
+    batch = _train_batch(torch, cfg.vocab_size, TRAIN_T, TRAIN_ROWS, CARD)
+    tokens = TRAIN_ROWS * TRAIN_T
+    h, kd, vd, chunk, _, pre, apps = _ssm_layer_shape(cfg)
+    gla_flops = cfg.n_layers * _gla_products(TRAIN_ROWS, TRAIN_T, h, kd, vd,
+                                             chunk, pre)
+    attn_flops = 6 * apps * TRAIN_ROWS * TRAIN_T * TRAIN_T * cfg.n_heads * \
+        cfg.resolved_head_dim
+    flops = 6 * n_params * tokens + gla_flops + attn_flops
+    want = _ssm_want(cfg, params)
+    with _env(REPRO_MICROBATCH=TRAIN_MICRO):
+        step = make_step(cfg, shape, fed)
+    pool = _train_pool(torch, "moment", params,
+                       [_noisy_member(torch, params, s) for s in (1, 2)],
+                       fed.pool_size)
+    p1, o1, rows, _ = _train_run(torch, step, params, opt, batch, pool,
+                                 1 + TRAIN_STEPS, False)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    _hold_counts(f"phase 26 {name}", rows, want)
+    timed = sum(r["s"] for r in rows[1:])
+    rate = TRAIN_STEPS / timed
+    first = dict(params={k: v.cpu() for k, v in p1.items()},
+                 m={k: v.cpu() for k, v in o1["m"].items()},
+                 v={k: v.cpu() for k, v in o1["v"].items()},
+                 tasks=[r["task"] for r in rows])
+    del p1, o1
+    torch.cuda.empty_cache()
+    p2, o2, rows2, _ = _train_run(torch, step, params, opt, batch, pool,
+                                  1 + TRAIN_STEPS, False)
+    bitwise = [r["task"] for r in rows2] == first["tasks"] and all(
+        torch.equal(first["params"][k], v.cpu()) for k, v in p2.items()) \
+        and all(torch.equal(first[n][k], v.cpu())
+                for n in ("m", "v") for k, v in o2[n].items())
+    del p2, o2
+    torch.cuda.empty_cache()
+    finite = all(math.isfinite(t) for t in first["tasks"]) and \
+        _finite(first["params"]) and _finite(first["m"]) and \
+        _finite(first["v"])
+    del first["params"], first["m"], first["v"]
+    out = dict(config=cfg.name, layers=cfg.n_layers, cut=SSM_TRAIN_CUTS[name],
+               n_params=n_params, tokens_per_step=tokens,
+               flops_per_step=flops, gla_flops_per_step=gla_flops,
+               attention_flops_per_step=attn_flops, want=want, steps=rows,
+               steps_per_s=rate, tokens_per_s=rate * tokens,
+               model_flops_per_s=rate * flops,
+               peak_share=rate * flops / PEAK_BF16_FLOPS, peak_gb=peak,
+               second_run_bitwise=bitwise, finite=finite,
+               tasks=first["tasks"])
+    print(f"  {name} bf16, {cfg.n_layers} layers at full width "
+          f"({n_params} parameters), {TRAIN_ROWS} × {TRAIN_T} tokens a step "
+          f"in {TRAIN_MICRO} microbatches: {TRAIN_STEPS} steps in "
+          f"{timed:.3f} s ({rate:.4f} steps/s, {rate * tokens:.1f} tokens/s;"
+          f" warm-up {rows[0]['s']:.3f} s), model FLOP rate "
+          f"{rate * flops / 1e12:.2f} TFLOP/s ({out['peak_share']:.4f} of "
+          f"the dense bf16 peak), peak {peak:.2f} GB; tasks "
+          + ", ".join(f"{t:.6f}" for t in first["tasks"]) +
+          f"; launches a step {want}; second run "
+          f"{'bitwise' if bitwise else 'DIFFERS'} ({smi_line})")
+    if not finite:
+        fail(f"phase 26 {name}: a non-finite task, parameter or Adam moment")
+    if not bitwise:
+        fail(f"phase 26 {name}: a second run of the same steps differs")
+    state = opt.init(params)
+
+    def profiled(n):
+        for _ in range(n):
+            step(params, state, batch, pool, 0)
+    out["profile"] = _profile(torch, profiled, 1, f"{name}: one step",
+                              watch=("gla", "flash_attn", "attn_bwd",
+                                     "pool_distance"))
+    del state, params, pool, model, step
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_train_oracle(torch, name, smi_line):
+    """(d) The config at full width cut to SSM_ORACLE_CUTS: the bf16 step's
+    first gradient (REPRO_MICROBATCH=8) against its f32 twin's on the same
+    values widened (REPRO_MICROBATCH=16), phase 25 (d)'s limits:
+    TRAIN_ORACLE_GRAD_TOL normwise over all leaves, TRAIN_TASK_TOL on the
+    task."""
+    import dataclasses
+
+    from repro_torch.configs import FedConfig, ShapeConfig
+    from repro_torch.launch import make_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+
+    cfg = _ssm_cfg(name, **SSM_ORACLE_CUTS[name])
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
+    shape = ShapeConfig("train_4k", TRAIN_T, TRAIN_ROWS, "train")
+    fed = FedConfig()
+    opt = make_optimizer(fed.optimizer, fed.learning_rate, fed.weight_decay)
+    params = build_model(cfg).init(0)
+    batch = _train_batch(torch, cfg.vocab_size, TRAIN_T, TRAIN_ROWS, CARD)
+    runs = {}
+    for key, c, micro, widen in (("bf16", cfg, TRAIN_MICRO, False),
+                                 ("f32", cfg32, TRAIN_ORACLE_MICRO, True)):
+        def put(p):
+            return {k: v.float() if widen else v for k, v in p.items()}
+        with _env(REPRO_MICROBATCH=micro):
+            step = make_step(c, shape, fed)
+        p = put(params)
+        pool = _train_pool(torch, "moment", p,
+                           [put(_noisy_member(torch, params, s))
+                            for s in (1, 2)], fed.pool_size)
+        _reset_train_counts()
+        _, o, task = step(p, opt.init(p), batch, pool, 0)
+        torch.cuda.synchronize()
+        runs[key] = ({k: v.cpu() for k, v in o["m"].items()}, float(task),
+                     _read_train_counts()["gla"])
+        del o, p, pool, step
+        torch.cuda.empty_cache()
+    errs, total = _leaf_errs(runs["bf16"][0], runs["f32"][0])
+    task_err = abs(runs["bf16"][1] - runs["f32"][1]) / abs(runs["f32"][1])
+    worst = max(errs, key=errs.get)
+    out = dict(config=cfg.name, layers=cfg.n_layers, grad_err=errs,
+               grad_err_total=total, task=runs["bf16"][1],
+               task_f32=runs["f32"][1], task_err=task_err,
+               gla_launches={k: r[2] for k, r in runs.items()})
+    print(f"  (d) {name} at {cfg.n_layers} layers, full width: the bf16 "
+          f"step's first gradient within {total:.3e} normwise of its f32 "
+          f"twin's (worst leaf {errs[worst]:.3e}, {worst}), task "
+          f"{runs['bf16'][1]:.6f} vs {runs['f32'][1]:.6f} ({task_err:.2e});"
+          f" limits {TRAIN_ORACLE_GRAD_TOL:g} / {TRAIN_TASK_TOL:g}; GLA "
+          f"launches {out['gla_launches']} ({smi_line})")
+    if total > TRAIN_ORACLE_GRAD_TOL or task_err > TRAIN_TASK_TOL:
+        fail(f"phase 26 (d) {name}: the bf16 step lies {total:.3e} "
+             f"(gradient) / {task_err:.3e} (task) from the f32 twin")
+    del params, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def ssm_train_phase(torch, smi_line):
+    """Phase 26; returns its measurements by part and model."""
+    t0 = time.perf_counter()
+    out = {}
+    for name in ("rwkv6-7b", "zamba2-7b"):
+        out[name] = dict(card_vs_cpu=ssm_train_card_vs_cpu(torch, name,
+                                                           smi_line))
+    for name in ("rwkv6-7b", "zamba2-7b"):
+        out[name]["full_width"] = ssm_train_full_width(torch, name, smi_line)
+    for name in ("rwkv6-7b", "zamba2-7b"):
+        out[name]["oracle"] = ssm_train_oracle(torch, name, smi_line)
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def ssm_train_launches(ssm_train):
+    """Phase 26's main-path launches by wrapper name: the first run of
+    (b) and (c)."""
+    return _launches_by_wrapper(
+        ssm_train["rwkv6-7b"]["full_width"]["steps"] +
+        ssm_train["zamba2-7b"]["full_width"]["steps"])
+
+
+def gla_bwd_entry(ssm_out, ssm_train):
+    """The kernels line's entry of the GLA backward: launches from phase
+    26's main paths ((b) and (c)'s first runs); times, bound and the plain
+    version at the two full-width training layer calls in bf16 (phase 13
+    (b)'s rwkv6 and zamba2 rows), summed: one layer call of each model."""
+    rows = [r for r in ssm_out["gla_bwd"]
+            if r["model"] in ("rwkv6", "zamba2") and
+            r["dtype"] == "torch.bfloat16"]
+    byte_ms = sum(r["byte_ms"] for r in rows)
+    op_ms = sum(r["op_ms"] for r in rows)
+    entry = {"name": "gla_chunk_bwd_f32", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/gla_chunk_bwd_f32.cu",
+             "replaces": "src/repro/models/ssm.py:32",
+             "launches": ssm_train_launches(ssm_train).get(
+                 "gla_chunk_bwd_f32", 0),
+             "max_abs_err": ssm_out["gla_bwd_max_abs_err"],
+             "ms": sum(r["ms"] for r in rows),
+             "plain_ms": sum(r["plain_ms"] for r in rows),
+             "bound_ms": max(byte_ms, op_ms),
+             "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+             "library_ms": None,
+             "note": "no TPU original: replaces jax.grad of the jnp "
+                     "chunked GLA; ms at one rwkv6-7b and one zamba2-7b "
+                     "training layer call (2 × 4,096, bf16)",
+             "by_model": {r["model"]: {k: r[k] for k in (
+                 "ms", "plain_ms", "bound_ms", "bound_by")} for r in rows}}
+    if not entry["launches"]:
+        fail("gla_chunk_bwd_f32 was launched no time on its main path")
     return entry
 
 
@@ -6662,6 +7270,12 @@ def main(argv):
           "f32 twin; the bf16 sweep backward at full width")
     train = train_step_phase(torch, smi_line)
 
+    # phase 26: SSM training on the card
+    print("[26] SSM training through make_step('train'): rwkv6-7b and "
+          "zamba2-7b reduced card vs CPU in f32; at full width in bf16 "
+          "(4 and 9 layers), 16 × 4,096 tokens a step; 2-layer bf16 vs f32")
+    ssm_train = ssm_train_phase(torch, smi_line)
+
     step_rows = [r for r in rows if r["main_path"]]
     byte_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[0] for r in step_rows)
     flop_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[1] for r in step_rows)
@@ -6692,7 +7306,8 @@ def main(argv):
         "library_ms": sgd_timing["library_ms"]}]
         + serving_kernels(serving)["kernels"] + [gla_kernel_entry(ssm_out)]
         + sweep_kernel_entries(captured, pd_out)
-        + [attention_bwd_entry(serving, lm)]}
+        + [attention_bwd_entry(serving, lm),
+           gla_bwd_entry(ssm_out, ssm_train)]}
     # flash attention's main paths: phase 11's replays, zamba2-7b's
     # served prefill and decode steps (phase 14) and the dense prefills
     # of phase 23
@@ -6706,9 +7321,14 @@ def main(argv):
             entry["launches"] += \
                 lm["full_width"]["runs"][0]["attention"]["forward"]
     # phase 25's train steps: (b)'s first run and (c)
+    # and phase 26's SSM train steps ((b) and (c)'s first runs; the GLA
+    # backward's entry counts them already)
+    ssm_launches = ssm_train_launches(ssm_train)
     for entry in kernels["kernels"]:
         entry["launches"] += train_step_launches(train).get(entry["name"],
                                                             0)
+        if entry["name"] != "gla_chunk_bwd_f32":
+            entry["launches"] += ssm_launches.get(entry["name"], 0)
         if entry["name"] == "pool_distance_bwd_f32":
             # bf16 leaves: the CNN's table of the pool step (phase 15)
             entry["bf16_ms"] = \
@@ -6725,6 +7345,7 @@ def main(argv):
         compiled_phase=compiled, table1_scenarios=table1_scen,
         batched=batched, checkpoints=checkpoints, fleets=fleets,
         dense_serving=dense, lm_training=lm, train_step=train,
+        ssm_training=ssm_train,
         total_s=time.perf_counter() - t_start)))
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))

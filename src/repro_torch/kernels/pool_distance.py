@@ -713,12 +713,25 @@ def _fold_runs(x: torch.Tensor, bdim, size: int) -> torch.Tensor:
     return x.flatten(0, 1)
 
 
+def _dtype_groups(ws: Sequence[torch.Tensor]) -> List[List[int]]:
+    """The table's leaf indices by dtype, each dtype's group in leaf order,
+    the groups in the order of their first leaf: the sweep's kernels read
+    one leaf dtype a launch, and a bf16 SSM model keeps some leaves in f32
+    (A_log, dt_bias, D; w_decay_base, bonus_u)."""
+    groups: Dict[torch.dtype, List[int]] = {}
+    for i, w in enumerate(ws):
+        groups.setdefault(w.dtype, []).append(i)
+    return list(groups.values())
+
+
 class PoolStatsFunction(torch.autograd.Function):
     """(members, *w) → (stats (R, 4, C), Σw² (R,)) over R runs: w leaves
     (R, *shape), members (R, C, *shape) (any run stride; 0 for members
     the runs share), with a gradient for the w leaves. Routed by the
     tensors' device: the forward and backward kernels on CUDA, one launch
-    each for all R runs; the plain versions on the CPU. Under
+    each for all R runs and each leaf dtype (a table of bf16 and f32
+    leaves sums its two forward launches' stats, in f32, in the order of
+    `_dtype_groups`); the plain versions on the CPU. Under
     `torch.func.vmap` its rule (`vmap`) folds vmap's axis into the run
     axis and applies the Function to the run-stacked leaves, so the B runs
     of a batched step take one forward launch, and autograd, on the
@@ -731,7 +744,13 @@ class PoolStatsFunction(torch.autograd.Function):
                              "tree_pool_distance_stats")
         ws, ms = _leaf_table(w, members)
         if route == "cuda":
-            return pool_distance_f32(ws, ms)
+            out = None
+            for idx in _dtype_groups(ws):
+                stats, wsq = pool_distance_f32([ws[i] for i in idx],
+                                               [ms[i] for i in idx])
+                out = (stats, wsq) if out is None else \
+                    (out[0] + stats, out[1] + wsq)
+            return out
         if route == "cpu":
             parts = [pool_distance_stats_ref(x, m) for x, m in zip(ws, ms)]
             stats = torch.stack([sum(p[k] for p in parts) for k in STATS],
@@ -744,7 +763,7 @@ class PoolStatsFunction(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         members, *w = inputs
-        ctx.route = w[0].device.type
+        ctx.route = _device_type(w, "tree_pool_distance_stats")
         ctx.save_for_backward(*w, *members)
 
     @staticmethod
@@ -754,7 +773,12 @@ class PoolStatsFunction(torch.autograd.Function):
         w = saved[:n]
         ws, ms = _leaf_table(w, saved[n:])
         if ctx.route == "cuda":
-            grads = pool_distance_bwd_f32(ws, ms, g_stats, g_wsq)
+            grads = [None] * len(ws)
+            for idx in _dtype_groups(ws):
+                for i, g in zip(idx, pool_distance_bwd_f32(
+                        [ws[i] for i in idx], [ms[i] for i in idx], g_stats,
+                        g_wsq)):
+                    grads[i] = g
         else:
             grads = [pool_distance_stats_bwd_ref(
                 x, m, g_stats[:, 0], g_stats[:, 1], g_stats[:, 2],

@@ -11,11 +11,14 @@ state S ∈ R^{K×V} per head:
 Prefill and the full-sequence forward use the chunked formulation
 (`gla_chunked`); decode is the one-step recurrence (`gla_step`), plain
 PyTorch as in the reference. `gla_chunked` routes by device: on a CUDA
-tensor it launches the GLA chunk kernel (`kernels/chunk_scan.py`, one
-launch a call), on a CPU tensor it runs `gla_chunked_plain`, the
-reference's formulation, which is also the kernel's plain version on the
-card. Parameters are name → tensor dicts in the reference's leaf names;
-the f32 leaves (``A_log``, ``dt_bias``, ``D``, ``w_decay_base``,
+tensor it runs `kernels/chunk_scan.GLAChunked`, the GLA chunk kernel (one
+launch a call) with the GLA backward kernel as its gradient; on a CPU
+tensor it runs
+`gla_chunked_plain`, the reference's formulation (under grad through
+autograd, as the reference through `jax.grad`), which is also the
+kernel's plain version on the card. `gla_chunked_bwd_plain` is the
+backward kernel's plain version. Parameters are name → tensor dicts in
+the reference's leaf names; the f32 leaves (``A_log``, ``dt_bias``, ``D``, ``w_decay_base``,
 ``bonus_u``) stay f32 in a bf16 model, as the reference's init makes
 them."""
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.chunk_scan import gla_chunk_f32
+from repro_torch.kernels.chunk_scan import GLAChunked
 from repro_torch.models.base import Params
 from repro_torch.models.layers import (ACC, _he, _proj, rms_norm,
                                        rms_norm_init)
@@ -33,6 +36,15 @@ from repro_torch.models.layers import (ACC, _he, _proj, rms_norm,
 # ---------------------------------------------------------------------------
 # Core chunked GLA
 # ---------------------------------------------------------------------------
+
+
+def _compute_dtype(x):
+    return torch.float64 if x.dtype == torch.float64 else ACC
+
+
+def _pad_time(x, pad):
+    """x (B, T, …) with `pad` zero rows appended along T."""
+    return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad)) if pad else x
 
 
 def gla_chunked_plain(q, k, v, log_decay, *, chunk: int, bonus=None,
@@ -48,10 +60,7 @@ def gla_chunked_plain(q, k, v, log_decay, *, chunk: int, bonus=None,
     per_channel = log_decay.dim() == 4
     chunk = min(chunk, t)
     pad = (-t) % chunk
-    if pad:
-        def pt(x):
-            return F.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
-        q, k, v, log_decay = pt(q), pt(k), pt(v), pt(log_decay)
+    q, k, v, log_decay = (_pad_time(x, pad) for x in (q, k, v, log_decay))
     nc = (t + pad) // chunk
     qf, kf, vf, ldf = (x.to(ACC) for x in (q, k, v, log_decay))
     if not per_channel:
@@ -100,6 +109,168 @@ def gla_chunked_plain(q, k, v, log_decay, *, chunk: int, bonus=None,
     return y.to(v.dtype), s
 
 
+def gla_chunk_states_plain(k, v, log_decay, *, chunk: int,
+                           initial_state=None):
+    """The state each chunk of min(chunk, T) tokens enters with, (B·H,
+    chunks, K, V), by the forward's recurrence over the chunks (f64 for
+    f64 inputs, else f32): the layout the GLA kernel's workspace hands to
+    its backward (`gla_chunk_f32(..., return_states=True)`)."""
+    b, t, h, kd = k.shape
+    vd = v.shape[-1]
+    dt = _compute_dtype(k)
+    chunk = min(chunk, t)
+    pad = (-t) % chunk
+    kf, vf, ldf = (_pad_time(x.to(dt), pad) for x in (k, v, log_decay))
+    if log_decay.dim() == 3:
+        ldf = ldf[..., None]
+    s = (torch.zeros((b, h, kd, vd), dtype=dt, device=k.device)
+         if initial_state is None else initial_state.to(dt))
+    out = []
+    for c0 in range(0, t + pad, chunk):
+        kx, vx = kf[:, c0:c0 + chunk], vf[:, c0:c0 + chunk]
+        lc = torch.cumsum(ldf[:, c0:c0 + chunk], dim=1)
+        out.append(s)
+        s = s * torch.exp(lc[:, -1])[..., None] + torch.einsum(
+            "blhk,blhv->bhkv", kx * torch.exp(lc[:, -1:] - lc), vx)
+    return torch.stack(out, 2).reshape(b * h, len(out), kd, vd)
+
+
+def gla_chunked_bwd_plain(q, k, v, log_decay, dy, *, chunk: int,
+                          bonus=None, initial_state=None, states=None):
+    """The gradient of `gla_chunked` with respect to q, k, v, log_decay
+    and the bonus under the cotangent dy of y (none for the final state):
+    the GLA backward kernel's plain version, by its formulas in chunks of
+    min(chunk, T) tokens, f32 throughout (f64 for f64 inputs: the card's
+    oracle for the kernel's f32 route). With lc the running log decay in
+    a chunk, lq = lc (or lc shifted by one under "pre"), S_c the state
+    chunk c enters with (`states`, or the forward's recurrence from
+    `initial_state`) and dS_{c+1} the cotangent of the state it leaves
+    with (0 after the last chunk):
+    - reverse state pass: dS_c = e^{lc_L} ⊙ dS_{c+1} + Σ_i (q_i ⊙
+      e^{lq_i})ᵀ dy_i;
+    - per chunk, dq = e^{lq} ⊙ (dy·S_cᵀ) + intra-chunk terms, dk = e^{lc_L
+      − lc} ⊙ (v·dS_{c+1}ᵀ) + intra-chunk terms, dv = (k ⊙ e^{lc_L −
+      lc})·dS_{c+1} + Σ_i s_ij dy_i, each pair's exponent one difference
+      ≤ 0, and under "pre" the bonus diagonal;
+    - the decay: with G the running log decay over the whole sequence,
+      ∂/∂G_t = q_t ⊙ dq_t − k_t ⊙ dk_t ("post") or q_{t+1} ⊙ dq_{t+1} −
+      k_t ⊙ dk_t ("pre"), dq and dk without the bonus terms, and
+      d log_decay_t its reverse running sum (over K for a scalar decay):
+      inside the chunk token by token, and over every later chunk at
+      once as ⟨dS_{c+1}, S_{c+1}⟩ (over V: the sum's own value, since
+      raising G from the next chunk on scales the state it enters with;
+      under "pre" that includes q_{t+1} ⊙ dq_{t+1} of the next chunk's
+      first token). A running sum over all T tokens in f32 puts T·2⁻²⁴ of
+      its partial sums into the gradient of anything that sums the decay
+      gradient over T (Mamba2's A_log);
+    - d bonus = Σ_{b,t} q_t ⊙ k_t (dy_t·v_t).
+    Returns (dq, dk, dv in q's, k's and v's dtypes; d log_decay and d
+    bonus (H, K) in the compute dtype, d bonus None without a bonus)."""
+    b, t, h, kd = q.shape
+    vd = v.shape[-1]
+    dt = _compute_dtype(q)
+    per_channel = log_decay.dim() == 4
+    chunk = min(chunk, t)
+    pad = (-t) % chunk
+    nc = (t + pad) // chunk
+    qf, kf, vf, ldf, dyf = (_pad_time(x.to(dt), pad)
+                            for x in (q, k, v, log_decay, dy))
+    if not per_channel:
+        ldf = ldf[..., None]                         # (B, T, H, 1)
+    if states is None:
+        states = gla_chunk_states_plain(k, v, log_decay, chunk=chunk,
+                                        initial_state=initial_state)
+    S = states.to(dt).reshape(b, h, nc, kd, vd)
+    pre = bonus is not None
+    u = bonus.to(dt) if pre else None
+    idx = torch.arange(chunk, device=q.device)
+    mask = (idx[:, None] > idx[None, :]) if pre else \
+        (idx[:, None] >= idx[None, :])               # (L, L): j ≤ i or j < i
+
+    def chunk_of(c):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        qx, kx, vx, dyx = qf[:, sl], kf[:, sl], vf[:, sl], dyf[:, sl]
+        lc = torch.cumsum(ldf[:, sl], dim=1)         # inclusive
+        lq = torch.cat([torch.zeros_like(lc[:, :1]), lc[:, :-1]], dim=1) \
+            if pre else lc
+        return qx, kx, vx, dyx, lc, lq
+
+    # reverse state pass: dS_out[c], the cotangent of the state chunk c
+    # leaves with
+    dS_out, g = [None] * nc, torch.zeros((b, h, kd, vd), dtype=dt,
+                                         device=q.device)
+    for c in reversed(range(nc)):
+        qx, _, _, dyx, lc, lq = chunk_of(c)
+        dS_out[c] = g
+        g = torch.exp(lc[:, -1])[..., None] * g + torch.einsum(
+            "blhk,blhv->bhkv", qx * torch.exp(lq), dyx)
+
+    dqs, dks, dvs, dlds = [], [], [], []
+    for c in range(nc):
+        qx, kx, vx, dyx, lc, lq = chunk_of(c)
+        dp = torch.einsum("blhv,bmhv->blmh", dyx, vx)    # (B, L, L, H)
+        if per_channel:
+            diff = lq[:, :, None] - lc[:, None, :]       # (B, L, L, H, K)
+            ex = torch.exp(torch.where(mask[None, :, :, None, None], diff,
+                                       torch.full_like(diff, -torch.inf)))
+            sc = torch.einsum("blhk,bmhk,blmhk->blmh", qx, kx, ex)
+            dq_in = torch.einsum("blmh,bmhk,blmhk->blhk", dp, kx, ex)
+            dk_in = torch.einsum("blmh,blhk,blmhk->bmhk", dp, qx, ex)
+        else:
+            diff = lq[:, :, None, :, 0] - lc[:, None, :, :, 0]  # (B,L,L,H)
+            ex = torch.exp(torch.where(mask[None, :, :, None], diff,
+                                       torch.full_like(diff, -torch.inf)))
+            sc = torch.einsum("blhk,bmhk->blmh", qx, kx) * ex
+            dpe = dp * ex
+            dq_in = torch.einsum("blmh,bmhk->blhk", dpe, kx)
+            dk_in = torch.einsum("blmh,blhk->bmhk", dpe, qx)
+        k_dec = torch.exp(lc[:, -1:] - lc)               # exponents ≤ 0
+        dq_c = torch.exp(lq) * torch.einsum(
+            "blhv,bhkv->blhk", dyx, S[:, :, c]) + dq_in
+        dk_c = k_dec * torch.einsum("bhkv,blhv->blhk", dS_out[c], vx) + \
+            dk_in
+        dv_c = torch.einsum("blhk,bhkv->blhv", kx * k_dec, dS_out[c]) + \
+            torch.einsum("blmh,blhv->bmhv", sc, dyx)
+        # the decay: q ⊙ dq − k ⊙ dk (q one token on under "pre"), summed
+        # back to each token inside the chunk, plus the chunk's carry, the
+        # sum over every later token: ⟨dS_{c+1}, S_{c+1}⟩ (over V, and K
+        # for a scalar decay)
+        a, bk = qx * dq_c, kx * dk_c
+        if not per_channel:
+            a, bk = a.sum(-1, keepdim=True), bk.sum(-1, keepdim=True)
+        if pre:
+            a = torch.cat([a[:, 1:], torch.zeros_like(a[:, :1])], dim=1)
+        r = torch.flip(torch.cumsum(torch.flip(a - bk, [1]), 1), [1])
+        if c + 1 < nc:
+            carry = (dS_out[c] * S[:, :, c + 1]).sum(-1)    # (B, H, K)
+            if not per_channel:
+                carry = carry.sum(-1, keepdim=True)
+            r = r + carry[:, None]
+        dlds.append(r)
+        if pre:                                          # bonus diagonal
+            dg = torch.einsum("blhv,blhv->blh", dyx, vx)[..., None]
+            dq_c = dq_c + u * kx * dg
+            dk_c = dk_c + u * qx * dg
+            dv_c = dv_c + torch.einsum("blhk,hk,blhk->blh", qx, u,
+                                       kx)[..., None] * dyx
+        dqs.append(dq_c)
+        dks.append(dk_c)
+        dvs.append(dv_c)
+
+    def whole(xs):
+        return torch.cat(xs, dim=1)[:, :t]
+    dld = whole(dlds)
+    if not per_channel:
+        dld = dld[..., 0]
+    dbonus = None
+    if pre:
+        dgt = torch.einsum("bthv,bthv->bth", dyf[:, :t], vf[:, :t])
+        dbonus = torch.einsum("bthk,bthk,bth->hk", qf[:, :t], kf[:, :t],
+                              dgt)
+    return (whole(dqs).to(q.dtype), whole(dks).to(k.dtype),
+            whole(dvs).to(v.dtype), dld, dbonus)
+
+
 def gla_chunked(q, k, v, log_decay, *, chunk: int, bonus=None,
                 initial_state=None):
     """Chunked gated linear attention.
@@ -109,11 +280,12 @@ def gla_chunked(q, k, v, log_decay, *, chunk: int, bonus=None,
     bonus: None → post convention (Mamba2); (H, K) → pre convention with
     the current-token bonus (RWKV6).
     Returns y (B, T, H, V) in v's dtype and the final state (B, H, K, V)
-    in f32. CUDA: the GLA chunk kernel (one launch); CPU:
+    in f32. CUDA: `GLAChunked`, the GLA chunk kernel (one launch) with
+    the GLA backward kernel as its gradient (one launch); CPU:
     `gla_chunked_plain`."""
     if q.device.type == "cuda":
-        return gla_chunk_f32(q, k, v, log_decay, chunk=chunk, bonus=bonus,
-                             initial_state=initial_state)
+        return GLAChunked.apply(q, k, v, log_decay, bonus, initial_state,
+                                chunk)[:2]
     if q.device.type == "cpu":
         return gla_chunked_plain(q, k, v, log_decay, chunk=chunk,
                                  bonus=bonus, initial_state=initial_state)

@@ -125,3 +125,68 @@ def test_backward_launcher_takes_bf16_leaves():
         torch.func.vmap(lambda x: PD.pool_distance_bwd_f32(
             [x], [m], g, torch.zeros(1)))(w[None])
     assert PD.pool_distance_bwd_f32.launches == before
+
+
+@pytest.mark.parametrize("capacity,count", [(1, 1), (4, 3)])
+def test_mixed_dtype_table_takes_one_launch_a_dtype(monkeypatch, capacity,
+                                                    count):
+    """A bf16 SSM model keeps some leaves in f32 (A_log, dt_bias, D;
+    w_decay_base, bonus_u), and the sweep's kernels read one leaf dtype a
+    launch: on the CUDA route `PoolStatsFunction` splits such a table by
+    dtype, one forward and one backward launch each, the stats summed.
+    With the route forced on CPU tensors (the launchers replaced by
+    plain stand-ins that refuse a mixed table), stats and ∂w match the
+    per-leaf plain route."""
+    rng = np.random.default_rng(29 + capacity)
+    f32 = {"A_log", "s"}
+
+    def mixed(scale=1.0):
+        return {k: (v.float() if k in f32 else v)
+                for k, v in _leaves(rng, scale).items()} | {
+            "A_log": torch.from_numpy(rng.standard_normal(3).astype(
+                np.float32))}
+    params = mixed()
+    pool = ModelPool.create(mixed(), capacity)
+    for _ in range(count - 1):
+        pool = pool.append(mixed())
+    g_stats = torch.from_numpy(rng.standard_normal(
+        (4, capacity)).astype(np.float32)) * pool.mask()
+    g_wsq = torch.tensor(float(rng.standard_normal()))
+    want_stats = PD.tree_pool_distance_stats(params, pool.members)
+    want = _grads_through_sweep(params, pool.members, g_stats, g_wsq)
+
+    calls = {"forward": [], "backward": []}
+
+    def one_dtype(ws, what):
+        dtypes = {w.dtype for w in ws}
+        assert len(dtypes) == 1, f"{what}: a launch over {dtypes}"
+        calls[what].append(dtypes.pop())
+
+    def forward(ws, ms):
+        one_dtype(ws, "forward")
+        parts = [PD.pool_distance_stats_ref(x, m) for x, m in zip(ws, ms)]
+        return (torch.stack([sum(p[k] for p in parts) for k in PD.STATS],
+                            dim=1),
+                sum(x.float().square().sum(-1) for x in ws))
+
+    def backward(ws, ms, gs, gw):
+        one_dtype(ws, "backward")
+        return [pool_distance_stats_bwd_ref(x, m, gs[:, 0], gs[:, 1],
+                                            gs[:, 2], g_wsq=gw)
+                for x, m in zip(ws, ms)]
+    monkeypatch.setattr(PD, "_device_type", lambda *a: "cuda")
+    monkeypatch.setattr(PD, "pool_distance_f32", forward)
+    monkeypatch.setattr(PD, "pool_distance_bwd_f32", backward)
+    stats, wsq = PD.tree_pool_distance_stats(params, pool.members)
+    got = _grads_through_sweep(params, pool.members, g_stats, g_wsq)
+    # the leaves' order puts a bf16 leaf first, then f32
+    assert calls["forward"] == [torch.bfloat16, torch.float32] * 2
+    assert calls["backward"] == [torch.bfloat16, torch.float32]
+    for k in PD.STATS:
+        torch.testing.assert_close(stats[k], want_stats[0][k], rtol=1e-6,
+                                   atol=1e-6)
+    torch.testing.assert_close(wsq, want_stats[1], rtol=1e-6, atol=1e-6)
+    for k, g in want.items():
+        assert got[k].dtype == params[k].dtype
+        torch.testing.assert_close(got[k].float(), g.float(), rtol=1e-6,
+                                   atol=1e-6)
