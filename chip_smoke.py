@@ -85,9 +85,13 @@ Phases, each failing the run with a nonzero exit:
              state, a strong decay, K = 48 and V = 40, bf16 and f32
              (every gradient normwise: dq, dk, dv, d log_decay, d bonus;
              at the training calls Σ_t d log_decay against a running sum
-             over T in f32), each case launched twice and bitwise equal;
-             times beside the
-             bound and the plain backward, each pass's device time
+             over T in f32), each case launched twice and bitwise equal,
+             the route each took (tensor cores or FFMA); times beside the
+             bound, the plain backward and the times before the redesign,
+             each pass's device time; then the routes and instances the
+             models' calls do not take (a scalar decay under "pre", a
+             per-channel decay under "post", capacities 32, 64 and 128,
+             T < chunk, K 40 / V 24)
 14. SSM serving — rwkv6-7b and zamba2-7b at full width and depth in bf16
              through `launch.steps.make_step`: prefill of a 2 × 512
              prompt, the grow, 16 greedy decode steps, with exact GLA and
@@ -1560,7 +1564,7 @@ CNN_SERVE_AGREE_MIN = 0.98
 def _bound(bytes_, ops, peak, bf16_ops=0):
     """(bound ms, what bounds it, its parts) of one launch that moves
     `bytes_` and does `ops` operations at `peak` per second, and besides
-    them `bf16_ops` products of two bf16 operands at the bf16 peak."""
+    them `bf16_ops` operations at the bf16 peak."""
     byte_s = bytes_ / PEAK_BYTES
     op_s = ops / peak + bf16_ops / PEAK_BF16_FLOPS
     parts = dict(bytes=bytes_, ops=ops, byte_ms=byte_s * 1e3,
@@ -2856,6 +2860,41 @@ GLA_BWD_GRADS = ("dq", "dk", "dv", "dlog_decay", "dbonus")
 # the two orders do not differ.
 GLA_BWD_SUM_T = 4096
 GLA_BWD_SUM_SHARE = 0.5
+# the tensor-core route (`chunk_scan.bwd_route`), besides the limits above:
+# d log_decay's normwise error and the share of dv's bf16 values that
+# differ from the f64 gradient rounded to bf16, each at most this many
+# times the same of the plain backward in f32 on the same inputs (for the
+# share, of at least one value). The normwise limits leave room for
+# single bf16 roundings at zamba2's L 128: in tests/test_torch_gla_bwd.py
+# S_c, dS or e^{lc}·dy in one bf16 term instead of three reads within
+# d log_decay's L·K·2⁻²³ at L 128, K 64 but 12–560 times the control's
+# error, and s̃ in one term 360 times the control's dv share; the
+# three-term route reads 0.8–1.3 of the control in both. An absolute dv
+# share of 2⁻¹⁰ is no limit there: the f32 plain backward itself reads it.
+GLA_BWD_TC_SHARE = 3.0
+# the kernel's times at the two training layer calls before its redesign
+# (PERF.md row 7b: the FFMA kernel of six launches, chip_smoke.py phase
+# 13 (b) on an NVIDIA H100 80GB HBM3 at 700 W), printed beside the new
+# ones
+GLA_BWD_EARLIER_MS = {("rwkv6", "bfloat16"): 10.7468,
+                      ("zamba2", "bfloat16"): 30.2594,
+                      ("rwkv6", "float32"): 11.0584,
+                      ("zamba2", "float32"): 31.0107}
+# the kernel's other routes and instances, which the models' calls do not
+# take: (name, B, T, H, K, V, chunk, per-channel decay, "pre" + bonus,
+# initial state): a scalar decay under "pre" at chunk capacities 32 and
+# 128 (FFMA), a per-channel decay under "post" at 128 and under "pre" at
+# 64 (key tiles carrying the last row's k ⊙ dk, K 48 / V 40), Mamba2 in
+# bf16 on the tensor cores at capacity 32 and at T < chunk, and K 40 / V
+# 24 (the tensor cores' zero padding to 16); limits as GLA_BWD_CASES'
+GLA_BWD_ROUTE_CASES = [
+    ("scalar-pre-32", 2, 300, 4, 64, 64, 32, False, True, True),
+    ("scalar-pre-128", 2, 300, 4, 64, 64, 128, False, True, True),
+    ("perch-post-128", 2, 300, 4, 64, 64, 128, True, False, True),
+    ("perch-pre-64", 2, 300, 4, 48, 40, 64, True, True, True),
+    ("mamba2-32", 2, 300, 4, 64, 64, 32, False, False, True),
+    ("mamba2-t70", 1, 70, 4, 64, 64, 128, False, False, False),
+    ("mamba2-k40v24", 2, 300, 4, 40, 24, 128, False, False, True)]
 
 
 def _gla_bwd_tols(b, t, kd, chunk, dtype):
@@ -2881,6 +2920,34 @@ def _decay_sum_errs(torch, dld, want):
             _normwise(serial.double().sum(1), total.cpu()))
 
 
+def _bf16_mismatch(x, want):
+    """The share of x's values that differ from `want` rounded to bf16."""
+    return float((x.bfloat16() != want.bfloat16()).double().mean())
+
+
+def _tc_route_errs(got, want, control):
+    """The tensor-core route's checks against f64 `want`: d log_decay's
+    normwise error and dv's bf16 mismatch share, each beside the same of
+    `control` (the plain backward in f32 on the same inputs); whether
+    both are within GLA_BWD_TC_SHARE of the control's."""
+    errs = dict(dlog_decay=(_normwise(got[3], want[3]),
+                            _normwise(control[3], want[3])),
+                dv_share=(_bf16_mismatch(got[2], want[2]),
+                          _bf16_mismatch(control[2], want[2])))
+    floor = 1.0 / got[2].numel()
+    ok = errs["dlog_decay"][0] <= GLA_BWD_TC_SHARE * errs["dlog_decay"][1] \
+        and errs["dv_share"][0] <= GLA_BWD_TC_SHARE * max(
+            errs["dv_share"][1], floor)
+    return errs, ok
+
+
+def _tc_line(tc_errs):
+    (e, c), (m, mc) = tc_errs["dlog_decay"], tc_errs["dv_share"]
+    return (f"    tensor cores: dlog_decay {e:.2e} normwise, plain f32 "
+            f"{c:.2e}; dv bf16 mismatch share {m:.2e}, plain f32 {mc:.2e}: "
+            f"limit {GLA_BWD_TC_SHARE:g} times the plain f32's")
+
+
 def _gla_bwd_ops(b, t, h, kd, vd, chunk, per_channel, pre, bf16):
     """(operations at the f32 peak, operations at the bf16 peak) the GLA's
     backward needs (a fused multiply-add is 2, an exponential 1): per
@@ -2890,12 +2957,19 @@ def _gla_bwd_ops(b, t, h, kd, vd, chunk, per_channel, pre, bf16):
     products of 2·L·K·V (dq's and dk's state terms, dv's, the reverse
     state pass's Q_c) and the state recurrence 2·K·V; the decay's q ⊙ dq,
     k ⊙ dk and reverse sum 5·L·K; under pre the bonus diagonal 7·L·K +
-    4·L·V. With `bf16` inputs the products of two bf16 inputs count at the
-    bf16 peak: dP = dy·vᵀ, the scalar decay's scores q·kᵀ (a per-channel
-    decay enters each pair's product in f32) and under pre the bonus's
-    dy·v (2·V a token); the rest has an f32 operand. The ragged tail
-    counts its valid tokens only."""
-    total = two_bf16 = 0
+    4·L·V. With `bf16` inputs every product of two operands counts at the
+    bf16 peak, as phase 10 counts the attention backward: an f32 operand
+    (S_c, dS, the decayed pair matrices, e^{lq}·dy) runs on the tensor
+    cores as its three-term bf16 split. That is dP, dv's intra term, the
+    four state products, under a scalar decay the scores and dq's and
+    dk's intra terms (the pair's factor multiplies the product), and under
+    pre the bonus's dy·v (2·V a token). The rest counts at the f32 peak:
+    the exponentials, the recurrence, the decay's and the bonus's
+    element-wise work, and under a per-channel decay the scores and dq's
+    and dk's intra terms, each term of which carries its own factor
+    e^{lq_ik − lc_jk} (a product of three, not of two operands). The
+    ragged tail counts its valid tokens only."""
+    total = two = 0
     for start in range(0, t, chunk):
         n = min(chunk, t - start)
         pairs = n * (n - 1) // 2 if pre else n * (n + 1) // 2
@@ -2903,11 +2977,11 @@ def _gla_bwd_ops(b, t, h, kd, vd, chunk, per_channel, pre, bf16):
         ops += 8 * n * kd * vd + 2 * kd * vd + 5 * n * kd
         ops += (7 * n * kd + 4 * n * vd) if pre else 0
         total += ops
-        two_bf16 += pairs * (2 * vd + (0 if per_channel else 2 * kd)) \
-            + (2 * n * vd if pre else 0)
+        two += pairs * (4 * vd + (0 if per_channel else 6 * kd)) \
+            + 8 * n * kd * vd + (2 * n * vd if pre else 0)
     if not bf16:
         return total * b * h, 0
-    return (total - two_bf16) * b * h, two_bf16 * b * h
+    return (total - two) * b * h, two * b * h
 
 
 def check_gla_bwd(torch, chunk_scan, ssm):
@@ -2922,9 +2996,13 @@ def check_gla_bwd(torch, chunk_scan, ssm):
     control (`_decay_sum_errs`), every case launched twice and bitwise
     equal. Times: the kernel and the plain version in f32 (L2 flushed),
     the bound from the bytes read and written and `_gla_bwd_ops` (for
-    bf16 inputs, their products of two bf16 inputs at the bf16 peak); at
-    the full-width layer calls a `kernel_profile` (each pass's device
-    time)."""
+    bf16 inputs, its products of two operands at the bf16 peak); at the
+    full-width layer calls a `kernel_profile` (each pass's device time),
+    whose pass names must be those of the route `chunk_scan.bwd_route`
+    names, printed beside GLA_BWD_EARLIER_MS. Each case prints the route
+    it took; on the tensor cores it is also held to `_tc_route_errs`.
+    Then GLA_BWD_ROUTE_CASES, the routes and instances the models' calls
+    do not take, within the same limits and bitwise on repeat."""
     gen = torch.Generator(device=CARD).manual_seed(131)
     rows, max_abs = [], 0.0
     for name, b, t, h, kd, vd, chunk, per_channel, init, decay in \
@@ -2957,6 +3035,10 @@ def check_gla_bwd(torch, chunk_scan, ssm):
                 bonus=None if bonus is None else bonus.double(),
                 initial_state=None if s0 is None else s0.double())
             tols = _gla_bwd_tols(b, t, kd, chunk, dtype)
+            route = chunk_scan.bwd_route(q, v, ld, bonus)
+            tc_errs, tc_ok = {}, True
+            if route == "tensor cores":
+                tc_errs, tc_ok = _tc_route_errs(got, want, plain())
             errs, abs_errs = {}, {}
             for g, x, w in zip(GLA_BWD_GRADS, got, want):
                 if w is None:
@@ -2971,7 +3053,8 @@ def check_gla_bwd(torch, chunk_scan, ssm):
                                 _decay_sum_errs(torch, got[3], want[3])))
                 sum_ok = sums["kernel"] <= GLA_BWD_SUM_SHARE * sums["control"]
             del want
-            ok = finite and sum_ok and all(errs[g] <= tols[g] for g in errs)
+            ok = finite and sum_ok and tc_ok and \
+                all(errs[g] <= tols[g] for g in errs)
             n_chunks = -(-t // min(chunk, t))
             nbytes = (sum(_distinct_bytes(x) for x in (q, k, v, dy, ld))
                       + states.numel() * 4
@@ -2985,6 +3068,7 @@ def check_gla_bwd(torch, chunk_scan, ssm):
                                                PEAK_F32_FLOPS, bf16_ops)
             row = dict(model=name, dtype=str(dtype), b=b, t=t, h=h, k=kd,
                        v=vd, chunk=chunk, chunks=n_chunks,
+                       route=route, tensor_core_errs=tc_errs,
                        per_channel=per_channel, initial_state=init,
                        decay=decay, rel_err=errs, tol=tols,
                        abs_err=abs_errs, dlog_decay_sum_err=sums,
@@ -2993,35 +3077,119 @@ def check_gla_bwd(torch, chunk_scan, ssm):
                        bound_ms=bound_ms, bound_by=bound_by,
                        ms=median_ms(kernel, reps=10, warmup=2),
                        plain_ms=median_ms(plain, reps=3, warmup=1))
+            route_seen = True
             if decay == "model" and not init:
                 row["profile"] = kernel_profile(torch, kernel,
                                                 keep=("gla_bwd",), reps=5)
+                route_seen = any("mma" in n for n in row["profile"].get(
+                    "us", {})) == (route == "tensor cores")
             rows.append(row)
             print(f"  gla bwd {name:13s} {str(dtype)[6:]:8s} T={t}"
                   f"{' s0' if init else '   '}: " + ", ".join(
                       f"{g} {e:.2e}/{tols[g]:.1e}" for g, e in errs.items())
                   + f" normwise, repeat "
-                  f"{'bitwise' if bitwise else 'DIFFERS'}; kernel "
-                  f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, bound "
-                  f"{bound_ms:.4f} ({bound_by})")
+                  f"{'bitwise' if bitwise else 'DIFFERS'}; {row['route']}; "
+                  f"kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f}, "
+                  f"bound {bound_ms:.4f} ({bound_by})")
+            earlier = GLA_BWD_EARLIER_MS.get((name, str(dtype)[6:]))
+            if earlier is not None:
+                print(f"    before the redesign (PERF.md row 7b): "
+                      f"{earlier:.4f} ms; now {row['ms'] / earlier:.3f} of "
+                      "it")
             if sums:
                 print(f"    Σ_t dlog_decay {sums['kernel']:.2e} normwise, "
                       f"control (running sum over T in f32) "
                       f"{sums['control']:.2e}: limit "
                       f"{GLA_BWD_SUM_SHARE} of it")
+            if tc_errs:
+                print(_tc_line(tc_errs))
             if "profile" in row:
                 print(f"    {_profile_line(row['profile'])}")
+            if not route_seen:
+                fail(f"gla_chunk_bwd_f32 {name} {dtype}: bwd_route says "
+                     f"{route!r} but the profile shows the passes "
+                     f"{sorted(row['profile'].get('us', {}))}")
             if not ok:
                 fail(f"gla_chunk_bwd_f32 {name} {dtype} T={t} disagrees "
                      "with its plain version beyond the stated tolerance "
-                     f"(or is not finite): {errs}, Σ_t dlog_decay {sums}")
+                     f"(or is not finite): {errs}, Σ_t dlog_decay {sums}, "
+                     f"tensor cores {tc_errs}")
             if not bitwise:
                 fail(f"gla_chunk_bwd_f32 {name} {dtype} T={t}: two launches "
                      "on the same inputs differ")
             max_abs = max([max_abs] + list(abs_errs.values()))
             del got, states, q, k, v, ld, dy
             torch.cuda.empty_cache()
+    for case in GLA_BWD_ROUTE_CASES:
+        for dtype in (torch.bfloat16, torch.float32):
+            rows.append(_gla_bwd_route_case(torch, chunk_scan, ssm, gen,
+                                            case, dtype))
     return rows, max_abs
+
+
+def _gla_bwd_route_case(torch, chunk_scan, ssm, gen, case, dtype):
+    """One of GLA_BWD_ROUTE_CASES in `dtype`: q, k, v, dy ~ N(0, 1), the
+    log decay −exp(N − 1) per channel or −softplus(N) per head, the bonus
+    exp(0.1·N) under "pre", the states from the forward kernel; every
+    gradient within `_gla_bwd_tols` of the f64 plain backward (on the
+    tensor cores also within `_tc_route_errs`), bitwise on repeat,
+    finite; the kernel's time."""
+    import torch.nn.functional as F
+    name, b, t, h, kd, vd, chunk, per_channel, pre, init = case
+
+    def rn(*shape):
+        return torch.randn(shape, device=CARD, generator=gen)
+    q, k = rn(b, t, h, kd).to(dtype), rn(b, t, h, kd).to(dtype)
+    v, dy = rn(b, t, h, vd).to(dtype), rn(b, t, h, vd).to(dtype)
+    ld = -torch.exp(rn(b, t, h, kd) - 1.0) if per_channel else \
+        -F.softplus(rn(b, t, h))
+    bonus = torch.exp(0.1 * rn(h, kd)) if pre else None
+    s0 = rn(b, h, kd, vd) if init else None
+    _, _, states = chunk_scan.gla_chunk_f32(
+        q, k, v, ld, chunk=chunk, bonus=bonus, initial_state=s0,
+        return_states=True)
+
+    def kernel():
+        return chunk_scan.gla_chunk_bwd_f32(q, k, v, ld, dy, states,
+                                            chunk=chunk, bonus=bonus)
+    got, again = kernel(), kernel()
+    torch.cuda.synchronize()
+    bitwise = all(x is None or torch.equal(x, y) for x, y in zip(got, again))
+    want = ssm.gla_chunked_bwd_plain(
+        *(x.double() for x in (q, k, v, ld, dy)), chunk=chunk,
+        bonus=None if bonus is None else bonus.double(),
+        initial_state=None if s0 is None else s0.double())
+    tols = _gla_bwd_tols(b, t, kd, min(chunk, t), dtype)
+    errs = {g: _normwise(x, w) for g, x, w in zip(GLA_BWD_GRADS, got, want)
+            if w is not None}
+    finite = all(bool(torch.isfinite(x.float()).all()) for x in got
+                 if x is not None)
+    route = chunk_scan.bwd_route(q, v, ld, bonus)
+    tc_errs, tc_ok = {}, True
+    if route == "tensor cores":
+        tc_errs, tc_ok = _tc_route_errs(got, want, ssm.gla_chunked_bwd_plain(
+            q, k, v, ld, dy, chunk=chunk, bonus=bonus, initial_state=s0))
+    ok = finite and tc_ok and all(errs[g] <= tols[g] for g in errs)
+    row = dict(model=name, dtype=str(dtype), b=b, t=t, h=h, k=kd, v=vd,
+               chunk=chunk, per_channel=per_channel, pre=pre,
+               initial_state=init, route=route, rel_err=errs, tol=tols,
+               tensor_core_errs=tc_errs,
+               bitwise_repeat=bitwise, finite=finite, within_tolerance=ok,
+               ms=median_ms(kernel, reps=10, warmup=2))
+    print(f"  gla bwd {name:15s} {str(dtype)[6:]:8s} T={t}: " + ", ".join(
+        f"{g} {e:.2e}/{tols[g]:.1e}" for g, e in errs.items())
+        + f" normwise, repeat {'bitwise' if bitwise else 'DIFFERS'}; "
+        f"{route}; kernel {row['ms']:.4f} ms")
+    if tc_errs:
+        print(_tc_line(tc_errs))
+    if not ok:
+        fail(f"gla_chunk_bwd_f32 {name} {dtype} T={t} disagrees with its "
+             f"plain version beyond the stated tolerance (or is not "
+             f"finite): {errs}, tensor cores {tc_errs}")
+    if not bitwise:
+        fail(f"gla_chunk_bwd_f32 {name} {dtype} T={t}: two launches on the "
+             "same inputs differ")
+    return row
 
 
 def _grow(cache, n, keys=("shared_k", "shared_v")):
@@ -7105,9 +7273,13 @@ def gla_bwd_entry(ssm_out, ssm_train):
              "library_ms": None,
              "note": "no TPU original: replaces jax.grad of the jnp "
                      "chunked GLA; ms at one rwkv6-7b and one zamba2-7b "
-                     "training layer call (2 × 4,096, bf16)",
+                     "training layer call (2 × 4,096, bf16); zamba2-7b's "
+                     "(bf16, scalar decay, post) on the tensor cores "
+                     "(mma.sync; S_c, dS, dP, s and e^lc·dy in three "
+                     "bf16 terms), rwkv6-7b's per-channel decay in FFMA",
              "by_model": {r["model"]: {k: r[k] for k in (
-                 "ms", "plain_ms", "bound_ms", "bound_by")} for r in rows}}
+                 "ms", "plain_ms", "bound_ms", "bound_by", "route")}
+                 for r in rows}}
     if not entry["launches"]:
         fail("gla_chunk_bwd_f32 was launched no time on its main path")
     return entry

@@ -45,7 +45,6 @@ MAX_CHUNK = 128
 MAX_KV = 64
 MAX_HEADS = 1 << 18      # B·H a call may have (one counter each)
 _MAX_GRID_Y = 65535      # CUDA's limit on gridDim.y
-BWD_TILE = 32            # the backward's row tiles (csrc QR)
 
 
 @functools.cache
@@ -62,8 +61,8 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = build.load("gla_chunk_bwd_f32")
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.gla_chunk_bwd_f32.argtypes = [p] * 13 + [i32, i32] + [i64] * 6 + \
-        [p] * 6
+    lib.gla_chunk_bwd_f32.argtypes = [p] * 13 + [i32, i32] + \
+        [i64] * 6 + [p] * 6
     lib.gla_chunk_bwd_f32.restype = i32
     return lib
 
@@ -135,16 +134,16 @@ def _check(name, q, k, v, log_decay, bonus, initial_state, dy=None):
             raise ValueError(f"{name}: {arg} must be contiguous")
 
 
-def _check_chunk(name, b, t, h, chunk, tile=None):
-    """min(chunk, T), checked against the kernels' limits; `tile`: the
-    backward's grid, chunks × row tiles of `tile` rows."""
+def _check_chunk(name, b, t, h, chunk):
+    """min(chunk, T), checked against the kernels' limits (a grid of
+    (B·H, chunks) blocks)."""
     chunk = min(int(chunk), t)
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"{name}: chunk {chunk} not in [1, {MAX_CHUNK}]")
     if b * h > MAX_HEADS:
         raise ValueError(f"{name}: B·H = {b * h} exceeds the kernel's "
                          f"{MAX_HEADS} counters")
-    if -(-t // chunk) * (-(-chunk // tile) if tile else 1) > _MAX_GRID_Y:
+    if -(-t // chunk) > _MAX_GRID_Y:
         raise ValueError(f"{name}: T = {t} in chunks of {chunk} exceeds "
                          "the kernel's grid")
     return chunk
@@ -171,9 +170,9 @@ def bwd_workspace_floats(b: int, t: int, h: int, kd: int, vd: int,
                          chunk: int) -> int:
     """Floats of the backward's workspace: Q_c and then dS (B·H, chunks,
     K, V), the chunks' decays (B·H, chunks, K) and the bonus partials
-    (B·H, chunks × ⌈L / 32⌉ row tiles, K), L = min(chunk, T)."""
+    (B·H, chunks, K), chunks of min(chunk, T) tokens."""
     n_ws, n_dws = workspace_floats(b, t, h, kd, vd, chunk)
-    return n_ws + n_dws + n_dws * -(-min(chunk, t) // BWD_TILE)
+    return n_ws + 2 * n_dws
 
 
 def gla_chunk_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -221,6 +220,17 @@ def gla_chunk_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 gla_chunk_f32.launches = 0
 
 
+def bwd_route(q: torch.Tensor, v: torch.Tensor, log_decay: torch.Tensor,
+              bonus: Optional[torch.Tensor]) -> str:
+    """The route `gla_chunk_bwd_f32` takes for these inputs, for
+    reporting (the kernel decides it from the same inputs): "tensor cores"
+    for bf16 inputs with a scalar decay under "post" (no bonus) and K, V
+    multiples of 8 (Mamba2), else "ffma"."""
+    tc = q.dtype == torch.bfloat16 and log_decay.dim() == 3 and \
+        bonus is None and q.shape[-1] % 8 == 0 and v.shape[-1] % 8 == 0
+    return "tensor cores" if tc else "ffma"
+
+
 def gla_chunk_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       log_decay: torch.Tensor, dy: torch.Tensor,
                       states: torch.Tensor, *, chunk: int,
@@ -229,7 +239,9 @@ def gla_chunk_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     bonus=bonus, ...)` with respect to q, k, v, log_decay and the bonus
     under the cotangent `dy` of y (none for the final state), from
     `states`, the entering states that call returned: one launch of the
-    kernel's six passes (`gla_chunk_bwd_f32.launches` counts them). dy
+    kernel's passes, five (four under "post": no bonus), the Q_c and
+    pair passes on the tensor cores where `bwd_route` says so
+    (`gla_chunk_bwd_f32.launches` counts calls). dy
     in q's dtype, unit stride in its last dim. Returns (dq, dk, dv in q's
     dtype; d log_decay f32 in its shape; d bonus (H, K) f32 or None),
     each contiguous."""
@@ -238,7 +250,7 @@ def gla_chunk_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(name, q, k, v, log_decay, bonus, None, dy)
     b, t, h, kd = q.shape
     vd = v.shape[-1]
-    chunk = _check_chunk(name, b, t, h, chunk, BWD_TILE)
+    chunk = _check_chunk(name, b, t, h, chunk)
     n_chunks = -(-t // chunk)
     if states.shape != (b * h, n_chunks, kd, vd) or \
             states.dtype != torch.float32 or not states.is_contiguous() or \
