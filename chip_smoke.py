@@ -50,7 +50,8 @@ Phases, each failing the run with a nonzero exit:
              their plain versions at the full-width llama3.2-1b serving
              shapes (BGMV also ragged and at rank 64; long sequences for
              attention, at every head dim the kernel has: 32, 64, 112,
-             128; the Gram as one grouped call of a pairwise call's 20
+             128, and at groups of query heads a kv head up to 16; the
+             Gram as one grouped call of a pairwise call's 20
              stacks and each shape alone, M from 1 to 256, ragged P, and
              M = 257, 320, 512 as tile pairs in one launch, each Gram
              symmetric bit for bit), each case launched twice
@@ -253,10 +254,22 @@ Phases, each failing the run with a nonzero exit:
              peak memory, a second run bitwise, one step profiled; (d)
              each model at 2 layers, the bf16 step's first gradient
              against its f32 twin's (5e-2 normwise, task 5e-3)
+27. MoE serving — (a) qwen3-moe-235b-a22b reduced in f32 on the card and
+             the CPU from one init: forward, loss_fn with the aux loss,
+             prefill and 4 decode steps within 1e-4 normwise, every
+             router call's experts equal outside near-ties; (b) the
+             config in bf16 at full width cut to 8 of 94 layers, served
+             as phase 23 serves the dense family (captured decode
+             bitwise eager, 1 capture, 8 attention launches a prefill
+             and none a decode step, a second pass bitwise, finite),
+             with the router's drops per layer at prefill and a decode
+             step's bytes bound (every expert's weights)
 
-Before the last lines it prints every measurement as one JSON object on
-a line starting "details: "; then the kernels' JSON record and the card's
-nvidia-smi name and power limit; the last line is the result JSON.
+Every phase prints its wall time ("phase N: … s"), and a table of them
+comes before the total. Before the last lines it prints every
+measurement as one JSON object on a line starting "details: "; then the
+kernels' JSON record and the card's nvidia-smi name and power limit;
+the last line is the result JSON.
 
 ``--planted-faults`` builds patched copies of the kernel, each with one
 fault planted (PLANTED_FAULTS), and reads every check of phase 5 and the
@@ -321,6 +334,37 @@ SAM_RATIO_TOL = 5e-2
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr)
     sys.exit(1)
+
+
+# every phase's wall seconds (host clock), in run order: `phase` closes
+# the running phase when the next one starts and prints its time
+PHASE_S = {}
+_RUNNING = []
+
+
+def phase(label, title=None):
+    """Close the running phase (its wall time printed as ``phase N: … s``
+    and kept in PHASE_S), then start phase `label`, printing ``[label]
+    title``; `label` None only closes."""
+    now = time.perf_counter()
+    if _RUNNING:
+        name, t0 = _RUNNING.pop()
+        PHASE_S[name] = now - t0
+        print(f"  phase {name}: {now - t0:.1f} s")
+    if label is not None:
+        _RUNNING.append((label, now))
+        if title:
+            print(f"[{label}] {title}")
+
+
+def phase_table():
+    """The phases' wall times as a table, longest first, with their
+    share of the phases' sum."""
+    total = sum(PHASE_S.values())
+    print(f"phase times (host clock; {total:.1f} s over {len(PHASE_S)} "
+          "phases):")
+    for name, sec in sorted(PHASE_S.items(), key=lambda kv: -kv[1]):
+        print(f"  {name:>4s} {sec:8.1f} s  {sec / total:6.1%}")
 
 
 def median_ms(fn, reps=25, warmup=3):
@@ -1524,7 +1568,12 @@ ATTN_SHAPES = [("serve", 10, 16, 16, 32, 8, 64, True, 8192),
                # llama3.2-1b's ring prefill, the 8,192 window at 8,448
                ("granite", 2, 512, 512, 32, 8, 128, True, 0),
                ("qwen72", 2, 512, 512, 64, 8, 128, True, 0),
-               ("ring8448", 1, 8448, 8448, 32, 8, 64, True, 8192)]
+               ("ring8448", 1, 8448, 8448, 32, 8, 64, True, 8192),
+               # phase 27's MoE prefill: qwen3-moe-235b-a22b's 64 query
+               # heads over 4 kv heads (a group of 16, wider than any
+               # above), hd 128, at the 2 × 512 prompt and at 2 × 2,048
+               ("qwen3moe", 2, 512, 512, 64, 4, 128, True, 0),
+               ("qwen3moe2k", 2, 2048, 2048, 64, 4, 128, True, 0)]
 # the factor stacks lowrank_pairwise_sq hands the Gram kernel at full
 # width, C·r = 40 rows: (name, B, P, stacks of this shape a call)
 GRAM_SHAPES = [("embed.u", 1, 128256, 1), ("embed.v", 1, 2048, 1),
@@ -2507,18 +2556,18 @@ def serve_cnn_pools(torch, local_step, main_result):
 def serving_phases(torch, local_step, main_result, bgmv, flash_attention,
                    pool_distance, ref):
     """Phases 10-12; returns their measurements by name."""
-    print("[10] bgmv_f32, flash_attn_f32 (forward and backward) and "
+    phase("10", "bgmv_f32, flash_attn_f32 (forward and backward) and "
           "factor_gram_f32 against their plain versions")
     bgmv_rows, bgmv_err = check_bgmv(torch, bgmv, ref)
     attn_rows, attn_err = check_flash_attention(torch, flash_attention, ref)
     bwd_rows, bwd_err = check_attention_backward(torch, flash_attention, ref)
     gram_rows, gram_call, gram_cases, gram_err = check_factor_gram(
         torch, pool_distance, ref)
-    print("[11] full-width llama3.2-1b factor pool (capacity 5, rank 8) "
+    phase("11", "full-width llama3.2-1b factor pool (capacity 5, rank 8) "
           "through PoolServer.from_pool")
     llama_f32 = serve_llama_f32(torch)
     llama_bf16 = serve_llama_bf16(torch)
-    print("[12] the paper CNN's pools served with poisson_skewed traffic")
+    phase("12", "the paper CNN's pools served with poisson_skewed traffic")
     cnn = serve_cnn_pools(torch, local_step, main_result)
     return dict(bgmv=bgmv_rows, bgmv_max_abs_err=bgmv_err,
                 attention=attn_rows, attention_max_abs_err=attn_err,
@@ -3425,13 +3474,13 @@ def ssm_oracle_f32(torch, name, ssm):
 
 def ssm_phases(torch, chunk_scan, ssm, ref):
     """Phases 13-14; returns their measurements by name."""
-    print("[13] gla_chunk_f32 against its plain version at the full-width "
+    phase("13", "gla_chunk_f32 against its plain version at the full-width "
           "layer calls")
     gla_rows, gla_err = check_gla(torch, chunk_scan, ssm, ref)
-    print("[13b] gla_chunk_bwd_f32 against its plain version in f64 at the "
+    phase("13b", "gla_chunk_bwd_f32 against its plain version in f64 at the "
           "full-width training layer calls")
     bwd_rows, bwd_err = check_gla_bwd(torch, chunk_scan, ssm)
-    print("[14] rwkv6-7b and zamba2-7b served at full width and depth: "
+    phase("14", "rwkv6-7b and zamba2-7b served at full width and depth: "
           "make_step prefill, grow, greedy decode")
     served = {}
     for name in ("rwkv6-7b", "zamba2-7b"):
@@ -5440,10 +5489,13 @@ def fleet_card_vs_cpu(torch, model):
 DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 2, 512, 16
 # parameters of the served configs (jax.eval_shape of the reference's
 # init); qwen2-72b is cut to 8 of its 80 layers: its 72,706,203,648 bf16
-# parameters (145 GB) exceed the card's 80 GB, 8 layers hold 19.0 GB
-DENSE_LAYERS = {"qwen2-72b": 8}
+# parameters (145 GB) exceed the card's 80 GB, 8 layers hold 19.0 GB;
+# phase 27's qwen3-moe-235b-a22b likewise to 8 of 94: 235,093,610,496
+# parameters (470 GB), 8 layers 42.30 GB (the router f32)
+DENSE_LAYERS = {"qwen2-72b": 8, "qwen3-moe-235b-a22b": 8}
 DENSE_PARAMS = {"llama3.2-1b": 1_235_814_400, "qwen2-7b": 7_615_616_512,
-                "granite-8b": 8_254_689_280, "qwen2-72b": 9_512_902_656}
+                "granite-8b": 8_254_689_280, "qwen2-72b": 9_512_902_656,
+                "qwen3-moe-235b-a22b": 21_146_701_824}
 # attention launches per prefill (one a layer); decode steps launch none
 DENSE_PREFILL_LAUNCHES = {"llama3.2-1b": 16, "qwen2-7b": 28,
                           "granite-8b": 36, "qwen2-72b": 8}
@@ -5515,15 +5567,18 @@ def _hold_dense_launches(name, label, counts_pre, counts_dec, n_layers):
              f"{want_dec}")
 
 
-def serve_dense(torch, name, smi_line, profile):
+def serve_dense(torch, name, smi_line, profile, extra=None):
     """(a)/(d) The bf16 model at full width through the port's
     `launch.steps.make_step`: prefill of a (2, 512) prompt, the grow by
     16, 16 greedy decode steps, once through the model's eager decode and
     once through the captured step (`CapturedDecode`: 1 capture, 15
     replays); the captured logits and tokens bitwise the eager ones, the
     attention launches exact. Then both passes again, timed (the
-    captured step replays only), and with `profile` the idle share of 4
-    decode steps of each under `torch.profiler`."""
+    captured step replays only; whether their logits are bitwise the
+    first passes' is kept), and with `profile` the idle share of 4 decode
+    steps of each under `torch.profiler`. `extra(model, params, prefill,
+    tokens, cache)`, when given, adds its readings before the model is
+    freed."""
     import numpy as np
 
     from repro_torch.configs import ShapeConfig
@@ -5550,8 +5605,8 @@ def serve_dense(torch, name, smi_line, profile):
     for label, r in (("eager", eager), ("captured", captured)):
         _hold_dense_launches(name, label, r["launches_prefill"],
                              r["launches_decode"], cfg.n_layers)
-    timed_eager, _, seq2, _ = run(model.decode)
-    timed_cap, _, seq3, cache = run(serve)
+    timed_eager, logits2, seq2, _ = run(model.decode)
+    timed_cap, logits3, seq3, cache = run(serve)
     finite = bool(torch.isfinite(eager_logits).all())
     out = dict(
         layers=cfg.n_layers, params=sum(p.numel() for p in params.values()),
@@ -5564,6 +5619,8 @@ def serve_dense(torch, name, smi_line, profile):
         bitwise_tokens=bool(torch.equal(cap_seq, eager_seq)),
         same_tokens_timed=bool(torch.equal(seq2, eager_seq) and
                                torch.equal(seq3, eager_seq)),
+        second_pass_bitwise=bool(torch.equal(logits2, eager_logits) and
+                                 torch.equal(logits3, cap_logits)),
         max_abs_captured_vs_eager=float(
             (cap_logits - eager_logits).abs().max()),
         finite=finite, greedy_tokens=eager_seq[0].tolist(),
@@ -5581,6 +5638,8 @@ def serve_dense(torch, name, smi_line, profile):
             torch, lambda n: [serve(params, tok, cache, DENSE_PROMPT + i)
                               for i in range(n)], 4,
             f"{name} bf16 captured decode step (batch 2; 'step' = token)")
+    if extra:
+        out.update(extra(model, params, prefill, tokens, cache))
     print(f"  {name} bf16 ({cfg.n_layers} layers, {out['params']:,} "
           f"parameters, {out['param_gb']:.2f} GB, drawn in {build_s:.2f} s;"
           f" {smi_line}): prefill {timed_cap['prefill_ms']:.2f} ms; decode "
@@ -5762,7 +5821,6 @@ def dense_phase(torch, smi_line):
     for name in ("granite-8b", "qwen2-72b"):
         out[name] = serve_dense(torch, name, smi_line, profile=False)
     out["seconds"] = time.perf_counter() - t0
-    print(f"  phase 23: {out['seconds']:.1f} s")
     return out
 
 
@@ -7285,6 +7343,169 @@ def gla_bwd_entry(ssm_out, ssm_train):
     return entry
 
 
+# ---------------------------------------------------------------------------
+# phase 27: MoE serving
+# ---------------------------------------------------------------------------
+
+MOE_NAME = "qwen3-moe-235b-a22b"
+# (a): the reduced config (2 layers, 4 experts top-2) on the card and on
+# the CPU in f32 from one init: forward and loss_fn (with the aux loss)
+# at (2, 64), prefill of the first 60 tokens, the cache grown by 4 and 4
+# decode steps of the given tokens; each within phase 26 (a)'s limit,
+# normwise (f32 products and softmaxes in another order over two layers)
+MOE_CVC_TOL = 1e-4
+MOE_CVC_T, MOE_CVC_NEW = 64, 4
+# a router near-tie: the k-th and (k+1)-th probabilities closer than this
+# share of the k-th (the two devices' softmaxes differ in the last ulps);
+# a near-tie may route otherwise on the two devices, any other token not
+MOE_ROUTE_TIE = 1e-5
+
+
+def moe_card_vs_cpu(torch, smi_line):
+    """(a) The reduced MoE decoder, card against CPU in f32, parameters
+    from one init (the CPU's) carried to the card; every router call's
+    top-k experts compared, device against device, outside near-ties."""
+    from unittest import mock
+
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+
+    cfg = get_arch(MOE_NAME).reduced()
+    t, new = MOE_CVC_T, MOE_CVC_NEW
+    rng = np.random.default_rng(27)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, t)))
+    labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, t)))
+    cpu_params = build_model(cfg, "cpu").init(0)
+    route = MOE.route
+    out = {}
+    for dev in ("cpu", CARD):
+        model = build_model(cfg, dev)
+        params = {k: v.to(dev) for k, v in cpu_params.items()}
+        tok, lab = tokens.to(dev), labels.to(dev)
+        calls = []
+
+        def spy(p, c, xf):
+            probs = torch.softmax(L.matmul_f32(xf.float(), p["router"]), -1)
+            got = route(p, c, xf)
+            calls.append((got[0].cpu(), probs.cpu()))
+            return got
+        with torch.no_grad(), mock.patch.object(MOE, "route", spy):
+            res = dict(forward=model.forward(params, {"tokens": tok}),
+                       loss=model.loss_fn(params, {"tokens": tok,
+                                                   "labels": lab}))
+            logits, cache = model.prefill(params,
+                                          {"tokens": tok[:, :t - new]})
+            cache = _grow(cache, new, ("k", "v"))
+            res["prefill"] = logits
+            for pos in range(t - new, t):
+                logits, cache = model.decode(params, tok[:, pos:pos + 1],
+                                             cache, pos)
+                res[f"decode{pos}"] = logits
+        out[dev] = ({k: v.cpu() for k, v in res.items()}, calls)
+    (cpu, cpu_calls), (card, card_calls) = out["cpu"], out[CARD]
+    errs = {k: _normwise(card[k], cpu[k]) for k in cpu}
+    k = cfg.moe.top_k
+    ties = mismatches = 0
+    margin = float("inf")
+    for (e_cpu, probs), (e_card, _) in zip(cpu_calls, card_calls):
+        top = probs.sort(-1, descending=True).values
+        share = (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+        tie = share < MOE_ROUTE_TIE
+        ties += int(tie.sum())
+        mismatches += int(((e_cpu != e_card).any(-1) & ~tie).sum())
+        margin = min(margin, float(share.min()))
+    worst = max(errs, key=errs.get)
+    res = dict(errs=errs, router_calls=len(cpu_calls), near_ties=ties,
+               route_mismatches=mismatches, smallest_margin=margin,
+               loss=float(cpu["loss"]), nvidia_smi=smi_line)
+    print(f"  (a) reduced {MOE_NAME} f32, card vs CPU: " + ", ".join(
+        f"{name} {e:.3e}" for name, e in errs.items()) +
+        f" (limit {MOE_CVC_TOL:g}); {len(cpu_calls)} router calls, top-{k} "
+        f"margins ≥ {margin:.3e} of the k-th probability, {ties} near-ties,"
+        f" {mismatches} tokens routed otherwise")
+    if len(card_calls) != len(cpu_calls) or mismatches:
+        fail(f"phase 27 (a): the card routes {mismatches} tokens otherwise "
+             "than the CPU outside near-ties")
+    if not errs[worst] <= MOE_CVC_TOL:
+        fail(f"phase 27 (a): the card's {worst} lies {errs[worst]:.3e} from "
+             f"the CPU's (limit {MOE_CVC_TOL:g})")
+    return res
+
+
+def _moe_readings(torch, smi_line):
+    """serve_dense's `extra` for the MoE config: the assignments each
+    layer's router drops at the (2, 512) prefill (of N·k = 8,192 at a
+    capacity of 80 rows an expert), and a decode step's bytes bound: the
+    dense (E, C, D) dispatch runs every expert on its capacity-8 buffer,
+    so a step reads every weight but the embedding once, and the cache."""
+    from unittest import mock
+
+    from repro_torch.models import moe as MOE
+
+    def extra(model, params, prefill, tokens, cache):
+        drops, ffn = [], MOE.moe_ffn
+
+        def spy(p, c, x):
+            drops.append(MOE.drops(p, c, x))
+            return ffn(p, c, x)
+        with mock.patch.object(MOE, "moe_ffn", spy):
+            prefill(params, {"tokens": tokens})
+        drops = [int(d) for d in drops]
+        cfg = model.cfg
+        n = tokens.numel()
+        weight_bytes = sum(v.numel() * v.element_size()
+                           for k, v in params.items() if k != "embed")
+        cache_bytes = sum(v.numel() * v.element_size()
+                          for v in cache.values())
+        bound_ms = (weight_bytes + cache_bytes) / PEAK_BYTES * 1e3
+        print(f"  {MOE_NAME} prefill drops per layer (of {n * cfg.moe.top_k}"
+              f" assignments, capacity {MOE._capacity(n, cfg)} rows an "
+              f"expert): {drops}; a decode step's bytes bound "
+              f"{bound_ms:.3f} ms ({(weight_bytes + cache_bytes) / 1e9:.2f}"
+              f" GB at {PEAK_BYTES / 1e12:.2f} TB/s; {smi_line})")
+        return dict(prefill_drops=drops, routed_assignments=n * cfg.moe.top_k,
+                    capacity=MOE._capacity(n, cfg),
+                    decode_bound_ms=bound_ms,
+                    decode_bound_bytes=weight_bytes + cache_bytes)
+    return extra
+
+
+def moe_phase(torch, smi_line):
+    """Phase 27; returns its measurements by part."""
+    out = dict(card_vs_cpu=moe_card_vs_cpu(torch, smi_line))
+    full = serve_dense(torch, MOE_NAME, smi_line, profile=True,
+                       extra=_moe_readings(torch, smi_line))
+    out["full_width"] = full
+    cap = full["profile_captured"]
+    ms = full["captured"]["decode_ms_per_token"]
+    full["captured_over_bound"] = ms / full["decode_bound_ms"]
+    print(f"  {MOE_NAME} decode: captured {ms:.3f} ms/token, "
+          f"{full['captured_over_bound']:.2f}× the bytes bound {full['decode_bound_ms']:.3f} ms; eager "
+          f"{full['eager']['decode_ms_per_token']:.3f}; captured step busy "
+          f"{cap['device_busy_ms_per_step']:.3f} ms, idle share "
+          f"{cap['idle_share']:.3f}, {cap['kernels_per_step']:.1f} kernels; "
+          f"init peak {full['init_peak_gb']:.2f} GB, serving peak "
+          f"{full['peak_gb']:.2f} GB ({smi_line})")
+    if not full["second_pass_bitwise"]:
+        fail(f"{MOE_NAME}: a second pass's logits differ from the first's")
+    if not full["finite"]:
+        fail(f"{MOE_NAME}: non-finite logits")
+    return out
+
+
+def moe_attention_launches(moe):
+    """Phase 27's attention launches: the prefills of (b)'s first eager
+    and captured passes."""
+    passes = moe["full_width"]["first_pass"]
+    return sum(passes[k][part]["flash_attn_f32"]
+               for k in ("eager", "captured")
+               for part in ("launches_prefill", "launches_decode"))
+
+
 def main(argv):
     """No arguments: every phase. ``--planted-faults``: phases 1-2, then
     `planted_faults` (a calibration of phase 5's checks; no result line)."""
@@ -7302,6 +7523,7 @@ def main(argv):
     sys.path.insert(0, str(SRC))
 
     # phase 1: device
+    phase("1")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -7321,6 +7543,7 @@ def main(argv):
                                      flash_attention, local_step,
                                      pool_distance, ref)
     from repro_torch.models import ssm
+    phase("2")
     t0 = time.perf_counter()
     logs = build.build_all()
     build_s = time.perf_counter() - t0
@@ -7338,33 +7561,33 @@ def main(argv):
         return
 
     # phase 3: kernel against plain version
-    print("[3] gemm_f32 against its plain version (TF32 off)")
+    phase("3", "gemm_f32 against its plain version (TF32 off)")
     rows, max_abs = check_gemm(torch, local_step, ref)
 
     # phase 4: the main path
-    print("[4] main path: launch(Experiment(strategy='fedelmy')), "
+    phase("4", "main path: launch(Experiment(strategy='fedelmy')), "
           "full-width paper CNN")
     main_path, main_result = run_main_path(torch, local_step)
 
     # phase 5: card against CPU
-    print("[5] card (kernel) against CPU (plain versions)")
+    phase("5", "card (kernel) against CPU (plain versions)")
     agreement = card_vs_cpu(torch)
 
     # phase 6: where a step's time goes (a measurement, not a gate)
-    print("[6] profile of the training step")
+    phase("6", "profile of the training step")
     step_profile = profile_steps(torch)
 
     # phase 7: the SGD kernel against its plain version
-    print("[7] sgd_f32 against its plain version")
+    phase("7", "sgd_f32 against its plain version")
     sgd_rows, sgd_timing = check_sgd(torch, local_step, ref)
 
     # phase 8: Table 1 on the card
-    print("[8] Table 1 on the card: launch(Experiment(strategy=...)), "
+    phase("8", "Table 1 on the card: launch(Experiment(strategy=...)), "
           "full-width paper CNN, label skew and domain shift")
     table1, sgd_launches = table1_on_card(torch, local_step)
 
     # phase 9: dfedsam card against CPU
-    print("[9] dfedsam: card (kernels) against CPU (plain versions)")
+    phase("9", "dfedsam: card (kernels) against CPU (plain versions)")
     sam_agreement = dfedsam_card_vs_cpu(torch, local_step, ref)
 
     # phases 10-12: pool serving
@@ -7375,26 +7598,26 @@ def main(argv):
     ssm_out = ssm_phases(torch, chunk_scan, ssm, ref)
 
     # phases 15-17: the pool-distance sweep
-    print("[15] pool_distance_f32 and pool_distance_bwd_f32 against their "
+    phase("15", "pool_distance_f32 and pool_distance_bwd_f32 against their "
           "plain versions")
     pd_out = check_pool_distance(torch, pool_distance, ref)
-    print("[16] the Eq. 9 regularizer at full width: the sweep against the "
+    phase("16", "the Eq. 9 regularizer at full width: the sweep against the "
           "per-leaf code on the card")
     regularizer = regularizer_on_card(torch)
-    print("[17] paper Fig. 9 on the card: fedelmy at each distance measure "
+    phase("17", "paper Fig. 9 on the card: fedelmy at each distance measure "
           "and without the regularizers")
     fig9 = fig9_on_card(torch, local_step)
 
     # phases 18-19: the compiled local phase; Table 1 through scenarios
-    print("[18] the compiled local phase: phase 4's run over batch_iterator, "
+    phase("18", "the compiled local phase: phase 4's run over batch_iterator, "
           "per-step DataPlan and captured DataPlan streams")
     compiled = compiled_phase(torch, local_step)
-    print("[19] Table 1 through launch(spec) at benchmarks/table1_accuracy.py"
+    phase("19", "Table 1 through launch(spec) at benchmarks/table1_accuracy.py"
           "'s full scale")
     table1_scen = table1_scenarios(torch, local_step)
 
     # phase 20: batched sweeps
-    print("[20] batched sweeps: the GEMM's and the sweep's run axis; Table "
+    phase("20", "batched sweeps: the GEMM's and the sweep's run axis; Table "
           "1's seeds and Fig. 10's grid as groups")
     batched = dict(gemm=batched_gemm(torch, local_step),
                    sgd=batched_sgd(torch, local_step),
@@ -7409,12 +7632,12 @@ def main(argv):
     # phases 21-22: checkpoints and fleets; their files go to one
     # temporary directory, deleted at the end
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        print("[21] checkpoints: the CNN's params and pools, the llama3.2-1b "
+        phase("21", "checkpoints: the CNN's params and pools, the llama3.2-1b "
               "factor pool through from_checkpoint, launch.train's handoff")
         checkpoints = dict(cnn=checkpoint_cnn(torch, main_result, tmp),
                            llama=checkpoint_llama(torch, tmp),
                            cli=checkpoint_cli(torch, tmp))
-        print("[22] fleets on the full-width paper CNN: fleet_100k, its "
+        phase("22", "fleets on the full-width paper CNN: fleet_100k, its "
               "resume, fleet_1m_cyclic, dfedsam, card against CPU")
         fleets = fleets_on_card(torch, local_step, ref, tmp)
         print(f"  clients/s: fleet_100k "
@@ -7424,29 +7647,36 @@ def main(argv):
               f"({smi_line})")
 
     # phase 23: dense serving
-    print("[23] dense serving: llama3.2-1b, qwen2-7b, granite-8b and "
+    phase("23", "dense serving: llama3.2-1b, qwen2-7b, granite-8b and "
           "qwen2-72b (8 layers) in bf16 through make_step, eager and "
           "captured decode; the ring past the window; the f32 oracle")
     dense = dense_phase(torch, smi_line)
 
     # phase 24: LM training on the card, and C15's check
-    print("[24] dense LM training through launch: the example's variant "
+    phase("24", "dense LM training through launch: the example's variant "
           "card vs CPU and at its FedConfig; llama3.2-1b f32 at full width "
           "and depth; C15 (dfedsam and MetaFed repeat bitwise)")
     lm = lm_phase(torch, smi_line)
 
     # phase 25: the FedELMY train step in bf16
-    print("[25] the FedELMY train step (make_step('train')) in bf16: the "
+    phase("25", "the FedELMY train step (make_step('train')) in bf16: the "
           "example's variant card vs CPU vs the f32 oracle; llama3.2-1b at "
           "train_4k's 4,096-token sequences, moment and exact pools; the "
           "f32 twin; the bf16 sweep backward at full width")
     train = train_step_phase(torch, smi_line)
 
     # phase 26: SSM training on the card
-    print("[26] SSM training through make_step('train'): rwkv6-7b and "
+    phase("26", "SSM training through make_step('train'): rwkv6-7b and "
           "zamba2-7b reduced card vs CPU in f32; at full width in bf16 "
           "(4 and 9 layers), 16 × 4,096 tokens a step; 2-layer bf16 vs f32")
     ssm_train = ssm_train_phase(torch, smi_line)
+
+    # phase 27: MoE serving
+    phase("27", f"MoE serving: {MOE_NAME} reduced, card vs CPU in f32; "
+          "in bf16 at full width (8 of 94 layers) through make_step, "
+          "eager and captured decode")
+    moe = moe_phase(torch, smi_line)
+    phase(None)
 
     step_rows = [r for r in rows if r["main_path"]]
     byte_s = sum(bound_parts_s(r["m"], r["k"], r["n"])[0] for r in step_rows)
@@ -7481,8 +7711,8 @@ def main(argv):
         + [attention_bwd_entry(serving, lm),
            gla_bwd_entry(ssm_out, ssm_train)]}
     # flash attention's main paths: phase 11's replays, zamba2-7b's
-    # served prefill and decode steps (phase 14) and the dense prefills
-    # of phase 23
+    # served prefill and decode steps (phase 14), the dense prefills of
+    # phase 23 and the MoE prefills of phase 27
     zamba = ssm_out["ssm_serving"]["zamba2-7b"]["bf16"]
     for entry in kernels["kernels"]:
         if entry["name"] == "flash_attn_f32":
@@ -7492,6 +7722,7 @@ def main(argv):
             entry["launches"] += dense_attention_launches(dense)
             entry["launches"] += \
                 lm["full_width"]["runs"][0]["attention"]["forward"]
+            entry["launches"] += moe_attention_launches(moe)
     # phase 25's train steps: (b)'s first run and (c)
     # and phase 26's SSM train steps ((b) and (c)'s first runs; the GLA
     # backward's entry counts them already)
@@ -7517,8 +7748,9 @@ def main(argv):
         compiled_phase=compiled, table1_scenarios=table1_scen,
         batched=batched, checkpoints=checkpoints, fleets=fleets,
         dense_serving=dense, lm_training=lm, train_step=train,
-        ssm_training=ssm_train,
+        ssm_training=ssm_train, moe_serving=moe, phase_s=PHASE_S,
         total_s=time.perf_counter() - t_start)))
+    phase_table()
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps(kernels))
     print(smi_line)

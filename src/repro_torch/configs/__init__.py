@@ -1,13 +1,15 @@
 """Config registry: architecture id → ArchConfig."""
 from repro_torch.configs import (granite_8b, llama3_2_1b, paper_cnn,
-                                 qwen2_7b, qwen2_72b, rwkv6_7b, zamba2_7b)
+                                 qwen2_7b, qwen2_72b, qwen3_moe_235b_a22b,
+                                 rwkv6_7b, zamba2_7b)
 from repro_torch.configs.base import (INPUT_SHAPES, ArchConfig, FedConfig,
-                                      ShapeConfig, SSMConfig)
+                                      MoEConfig, ShapeConfig, SSMConfig)
 
 ARCHS = {"granite-8b": granite_8b.CONFIG, "llama3.2-1b": llama3_2_1b.CONFIG,
          "paper-cnn": paper_cnn.CONFIG, "qwen2-7b": qwen2_7b.CONFIG,
-         "qwen2-72b": qwen2_72b.CONFIG, "rwkv6-7b": rwkv6_7b.CONFIG,
-         "zamba2-7b": zamba2_7b.CONFIG}
+         "qwen2-72b": qwen2_72b.CONFIG,
+         "qwen3-moe-235b-a22b": qwen3_moe_235b_a22b.CONFIG,
+         "rwkv6-7b": rwkv6_7b.CONFIG, "zamba2-7b": zamba2_7b.CONFIG}
 
 
 def get_arch(name: str) -> ArchConfig:
@@ -16,5 +18,5 @@ def get_arch(name: str) -> ArchConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "ArchConfig", "FedConfig", "INPUT_SHAPES",
+__all__ = ["ARCHS", "ArchConfig", "FedConfig", "INPUT_SHAPES", "MoEConfig",
            "ShapeConfig", "SSMConfig", "get_arch"]

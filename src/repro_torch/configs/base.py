@@ -1,9 +1,10 @@
 """Run configuration dataclasses (port of ``repro/configs/base.py``).
 
 `ArchConfig` keeps the fields of the families this port runs — the paper
-CNN, the dense decoder-only transformer, the SSM family (RWKV6) and the
-hybrid (Mamba2 + a shared attention block) — with the reference's
-defaults and its `reduced()` smoke-test variant; `ShapeConfig` and
+CNN, the dense decoder-only transformer, its Mixture-of-Experts variant,
+the SSM family (RWKV6) and the hybrid (Mamba2 + a shared attention
+block) — with the reference's defaults and its `reduced()` smoke-test
+variant; `ShapeConfig` and
 `INPUT_SHAPES` are the reference's step shapes; `FedConfig` is the full
 FedELMY hyper-parameter set with the reference's validation, error
 messages included."""
@@ -11,6 +12,16 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    n_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.001
 
 
 @dataclasses.dataclass(frozen=True)
@@ -26,7 +37,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # "cnn" | "dense" | "ssm" | "hybrid"
+    family: str                   # "cnn" | "dense" | "moe" | "ssm" | "hybrid"
     n_layers: int                 # cnn: conv blocks
     d_model: int                  # cnn: base conv width
     n_heads: int
@@ -38,6 +49,7 @@ class ArchConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # hybrid: apply one shared attention block every `shared_attn_every` layers
     shared_attn_every: int = 0
@@ -63,13 +75,18 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """A smoke-test-sized variant of the same family (<=2 layers,
-        d<=256), the reference's rules for the dense, SSM and hybrid
-        families."""
+        d<=256), the reference's rules for the dense, MoE, SSM and
+        hybrid families."""
         heads = min(4, self.n_heads)
         kv = max(1, min(self.n_kv_heads, heads))
         while heads % kv:         # keep heads % kv == 0
             kv -= 1
         d = min(256, self.d_model)
+        moe = None if self.moe is None else MoEConfig(
+            n_experts=min(4, self.moe.n_experts),
+            top_k=min(2, self.moe.top_k),
+            d_ff_expert=min(128, self.moe.d_ff_expert),
+            n_shared_experts=min(1, self.moe.n_shared_experts))
         ssm = None if self.ssm is None else SSMConfig(
             state_size=min(16, self.ssm.state_size),
             head_dim=min(32, self.ssm.head_dim), expand=2, conv_width=4,
@@ -78,7 +95,7 @@ class ArchConfig:
             self, n_layers=min(2, self.n_layers), d_model=d, n_heads=heads,
             n_kv_heads=kv, d_ff=min(512, self.d_ff),
             vocab_size=min(1024, self.vocab_size), head_dim=d // heads,
-            param_dtype="float32", ssm=ssm,
+            param_dtype="float32", moe=moe, ssm=ssm,
             shared_attn_every=1 if self.shared_attn_every else 0,
             sliding_window=64 if self.sliding_window else 0)
 

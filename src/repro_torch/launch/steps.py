@@ -24,8 +24,10 @@
               cache, returning its logits and the cache. For the dense
               family the step is a `CapturedDecode`, the counterpart of
               the reference's ``jax.jit(model.decode)``: one CUDA graph
-              on the card, replayed every token. The hybrid's and RWKV6's
-              decode run eagerly (their decode takes a host position).
+              on the card, replayed every token; the MoE family's, built
+              by the same `build_decoder_only`, likewise. The hybrid's
+              and RWKV6's decode run eagerly (their decode takes a host
+              position).
 
 `input_specs(cfg, shape, fed)` gives every argument of that step as
 tensors on the meta device, shapes and dtypes with nothing allocated:
@@ -142,11 +144,11 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig,
 # ---------------------------------------------------------------------------
 
 class CapturedDecode:
-    """The dense family's decode step on static buffers: the token (B, 1)
-    int64, the position (0-d int64), the cache ``{"k", "v"}`` of (L, B,
-    `cache_len(cfg, seq_len)`, KV, hd) and the f32 logits (B, 1, V). The
-    buffers are made at the first call, the cache in the dtype of the
-    cache passed in.
+    """The dense and MoE families' decode step on static buffers: the
+    token (B, 1) int64, the position (0-d int64), the cache ``{"k",
+    "v"}`` of (L, B, `cache_len(cfg, seq_len)`, KV, hd) and the f32
+    logits (B, 1, V). The buffers are made at the first call, the cache
+    in the dtype of the cache passed in.
 
     A call checks `pos` on the host (`check_decode_pos`: without a window,
     C8's bound), then copies the token and pos into their buffers, and the
@@ -307,7 +309,7 @@ def make_step(cfg: ArchConfig, shape: ShapeConfig,
     """The step function of `shape.kind` for `cfg`'s model on `device`
     (the CUDA device by default): the train step (``REPRO_MICROBATCH``
     read here), prefill, or decode (a `CapturedDecode` at the shape's
-    batch and sequence length for the dense family)."""
+    batch and sequence length for the dense and MoE families)."""
     model = build_model(cfg, device)
     if shape.kind == "train":
         return _make_train_step(model, fed or FedConfig(), regularizers,
@@ -318,7 +320,7 @@ def make_step(cfg: ArchConfig, shape: ShapeConfig,
             return model.prefill(params, batch)
         return prefill_step
     if shape.kind == "decode":
-        if cfg.family == "dense":
+        if cfg.family in ("dense", "moe"):
             return CapturedDecode(model, shape.global_batch, shape.seq_len)
 
         def serve_step(params, token, cache, pos):

@@ -1,23 +1,33 @@
 """Model factories of the language-model families (port of
 `build_decoder_only`, `build_hybrid`, `build_rwkv`, `lm_logits`,
 `chunked_xent` and `lm_eval_fn` of ``repro/models/transformer.py``: the
-dense decoder-only family, the hybrid (Mamba2 layers with a weight-tied
-attention + MLP block between segments, zamba2) and RWKV6).
+dense decoder-only family and its Mixture-of-Experts variant, the hybrid
+(Mamba2 layers with a weight-tied attention + MLP block between
+segments, zamba2) and RWKV6).
 
 Parameters are a name → tensor dict in the reference's leaf order:
 ``embed``, ``final_norm.scale``, ``layers.attn.{wk,wo,wq,wv}``,
 ``layers.ffn.{w_down,w_gate,w_up}``, ``layers.ln1.scale``,
 ``layers.ln2.scale`` (each layer leaf stacked on a leading L axis) and,
-untied, ``lm_head``; reference pytrees convert by plain copy
-(`repro_torch.convert.from_jax_params`). The reference's layer scan is a
+untied, ``lm_head``; with `cfg.moe` the layer's FFN leaves are
+``layers.ffn.{router,shared.*,w_down,w_gate,w_up}`` (`models/moe.py`:
+the router f32, the expert stacks (L, E, ·, ·)). Reference pytrees
+convert by plain copy (`repro_torch.convert.from_jax_params`). The reference's layer scan is a
 Python loop over the L-stacked leaves. Init draws on the model's device
 from a `torch.Generator` there: it matches the reference in distribution,
 not in values (parity tests carry the reference's init across).
 
 The dense forward carries the factored-serving hook (`models/factored.py`),
-as the reference's dense family does. Every family has the reference's
-whole interface: forward, loss, `init_cache`, `prefill` (the last
-position's logits and the cache) and one-token `decode`.
+as the reference's dense family does; the MoE decoder has none (its
+routing is not a factored site), so a pool of MoE members serves
+densified, as in the reference. The MoE backbone carries the layers'
+summed aux loss, which `loss_fn` adds to the cross-entropy and `forward`
+drops; prefill and decode run the MoE FFN and drop it. Its capacity
+follows the routed token count (B·T at prefill, B at decode), so
+prefill(T−1) + decode(1) equals prefill(T) only where no token was
+dropped. Every family has the reference's whole interface: forward,
+loss, `init_cache`, `prefill` (the last position's logits and the
+cache) and one-token `decode`.
 
 The dense cache is ``{"k", "v"}``, each (L, B, W, KV, hd) with W =
 `cache_len(cfg, seq_len)`. Prefill attends through `layers.
@@ -42,7 +52,7 @@ The hybrid's and RWKV6's leaves are ``embed``, ``final_norm.scale``,
 copies of ``shared_k``/``shared_v`` at `pos` and raises when `pos` lies
 past their length (grow them after prefill, as
 ``examples/serve_batched.py`` does); the reference clamps such a write.
-MoE, MLA and encoder-decoder are not ported."""
+MLA and encoder-decoder are not ported."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -52,6 +62,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.base import Model, Params
 from repro_torch.models.factored import (FACTORED_FORWARD_ATTR,
@@ -134,12 +145,21 @@ def chunked_xent(params: Params, cfg: ArchConfig, h: torch.Tensor,
     return tot / (b * n * chunk)
 
 
+def _block_ffn(lp: Params, cfg: ArchConfig, x: torch.Tensor):
+    """x plus the layer's FFN (the MLP, or the MoE layer), and the FFN's
+    aux loss (0 for the MLP)."""
+    h = L.rms_norm(lp["ln2.scale"], x, cfg.norm_eps)
+    if cfg.moe is not None:
+        y, aux = MOE.moe_ffn(sub_params(lp, "ffn"), cfg, h)
+        return x + y, aux
+    return x + L.mlp(sub_params(lp, "ffn"), h), 0.0
+
+
 def _block_fwd(lp: Params, cfg: ArchConfig, x: torch.Tensor,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor):
     h = L.rms_norm(lp["ln1.scale"], x, cfg.norm_eps)
     x = x + L.self_attention(sub_params(lp, "attn"), cfg, h, positions)
-    h = L.rms_norm(lp["ln2.scale"], x, cfg.norm_eps)
-    return x + L.mlp(sub_params(lp, "ffn"), h)
+    return _block_ffn(lp, cfg, x)
 
 
 def _prefixed(prefix: str, params: Params) -> Params:
@@ -182,7 +202,11 @@ def _init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
     lead = (cfg.n_layers,)
     p = _embed_init(cfg, gen)
     p.update(_prefixed("layers.attn", L.attn_init(gen, cfg, dt, lead)))
-    p.update(_prefixed("layers.ffn", L.mlp_init(gen, d, cfg.d_ff, dt, lead)))
+    if cfg.moe is not None:
+        p.update(_prefixed("layers.ffn", MOE.moe_init(gen, cfg, dt, lead)))
+    else:
+        p.update(_prefixed("layers.ffn", L.mlp_init(gen, d, cfg.d_ff, dt,
+                                                    lead)))
     p.update(_prefixed("layers", _norm_scales(cfg, dev, ("ln1", "ln2"),
                                               lead)))
     p.update(_lm_head_init(cfg, gen))
@@ -231,22 +255,28 @@ def build_decoder_only(cfg: ArchConfig, device: DeviceLike = None) -> Model:
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         return _init_params(cfg, gen)
 
-    def backbone(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    def backbone(params: Params, tokens: torch.Tensor):
+        """The final hidden states and the layers' summed aux loss (0.0
+        without MoE)."""
         b, t = tokens.shape
         x = params["embed"][tokens.long()]
         positions = torch.arange(t, device=tokens.device).expand(b, t)
+        aux = 0.0
         for l in range(cfg.n_layers):
-            x = _block_fwd(layer_params(params, l), cfg, x, positions)
-        return x
+            x, a = _block_fwd(layer_params(params, l), cfg, x, positions)
+            aux = aux + a
+        return x, aux
 
     def forward(params: Params, batch) -> torch.Tensor:
-        return lm_logits(params, cfg, backbone(params, batch["tokens"]))
+        return lm_logits(params, cfg, backbone(params, batch["tokens"])[0])
 
-    setattr(forward, FACTORED_FORWARD_ATTR, make_decoder_factored(cfg))
+    if cfg.moe is None:
+        setattr(forward, FACTORED_FORWARD_ATTR, make_decoder_factored(cfg))
 
     def loss_fn(params: Params, batch) -> torch.Tensor:
-        x = backbone(params, batch["tokens"])
-        return chunked_xent(params, cfg, x, batch["labels"])
+        x, aux = backbone(params, batch["tokens"])
+        loss = chunked_xent(params, cfg, x, batch["labels"])
+        return loss if cfg.moe is None else loss + aux
 
     def init_cache(batch: int, seq_len: int, dtype=None):
         dtype = dtype or param_dtype(cfg)
@@ -269,8 +299,7 @@ def build_decoder_only(cfg: ArchConfig, device: DeviceLike = None) -> Model:
             q, k, v = L.attn_qkv(attn, cfg, h, positions)
             x = x + L.attn_out(attn, L.flash_attention(
                 q, k, v, causal=True, window=window))
-            h = L.rms_norm(lp["ln2.scale"], x, cfg.norm_eps)
-            x = x + L.mlp(sub_params(lp, "ffn"), h)
+            x, _ = _block_ffn(lp, cfg, x)
             ks.append(k)
             vs.append(v)
         cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
@@ -309,8 +338,7 @@ def build_decoder_only(cfg: ArchConfig, device: DeviceLike = None) -> Model:
             a = L.decode_attention(q, k_l, v_l, entry_pos, pos_b,
                                    window=window)
             x = x + L.attn_out(attn, a)
-            h = L.rms_norm(lp["ln2.scale"], x, cfg.norm_eps)
-            x = x + L.mlp(sub_params(lp, "ffn"), h)
+            x, _ = _block_ffn(lp, cfg, x)
         return lm_logits(params, cfg, x)
 
     def decode(params: Params, token: torch.Tensor, cache, pos):

@@ -20,7 +20,7 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro.models import build_model as jax_build_model
 from repro.models import layers as JL
 from repro.models.transformer import lm_eval_fn as jax_lm_eval_fn
-from repro_torch.configs import ArchConfig, get_arch
+from repro_torch.configs import ArchConfig, MoEConfig, get_arch
 from repro_torch.convert import from_jax_params, to_jax_params
 from repro_torch.kernels.ref import attention_ref
 from repro_torch.models import build_model, lm_eval_fn
@@ -124,9 +124,14 @@ def test_kernel_plain_version_matches_pallas(b, tq, tk, h, kv, causal,
 def test_families_not_ported_raise():
     base = dict(name="x", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
                 d_ff=128, vocab_size=100)
-    for family in ("moe", "encdec", "vlm", "audio"):
+    for family in ("encdec", "vlm", "audio"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             build_model(ArchConfig(family=family, **base), device="cpu")
+    moe = build_model(ArchConfig(family="moe", moe=MoEConfig(4, 2, 32),
+                                 **base), device="cpu")   # ported: it builds
+    logits = moe.forward(moe.init(0), {"tokens": torch.zeros(
+        (1, 5), dtype=torch.int64)})
+    assert logits.shape == (1, 5, 100) and torch.isfinite(logits).all()
     with pytest.raises(ValueError):
         build_model(ArchConfig(family="nonsense", **base), device="cpu")
     model = build_model(ArchConfig(family="dense", **base), device="cpu")
