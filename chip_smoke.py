@@ -50,7 +50,9 @@ Phases, each failing the run with a nonzero exit:
              their plain versions at the full-width llama3.2-1b serving
              shapes (BGMV also ragged and at rank 64; long sequences for
              attention, at every head dim the kernel has: 32, 64, 112,
-             128, and at groups of query heads a kv head up to 16; the
+             128, and at groups of query heads a kv head up to 16; MLA's
+             q/k 192 over v 128 at phase 28's heads, 2 × 512 and 2 ×
+             2,048, beside each fused SDPA backend that takes it; the
              Gram as one grouped call of a pairwise call's 20
              stacks and each shape alone, M from 1 to 256, ragged P, and
              M = 257, 320, 512 as tile pairs in one launch, each Gram
@@ -256,14 +258,26 @@ Phases, each failing the run with a nonzero exit:
              against its f32 twin's (5e-2 normwise, task 5e-3)
 27. MoE serving — (a) qwen3-moe-235b-a22b reduced in f32 on the card and
              the CPU from one init: forward, loss_fn with the aux loss,
-             prefill and 4 decode steps within 1e-4 normwise, every
-             router call's experts equal outside near-ties; (b) the
+             prefill (logits and every cache leaf) and 4 decode steps
+             within 1e-4 normwise, every router call's experts equal
+             outside near-ties, one attention launch a layer in each of
+             forward, loss_fn and prefill and none in decode; (b) the
              config in bf16 at full width cut to 8 of 94 layers, served
              as phase 23 serves the dense family (captured decode
              bitwise eager, 1 capture, 8 attention launches a prefill
              and none a decode step, a second pass bitwise, finite),
              with the router's drops per layer at prefill and a decode
              step's bytes bound (every expert's weights)
+28. MLA serving — (a) deepseek-v2-lite-16b reduced with its published
+             MLA head dims (kv_lora 64 here, rope 64, nope 128, v 128: the
+             attention kernel's (192, 128) instance) in f32, held as 27
+             (a) (the latent cache too), and at capacity_factor 8.0
+             prefill(T−1) + decode(1) against forward(T) on the card; (b)
+             the config in bf16 at full width and depth (27 layers, 16.21
+             B parameters), served as 27 (b): 27 attention launches a
+             prefill, none a decode step, captured decode bitwise eager,
+             a second pass bitwise, drops per layer, the decode step's
+             bytes bound
 
 Every phase prints its wall time ("phase N: … s"), and a table of them
 comes before the total. Before the last lines it prints every
@@ -1574,6 +1588,13 @@ ATTN_SHAPES = [("serve", 10, 16, 16, 32, 8, 64, True, 8192),
                # above), hd 128, at the 2 × 512 prompt and at 2 × 2,048
                ("qwen3moe", 2, 512, 512, 64, 4, 128, True, 0),
                ("qwen3moe2k", 2, 2048, 2048, 64, 4, 128, True, 0)]
+# MLA (phase 28's prefill): deepseek-v2-lite-16b's 16 heads (the latent's
+# up-projection gives every query head its own key and value head), q/k
+# head dim 192 (nope 128 + rope 64) over values of 128, causal, at the
+# 2 × 512 prompt and at 2 × 2,048: (name, B, Tq, Tk, H, KV, hd, causal,
+# window, dv); the rows above have dv = hd
+MLA_ATTN_SHAPES = [("dsv2lite", 2, 512, 512, 16, 16, 192, True, 0, 128),
+                   ("dsv2lite2k", 2, 2048, 2048, 16, 16, 192, True, 0, 128)]
 # the factor stacks lowrank_pairwise_sq hands the Gram kernel at full
 # width, C·r = 40 rows: (name, B, P, stacks of this shape a call)
 GRAM_SHAPES = [("embed.u", 1, 128256, 1), ("embed.v", 1, 2048, 1),
@@ -1776,7 +1797,8 @@ def check_bgmv(torch, bgmv_mod, ref):
 
 def _sdpa(torch, q, k, v, causal, window):
     """`F.scaled_dot_product_attention` on (B, H, T, hd) with the kv heads
-    repeated, masked like the kernel (the library yardstick)."""
+    repeated, masked like the kernel (the library yardstick), through the
+    backend PyTorch's dispatch picks."""
     import torch.nn.functional as F
     tq, tk = q.shape[2], k.shape[2]
     if not window or window >= tk:
@@ -1786,6 +1808,41 @@ def _sdpa(torch, q, k, v, causal, window):
     kp = torch.arange(tk, device=CARD)[None, :]
     mask = (qp >= kp) & (qp - kp < window)
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+SDPA_FUSED = ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION")
+
+
+def _sdpa_fused(torch, q, k, v, causal):
+    """SDPA's yardstick where v's head dim differs from q's: each fused
+    backend (flash, memory-efficient, cuDNN) asked alone; (the fastest
+    one's median ms or None, {backend: ms, or why it refused})."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    seen = {}
+    for name in SDPA_FUSED:
+        backend = getattr(SDPBackend, name, None)
+        if backend is None:
+            seen[name] = "not in this PyTorch"
+            continue
+
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+        try:    # a measurement of the library, not a route of the port
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")   # the refusal's reasons
+                call()
+            torch.cuda.synchronize()
+        except RuntimeError as e:
+            seen[name] = f"refused: {str(e).splitlines()[0][:120]}"
+            continue
+        seen[name] = median_ms(call)
+    times = [t for t in seen.values() if isinstance(t, float)]
+    return (min(times) if times else None), seen
 
 
 def _pairs(tq, tk, causal, window):
@@ -1800,19 +1857,22 @@ def _pairs(tq, tk, causal, window):
 
 def check_flash_attention(torch, fa_mod, ref):
     """The flash-attention kernel at the serving shape and at long
-    sequences, bf16 and f32. Tolerance against the plain version (dense
-    softmax, f32 scores): f32 within 1e-5 absolute (outputs are convex
-    combinations of N(0, 1) values); bf16 within one bf16 rounding of the
-    output, 2⁻⁷·|out| + 1e-6 (both round an f32 result once). Times:
-    kernel, plain version, `F.scaled_dot_product_attention` on the heads
-    repeated."""
+    sequences, bf16 and f32, and at MLA's (192, 128) head dims. Tolerance
+    against the plain version (dense softmax, f32 scores): f32 within
+    1e-5 absolute (outputs are convex combinations of N(0, 1) values);
+    bf16 within one bf16 rounding of the output, 2⁻⁷·|out| + 1e-6 (both
+    round an f32 result once). Times: kernel, plain version,
+    `F.scaled_dot_product_attention` on the heads repeated (at dv ≠ hd
+    each fused backend asked alone, `_sdpa_fused`). Bound: 2·(hd + dv)
+    FLOP a valid pair; the bytes of q, k, v and out."""
     gen = torch.Generator(device=CARD).manual_seed(2)
     rows, max_abs = [], 0.0
-    for name, b, tq, tk, h, kv, hd, causal, window in ATTN_SHAPES:
+    shapes = [s + (s[6],) for s in ATTN_SHAPES] + MLA_ATTN_SHAPES
+    for name, b, tq, tk, h, kv, hd, causal, window, dv in shapes:
         for dtype in (torch.bfloat16, torch.float32):
             q = torch.randn((b, tq, h, hd), device=CARD, generator=gen)
             k = torch.randn((b, tk, kv, hd), device=CARD, generator=gen)
-            v = torch.randn((b, tk, kv, hd), device=CARD, generator=gen)
+            v = torch.randn((b, tk, kv, dv), device=CARD, generator=gen)
             q, k, v = (t.to(dtype) for t in (q, k, v))
             out = fa_mod.flash_attn_f32(q, k, v, causal=causal,
                                         window=window)
@@ -1834,12 +1894,17 @@ def check_flash_attention(torch, fa_mod, ref):
             pairs = _pairs(tq, tk, causal, window) * b * h
             esz = q.element_size()
             bound_ms, bound_by, parts = _bound(
-                esz * (2 * q.numel() + k.numel() + v.numel()),
-                4 * hd * pairs,
+                esz * (q.numel() + k.numel() + v.numel() + out.numel()),
+                2 * (hd + dv) * pairs,
                 PEAK_BF16_FLOPS if dtype == torch.bfloat16
                 else PEAK_F32_FLOPS)
+            if dv == hd:
+                library_ms, sdpa = median_ms(_sdpa(torch, qs, ks, vs, causal,
+                                                   window)), "dispatch"
+            else:
+                library_ms, sdpa = _sdpa_fused(torch, qs, ks, vs, causal)
             row = dict(parts, shape=name, b=b, tq=tq, tk=tk, h=h, kv=kv,
-                       hd=hd, per_forward=ATTN_PER_FACTORED
+                       hd=hd, dv=dv, per_forward=ATTN_PER_FACTORED
                        if name == "serve" and dtype == torch.bfloat16 else 0,
                        causal=causal, window=window, dtype=str(dtype),
                        max_abs_err=float(err.max()), within_tolerance=ok,
@@ -1848,17 +1913,18 @@ def check_flash_attention(torch, fa_mod, ref):
                            q, k, v, causal=causal, window=window)),
                        plain_ms=median_ms(lambda: ref.attention_ref(
                            q, k, v, causal=causal, window=window)),
-                       library_ms=median_ms(_sdpa(torch, qs, ks, vs, causal,
-                                                  window)),
+                       library_ms=library_ms, sdpa=sdpa,
                        bound_ms=bound_ms, bound_by=bound_by)
             rows.append(row)
+            lib = "none" if library_ms is None else f"{library_ms:.4f}"
             print(f"  attn {name:10s} {str(dtype)[6:]:8s}: max abs err "
                   f"{row['max_abs_err']:.3e}, repeat "
                   f"{'bitwise' if repeat else 'DIFFERS'}; kernel "
                   f"{row['ms']:.4f} ms, "
                   f"plain {row['plain_ms']:.4f}, sdpa "
-                  f"{row['library_ms']:.4f}, bound {bound_ms:.4f} "
-                  f"({bound_by})")
+                  f"{lib}, bound {bound_ms:.4f} "
+                  f"({bound_by})" + ("" if dv == hd else
+                                    f"; hd {hd} / dv {dv}, sdpa {sdpa}"))
             if not ok:
                 fail(f"flash_attn_f32 {name} {dtype} disagrees with its "
                      "plain version beyond the stated tolerance")
@@ -3242,11 +3308,12 @@ def _gla_bwd_route_case(torch, chunk_scan, ssm, gen, case, dtype):
 
 
 def _grow(cache, n, keys=("shared_k", "shared_v")):
-    """The attention caches `keys` grown by `n` positions, as
-    examples/serve_batched.py's `grow` does (other leaves unchanged): the
-    hybrid's shared caches by default, the dense family's ("k", "v")."""
+    """The attention caches `keys` grown by `n` positions on their axis 2,
+    as examples/serve_batched.py's `grow` does (other leaves unchanged):
+    the hybrid's shared caches by default, the dense family's ("k", "v"),
+    MLA's latent ("c_kv", "k_rope")."""
     import torch.nn.functional as F
-    return {k: F.pad(v, (0, 0, 0, 0, 0, n)) if k in keys else v
+    return {k: F.pad(v, (0, 0) * (v.dim() - 3) + (0, n)) if k in keys else v
             for k, v in cache.items()}
 
 
@@ -5495,7 +5562,9 @@ DENSE_BATCH, DENSE_PROMPT, DENSE_NEW = 2, 512, 16
 DENSE_LAYERS = {"qwen2-72b": 8, "qwen3-moe-235b-a22b": 8}
 DENSE_PARAMS = {"llama3.2-1b": 1_235_814_400, "qwen2-7b": 7_615_616_512,
                 "granite-8b": 8_254_689_280, "qwen2-72b": 9_512_902_656,
-                "qwen3-moe-235b-a22b": 21_146_701_824}
+                "qwen3-moe-235b-a22b": 21_146_701_824,
+                # phase 28: all 27 layers (32.42 GB in bf16)
+                "deepseek-v2-lite-16b": 16_210_324_992}
 # attention launches per prefill (one a layer); decode steps launch none
 DENSE_PREFILL_LAUNCHES = {"llama3.2-1b": 16, "qwen2-7b": 28,
                           "granite-8b": 36, "qwen2-72b": 8}
@@ -5534,7 +5603,7 @@ def _dense_pass(torch, params, prefill, step, tokens, new, grow):
     t0 = time.perf_counter()
     logits, cache = prefill(params, {"tokens": tokens})
     if grow:
-        cache = _grow(cache, grow, ("k", "v"))
+        cache = _grow(cache, grow, tuple(cache))
     torch.cuda.synchronize()
     t_pre = time.perf_counter()
     counts_pre = _read_counts()
@@ -7361,10 +7430,14 @@ MOE_CVC_T, MOE_CVC_NEW = 64, 4
 MOE_ROUTE_TIE = 1e-5
 
 
-def moe_card_vs_cpu(torch, smi_line):
-    """(a) The reduced MoE decoder, card against CPU in f32, parameters
-    from one init (the CPU's) carried to the card; every router call's
-    top-k experts compared, device against device, outside near-ties."""
+def moe_card_vs_cpu(torch, smi_line, cfg=None, label="27 (a)", seed=27):
+    """(a) The reduced MoE decoder (`cfg`, by default the reduced
+    qwen3-moe-235b-a22b), card against CPU in f32, parameters from one
+    init (the CPU's) carried to the card: forward, loss_fn, prefill (its
+    logits and every cache leaf) and the decode steps; every router
+    call's top-k experts compared, device against device, outside
+    near-ties; on the card exactly one attention launch a layer in each
+    of forward, loss_fn and prefill, none in decode."""
     from unittest import mock
 
     import numpy as np
@@ -7374,9 +7447,9 @@ def moe_card_vs_cpu(torch, smi_line):
     from repro_torch.models import layers as L
     from repro_torch.models import moe as MOE
 
-    cfg = get_arch(MOE_NAME).reduced()
+    cfg = cfg or get_arch(MOE_NAME).reduced()
     t, new = MOE_CVC_T, MOE_CVC_NEW
-    rng = np.random.default_rng(27)
+    rng = np.random.default_rng(seed)
     tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, t)))
     labels = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, t)))
     cpu_params = build_model(cfg, "cpu").init(0)
@@ -7393,20 +7466,26 @@ def moe_card_vs_cpu(torch, smi_line):
             got = route(p, c, xf)
             calls.append((got[0].cpu(), probs.cpu()))
             return got
+        _reset_counts()
         with torch.no_grad(), mock.patch.object(MOE, "route", spy):
             res = dict(forward=model.forward(params, {"tokens": tok}),
                        loss=model.loss_fn(params, {"tokens": tok,
                                                    "labels": lab}))
             logits, cache = model.prefill(params,
                                           {"tokens": tok[:, :t - new]})
-            cache = _grow(cache, new, ("k", "v"))
+            res.update({f"cache.{n}": c for n, c in cache.items()})
+            cache = _grow(cache, new, tuple(cache))
             res["prefill"] = logits
+            counts = dict(forward_loss_prefill=_read_counts()[
+                "flash_attn_f32"])
             for pos in range(t - new, t):
                 logits, cache = model.decode(params, tok[:, pos:pos + 1],
                                              cache, pos)
                 res[f"decode{pos}"] = logits
-        out[dev] = ({k: v.cpu() for k, v in res.items()}, calls)
-    (cpu, cpu_calls), (card, card_calls) = out["cpu"], out[CARD]
+            counts["decode"] = _read_counts()["flash_attn_f32"] - \
+                counts["forward_loss_prefill"]
+        out[dev] = ({k: v.cpu() for k, v in res.items()}, calls, counts)
+    (cpu, cpu_calls, _), (card, card_calls, launches) = out["cpu"], out[CARD]
     errs = {k: _normwise(card[k], cpu[k]) for k in cpu}
     k = cfg.moe.top_k
     ties = mismatches = 0
@@ -7421,27 +7500,33 @@ def moe_card_vs_cpu(torch, smi_line):
     worst = max(errs, key=errs.get)
     res = dict(errs=errs, router_calls=len(cpu_calls), near_ties=ties,
                route_mismatches=mismatches, smallest_margin=margin,
-               loss=float(cpu["loss"]), nvidia_smi=smi_line)
-    print(f"  (a) reduced {MOE_NAME} f32, card vs CPU: " + ", ".join(
-        f"{name} {e:.3e}" for name, e in errs.items()) +
-        f" (limit {MOE_CVC_TOL:g}); {len(cpu_calls)} router calls, top-{k} "
-        f"margins ≥ {margin:.3e} of the k-th probability, {ties} near-ties,"
-        f" {mismatches} tokens routed otherwise")
+               loss=float(cpu["loss"]), attention_launches=launches,
+               nvidia_smi=smi_line)
+    print(f"  (a) reduced {cfg.name} f32, card vs CPU: " +
+          ", ".join(f"{name} {e:.3e}" for name, e in errs.items()) +
+          f" (limit {MOE_CVC_TOL:g}); {len(cpu_calls)} router calls, top-{k} "
+          f"margins ≥ {margin:.3e} of the k-th probability, {ties} "
+          f"near-ties, {mismatches} tokens routed otherwise; attention "
+          f"launches on the card {launches}")
     if len(card_calls) != len(cpu_calls) or mismatches:
-        fail(f"phase 27 (a): the card routes {mismatches} tokens otherwise "
+        fail(f"phase {label}: the card routes {mismatches} tokens otherwise "
              "than the CPU outside near-ties")
     if not errs[worst] <= MOE_CVC_TOL:
-        fail(f"phase 27 (a): the card's {worst} lies {errs[worst]:.3e} from "
-             f"the CPU's (limit {MOE_CVC_TOL:g})")
+        fail(f"phase {label}: the card's {worst} lies {errs[worst]:.3e} "
+             f"from the CPU's (limit {MOE_CVC_TOL:g})")
+    if launches != dict(forward_loss_prefill=3 * cfg.n_layers, decode=0):
+        fail(f"phase {label}: attention launches on the card {launches}; "
+             f"expected {3 * cfg.n_layers} and 0")
     return res
 
 
 def _moe_readings(torch, smi_line):
-    """serve_dense's `extra` for the MoE config: the assignments each
-    layer's router drops at the (2, 512) prefill (of N·k = 8,192 at a
-    capacity of 80 rows an expert), and a decode step's bytes bound: the
-    dense (E, C, D) dispatch runs every expert on its capacity-8 buffer,
-    so a step reads every weight but the embedding once, and the cache."""
+    """serve_dense's `extra` for an MoE config: the assignments each
+    layer's router drops at the (2, 512) prefill (qwen3-moe: of N·k =
+    8,192 at a capacity of 80 rows an expert; deepseek-v2-lite: of 6,144
+    at 120), and a decode step's bytes bound: the dense (E, C, D)
+    dispatch runs every expert on its capacity-8 buffer, so a step reads
+    every weight but the embedding once, and the cache."""
     from unittest import mock
 
     from repro_torch.models import moe as MOE
@@ -7462,7 +7547,7 @@ def _moe_readings(torch, smi_line):
         cache_bytes = sum(v.numel() * v.element_size()
                           for v in cache.values())
         bound_ms = (weight_bytes + cache_bytes) / PEAK_BYTES * 1e3
-        print(f"  {MOE_NAME} prefill drops per layer (of {n * cfg.moe.top_k}"
+        print(f"  {cfg.name} prefill drops per layer (of {n * cfg.moe.top_k}"
               f" assignments, capacity {MOE._capacity(n, cfg)} rows an "
               f"expert): {drops}; a decode step's bytes bound "
               f"{bound_ms:.3f} ms ({(weight_bytes + cache_bytes) / 1e9:.2f}"
@@ -7474,36 +7559,113 @@ def _moe_readings(torch, smi_line):
     return extra
 
 
-def moe_phase(torch, smi_line):
-    """Phase 27; returns its measurements by part."""
-    out = dict(card_vs_cpu=moe_card_vs_cpu(torch, smi_line))
-    full = serve_dense(torch, MOE_NAME, smi_line, profile=True,
+def _serve_moe(torch, name, smi_line):
+    """(b) of phases 27 and 28: `name` served as phase 23 serves the dense
+    family, with the router's drops and the decode step's bytes bound;
+    the captured step against its bound, a second pass bitwise, finite."""
+    full = serve_dense(torch, name, smi_line, profile=True,
                        extra=_moe_readings(torch, smi_line))
-    out["full_width"] = full
-    cap = full["profile_captured"]
+    cap, eager = full["profile_captured"], full["profile_eager"]
     ms = full["captured"]["decode_ms_per_token"]
     full["captured_over_bound"] = ms / full["decode_bound_ms"]
-    print(f"  {MOE_NAME} decode: captured {ms:.3f} ms/token, "
-          f"{full['captured_over_bound']:.2f}× the bytes bound {full['decode_bound_ms']:.3f} ms; eager "
+    print(f"  {name} decode: captured {ms:.3f} ms/token, "
+          f"{full['captured_over_bound']:.2f}× the bytes bound "
+          f"{full['decode_bound_ms']:.3f} ms; eager "
           f"{full['eager']['decode_ms_per_token']:.3f}; captured step busy "
           f"{cap['device_busy_ms_per_step']:.3f} ms, idle share "
           f"{cap['idle_share']:.3f}, {cap['kernels_per_step']:.1f} kernels; "
-          f"init peak {full['init_peak_gb']:.2f} GB, serving peak "
+          f"eager step busy {eager['device_busy_ms_per_step']:.3f} ms, idle "
+          f"share {eager['idle_share']:.3f}; init peak "
+          f"{full['init_peak_gb']:.2f} GB, serving peak "
           f"{full['peak_gb']:.2f} GB ({smi_line})")
     if not full["second_pass_bitwise"]:
-        fail(f"{MOE_NAME}: a second pass's logits differ from the first's")
+        fail(f"{name}: a second pass's logits differ from the first's")
     if not full["finite"]:
-        fail(f"{MOE_NAME}: non-finite logits")
-    return out
+        fail(f"{name}: non-finite logits")
+    return full
+
+
+def moe_phase(torch, smi_line):
+    """Phase 27; returns its measurements by part."""
+    return dict(card_vs_cpu=moe_card_vs_cpu(torch, smi_line),
+                full_width=_serve_moe(torch, MOE_NAME, smi_line))
 
 
 def moe_attention_launches(moe):
-    """Phase 27's attention launches: the prefills of (b)'s first eager
-    and captured passes."""
+    """Phase 27's (or 28's) attention launches: the prefills of (b)'s
+    first eager and captured passes."""
     passes = moe["full_width"]["first_pass"]
     return sum(passes[k][part]["flash_attn_f32"]
                for k in ("eager", "captured")
                for part in ("launches_prefill", "launches_decode"))
+
+
+# ---------------------------------------------------------------------------
+# phase 28: MLA serving
+# ---------------------------------------------------------------------------
+
+MLA_NAME = "deepseek-v2-lite-16b"
+# (a): the reduced config with deepseek's published MLA head dims kept
+# (kv_lora 64, rope 64, nope 128, v 128), so that the card's prefill
+# launches the kernel's (192, 128) instance, in f32 on the card and the
+# CPU from one init, held as phase 27 (a); then on the card at
+# capacity_factor 8.0 (nothing drops) prefill(T−1) + decode(1) against
+# forward(T) at T = 33 and 64, within phase 23's round-trip limit
+# (decode's plain softmax over the up-projected latent against the
+# kernel's online one), with the card's and the CPU's decode logits there
+MLA_CVC_DIMS = dict(kv_lora_rank=64, qk_rope_dim=64, qk_nope_dim=128,
+                    v_head_dim=128)
+MLA_ROUNDTRIP_T = (33, 64)
+
+
+def mla_card_vs_cpu(torch, smi_line):
+    """(a) of phase 28 (see MLA_CVC_DIMS)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import MLAConfig, get_arch
+    from repro_torch.models import build_model
+
+    cfg = dataclasses.replace(get_arch(MLA_NAME).reduced(),
+                              mla=MLAConfig(**MLA_CVC_DIMS))
+    res = moe_card_vs_cpu(torch, smi_line, cfg, "28 (a)", seed=28)
+    wide = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    tokens = torch.from_numpy(np.random.default_rng(29).integers(
+        0, cfg.vocab_size, (2, max(MLA_ROUNDTRIP_T) + 1)))
+    cpu_params = build_model(wide, "cpu").init(1)
+    trip = {}
+    with torch.no_grad():
+        for dev in (CARD, "cpu"):
+            model = build_model(wide, dev)
+            params = {k: v.to(dev) for k, v in cpu_params.items()}
+            tok = tokens.to(dev)
+            for t in MLA_ROUNDTRIP_T:
+                full = model.forward(params, {"tokens": tok[:, :t]})
+                _, cache = model.prefill(params, {"tokens": tok[:, :t - 1]})
+                got, _ = model.decode(params, tok[:, t - 1:t],
+                                      _grow(cache, 1, tuple(cache)), t - 1)
+                trip[(dev, t)] = (got[:, 0].cpu(), full[:, -1].cpu())
+    errs = {f"T={t}": _normwise(*trip[(CARD, t)]) for t in MLA_ROUNDTRIP_T}
+    errs.update({f"decode T={t} card vs CPU": _normwise(
+        trip[(CARD, t)][0], trip[("cpu", t)][0]) for t in MLA_ROUNDTRIP_T})
+    res["roundtrip_cf8"] = errs
+    print(f"  (a) capacity_factor 8.0 on the card: prefill(T-1) + decode vs "
+          f"forward(T): " + ", ".join(f"{k} {e:.3e}"
+                                      for k, e in errs.items()) +
+          f" (limit {DENSE_ROUNDTRIP_REL_TOL:g}; {smi_line})")
+    worst = max(errs, key=errs.get)
+    if not errs[worst] <= DENSE_ROUNDTRIP_REL_TOL:
+        fail(f"phase 28 (a): {worst} reads {errs[worst]:.3e} (limit "
+             f"{DENSE_ROUNDTRIP_REL_TOL:g})")
+    return res
+
+
+def mla_phase(torch, smi_line):
+    """Phase 28; returns its measurements by part."""
+    return dict(card_vs_cpu=mla_card_vs_cpu(torch, smi_line),
+                full_width=_serve_moe(torch, MLA_NAME, smi_line))
 
 
 def main(argv):
@@ -7676,6 +7838,12 @@ def main(argv):
           "in bf16 at full width (8 of 94 layers) through make_step, "
           "eager and captured decode")
     moe = moe_phase(torch, smi_line)
+
+    # phase 28: MLA serving
+    phase("28", f"MLA serving: {MLA_NAME} reduced with the published MLA "
+          "head dims, card vs CPU in f32; in bf16 at full width and depth "
+          "(27 layers) through make_step, eager and captured decode")
+    mla = mla_phase(torch, smi_line)
     phase(None)
 
     step_rows = [r for r in rows if r["main_path"]]
@@ -7712,7 +7880,8 @@ def main(argv):
            gla_bwd_entry(ssm_out, ssm_train)]}
     # flash attention's main paths: phase 11's replays, zamba2-7b's
     # served prefill and decode steps (phase 14), the dense prefills of
-    # phase 23 and the MoE prefills of phase 27
+    # phase 23, the MoE prefills of phase 27 and the MLA prefills of
+    # phase 28 (the (192, 128) instance; its phase-10 row beside)
     zamba = ssm_out["ssm_serving"]["zamba2-7b"]["bf16"]
     for entry in kernels["kernels"]:
         if entry["name"] == "flash_attn_f32":
@@ -7723,6 +7892,14 @@ def main(argv):
             entry["launches"] += \
                 lm["full_width"]["runs"][0]["attention"]["forward"]
             entry["launches"] += moe_attention_launches(moe)
+            entry["mla_launches"] = moe_attention_launches(mla)
+            entry["launches"] += entry["mla_launches"]
+            row = next(r for r in serving["attention"]
+                       if r["shape"] == "dsv2lite" and "bfloat16" in
+                       r["dtype"])
+            entry["mla_dsv2lite_bf16"] = {k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err", "hd", "dv")}
     # phase 25's train steps: (b)'s first run and (c)
     # and phase 26's SSM train steps ((b) and (c)'s first runs; the GLA
     # backward's entry counts them already)
@@ -7748,7 +7925,8 @@ def main(argv):
         compiled_phase=compiled, table1_scenarios=table1_scen,
         batched=batched, checkpoints=checkpoints, fleets=fleets,
         dense_serving=dense, lm_training=lm, train_step=train,
-        ssm_training=ssm_train, moe_serving=moe, phase_s=PHASE_S,
+        ssm_training=ssm_train, moe_serving=moe, mla_serving=mla,
+        phase_s=PHASE_S,
         total_s=time.perf_counter() - t_start)))
     phase_table()
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,10 +1,11 @@
 """Run configuration dataclasses (port of ``repro/configs/base.py``).
 
 `ArchConfig` keeps the fields of the families this port runs — the paper
-CNN, the dense decoder-only transformer, its Mixture-of-Experts variant,
-the SSM family (RWKV6) and the hybrid (Mamba2 + a shared attention
-block) — with the reference's defaults and its `reduced()` smoke-test
-variant; `ShapeConfig` and
+CNN, the dense decoder-only transformer (also the backbone of the
+reference's `vlm` and `audio` families), its Mixture-of-Experts variant,
+Multi-head Latent Attention (`mla`), the SSM family (RWKV6) and the
+hybrid (Mamba2 + a shared attention block) — with the reference's
+defaults and its `reduced()` smoke-test variant; `ShapeConfig` and
 `INPUT_SHAPES` are the reference's step shapes; `FedConfig` is the full
 FedELMY hyper-parameter set with the reference's validation, error
 messages included."""
@@ -25,6 +26,15 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek-style Multi-head Latent Attention."""
+    kv_lora_rank: int = 512
+    qk_rope_dim: int = 64
+    qk_nope_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class SSMConfig:
     state_size: int = 64          # N (per-channel state) for Mamba2
     head_dim: int = 64            # P
@@ -37,7 +47,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # "cnn" | "dense" | "moe" | "ssm" | "hybrid"
+    family: str                   # cnn | dense | moe | ssm | hybrid | vlm | audio
     n_layers: int                 # cnn: conv blocks
     d_model: int                  # cnn: base conv width
     n_heads: int
@@ -50,6 +60,7 @@ class ArchConfig:
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     # hybrid: apply one shared attention block every `shared_attn_every` layers
     shared_attn_every: int = 0
@@ -75,8 +86,8 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """A smoke-test-sized variant of the same family (<=2 layers,
-        d<=256), the reference's rules for the dense, MoE, SSM and
-        hybrid families."""
+        d<=256), the reference's rules for the dense, MoE, MLA, SSM and
+        hybrid families (MLA: its own small dims, and no head_dim)."""
         heads = min(4, self.n_heads)
         kv = max(1, min(self.n_kv_heads, heads))
         while heads % kv:         # keep heads % kv == 0
@@ -91,11 +102,14 @@ class ArchConfig:
             state_size=min(16, self.ssm.state_size),
             head_dim=min(32, self.ssm.head_dim), expand=2, conv_width=4,
             chunk_size=32, kind=self.ssm.kind)
+        mla = None if self.mla is None else MLAConfig(
+            kv_lora_rank=64, qk_rope_dim=16, qk_nope_dim=32, v_head_dim=32)
         return dataclasses.replace(
             self, n_layers=min(2, self.n_layers), d_model=d, n_heads=heads,
             n_kv_heads=kv, d_ff=min(512, self.d_ff),
-            vocab_size=min(1024, self.vocab_size), head_dim=d // heads,
-            param_dtype="float32", moe=moe, ssm=ssm,
+            vocab_size=min(1024, self.vocab_size),
+            head_dim=None if mla else d // heads,
+            param_dtype="float32", moe=moe, mla=mla, ssm=ssm,
             shared_attn_every=1 if self.shared_attn_every else 0,
             sliding_window=64 if self.sliding_window else 0)
 

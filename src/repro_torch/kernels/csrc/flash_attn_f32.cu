@@ -2,8 +2,14 @@
 // GQA softmax attention with an online softmax, f32 scores and
 // accumulators, inputs and output in bf16 or f32.
 //
-//   q (B, Tq, H, hd); k, v (B, Tk, KV, hd); query head h reads kv head
-//   h / (H / KV); out (B, Tq, H, hd) in q's dtype
+//   q (B, Tq, H, hd); k (B, Tk, KV, hd); v (B, Tk, KV, dv); query head h
+//   reads kv head h / (H / KV); out (B, Tq, H, dv) in q's dtype
+//
+// Instances (HD, DV): (32, 32), (64, 64), (112, 112), (128, 128), and MLA's
+// (192, 128) (deepseek-v2-lite-16b: q/k = nope 128 + rope 64, v 128). The
+// Pallas kernel has one head dim; at dv != hd what this computes is the
+// reference's jnp `layers.flash_attention` (src/repro/models/layers.py:84),
+// whose value width is v's own.
 //
 // Replaces: src/repro/kernels/flash_attention.py:flash_attention_pallas
 // (body _fa_kernel). What it computes is the Pallas kernel's: scores q·kᵀ
@@ -20,7 +26,7 @@
 // itself) gets 0 here where the Pallas kernel averages the values of the
 // padded key blocks.
 //
-// Bound on an H100 SXM: 4·hd FLOP per valid (query, key) pair at 989
+// Bound on an H100 SXM: 2·(hd + dv) FLOP per valid (query, key) pair at 989
 // TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32), against the bytes of
 // q, k, v and out at 3.35 TB/s; long sequences are bound by operations,
 // the serving shape (16 tokens) by bytes.
@@ -33,8 +39,10 @@
 //    heads fill the tile; GQA reads K/V once per group, not per head).
 //  * Q, K and V tiles (64 rows) are copied to shared memory with 16-byte
 //    cp.async (rows padded by 16 bytes: ldmatrix reads without bank
-//    conflicts); K/V tiles are double-buffered, the next tile's copy in
-//    flight while this one computes.
+//    conflicts; V's rows are DV wide, Q's and K's HD); K/V tiles are
+//    double-buffered, the next tile's copy in flight while this one
+//    computes. At (192, 128) that is 109 KB of shared memory a block, two
+//    blocks an SM.
 //  * S = Q·Kᵀ by mma.sync.m16n8k16 (bf16 inputs, f32 accumulation) from
 //    ldmatrix fragments; bf16·bf16 products are exact in f32, so S is an
 //    f32 sum in another order. `scale` multiplies the f32 scores after the
@@ -62,7 +70,8 @@
 // each thread keeps its row of q (scaled) in registers, computes the
 // scores of 16 of the tile's 64 keys (keys l, l+4, …), shares max and sum
 // over its 4 lanes with warp shuffles, writes its probabilities to shared
-// memory, and accumulates p·v for 16 of the hd columns over all 64 keys.
+// memory, and accumulates p·v for DV/4 of the dv columns over all 64 keys.
+// At HD = 192 the q row (192 registers) spills: the oracle's route, slow.
 //
 // With a non-null `lse` (f32, (B, H, Tq)) each query row also writes the
 // log-sum-exp of its scaled, masked scores, m + log(l) in the units of the
@@ -163,13 +172,14 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
 
 constexpr int TC_PAD = 8;  // bf16 a shared row is padded by: 16 bytes
 
-template <int HD>
+template <int HD, int DV>
 constexpr size_t tc_smem_bytes() {
-  // Q, then 2 stages of K, then 2 of V
-  return sizeof(__nv_bfloat16) * (size_t)(TC_BQ + 4 * TC_BK) * (HD + TC_PAD);
+  // Q, then 2 stages of K (HD wide), then 2 of V (DV wide)
+  return sizeof(__nv_bfloat16) * ((size_t)(TC_BQ + 2 * TC_BK) * (HD + TC_PAD) +
+                                  (size_t)2 * TC_BK * (DV + TC_PAD));
 }
 
-template <int HD>
+template <int HD, int DV>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                        const __nv_bfloat16* __restrict__ k,
@@ -177,9 +187,11 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
                        __nv_bfloat16* __restrict__ o,
                        float* __restrict__ lse, int tq, int tk, int h,
                        int kv, int causal, int window, float scale) {
-  static_assert(HD % 16 == 0, "head dim in k16 steps and pairs of n8 blocks");
-  constexpr int S = HD + TC_PAD;  // bf16 per shared row
-  constexpr int NB = HD / 8;  // n8 blocks of the output's columns
+  static_assert(HD % 16 == 0 && DV % 16 == 0,
+                "head dims in k16 steps and pairs of n8 blocks");
+  constexpr int S = HD + TC_PAD;   // bf16 per shared row of Q and K
+  constexpr int SV = DV + TC_PAD;  // bf16 per shared row of V
+  constexpr int NB = DV / 8;  // n8 blocks of the output's columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* ks = qs + TC_BQ * S;
@@ -211,7 +223,14 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       const size_t off =
           (((size_t)b * tk + (ok ? kpos : 0)) * kv + kvh) * HD + col;
       cp_async16(ks + (stage * TC_BK + row) * S + col, k + off, ok);
-      cp_async16(vs + (stage * TC_BK + row) * S + col, v + off, ok);
+    }
+    for (int c = tid; c < TC_BK * DV / 8; c += TC_THREADS) {
+      const int row = c / (DV / 8), col = c % (DV / 8) * 8;
+      const int kpos = kt * TC_BK + row;
+      const bool ok = kpos < tk;
+      const size_t off =
+          (((size_t)b * tk + (ok ? kpos : 0)) * kv + kvh) * DV + col;
+      cp_async16(vs + (stage * TC_BK + row) * SV + col, v + off, ok);
     }
   };
 
@@ -240,7 +259,7 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
     cp_async_wait<1>();  // this tile (and Q) landed, the next in flight
     __syncthreads();
     const __nv_bfloat16* kst = ks + stage * TC_BK * S;
-    const __nv_bfloat16* vst = vs + stage * TC_BK * S;
+    const __nv_bfloat16* vst = vs + stage * TC_BK * SV;
 
     // S = Q·Kᵀ: 16 rows × 64 keys a warp, 8 n8 blocks of keys
     float s[8][4];
@@ -329,7 +348,7 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
       for (int np = 0; np < NB / 2; ++np) {
         uint32_t bv[4];
-        ldmatrix_x4_trans(bv, vst + (kk * 16 + (lane / 8) % 2 * 8 + lane % 8) * S +
+        ldmatrix_x4_trans(bv, vst + (kk * 16 + (lane / 8) % 2 * 8 + lane % 8) * SV +
                                   np * 16 + lane / 16 * 8);
         mma_bf16(t[2 * np], hi, bv[0], bv[1]);
         mma_bf16(t[2 * np], mid, bv[0], bv[1]);
@@ -357,7 +376,7 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
       lse[((size_t)b * h + kvh * g + r % g) * tq + r / g] =
           row_lse(m[i], l[i]);
     __nv_bfloat16* orow =
-        o + (((size_t)b * tq + r / g) * h + kvh * g + r % g) * HD +
+        o + (((size_t)b * tq + r / g) * h + kvh * g + r % g) * DV +
         2 * (lane % 4);
 #pragma unroll
     for (int n = 0; n < NB; ++n)
@@ -366,20 +385,20 @@ flash_attn_bf16_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int HD>
+template <int HD, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, void* o,
                 float* lse, int64_t b, int64_t tq, int64_t tk, int64_t h,
                 int64_t kv, int causal, int64_t window, float scale,
                 cudaStream_t st) {
   // the attribute is per device: one bit per device it was set on
   static uint64_t configured = 0;
-  constexpr size_t smem = tc_smem_bytes<HD>();
+  constexpr size_t smem = tc_smem_bytes<HD, DV>();
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
   if (!(configured & bit)) {
-    err = cudaFuncSetAttribute(flash_attn_bf16_kernel<HD>,
+    err = cudaFuncSetAttribute(flash_attn_bf16_kernel<HD, DV>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -388,7 +407,7 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   const int64_t rows = tq * (h / kv);
   const dim3 grid((unsigned)((rows + TC_BQ - 1) / TC_BQ), (unsigned)kv,
                   (unsigned)b);
-  flash_attn_bf16_kernel<HD><<<grid, TC_THREADS, smem, st>>>(
+  flash_attn_bf16_kernel<HD, DV><<<grid, TC_THREADS, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       lse, (int)tq, (int)tk, (int)h, (int)kv, causal, (int)window, scale);
@@ -406,13 +425,13 @@ constexpr int LANES = 4;             // threads per query row
 constexpr int KEYS = BK / LANES;     // scores per thread per tile
 constexpr int PS = BK + 4;           // row stride of the P tile
 
-template <int HD>
+template <int HD, int DV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * ((size_t)BK * (HD + 1) + (size_t)BK * HD +
+  return sizeof(float) * ((size_t)BK * (HD + 1) + (size_t)BK * DV +
                           (size_t)BQ * PS);
 }
 
-template <int HD>
+template <int HD, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, float* __restrict__ o,
@@ -420,10 +439,10 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   int causal, int window, float scale) {
   extern __shared__ float smem[];
   float* ks = smem;                          // [BK][HD + 1]
-  float* vs = ks + BK * (HD + 1);            // [BK][HD]
-  float* ps = vs + BK * HD;                  // [BQ][PS]
+  float* vs = ks + BK * (HD + 1);            // [BK][DV]
+  float* ps = vs + BK * DV;                  // [BQ][PS]
 
-  constexpr int COLS = HD / LANES;
+  constexpr int COLS = DV / LANES;
   const int tid = threadIdx.x;
   const int row = tid / LANES, lane = tid % LANES;
   const int q0 = blockIdx.x * BQ;
@@ -452,14 +471,14 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int i = tid; i < BK * HD; i += THREADS) {
       const int key = i / HD, c = i % HD;
       const int kpos = k0 + key;
-      float kx = 0.f, vx = 0.f;
-      if (kpos < tk) {
-        const size_t off = (((size_t)b * tk + kpos) * kv + kvh) * HD + c;
-        kx = k[off];
-        vx = v[off];
-      }
-      ks[key * (HD + 1) + c] = kx;
-      vs[key * HD + c] = vx;
+      ks[key * (HD + 1) + c] =
+          kpos < tk ? k[(((size_t)b * tk + kpos) * kv + kvh) * HD + c] : 0.f;
+    }
+    for (int i = tid; i < BK * DV; i += THREADS) {
+      const int key = i / DV, c = i % DV;
+      const int kpos = k0 + key;
+      vs[key * DV + c] =
+          kpos < tk ? v[(((size_t)b * tk + kpos) * kv + kvh) * DV + c] : 0.f;
     }
     __syncthreads();
 
@@ -500,7 +519,7 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* prow = ps + row * PS;
     for (int key = 0; key < BK; ++key) {
       const float p = prow[key];
-      const float* vr = vs + key * HD + lane;
+      const float* vr = vs + key * DV + lane;
 #pragma unroll
       for (int c = 0; c < COLS; ++c) acc[c] = fmaf(p, vr[LANES * c], acc[c]);
     }
@@ -511,48 +530,48 @@ flash_attn_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float den = fmaxf(l, 1e-30f);
     if (lse != nullptr && lane == 0)
       lse[((size_t)b * h + hh) * tq + qpos] = row_lse(m, l);
-    float* orow = o + (((size_t)b * tq + qpos) * h + hh) * HD + lane;
+    float* orow = o + (((size_t)b * tq + qpos) * h + hh) * DV + lane;
 #pragma unroll
     for (int c = 0; c < COLS; ++c) orow[LANES * c] = acc[c] / den;
   }
 }
 
-template <int HD>
+template <int HD, int DV>
 int launch_f32(const void* q, const void* k, const void* v, void* o,
                float* lse, int64_t b, int64_t tq, int64_t tk, int64_t h,
                int64_t kv, int causal, int64_t window, float scale,
                cudaStream_t st) {
   // the attribute is per device: one bit per device it was set on
   static uint64_t configured = 0;
-  constexpr size_t smem = smem_bytes<HD>();
+  constexpr size_t smem = smem_bytes<HD, DV>();
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
   const uint64_t bit = dev < 64 ? uint64_t(1) << dev : 0;
   if (!(configured & bit)) {
     err = cudaFuncSetAttribute(
-        flash_attn_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_attn_kernel<HD, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
     configured |= bit;
   }
   const dim3 grid((unsigned)((tq + BQ - 1) / BQ), (unsigned)h, (unsigned)b);
-  flash_attn_kernel<HD><<<grid, THREADS, smem, st>>>(
+  flash_attn_kernel<HD, DV><<<grid, THREADS, smem, st>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), lse, (int)tq,
       (int)tk, (int)h, (int)kv, causal, (int)window, scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int bf16, int64_t b, int64_t tq, int64_t tk, int64_t h,
            int64_t kv, int causal, int64_t window, float scale,
            cudaStream_t st) {
-  return bf16 ? launch_bf16<HD>(q, k, v, o, lse, b, tq, tk, h, kv, causal,
-                                window, scale, st)
-              : launch_f32<HD>(q, k, v, o, lse, b, tq, tk, h, kv, causal,
-                               window, scale, st);
+  return bf16 ? launch_bf16<HD, DV>(q, k, v, o, lse, b, tq, tk, h, kv, causal,
+                                    window, scale, st)
+              : launch_f32<HD, DV>(q, k, v, o, lse, b, tq, tk, h, kv, causal,
+                                   window, scale, st);
 }
 
 }  // namespace
@@ -560,23 +579,27 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
                               void* o, void* lse, int bf16, int64_t b,
                               int64_t tq, int64_t tk, int64_t h, int64_t kv,
-                              int64_t hd, int causal, int64_t window,
-                              float scale, void* stream) {
+                              int64_t hd, int64_t dv, int causal,
+                              int64_t window, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (hd == 192 && dv == 128)  // MLA: deepseek-v2-lite-16b's heads
+    return launch<192, 128>(q, k, v, o, l, bf16, b, tq, tk, h, kv, causal,
+                            window, scale, st);
+  if (hd != dv) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:
-      return launch<32>(q, k, v, o, l, bf16, b, tq, tk, h, kv, causal, window,
-                        scale, st);
+      return launch<32, 32>(q, k, v, o, l, bf16, b, tq, tk, h, kv, causal,
+                            window, scale, st);
     case 64:
-      return launch<64>(q, k, v, o, l, bf16, b, tq, tk, h, kv, causal, window,
-                        scale, st);
+      return launch<64, 64>(q, k, v, o, l, bf16, b, tq, tk, h, kv, causal,
+                            window, scale, st);
     case 112:  // zamba2's shared attention block, 3584 / 32 heads
-      return launch<112>(q, k, v, o, l, bf16, b, tq, tk, h, kv, causal,
-                         window, scale, st);
+      return launch<112, 112>(q, k, v, o, l, bf16, b, tq, tk, h, kv, causal,
+                              window, scale, st);
     case 128:
-      return launch<128>(q, k, v, o, l, bf16, b, tq, tk, h, kv, causal,
-                         window, scale, st);
+      return launch<128, 128>(q, k, v, o, l, bf16, b, tq, tk, h, kv, causal,
+                              window, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

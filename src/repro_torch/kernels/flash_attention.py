@@ -2,23 +2,28 @@
 backward: causal or sliding-window GQA softmax attention with an online
 softmax over key tiles.
 
-    q (B, Tq, H, hd); k, v (B, Tk, KV, hd)  →  out (B, Tq, H, hd) in q's
-    dtype; query head h reads kv head h // (H / KV); scores in f32.
+    q (B, Tq, H, hd); k (B, Tk, KV, hd); v (B, Tk, KV, dv)  →  out (B, Tq,
+    H, dv) in q's dtype; query head h reads kv head h // (H / KV); scores
+    in f32.
 
 `flash_attn_f32` launches the hand-written forward kernel
-``csrc/flash_attn_f32.cu`` (bf16 or f32, contiguous CUDA tensors, hd 32,
-64, 112 or 128; anything else raises): bf16 on the tensor cores
+``csrc/flash_attn_f32.cu`` (bf16 or f32, contiguous CUDA tensors; (hd,
+dv) one of `DIM_PAIRS`: dv = hd at 32, 64, 112 or 128, and MLA's (192,
+128) for deepseek-v2-lite-16b; anything else raises): bf16 on the tensor cores
 (mma.sync, P·V with P in three bf16 terms), f32 in FFMA; see its header.
 With ``return_lse=True`` it also returns each row's log-sum-exp (B, H,
 Tq) in f32, +inf on a row with no valid key. `flash_attn_bwd_f32`
 launches the backward ``csrc/flash_attn_bwd_f32.cu`` (Δ, dK/dV, dQ:
 three deterministic kernels, no atomics; bf16 on the tensor cores, with
-P and dS in three bf16 terms, f32 in FFMA). Their plain versions are
+P and dS in three bf16 terms, f32 in FFMA; dv = hd only). Their plain
+versions are
 `ref.attention_ref`, `ref.attention_lse_ref` and `ref.attention_bwd_ref`.
 
 `FlashAttention` is the autograd Function over the two: its forward
 saves q, k, v, out and lse, its backward launches the backward kernel.
-It syncs nothing and allocates with `torch.empty` on the current stream,
+Its forward raises for dv ≠ hd (MLA training: the backward kernel has no
+such instance yet). It syncs nothing and allocates with `torch.empty` on
+the current stream,
 so a training step through it can be captured in a CUDA graph; under
 `torch.func.vmap` it raises (batched LM sweeps are not ported). The
 model reaches them through `models/layers.flash_attention`, which routes
@@ -36,7 +41,10 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 112, 128)   # the kernel's template instances
+HEAD_DIMS = (32, 64, 112, 128)   # the backward kernel's instances (dv = hd)
+# the forward kernel's template instances (hd, dv): dv = hd, and MLA's
+# q/k head dim 192 (nope 128 + rope 64) with values of 128
+DIM_PAIRS = tuple((hd, hd) for hd in HEAD_DIMS) + ((192, 128),)
 _MAX_GRID_YZ = 65535
 
 
@@ -45,8 +53,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attn_f32")
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.flash_attn_f32.argtypes = [p, p, p, p, p, ctypes.c_int, i64, i64,
-                                   i64, i64, i64, i64, ctypes.c_int, i64,
-                                   ctypes.c_float, p]
+                                   i64, i64, i64, i64, i64, ctypes.c_int,
+                                   i64, ctypes.c_float, p]
     lib.flash_attn_f32.restype = ctypes.c_int
     return lib
 
@@ -64,9 +72,10 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention: q (B, Tq, H, hd), k and v "
-                         f"(B, Tk, KV, hd); got {tuple(q.shape)}, "
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or \
+            k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"flash_attention: q (B, Tq, H, hd), k (B, Tk, KV, "
+                         f"hd) and v (B, Tk, KV, dv); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, tq, h, hd = q.shape
     if k.shape[0] != b or k.shape[3] != hd or h % k.shape[2]:
@@ -92,13 +101,15 @@ def _check_launch(name: str, tensors, dtype, device) -> None:
                              "boundary (the kernels copy 16-byte rows)")
 
 
-def _check_kernel_shape(name: str, q: torch.Tensor, k: torch.Tensor) -> None:
+def _check_kernel_shape(name: str, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, pairs) -> None:
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: {q.dtype} is not float32 or bfloat16")
     b, tq, h, hd = q.shape
-    tk = k.shape[1]
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {hd} not in {HEAD_DIMS}")
+    tk, dv = k.shape[1], v.shape[3]
+    if (hd, dv) not in pairs:
+        raise ValueError(f"{name}: head dims (q/k {hd}, v {dv}) not among "
+                         f"the kernel's instances {pairs}")
     if min(b, tq, tk) == 0 or max(b, h) > _MAX_GRID_YZ:
         raise ValueError(f"{name}: no grid for q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}")
@@ -108,7 +119,8 @@ def flash_attn_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, window: int = 0,
                    return_lse: bool = False):
     """Launch the forward kernel. q, k, v: one dtype (f32 or bf16),
-    contiguous, on one CUDA device, no grad. Returns out, or (out, lse)
+    contiguous, on one CUDA device, no grad, head dims (hd, dv) one of
+    `DIM_PAIRS`. Returns out (B, Tq, H, dv), or (out, lse)
     with ``return_lse``: lse (B, H, Tq) f32, each row's log-sum-exp of its
     scaled, masked scores (+inf for a row with no valid key); out is the
     same bits either way. `flash_attn_f32.launches` counts the
@@ -119,12 +131,12 @@ def flash_attn_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise NotImplementedError(
             "flash_attn_f32 is the forward alone: differentiate through "
             "FlashAttention.apply, which has the backward kernel")
+    _check_kernel_shape("flash_attn_f32", q, k, v, DIM_PAIRS)
     _check_launch("flash_attn_f32", (("q", q), ("k", k), ("v", v)),
                   q.dtype, q.device)
-    _check_kernel_shape("flash_attn_f32", q, k)
     b, tq, h, hd = q.shape
-    tk, kv = k.shape[1], k.shape[2]
-    out = torch.empty_like(q)
+    tk, kv, dv = k.shape[1], k.shape[2], v.shape[3]
+    out = torch.empty((b, tq, h, dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, tq), dtype=torch.float32, device=q.device) \
         if return_lse else None
     with torch.cuda.device(q.device):
@@ -132,7 +144,7 @@ def flash_attn_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = _lib().flash_attn_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr() if return_lse else None,
-            int(q.dtype == torch.bfloat16), b, tq, tk, h, kv, hd,
+            int(q.dtype == torch.bfloat16), b, tq, tk, h, kv, hd, dv,
             int(causal), int(window), _scale(hd), stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_f32: launch failed with CUDA error "
@@ -171,12 +183,13 @@ def flash_attn_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attn_bwd_f32: lse must be f32 "
                          f"{(b, h, tq)}; got {lse.dtype} "
                          f"{tuple(lse.shape)}")
+    _check_kernel_shape("flash_attn_bwd_f32", q, k, v,
+                        tuple((hd, hd) for hd in HEAD_DIMS))
     _check_launch("flash_attn_bwd_f32",
                   (("q", q), ("k", k), ("v", v), ("out", out),
                    ("dout", dout)), q.dtype, q.device)
     _check_launch("flash_attn_bwd_f32", (("lse", lse),), torch.float32,
                   q.device)
-    _check_kernel_shape("flash_attn_bwd_f32", q, k)
     delta = torch.empty((b, h, tq), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     with torch.cuda.device(q.device):
@@ -200,11 +213,17 @@ flash_attn_bwd_f32.launches = 0
 class FlashAttention(torch.autograd.Function):
     """Attention through the forward kernel with the backward kernel as
     its gradient: ``FlashAttention.apply(q, k, v, causal, window)`` on
-    contiguous CUDA tensors (the launchers' conditions). Capturable; under
-    `torch.func.vmap` it raises."""
+    contiguous CUDA tensors (the launchers' conditions) with v as wide as
+    q and k: MLA's narrower values raise (the backward kernel has no
+    such instance). Capturable; under `torch.func.vmap` it raises."""
 
     @staticmethod
     def forward(q, k, v, causal, window):
+        if v.shape[-1] != q.shape[-1]:
+            raise NotImplementedError(
+                f"FlashAttention: values of head dim {v.shape[-1]} under "
+                f"queries and keys of {q.shape[-1]} (MLA training) have no "
+                "backward kernel yet")
         return flash_attn_f32(q, k, v, causal=causal, window=window,
                               return_lse=True)
 

@@ -24,8 +24,9 @@
               cache, returning its logits and the cache. For the dense
               family the step is a `CapturedDecode`, the counterpart of
               the reference's ``jax.jit(model.decode)``: one CUDA graph
-              on the card, replayed every token; the MoE family's, built
-              by the same `build_decoder_only`, likewise. The hybrid's
+              on the card, replayed every token; the MoE, MLA, `vlm`
+              and `audio` families', built by the same
+              `build_decoder_only`, likewise. The hybrid's
               and RWKV6's decode run eagerly (their decode takes a host
               position).
 
@@ -52,7 +53,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.local_step import fused_loss_for
 from repro_torch.models import build_model
 from repro_torch.models.base import Model, Params
-from repro_torch.models.transformer import (DECODE_INTO_ATTR, cache_len,
+from repro_torch.models.transformer import (DECODE_INTO_ATTR,
                                             check_decode_pos)
 from repro_torch.optim import make_optimizer
 
@@ -144,11 +145,13 @@ def input_specs(cfg: ArchConfig, shape: ShapeConfig,
 # ---------------------------------------------------------------------------
 
 class CapturedDecode:
-    """The dense and MoE families' decode step on static buffers: the
-    token (B, 1) int64, the position (0-d int64), the cache ``{"k",
-    "v"}`` of (L, B, `cache_len(cfg, seq_len)`, KV, hd) and the f32
-    logits (B, 1, V). The buffers are made at the first call, the cache
-    in the dtype of the cache passed in.
+    """The decode step of `build_decoder_only`'s families on static
+    buffers: the token (B, 1) int64, the position (0-d int64), the cache
+    under the names and shapes of the model's `init_cache(batch,
+    seq_len)` (``{"k", "v"}`` of (L, B, W, KV, hd); with MLA ``{"c_kv",
+    "k_rope"}`` of (L, B, W, r) and (L, B, W, rope)) and the f32 logits
+    (B, 1, V). The buffers are made at the first call, the cache in the
+    dtype of the cache passed in.
 
     A call checks `pos` on the host (`check_decode_pos`: without a window,
     C8's bound), then copies the token and pos into their buffers, and the
@@ -175,20 +178,23 @@ class CapturedDecode:
                              "family's decode has no in-place body")
         self.model = model
         self.body = getattr(model.decode, DECODE_INTO_ATTR)
-        cfg = model.cfg
-        self.cache_shape = (cfg.n_layers, batch, cache_len(cfg, seq_len),
-                            cfg.n_kv_heads, cfg.resolved_head_dim)
+        self.batch = batch
+        self.cache_shapes = {
+            n: tuple(v.shape) for n, v in cache_specs_for(
+                model.cfg, ShapeConfig("decode", seq_len, batch,
+                                       "decode")).items()}
+        self.entries = next(iter(self.cache_shapes.values()))[2]
         self.token = self.pos = self.cache = self.logits = None
         self.captured = self.stream = None      # (graph, counts)
         self._ptrs = None
         self.captures = self.replays = self.cache_loads = 0
 
     def _buffers(self, cache) -> None:
-        dev, (_, b) = self.model.device, self.cache_shape[:2]
+        dev, b = self.model.device, self.batch
         self.token = torch.zeros((b, 1), dtype=torch.int64, device=dev)
         self.pos = torch.zeros((), dtype=torch.int64, device=dev)
-        self.cache = {n: torch.zeros(self.cache_shape, dtype=cache[n].dtype,
-                                     device=dev) for n in ("k", "v")}
+        self.cache = {n: torch.zeros(shape, dtype=cache[n].dtype, device=dev)
+                      for n, shape in self.cache_shapes.items()}
         self.logits = torch.zeros((b, 1, self.model.cfg.vocab_size),
                                   dtype=torch.float32, device=dev)
 
@@ -203,7 +209,10 @@ class CapturedDecode:
             self.pos.copy_(pos.reshape(()))
         else:
             self.pos.fill_(int(pos))
-        if all(cache[n] is self.cache[n] for n in ("k", "v")):
+        if set(cache) != set(self.cache):
+            raise ValueError(f"CapturedDecode: cache {sorted(cache)}; the "
+                             f"step's buffers are {sorted(self.cache)}")
+        if all(cache[n] is self.cache[n] for n in self.cache):
             return
         for n, buf in self.cache.items():
             if cache[n].shape != buf.shape or cache[n].dtype != buf.dtype:
@@ -219,7 +228,7 @@ class CapturedDecode:
                                     self.pos))
 
     def __call__(self, params: Params, token: torch.Tensor, cache, pos):
-        check_decode_pos(self.model.cfg, pos, self.cache_shape[2])
+        check_decode_pos(self.model.cfg, pos, self.entries)
         if self.model.device.type != "cuda":
             self._load(token, cache, pos)
             self._run(params)
@@ -309,7 +318,7 @@ def make_step(cfg: ArchConfig, shape: ShapeConfig,
     """The step function of `shape.kind` for `cfg`'s model on `device`
     (the CUDA device by default): the train step (``REPRO_MICROBATCH``
     read here), prefill, or decode (a `CapturedDecode` at the shape's
-    batch and sequence length for the dense and MoE families)."""
+    batch and sequence length for `build_decoder_only`'s families)."""
     model = build_model(cfg, device)
     if shape.kind == "train":
         return _make_train_step(model, fed or FedConfig(), regularizers,
@@ -320,7 +329,7 @@ def make_step(cfg: ArchConfig, shape: ShapeConfig,
             return model.prefill(params, batch)
         return prefill_step
     if shape.kind == "decode":
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "moe", "vlm", "audio"):
             return CapturedDecode(model, shape.global_batch, shape.seq_len)
 
         def serve_step(params, token, cache, pos):

@@ -7,8 +7,6 @@ from repro_torch.models.transformer import (build_decoder_only, build_hybrid,
 
 # Families of the reference not ported yet, and the slice each waits for.
 _NOT_PORTED = {
-    "vlm": "chameleon-34b's backbone (ROADMAP 8a)",
-    "audio": "the encoder-decoder slice",
     "encdec": "the encoder-decoder slice",
 }
 
@@ -18,7 +16,7 @@ def build_model(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     without a GPU unless a device is named)."""
     if cfg.family == "cnn":
         return build_cnn(cfg, device)
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm", "audio"):
         return build_decoder_only(cfg, device)
     if cfg.family == "hybrid":
         return build_hybrid(cfg, device)

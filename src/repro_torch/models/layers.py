@@ -1,5 +1,5 @@
-"""Transformer building blocks of the dense decoder family (port of the
-dense subset of ``repro/models/layers.py``).
+"""Transformer building blocks of the decoder family (port of the dense
+and MLA subset of ``repro/models/layers.py``).
 
 Conventions, as in the reference: activations (B, T, D); attention heads
 in the last-but-one axis, q (B, T, H, hd); parameters are name → tensor
@@ -9,7 +9,7 @@ the reference casts (`preferred_element_type=f32` there): `matmul_f32`.
 
 `flash_attention` routes by device. On a CUDA tensor it launches the
 hand-written kernels (`kernels/flash_attention.py`) from position 0 (a
-`q_offset`, cached decode, raises `NotImplementedError`): the forward
+`q_offset`, which no caller passes, raises `NotImplementedError`): the forward
 kernel alone, or, where an input requires grad (training), the
 `FlashAttention` autograd Function, whose backward is the attention
 backward kernel. On a CPU tensor it runs the reference's chunked
@@ -18,6 +18,14 @@ differentiates it as `jax.grad` differentiates the reference's.
 `decode_attention` (one query against a KV cache, with the sliding
 window of the dense family's ring buffer) is plain PyTorch on every
 device, as the reference has no kernel for it.
+
+MLA (DeepSeek-V2's Multi-head Latent Attention): `mla_latent` compresses
+x into the cacheables, the normed latent c_kv (B, S, r) and one rope key
+k_rope (B, S, rope) shared by the heads; `mla_attention` up-projects the
+latent into per-head keys (nope | rope, the rope key broadcast over the
+heads) and values of their own width, and attends through
+`flash_attention` at scale (nope + rope)^-1/2: on the card the kernel's
+(192, 128) instance for deepseek-v2-lite-16b.
 Nothing in the decode path copies host memory to the card, so a decode
 step can be captured in a CUDA graph (`launch.steps.CapturedDecode`).
 """
@@ -193,16 +201,18 @@ def _chunked_attention(q, k, v, *, causal, window, q_offset, kv_block):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     kv_block: int = 512) -> torch.Tensor:
-    """Causal / sliding-window GQA attention. q: (B, Tq, H, hd); k, v:
-    (B, Tk, KV, hd). q_offset: absolute position of q[0] relative to k[0].
+    """Causal / sliding-window GQA attention. q: (B, Tq, H, hd); k: (B,
+    Tk, KV, hd); v: (B, Tk, KV, dv), dv = hd or, for MLA, narrower; out
+    (B, Tq, H, dv). q_offset: absolute position of q[0] relative to k[0].
     window: 0 = full; > 0 = only keys fewer than `window` positions back.
     CUDA: the flash-attention kernels (see the module docstring); CPU:
     the chunked formulation."""
     if q.device.type == "cuda":
         if q_offset:
             raise NotImplementedError(
-                "flash_attention on CUDA starts at position 0; cached "
-                "decode (q_offset != 0) waits for its kernel")
+                "flash_attention on CUDA starts at position 0: no path of "
+                "the port or the reference passes q_offset != 0 (cached "
+                "decode attends in plain PyTorch)")
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if torch.is_grad_enabled() and any(t.requires_grad
                                            for t in (q, k, v)):
@@ -288,6 +298,73 @@ def self_attention(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
     window = cfg.sliding_window if window is None else window
     o = flash_attention(q, k, v, causal=True, window=window)
     return attn_out(p, o)
+
+
+# ---------------------------------------------------------------------------
+# MLA — DeepSeek-V2 Multi-head Latent Attention. Cache = compressed latent.
+# ---------------------------------------------------------------------------
+
+def mla_init(gen: torch.Generator, cfg, dtype, lead=()) -> Params:
+    """The reference's MLA leaves in its order (He-normal: the down
+    projections w_dq, w_dkv, w_kr at fan-in d_model, the up projections
+    w_uk, w_uv at kv_lora_rank, wo at H·v; the latent norm's unit scale);
+    `lead` stacks them."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.n_heads
+    qk, r, lead = m.qk_nope_dim + m.qk_rope_dim, m.kv_lora_rank, tuple(lead)
+    p = {"w_dq": _he(gen, lead + (d, h * qk), dtype, fan_in=d),
+         "w_dkv": _he(gen, lead + (d, r), dtype, fan_in=d),
+         "w_kr": _he(gen, lead + (d, m.qk_rope_dim), dtype, fan_in=d),
+         "w_uk": _he(gen, lead + (r, h * m.qk_nope_dim), dtype, fan_in=r),
+         "w_uv": _he(gen, lead + (r, h * m.v_head_dim), dtype, fan_in=r),
+         "wo": _he(gen, lead + (h * m.v_head_dim, d), dtype,
+                   fan_in=h * m.v_head_dim),
+         "kv_norm.scale": rms_norm_init(r, dtype, gen.device,
+                                        lead)["scale"]}
+    return dict(sorted(p.items()))
+
+
+def mla_latent(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """x (B, T, D) → the MLA cacheables: the normed latent c_kv (B, T, r)
+    and the rope key k_rope (B, T, rope), in x's dtype."""
+    c_kv = rms_norm(p["kv_norm.scale"], _proj(x, p["w_dkv"]), cfg.norm_eps)
+    k_rope = _proj(x, p["w_kr"])[:, :, None, :]           # (B, T, 1, rope)
+    k_rope = apply_rope(k_rope, positions, cfg.rope_theta)
+    return c_kv, k_rope[:, :, 0, :]
+
+
+def mla_qkv(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
+            c_kv: torch.Tensor, k_rope: torch.Tensor):
+    """Queries from x (B, T, H, nope + rope), rope applied to their rope
+    part, and keys (B, S, H, nope + rope) and values (B, S, H, v)
+    up-projected from the latent c_kv (B, S, r), the shared k_rope (B, S,
+    rope) concatenated to every head's key."""
+    m, h = cfg.mla, cfg.n_heads
+    b, t, _ = x.shape
+    s = c_kv.shape[1]
+    q = _proj(x, p["w_dq"]).reshape(b, t, h, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = q[..., :m.qk_nope_dim], q[..., m.qk_nope_dim:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    k_nope = _proj(c_kv, p["w_uk"]).reshape(b, s, h, m.qk_nope_dim)
+    v = _proj(c_kv, p["w_uv"]).reshape(b, s, h, m.v_head_dim)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, h, m.qk_rope_dim)], dim=-1)
+    return torch.cat([q_nope, q_rope], dim=-1), k, v
+
+
+def mla_out(p: Params, o: torch.Tensor) -> torch.Tensor:
+    b, t, h, vd = o.shape
+    return _proj(o.reshape(b, t, h * vd), p["wo"])
+
+
+def mla_attention(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
+                  c_kv: torch.Tensor, k_rope: torch.Tensor, *,
+                  q_offset: int = 0, causal: bool = True) -> torch.Tensor:
+    """Queries from x attend over the latent cache (c_kv (B, S, r), k_rope
+    (B, S, rope)) through `flash_attention`; keys and values are
+    up-projected from the latent (only r + rope dims are cached)."""
+    q, k, v = mla_qkv(p, cfg, x, positions, c_kv, k_rope)
+    return mla_out(p, flash_attention(q, k, v, causal=causal,
+                                      q_offset=q_offset))
 
 
 # ---------------------------------------------------------------------------

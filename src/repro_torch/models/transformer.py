@@ -1,7 +1,9 @@
 """Model factories of the language-model families (port of
 `build_decoder_only`, `build_hybrid`, `build_rwkv`, `lm_logits`,
 `chunked_xent` and `lm_eval_fn` of ``repro/models/transformer.py``: the
-dense decoder-only family and its Mixture-of-Experts variant, the hybrid
+dense decoder-only family (also the backbone of the `vlm` and `audio`
+families, as in the reference), its Mixture-of-Experts variant, its
+Multi-head Latent Attention variant (MLA, deepseek-v2), the hybrid
 (Mamba2 layers with a weight-tied attention + MLP block between
 segments, zamba2) and RWKV6).
 
@@ -11,16 +13,18 @@ Parameters are a name → tensor dict in the reference's leaf order:
 ``layers.ln2.scale`` (each layer leaf stacked on a leading L axis) and,
 untied, ``lm_head``; with `cfg.moe` the layer's FFN leaves are
 ``layers.ffn.{router,shared.*,w_down,w_gate,w_up}`` (`models/moe.py`:
-the router f32, the expert stacks (L, E, ·, ·)). Reference pytrees
+the router f32, the expert stacks (L, E, ·, ·)); with `cfg.mla` the
+attention leaves are ``layers.attn.{kv_norm.scale,w_dkv,w_dq,w_kr,w_uk,
+w_uv,wo}`` (`layers.mla_init`). Reference pytrees
 convert by plain copy (`repro_torch.convert.from_jax_params`). The reference's layer scan is a
 Python loop over the L-stacked leaves. Init draws on the model's device
 from a `torch.Generator` there: it matches the reference in distribution,
 not in values (parity tests carry the reference's init across).
 
 The dense forward carries the factored-serving hook (`models/factored.py`),
-as the reference's dense family does; the MoE decoder has none (its
-routing is not a factored site), so a pool of MoE members serves
-densified, as in the reference. The MoE backbone carries the layers'
+as the reference's dense family does; the MoE and MLA decoders have none
+(routing and the latent are not factored sites), so a pool of such
+members serves densified, as in the reference. The MoE backbone carries the layers'
 summed aux loss, which `loss_fn` adds to the cross-entropy and `forward`
 drops; prefill and decode run the MoE FFN and drop it. Its capacity
 follows the routed token count (B·T at prefill, B at decode), so
@@ -46,13 +50,22 @@ its attribute ``decode_into`` is the body on the cache in place with pos
 a 0-d device tensor, which `launch.steps.CapturedDecode` captures in a
 CUDA graph.
 
+The MLA cache is the latent, ``{"c_kv": (L, B, W, r), "k_rope": (L, B,
+W, rope)}``. Prefill attends through `layers.mla_attention` (the
+kernel's (192, 128) instance on the card at deepseek's dims) and keeps
+each layer's latent; decode writes the new latent at the same slot as
+the dense cache and attends as the reference's `_mla_decode_attn` does:
+every step up-projects the whole latent cache through w_uk and w_uv and
+takes a plain masked softmax (entries at positions ≤ pos, the mask
+computed on the device), no kernel.
+
 The hybrid's and RWKV6's leaves are ``embed``, ``final_norm.scale``,
 ``layers.*`` (L-stacked), ``lm_head`` and, for the hybrid,
 ``shared_attn.*``. The hybrid's decode writes the new key and value into
 copies of ``shared_k``/``shared_v`` at `pos` and raises when `pos` lies
 past their length (grow them after prefill, as
 ``examples/serve_batched.py`` does); the reference clamps such a write.
-MLA and encoder-decoder are not ported."""
+The encoder-decoder family is not ported."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -158,7 +171,12 @@ def _block_ffn(lp: Params, cfg: ArchConfig, x: torch.Tensor):
 def _block_fwd(lp: Params, cfg: ArchConfig, x: torch.Tensor,
                positions: torch.Tensor):
     h = L.rms_norm(lp["ln1.scale"], x, cfg.norm_eps)
-    x = x + L.self_attention(sub_params(lp, "attn"), cfg, h, positions)
+    attn = sub_params(lp, "attn")
+    if cfg.mla is not None:
+        c_kv, k_rope = L.mla_latent(attn, cfg, h, positions)
+        x = x + L.mla_attention(attn, cfg, h, positions, c_kv, k_rope)
+    else:
+        x = x + L.self_attention(attn, cfg, h, positions)
     return _block_ffn(lp, cfg, x)
 
 
@@ -201,7 +219,8 @@ def _init_params(cfg: ArchConfig, gen: torch.Generator) -> Params:
     dt, dev, d = param_dtype(cfg), gen.device, cfg.d_model
     lead = (cfg.n_layers,)
     p = _embed_init(cfg, gen)
-    p.update(_prefixed("layers.attn", L.attn_init(gen, cfg, dt, lead)))
+    attn_init = L.mla_init if cfg.mla is not None else L.attn_init
+    p.update(_prefixed("layers.attn", attn_init(gen, cfg, dt, lead)))
     if cfg.moe is not None:
         p.update(_prefixed("layers.ffn", MOE.moe_init(gen, cfg, dt, lead)))
     else:
@@ -230,8 +249,8 @@ def _ring_pack(c: torch.Tensor, t: int, w: int) -> torch.Tensor:
 
 
 def check_decode_pos(cfg: ArchConfig, pos, w: int) -> None:
-    """Raise for a decode position the dense cache of `w` entries cannot
-    take: a negative one, or, without a sliding window, one at or past w
+    """Raise for a decode position a cache of `w` entries (the dense or
+    the MLA cache: axis 2 of either's leaves) cannot take: a negative one, or, without a sliding window, one at or past w
     (the reference clamps that write onto the last entry, ROADMAP C8). A
     tensor `pos` is read to the host only where there is a bound to
     check (no window)."""
@@ -270,7 +289,7 @@ def build_decoder_only(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     def forward(params: Params, batch) -> torch.Tensor:
         return lm_logits(params, cfg, backbone(params, batch["tokens"])[0])
 
-    if cfg.moe is None:
+    if cfg.moe is None and cfg.mla is None:
         setattr(forward, FACTORED_FORWARD_ATTR, make_decoder_factored(cfg))
 
     def loss_fn(params: Params, batch) -> torch.Tensor:
@@ -280,9 +299,14 @@ def build_decoder_only(cfg: ArchConfig, device: DeviceLike = None) -> Model:
 
     def init_cache(batch: int, seq_len: int, dtype=None):
         dtype = dtype or param_dtype(cfg)
-        shape = (cfg.n_layers, batch, cache_len(cfg, seq_len), kv, hd)
-        return {"k": torch.zeros(shape, dtype=dtype, device=dev),
-                "v": torch.zeros(shape, dtype=dtype, device=dev)}
+        lead = (cfg.n_layers, batch, cache_len(cfg, seq_len))
+        if cfg.mla is not None:
+            widths = {"c_kv": cfg.mla.kv_lora_rank,
+                      "k_rope": cfg.mla.qk_rope_dim}
+            return {n: torch.zeros(lead + (w,), dtype=dtype, device=dev)
+                    for n, w in widths.items()}
+        return {n: torch.zeros(lead + (kv, hd), dtype=dtype, device=dev)
+                for n in ("k", "v")}
 
     def prefill(params: Params, batch):
         """The prompt's forward: the last position's f32 logits (B, 1, V)
@@ -291,18 +315,22 @@ def build_decoder_only(cfg: ArchConfig, device: DeviceLike = None) -> Model:
         b, t = tokens.shape
         x = params["embed"][tokens.long()]
         positions = torch.arange(t, device=tokens.device).expand(b, t)
-        ks, vs = [], []
+        kept = []                   # a layer's (k, v) or (c_kv, k_rope)
         for l in range(cfg.n_layers):
             lp = layer_params(params, l)
             attn = sub_params(lp, "attn")
             h = L.rms_norm(lp["ln1.scale"], x, cfg.norm_eps)
-            q, k, v = L.attn_qkv(attn, cfg, h, positions)
-            x = x + L.attn_out(attn, L.flash_attention(
-                q, k, v, causal=True, window=window))
+            if cfg.mla is not None:
+                kept.append(L.mla_latent(attn, cfg, h, positions))
+                x = x + L.mla_attention(attn, cfg, h, positions, *kept[-1])
+            else:
+                q, k, v = L.attn_qkv(attn, cfg, h, positions)
+                x = x + L.attn_out(attn, L.flash_attention(
+                    q, k, v, causal=True, window=window))
+                kept.append((k, v))
             x, _ = _block_ffn(lp, cfg, x)
-            ks.append(k)
-            vs.append(v)
-        cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
+        names = ("c_kv", "k_rope") if cfg.mla is not None else ("k", "v")
+        cache = {n: torch.stack(c) for n, c in zip(names, zip(*kept))}
         if window and t > window:
             cache = {n: _ring_pack(c, t, window) for n, c in cache.items()}
         return lm_logits(params, cfg, x[:, -1:]), cache
@@ -310,13 +338,13 @@ def build_decoder_only(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     def decode_into(params: Params, token: torch.Tensor, cache,
                     pos: torch.Tensor) -> torch.Tensor:
         """One token (B, 1) at the 0-d int64 device position `pos`: writes
-        its keys and values into `cache` in place and returns the f32
-        logits (B, 1, V). It reads pos only on the device (no host sync,
-        no branch on its value) and copies nothing from the host, so a
-        CUDA graph can capture it; the caller checks pos
+        its keys and values (MLA: its latent) into `cache` in place and
+        returns the f32 logits (B, 1, V). It reads pos only on the device
+        (no host sync, no branch on its value) and copies nothing from the
+        host, so a CUDA graph can capture it; the caller checks pos
         (`check_decode_pos`)."""
         b = token.shape[0]
-        w = cache["k"].shape[2]
+        w = _entries(cache)
         x = params["embed"][token.long()]
         idx = torch.arange(w, device=pos.device)
         if window:
@@ -327,25 +355,33 @@ def build_decoder_only(cfg: ArchConfig, device: DeviceLike = None) -> Model:
         slot = slot.reshape(1)
         entry_pos = entry_pos.expand(b, w)
         positions, pos_b = pos.expand(b, 1), pos.expand(b)
+        valid = entry_pos[0] <= pos          # MLA's mask of the entries
         for l in range(cfg.n_layers):
             lp = layer_params(params, l)
             attn = sub_params(lp, "attn")
             h = L.rms_norm(lp["ln1.scale"], x, cfg.norm_eps)
-            q, k, v = L.attn_qkv(attn, cfg, h, positions)
-            k_l, v_l = cache["k"][l], cache["v"][l]
-            k_l.index_copy_(1, slot, k.to(k_l.dtype))
-            v_l.index_copy_(1, slot, v.to(v_l.dtype))
-            a = L.decode_attention(q, k_l, v_l, entry_pos, pos_b,
-                                   window=window)
-            x = x + L.attn_out(attn, a)
-            x, _ = _block_ffn(lp, cfg, x)
+            if cfg.mla is not None:
+                c_new, r_new = L.mla_latent(attn, cfg, h, positions)
+                c_l, r_l = cache["c_kv"][l], cache["k_rope"][l]
+                c_l.index_copy_(1, slot, c_new.to(c_l.dtype))
+                r_l.index_copy_(1, slot, r_new.to(r_l.dtype))
+                a = _mla_decode_attn(attn, cfg, h, positions, c_l, r_l,
+                                     valid)
+            else:
+                q, k, v = L.attn_qkv(attn, cfg, h, positions)
+                k_l, v_l = cache["k"][l], cache["v"][l]
+                k_l.index_copy_(1, slot, k.to(k_l.dtype))
+                v_l.index_copy_(1, slot, v.to(v_l.dtype))
+                a = L.attn_out(attn, L.decode_attention(
+                    q, k_l, v_l, entry_pos, pos_b, window=window))
+            x, _ = _block_ffn(lp, cfg, x + a)
         return lm_logits(params, cfg, x)
 
     def decode(params: Params, token: torch.Tensor, cache, pos):
         """One token (B, 1) at position `pos` (an int or a 0-d integer
         tensor on the model's device): the f32 logits (B, 1, V) and a new
         cache (the one passed in is left as it is)."""
-        check_decode_pos(cfg, pos, cache["k"].shape[2])
+        check_decode_pos(cfg, pos, _entries(cache))
         if isinstance(pos, torch.Tensor):
             pos = pos.to(torch.int64).reshape(())
         else:
@@ -357,6 +393,30 @@ def build_decoder_only(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     setattr(decode, DECODE_INTO_ATTR, decode_into)
     return Model(cfg, init, forward, loss_fn, prefill, decode, init_cache,
                  dev)
+
+
+def _entries(cache) -> int:
+    """The entries of a dense or MLA cache: axis 2 of every leaf."""
+    return next(iter(cache.values())).shape[2]
+
+
+def _mla_decode_attn(p: Params, cfg: ArchConfig, h: torch.Tensor,
+                     positions: torch.Tensor, c_kv: torch.Tensor,
+                     k_rope: torch.Tensor, valid: torch.Tensor):
+    """One query (B, 1, D) over the latent cache (c_kv (B, S, r), k_rope
+    (B, S, rope)), entries where `valid` (S,) holds: the keys and values
+    up-projected from the whole cache, f32 scores at scale (nope +
+    rope)^-1/2, masked to −1e30, a plain softmax, out through wo (the
+    reference's `_mla_decode_attn`)."""
+    m = cfg.mla
+    q, k, v = L.mla_qkv(p, cfg, h, positions, c_kv, k_rope)
+    scale = (m.qk_nope_dim + m.qk_rope_dim) ** -0.5
+    sc = torch.einsum("bthd,bshd->bths", q.to(ACC) * scale, k.to(ACC))
+    sc = torch.where(valid[None, None, None, :], sc,
+                     torch.full_like(sc, L.NEG_INF))
+    pr = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bths,bshd->bthd", pr, v.to(ACC)).to(h.dtype)
+    return L.mla_out(p, o)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,8 @@ held to chip_smoke.py phase 10's bf16 tolerance against the kernel's
 plain version `ref.attention_ref` — one bf16 rounding of the output,
 |out − want| ≤ 2⁻⁷·|want| + 1e-6 elementwise — on phase 10's shape
 families at small size (the serving shape, long causal, windowed, ragged,
-head dims 32, 64, 112 and 128, GQA groups 1–7). Three terms meet it; one
+head dims 32, 64, 112 and 128, GQA groups 1–7, and MLA's q/k 192 with v
+128). Three terms meet it; one
 term (P rounded to bf16) does not: where cancellation leaves |out| ~1e-5,
 its error is far above 1e-6."""
 import numpy as np
@@ -29,7 +30,8 @@ torch.set_num_threads(2)
 
 TILE = 64   # keys per tile, the kernel's TC_BK
 
-# (B, Tq = Tk, H, KV, hd, window): phase 10's families at small size
+# (B, Tq = Tk, H, KV, hd, window[, dv]): phase 10's families at small
+# size; dv = hd unless given
 CASES = {
     "serve": (10, 16, 32, 8, 64, 8192),
     "causal": (1, 512, 8, 2, 64, 0),
@@ -38,13 +40,15 @@ CASES = {
     "hd112": (1, 256, 4, 4, 112, 0),
     "hd32": (2, 300, 8, 1, 32, 96),
     "hd128": (1, 256, 7, 1, 128, 0),
+    "mla": (1, 300, 4, 4, 192, 0, 128),
 }
 
 
-def _inputs(b, t, h, kv, hd, seed):
+def _inputs(b, t, h, kv, hd, seed, dv=None):
     rng = np.random.default_rng(seed)
-    return tuple(torch.from_numpy(rng.normal(size=(b, t, n, hd)).astype(
-        np.float32)).bfloat16() for n in (h, kv, kv))
+    return tuple(torch.from_numpy(rng.normal(size=(b, t, n, d)).astype(
+        np.float32)).bfloat16()
+        for n, d in ((h, hd), (kv, hd), (kv, dv or hd)))
 
 
 def _emulate(q, k, v, *, window, terms):
@@ -64,7 +68,7 @@ def _emulate(q, k, v, *, window, terms):
                     torch.tensor(NEG_INF))
     m = torch.full((b, h, t), NEG_INF)
     l = torch.zeros((b, h, t))
-    acc = torch.zeros((b, h, t, hd))
+    acc = torch.zeros((b, h, t, v.shape[-1]))
     for k0 in range(0, t, TILE):
         st = s[..., k0:k0 + TILE]
         m_new = torch.maximum(m, st.amax(-1))
@@ -91,20 +95,21 @@ def _violations(out, want):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_three_term_p_meets_phase10_tolerance(name):
-    b, t, h, kv, hd, window = CASES[name]
-    q, k, v = _inputs(b, t, h, kv, hd, seed=len(name) * 1000 + t)
+    b, t, h, kv, hd, window, *dv = CASES[name]
+    q, k, v = _inputs(b, t, h, kv, hd, len(name) * 1000 + t, *dv)
     want = attention_ref(q, k, v, causal=True, window=window)
     got = _emulate(q, k, v, window=window, terms=3)
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     assert _violations(got, want) == 0
 
 
-@pytest.mark.parametrize("name", ["causal", "window", "ragged", "hd112"])
+@pytest.mark.parametrize("name", ["causal", "window", "ragged", "hd112",
+                                  "mla"])
 def test_p_rounded_to_bf16_fails_phase10_tolerance(name):
     """The FlashAttention-2 rounding of P misses the tolerance on the long
     sequences (and a two-term split only just: it is not used)."""
-    b, t, h, kv, hd, window = CASES[name]
-    q, k, v = _inputs(b, t, h, kv, hd, seed=len(name) * 1000 + t)
+    b, t, h, kv, hd, window, *dv = CASES[name]
+    q, k, v = _inputs(b, t, h, kv, hd, len(name) * 1000 + t, *dv)
     want = attention_ref(q, k, v, causal=True, window=window)
     one = _violations(_emulate(q, k, v, window=window, terms=1), want)
     three = _violations(_emulate(q, k, v, window=window, terms=3), want)
