@@ -52,7 +52,10 @@ Phases, each failing the run with a nonzero exit:
              attention, at every head dim the kernel has: 32, 64, 112,
              128, and at groups of query heads a kv head up to 16; MLA's
              q/k 192 over v 128 at phase 28's heads, 2 × 512 and 2 ×
-             2,048, beside each fused SDPA backend that takes it; the
+             2,048, beside each fused SDPA backend that takes it;
+             non-causal with Tq ≠ Tk at phase 29's shapes: the encoder
+             over 1,000 frames, 16 target queries over them, 512 over 300,
+             and a group of 4 query heads over 333 keys; the
              Gram as one grouped call of a pairwise call's 20
              stacks and each shape alone, M from 1 to 256, ragged P, and
              M = 257, 320, 512 as tile pairs in one launch, each Gram
@@ -208,7 +211,7 @@ Phases, each failing the run with a nonzero exit:
              own domain's held-out NLL, printed); (c)
              llama3.2-1b in f32 at full width and depth through
              `launch(Experiment(strategy="fedelmy"))` over DataPlan
-             streams (54 steps of 2,048 tokens): steps/s, captures and
+             streams (27 steps of 2,048 tokens): steps/s, captures and
              replays, exact attention forward / backward and sweep
              launches, peak memory, held-out NLL beside ln V, every value
              finite, a second run bitwise the first, the regularizer
@@ -227,7 +230,7 @@ Phases, each failing the run with a nonzero exit:
              oracle (Adam's m per leaf, task); (b) llama3.2-1b at full
              width and depth at train_4k's 4,096-token sequences (global
              batch cut to 16, REPRO_MICROBATCH=8), the moment pool: a
-             warm-up and 3 timed steps, exact attention and sweep launches
+             warm-up and 2 timed steps, exact attention and sweep launches
              a step, every sweep backward on bf16 leaves, steps/s,
              tokens/s, the model FLOP rate, peak memory, a second run
              bitwise, one step profiled; (c) the exact pool (capacity 6,
@@ -245,10 +248,10 @@ Phases, each failing the run with a nonzero exit:
              in f32, one step on the card and the CPU from one init (task
              and every leaf's gradient within 1e-4 normwise, exact GLA
              launches on the card, none on the CPU); (b) rwkv6-7b at full
-             width cut to 4 of 32 layers and (c) zamba2-7b at full width
-             cut to 9 Mamba2 layers with the tied block after every 3,
+             width cut to 2 of 32 layers and (c) zamba2-7b at full width
+             cut to 6 Mamba2 layers with the tied block after every 3,
              in bf16, REPRO_MICROBATCH=8, the moment pool: a warm-up and
-             3 timed steps, exact GLA forward and backward (layers × 8),
+             2 timed steps, exact GLA forward and backward (layers × 8),
              attention (applications × 8) and sweep (one forward and one
              backward a leaf dtype: 2 + 2) launches a step, every value
              finite, steps/s, tokens/s, the model FLOP
@@ -278,6 +281,26 @@ Phases, each failing the run with a nonzero exit:
              prefill, none a decode step, captured decode bitwise eager,
              a second pass bitwise, drops per layer, the decode step's
              bytes bound
+29. encoder-decoder serving — (a) seamless-m4t-medium reduced (2 + 2
+             layers) in f32 on the card and the CPU from one init, the
+             source longer (45) and shorter (19) than the 32 target
+             tokens: forward, loss_fn, prefill (logits and its four
+             cache leaves) and 4 decode steps within 1e-4 normwise (k/v
+             grown, the cross leaves passed through), exactly 6
+             attention launches in each of forward, loss_fn and prefill
+             on the card, none in decode and none on the CPU, and
+             prefill(T−1) + decode(1) against forward(T) on the card;
+             (b) the config in bf16 at full width and depth (12 + 12
+             layers, 977.76 M parameters) through `launch.steps.
+             make_step`: prefill of 2 × 16 tokens over 2 × 1,000 source
+             frames, k/v grown by 32, 32 greedy tokens through the eager
+             decode step; 36 attention launches a prefill and none a
+             decode step, a second pass bitwise, finite, decode past the
+             grown cache raising; prefill and decode times, tokens/s,
+             peaks, a profiled decode step and its bytes bound; (c) its
+             f32 twin: the prefill through the kernel against
+             `ref.attention_ref` in its place, and prefill(T−1) +
+             decode(1) against forward(T), within 1e-4
 
 Every phase prints its wall time ("phase N: … s"), and a table of them
 comes before the total. Before the last lines it prints every
@@ -291,6 +314,7 @@ f64 check of phase 3 with each, beside the correct kernel: which check
 sees which fault, and where SLICE_RATIO_TOL lies between them.
 """
 import contextlib
+import gc
 import json
 import math
 import os
@@ -356,10 +380,23 @@ PHASE_S = {}
 _RUNNING = []
 
 
+def _release():
+    """Collect the garbage that reference cycles keep (a closure over its
+    own cell keeps every variable it closes over, models included) and
+    return the freed device memory to the card: without it a phase's
+    models can outlive the phase."""
+    gc.collect()
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
 def phase(label, title=None):
     """Close the running phase (its wall time printed as ``phase N: … s``
-    and kept in PHASE_S), then start phase `label`, printing ``[label]
-    title``; `label` None only closes."""
+    and kept in PHASE_S; its garbage released within that time), then
+    start phase `label`, printing ``[label] title``; `label` None only
+    closes."""
+    _release()
     now = time.perf_counter()
     if _RUNNING:
         name, t0 = _RUNNING.pop()
@@ -958,27 +995,36 @@ def _profile(torch, run, n_steps, label, watch=()):
     busy time per step (the kernels' summed device time), the device's
     idle share, kernels launched per step, the five kernels with the
     most device time, and the device time per step of every kernel whose
-    name holds one of `watch` (with its share of the busy time)."""
+    name holds one of `watch` (with its share of the busy time). Only the
+    device's activity is recorded, and its events are read from the
+    profiler's raw results: the per-event Python objects of
+    `prof.events()` cost seconds over a step of ~40k kernels."""
+    from torch.autograd.profiler_util import _rewrite_name
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run(n_steps)
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    cuda = torch.autograd.DeviceType.CUDA
+    busy_us, n_kernels, by_name = 0.0, 0, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != cuda or e.is_hidden_event():
+            continue
+        us = (e.end_ns() - e.start_ns()) / 1e3
+        name = _rewrite_name(e.name())
+        busy_us += us
+        n_kernels += 1
+        by_name[name] = by_name.get(name, 0.0) + us
+    if not n_kernels:
+        fail(f"{label}: the profiler recorded no device activity")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     out = dict(steps=n_steps, host_ms_per_step=host_s * 1e3 / n_steps,
                device_busy_ms_per_step=busy_us / 1e3 / n_steps,
                idle_share=1.0 - busy_us / 1e6 / host_s if host_s else None,
-               kernels_per_step=len(kernels) / n_steps,
+               kernels_per_step=n_kernels / n_steps,
                top=[(name, us / 1e3 / n_steps) for name, us in top])
     watched = {}
     for name, us in by_name.items():
@@ -1587,7 +1633,19 @@ ATTN_SHAPES = [("serve", 10, 16, 16, 32, 8, 64, True, 8192),
                # heads over 4 kv heads (a group of 16, wider than any
                # above), hd 128, at the 2 × 512 prompt and at 2 × 2,048
                ("qwen3moe", 2, 512, 512, 64, 4, 128, True, 0),
-               ("qwen3moe2k", 2, 2048, 2048, 64, 4, 128, True, 0)]
+               ("qwen3moe2k", 2, 2048, 2048, 64, 4, 128, True, 0),
+               # phase 29's encoder-decoder: seamless-m4t-medium's
+               # decoder self-attention (causal, 16 heads over 16, at the
+               # 2 × 16 target prompt); non-causal, its encoder over 1,000
+               # source frames (ragged against every key tile), prefill's
+               # cross-attention (16 target tokens over the source), Tq >
+               # Tk, and a group of 4 query heads a kv head, which
+               # seamless (16 over 16) does not take
+               ("s2t_dec", 2, 16, 16, 16, 16, 64, True, 0),
+               ("s2t_enc", 2, 1000, 1000, 16, 16, 64, False, 0),
+               ("s2t_cross", 2, 16, 1000, 16, 16, 64, False, 0),
+               ("s2t_cross_long_tgt", 2, 512, 300, 16, 16, 64, False, 0),
+               ("xgqa", 3, 77, 333, 32, 8, 64, False, 0)]
 # MLA (phase 28's prefill): deepseek-v2-lite-16b's 16 heads (the latent's
 # up-projection gives every query head its own key and value head), q/k
 # head dim 192 (nope 128 + rope 64) over values of 128, causal, at the
@@ -1857,7 +1915,8 @@ def _pairs(tq, tk, causal, window):
 
 def check_flash_attention(torch, fa_mod, ref):
     """The flash-attention kernel at the serving shape and at long
-    sequences, bf16 and f32, and at MLA's (192, 128) head dims. Tolerance
+    sequences, bf16 and f32, non-causal with Tq ≠ Tk (the
+    encoder-decoder's), and at MLA's (192, 128) head dims. Tolerance
     against the plain version (dense softmax, f32 scores): f32 within
     1e-5 absolute (outputs are convex combinations of N(0, 1) values);
     bf16 within one bf16 rounding of the output, 2⁻⁷·|out| + 1e-6 (both
@@ -3323,6 +3382,7 @@ def _served_model(torch, cfg, n_params):
     buffer); holds the parameter count to `n_params`, the full config's.
     The peak memory statistics restart after the draw."""
     from repro_torch.models import build_model
+    _release()
     model = build_model(cfg)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -5592,18 +5652,24 @@ def _dense_cfg(name):
     return cfg
 
 
-def _dense_pass(torch, params, prefill, step, tokens, new, grow):
-    """Prefill of `tokens`, the cache grown by `grow`, then `new` greedy
-    tokens through `step` (the model's eager decode or the captured
-    step). Counts reset before, read after the prefill and after the
-    decode steps. Returns the walls, the counts, every step's logits
-    (copies: the captured step's buffer is overwritten) and the tokens."""
+def _dense_pass(torch, params, prefill, step, tokens, new, grow, src=None):
+    """Prefill of `tokens` (over the source frames `src`, the
+    encoder-decoder's), the cache grown by `grow` (the encoder-decoder's
+    k and v only), then `new` greedy tokens through `step` (the model's
+    eager decode or the captured step). Counts reset before, read after
+    the prefill and after the decode steps. Returns the walls, the
+    counts, every step's logits (copies: the captured step's buffer is
+    overwritten), the tokens and the cache."""
     _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": tokens})
+    batch = {"tokens": tokens}
+    if src is not None:
+        batch["src_embeds"] = src
+    logits, cache = prefill(params, batch)
     if grow:
-        cache = _grow(cache, grow, tuple(cache))
+        cache = _grow(cache, grow, ("k", "v") if src is not None
+                      else tuple(cache))
     torch.cuda.synchronize()
     t_pre = time.perf_counter()
     counts_pre = _read_counts()
@@ -5741,6 +5807,30 @@ def _f32_twin(params):
     return {k: v.float() for k, v in params.items()}
 
 
+def _kernel_vs_plain_prefill(torch, m32, f32, batch):
+    """The f32 prefill's logits through the attention kernel and with
+    `ref.attention_ref` in its place, and the kernel's launches in each
+    (the second should be 0)."""
+    from unittest import mock
+
+    from repro_torch.kernels.ref import attention_ref
+    from repro_torch.models import layers
+
+    def plain(q, k, v, *, causal=True, window=0, q_offset=0, kv_block=512):
+        return attention_ref(q, k, v, causal=causal, window=window)
+
+    def run():
+        _reset_counts()
+        logits, _ = m32.prefill(f32, batch)
+        torch.cuda.synchronize()
+        return logits, _read_counts()["flash_attn_f32"]
+    with torch.no_grad():
+        lk, nk = run()
+        with mock.patch.object(layers, "flash_attention", plain):
+            lp, np_ = run()
+    return lk, lp, nk, np_
+
+
 def dense_ring_and_oracle(torch, smi_line):
     """(b) llama3.2-1b bf16: a (1, 8448) prompt past the 8,192 window,
     ring-packed by prefill and not grown, then 8 greedy tokens through
@@ -5753,15 +5843,12 @@ def dense_ring_and_oracle(torch, smi_line):
     … 8455: the first is T = 8,449). The bf16 ring tokens' logits are
     printed against the f32 oracle's (not gated)."""
     import dataclasses
-    from unittest import mock
 
     import numpy as np
 
     from repro_torch.configs import ShapeConfig, get_arch
-    from repro_torch.kernels.ref import attention_ref
     from repro_torch.launch import make_step
     from repro_torch.models import build_model
-    from repro_torch.models import layers
 
     cfg = get_arch("llama3.2-1b")
     model, params, _, _ = _served_model(torch, cfg,
@@ -5803,18 +5890,8 @@ def dense_ring_and_oracle(torch, smi_line):
     m32 = build_model(dataclasses.replace(cfg, param_dtype="float32"))
     short = torch.from_numpy(np.random.default_rng(25).integers(
         0, cfg.vocab_size, (DENSE_BATCH, DENSE_PROMPT + 1))).to(CARD)
-    _reset_counts()
-    lk, _ = m32.prefill(f32, {"tokens": short})
-    torch.cuda.synchronize()
-    nk = _read_counts()["flash_attn_f32"]
-
-    def plain(q, k, v, *, causal=True, window=0, q_offset=0, kv_block=512):
-        return attention_ref(q, k, v, causal=causal, window=window)
-    with mock.patch.object(layers, "flash_attention", plain):
-        _reset_counts()
-        lp, _ = m32.prefill(f32, {"tokens": short})
-        torch.cuda.synchronize()
-        np_ = _read_counts()["flash_attn_f32"]
+    lk, lp, nk, np_ = _kernel_vs_plain_prefill(torch, m32, f32,
+                                               {"tokens": short})
     _, c512 = m32.prefill(f32, {"tokens": short[:, :-1]})
     ld, _ = m32.decode(f32, short[:, -1:], _grow(c512, 1, ("k", "v")),
                        DENSE_PROMPT)
@@ -5944,12 +6021,15 @@ LM_FED = dict(n_clients=4, pool_size=2, learning_rate=3e-4, alpha=0.06,
               beta=1.0)
 # (a): card against CPU on the example's variant
 LM_GRAD_REL_TOL = 1e-5
+# (a): the short launch, card against CPU: 1 + 4 × 2 × 1 = 9 steps (e_warmup
+# and e_local 2, 18 steps, until the script outgrew its time limit)
+LM_CVC_FED = dict(LM_FED, e_warmup=1, e_local=1)
 # (b): the sequences of a client's stream its fit is read on
 LM_FIT_SEQS = 32
 LM_LOSS_RTOL, LM_NLL_RTOL = 1e-4, 1e-3
 # (c): the full-width run, cut from the example's e_warmup 20 / e_local 60
-# for the run's time limit: 6 + 4 × 2 × 6 = 54 steps
-LM_FULL_FED = dict(LM_FED, e_warmup=6, e_local=6)
+# for the run's time limit: 3 + 4 × 2 × 3 = 27 steps
+LM_FULL_FED = dict(LM_FED, e_warmup=3, e_local=3)
 # phase 16's limits for the regularizer through the sweep against the
 # per-leaf code: value and gradient per leaf, normwise
 SWEEP_VALUE_TOL, SWEEP_GRAD_TOL = 1e-5, 1e-4
@@ -6047,7 +6127,7 @@ def lm_card_vs_cpu(torch, train, held):
     """(a) The example's variant from one init on both devices: one Eq. 9
     pool step with a pool of 2 (task loss and each leaf's gradient within
     LM_GRAD_REL_TOL normwise of the CPU's), then a short `launch`
-    (e_warmup 2, e_local 2) whose ClientRecord task losses lie within
+    (LM_CVC_FED) whose ClientRecord task losses lie within
     LM_LOSS_RTOL and held-out NLLs within LM_NLL_RTOL of the CPU's."""
     from repro_torch.api.pools import backend_for
     from repro_torch.configs import FedConfig
@@ -6055,7 +6135,7 @@ def lm_card_vs_cpu(torch, train, held):
 
     cfg = _lm_variant(torch)
     models = {d: build_model(cfg, device=d) for d in (CARD, "cpu")}
-    fed = FedConfig(**dict(LM_FED, e_warmup=2, e_local=2))
+    fed = FedConfig(**LM_CVC_FED)
     backend = backend_for(fed)
     inits = [models["cpu"].init(s) for s in (0, 1)]
     batch = {k: torch.from_numpy(v[:LM_BATCH]) for k, v in train[0].items()}
@@ -6085,7 +6165,8 @@ def lm_card_vs_cpu(torch, train, held):
         rec[CARD]["task_loss"], rec["cpu"]["task_loss"]))
     nll_err = max(abs(a - b) / abs(b) for a, b in zip(
         rec[CARD]["held_out_nll"], rec["cpu"]["held_out_nll"]))
-    print(f"  (a) launch e_warmup 2 / e_local 2, card vs CPU: task losses "
+    print(f"  (a) launch e_warmup {fed.e_warmup} / e_local {fed.e_local}, "
+          f"card vs CPU: task losses "
           f"within {loss_err:.2e}, held-out NLL within {nll_err:.2e} "
           f"(card {rec[CARD]['held_out_nll']}, CPU "
           f"{rec['cpu']['held_out_nll']})")
@@ -6185,6 +6266,7 @@ def lm_full_width(torch, smi_line):
     from repro_torch.models import build_model
     from repro_torch.models.transformer import EVAL_ROWS
 
+    _release()
     cfg = dataclasses.replace(get_arch("llama3.2-1b"), param_dtype="float32")
     model = build_model(cfg)
     fed = FedConfig(**LM_FULL_FED)
@@ -6374,7 +6456,7 @@ def lm_phase(torch, smi_line):
 # the run's time limit, in TRAIN_MICRO row blocks (REPRO_MICROBATCH): 8
 # microbatches of 2 × 4,096 tokens, 65,536 tokens a step
 TRAIN_T, TRAIN_ROWS, TRAIN_MICRO = 4096, 16, 8
-TRAIN_STEPS = 3                 # timed steps, after one warm-up step
+TRAIN_STEPS = 2                 # timed steps, after one warm-up step
 TRAIN_EXACT_STEPS = 2
 TRAIN_ORACLE_MICRO = 16         # (d): the f32 twin's microbatches
 # m1 and m2: m0 plus seeded Gaussian noise at this share of each leaf's RMS
@@ -6455,11 +6537,11 @@ def _train_batch(torch, vocab, t, rows, device):
 
 def _leaf_errs(got, want):
     """Per-leaf normwise errors of `got` against `want`, and over all
-    leaves as one vector."""
+    leaves as one vector, in f64 on the device `want` lies on."""
     errs, num, den = {}, 0.0, 0.0
     for k, w in want.items():
-        g = got[k].double().cpu()
-        w = w.double().cpu()
+        w = w.double()
+        g = got[k].to(w.device).double()
         d, n = float((g - w).norm()), float(w.norm())
         errs[k] = d / n if n else d
         num, den = num + d * d, den + n * n
@@ -6694,6 +6776,7 @@ def train_step_full_width(torch, smi_line):
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer
 
+    _release()
     cfg = get_arch("llama3.2-1b")
     shape = ShapeConfig("train_4k", TRAIN_T, TRAIN_ROWS, "train")
     fed = FedConfig()
@@ -6738,6 +6821,7 @@ def train_step_full_width(torch, smi_line):
              "want one on bf16 leaves a step")
     timed = sum(r["s"] for r in rows[1:])
     rate = TRAIN_STEPS / timed
+    finite = _finite(p1)
     first = dict(params={k: v.cpu() for k, v in p1.items()},
                  m={k: v.cpu() for k, v in o1["m"].items()},
                  v={k: v.cpu() for k, v in o1["v"].items()},
@@ -6752,8 +6836,7 @@ def train_step_full_width(torch, smi_line):
                 for n in ("m", "v") for k, v in o2[n].items())
     del p2, o2
     torch.cuda.empty_cache()
-    finite = all(math.isfinite(t) for t in first["tasks"]) and \
-        _finite(first["params"])
+    finite = finite and all(math.isfinite(t) for t in first["tasks"])
     moment = dict(
         steps=rows, steps_per_s=rate, tokens_per_s=rate * tokens,
         model_flops_per_s=rate * flops,
@@ -7068,8 +7151,11 @@ def attention_bwd_entry(serving, lm):
 # to 9 of its 81 Mamba2 layers with the tied block after every 3 (the
 # full config's three applications, so its gradient still sums over three
 # uses)
-SSM_TRAIN_CUTS = {"rwkv6-7b": dict(n_layers=4),
-                  "zamba2-7b": dict(n_layers=9, shared_attn_every=3)}
+# (b), (c): depths cut for the script's time limit (4 and 9 layers until
+# the script outgrew it); zamba2-7b keeps two applications of its tied
+# block, so that block's gradient still sums over applications
+SSM_TRAIN_CUTS = {"rwkv6-7b": dict(n_layers=2),
+                  "zamba2-7b": dict(n_layers=6, shared_attn_every=3)}
 # (d): each model at 2 layers (zamba2-7b's tied block after each, as
 # `reduced()` places it) against its f32 twin
 SSM_ORACLE_CUTS = {"rwkv6-7b": dict(n_layers=2),
@@ -7216,7 +7302,7 @@ def ssm_train_full_width(torch, name, smi_line):
     shape = ShapeConfig("train_4k", TRAIN_T, TRAIN_ROWS, "train")
     fed = FedConfig()
     opt = make_optimizer(fed.optimizer, fed.learning_rate, fed.weight_decay)
-    torch.cuda.empty_cache()
+    _release()
     torch.cuda.reset_peak_memory_stats()
     model = build_model(cfg)
     params = model.init(0)
@@ -7241,6 +7327,7 @@ def ssm_train_full_width(torch, name, smi_line):
     _hold_counts(f"phase 26 {name}", rows, want)
     timed = sum(r["s"] for r in rows[1:])
     rate = TRAIN_STEPS / timed
+    finite = _finite(p1) and _finite(o1["m"]) and _finite(o1["v"])
     first = dict(params={k: v.cpu() for k, v in p1.items()},
                  m={k: v.cpu() for k, v in o1["m"].items()},
                  v={k: v.cpu() for k, v in o1["v"].items()},
@@ -7255,9 +7342,7 @@ def ssm_train_full_width(torch, name, smi_line):
                 for n in ("m", "v") for k, v in o2[n].items())
     del p2, o2
     torch.cuda.empty_cache()
-    finite = all(math.isfinite(t) for t in first["tasks"]) and \
-        _finite(first["params"]) and _finite(first["m"]) and \
-        _finite(first["v"])
+    finite = finite and all(math.isfinite(t) for t in first["tasks"])
     del first["params"], first["m"], first["v"]
     out = dict(config=cfg.name, layers=cfg.n_layers, cut=SSM_TRAIN_CUTS[name],
                n_params=n_params, tokens_per_step=tokens,
@@ -7308,6 +7393,7 @@ def ssm_train_oracle(torch, name, smi_line):
     from repro_torch.models import build_model
     from repro_torch.optim import make_optimizer
 
+    _release()
     cfg = _ssm_cfg(name, **SSM_ORACLE_CUTS[name])
     cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     shape = ShapeConfig("train_4k", TRAIN_T, TRAIN_ROWS, "train")
@@ -7329,8 +7415,7 @@ def ssm_train_oracle(torch, name, smi_line):
         _reset_train_counts()
         _, o, task = step(p, opt.init(p), batch, pool, 0)
         torch.cuda.synchronize()
-        runs[key] = ({k: v.cpu() for k, v in o["m"].items()}, float(task),
-                     _read_train_counts()["gla"])
+        runs[key] = (o["m"], float(task), _read_train_counts()["gla"])
         del o, p, pool, step
         torch.cuda.empty_cache()
     errs, total = _leaf_errs(runs["bf16"][0], runs["f32"][0])
@@ -7349,7 +7434,7 @@ def ssm_train_oracle(torch, name, smi_line):
     if total > TRAIN_ORACLE_GRAD_TOL or task_err > TRAIN_TASK_TOL:
         fail(f"phase 26 (d) {name}: the bf16 step lies {total:.3e} "
              f"(gradient) / {task_err:.3e} (task) from the f32 twin")
-    del params, batch
+    del params, batch, runs
     torch.cuda.empty_cache()
     return out
 
@@ -7668,6 +7753,304 @@ def mla_phase(torch, smi_line):
                 full_width=_serve_moe(torch, MLA_NAME, smi_line))
 
 
+# ---------------------------------------------------------------------------
+# phase 29: encoder-decoder serving
+# ---------------------------------------------------------------------------
+
+ENCDEC_NAME = "seamless-m4t-medium"
+# parameters (jax.eval_shape of the reference's init): 12 encoder and 12
+# decoder layers, d 1,024, vocab 256,206 untied; nothing cut
+ENCDEC_PARAMS = 977_757_184
+# (a): the reduced config (2 + 2 layers) in f32 on the card and the CPU
+# from one init, the source longer (45) and shorter (19) than the 32
+# target tokens: forward, loss_fn, prefill of the first 28 tokens (its
+# logits and four cache leaves), k/v grown by 4, 4 decode steps; each
+# within phase 27 (a)'s limit (MOE_CVC_TOL); on the card prefill(T−1) +
+# decode(1) against forward(T) within phase 23's round-trip limit
+ENCDEC_CVC_T, ENCDEC_CVC_NEW = 32, 4
+ENCDEC_CVC_SRC = (45, 19)
+# (b): the full config in bf16: 2 source sequences of 1,000 frames, 16
+# target tokens, k/v grown by 32, 32 greedy tokens through make_step's
+# decode step
+ENCDEC_BATCH, ENCDEC_SRC, ENCDEC_PROMPT, ENCDEC_NEW = 2, 1000, 16, 32
+
+
+def _encdec_launches(cfg):
+    """Attention launches a prefill or forward: every encoder layer's
+    self-attention, every decoder layer's causal self-attention and its
+    cross-attention (a decode step attends in plain PyTorch: none)."""
+    return cfg.n_encoder_layers + 2 * cfg.n_layers
+
+
+def _encdec_passes(torch, model, params, tokens, src, new):
+    """forward, loss_fn, prefill of all but the last `new` tokens (its
+    logits and cache leaves), k/v grown by `new`, then `new` decode steps
+    of the given tokens; every output (on the CPU), the attention
+    launches of each of forward, loss_fn, prefill and the decode steps,
+    and whether each decode step grew nothing but k/v and passed the
+    cross leaves through untouched."""
+    t = tokens.shape[1]
+    batch = {"tokens": tokens, "src_embeds": src}
+    res, launches, passed = {}, {}, True
+    with torch.no_grad():
+        for name, fn in (("forward", lambda: model.forward(params, batch)),
+                         ("loss", lambda: model.loss_fn(params, dict(
+                             batch, labels=tokens.flip(1))))):
+            _reset_counts()
+            res[name] = fn()
+            launches[name] = _read_counts()["flash_attn_f32"]
+        _reset_counts()
+        logits, cache = model.prefill(params, {
+            "tokens": tokens[:, :t - new], "src_embeds": src})
+        launches["prefill"] = _read_counts()["flash_attn_f32"]
+        res["prefill"] = logits
+        res.update({f"cache.{n}": c for n, c in cache.items()})
+        cache = _grow(cache, new, ("k", "v"))
+        _reset_counts()
+        for pos in range(t - new, t):
+            given = cache
+            logits, cache = model.decode(params, tokens[:, pos:pos + 1],
+                                         cache, pos)
+            passed &= all(cache[n] is given[n] for n in ("cross_k",
+                                                          "cross_v"))
+            passed &= all(cache[n].shape == given[n].shape for n in cache)
+            res[f"decode{pos}"] = logits
+        launches["decode"] = _read_counts()["flash_attn_f32"]
+        res.update({f"decoded.{n}": c for n, c in cache.items()})
+    return {k: v.cpu() for k, v in res.items()}, launches, passed
+
+
+def encdec_card_vs_cpu(torch, smi_line):
+    """(a) of phase 29 (see ENCDEC_CVC_T)."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch(ENCDEC_NAME).reduced()
+    t, new = ENCDEC_CVC_T, ENCDEC_CVC_NEW
+    rng = np.random.default_rng(29)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, t)))
+    srcs = {s: torch.from_numpy(rng.normal(size=(2, s, cfg.d_model)).astype(
+        np.float32)) for s in ENCDEC_CVC_SRC}
+    cpu_params = build_model(cfg, "cpu").init(0)
+    n = _encdec_launches(cfg)
+    want = dict(forward=n, loss=n, prefill=n, decode=0)
+    out = {}
+    for t_src, src in srcs.items():
+        runs = {}
+        for dev in ("cpu", CARD):
+            model = build_model(cfg, dev)
+            params = {k: v.to(dev) for k, v in cpu_params.items()}
+            runs[dev] = _encdec_passes(torch, model, params, tokens.to(dev),
+                                       src.to(dev), new)
+            if dev == CARD:
+                with torch.no_grad():
+                    tok, s_ = tokens.to(dev), src.to(dev)
+                    full = model.forward(params, {"tokens": tok,
+                                                  "src_embeds": s_})
+                    _, cache = model.prefill(params, {
+                        "tokens": tok[:, :t - 1], "src_embeds": s_})
+                    got, _ = model.decode(params, tok[:, t - 1:],
+                                          _grow(cache, 1, ("k", "v")), t - 1)
+                trip = _normwise(got[:, 0], full[:, -1])
+        (cpu, cpu_l, cpu_ok), (card, card_l, card_ok) = runs["cpu"], \
+            runs[CARD]
+        errs = {k: _normwise(card[k], cpu[k]) for k in cpu}
+        worst = max(errs, key=errs.get)
+        out[f"t_src={t_src}"] = dict(
+            errs=errs, launches_card=card_l, launches_cpu=cpu_l,
+            cross_passed_through=cpu_ok and card_ok, roundtrip_rel_err=trip,
+            loss=float(cpu["loss"]))
+        print(f"  (a) reduced {cfg.name} f32, T_src {t_src}, T {t}: card vs "
+              f"CPU worst {worst} {errs[worst]:.3e} (limit {MOE_CVC_TOL:g}; "
+              + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()
+                          if not k.startswith("decode")) +
+              f"); attention launches card {card_l}, CPU {cpu_l}; "
+              f"prefill(T-1)+decode vs forward(T) on the card {trip:.3e} "
+              f"(limit {DENSE_ROUNDTRIP_REL_TOL:g}; {smi_line})")
+        if not errs[worst] <= MOE_CVC_TOL:
+            fail(f"phase 29 (a), T_src {t_src}: the card's {worst} lies "
+                 f"{errs[worst]:.3e} from the CPU's (limit {MOE_CVC_TOL:g})")
+        if card_l != want or any(cpu_l.values()):
+            fail(f"phase 29 (a), T_src {t_src}: attention launches {card_l} "
+                 f"on the card, {cpu_l} on the CPU; expected {want} and none")
+        if not (cpu_ok and card_ok):
+            fail(f"phase 29 (a), T_src {t_src}: a decode step changed the "
+                 "cross leaves or a leaf's shape")
+        if not trip <= DENSE_ROUNDTRIP_REL_TOL:
+            fail(f"phase 29 (a), T_src {t_src}: prefill(T-1) + decode lies "
+                 f"{trip:.3e} from forward(T)")
+    return out
+
+
+def serve_encdec(torch, smi_line):
+    """(b) seamless-m4t-medium in bf16 at full width and depth, random
+    weights, through `launch.steps.make_step`: prefill of 2 × 16 target
+    tokens over 2 × 1,000 source frames (N(0, 1) from a seeded
+    generator), k/v grown by 32, 32 greedy tokens through the decode step;
+    exact attention launches (36 a prefill, none a decode step), a second
+    pass bitwise, finite, decode past the grown cache raising; times,
+    peaks, a profiled decode step and its bytes bound. (c) The f32 twin:
+    the prefill through the kernel against the same prefill with
+    `ref.attention_ref` in its place, and prefill(T−1) + decode(1)
+    against forward(T)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch import make_step
+    from repro_torch.models import build_model
+
+    cfg = get_arch(ENCDEC_NAME)
+    # earlier phases' tensors still allocated: the peaks below are net
+    # of them, this phase's own
+    _release()
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    model, params, build_s, init_peak_gb = _served_model(torch, cfg,
+                                                         ENCDEC_PARAMS)
+    init_peak_gb -= held_gb
+    b, t, new = ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_NEW
+    prefill = make_step(cfg, ShapeConfig("prefill_16", t, b, "prefill"))
+    serve = make_step(cfg, ShapeConfig("decode_48", t + new, b, "decode"))
+    gen = torch.Generator(device=CARD).manual_seed(29)
+    src32 = torch.randn((b, ENCDEC_SRC, cfg.d_model), generator=gen,
+                        device=CARD)
+    src = src32.to(torch.bfloat16)
+    tokens = torch.from_numpy(np.random.default_rng(29).integers(
+        0, cfg.vocab_size, (b, t))).to(CARD)
+    passes = [_dense_pass(torch, params, prefill, serve, tokens, new, new,
+                          src) for _ in range(2)]
+    (first, logits1, seq1, cache), (second, logits2, seq2, _) = passes
+    n_launch = _encdec_launches(cfg)
+    want_dec = {k: 0 for k in first["launches_prefill"]}
+    want_pre = dict(want_dec, flash_attn_f32=n_launch)
+    for label, r in (("first", first), ("second", second)):
+        if r["launches_prefill"] != want_pre or \
+                r["launches_decode"] != want_dec:
+            fail(f"phase 29 (b), {label} pass: launches "
+                 f"{r['launches_prefill']} (prefill) and "
+                 f"{r['launches_decode']} ({new} decode steps); expected "
+                 f"{want_pre} and {want_dec}")
+    tok = seq1[:, -1:]
+    try:
+        serve(params, tok, cache, t + new)
+        raised = False
+    except ValueError:
+        raised = True
+    # a decode step reads the decoder's weights but the cross-attention's
+    # wk and wv (the cross k/v come from the cache), lm_head and the norm
+    weight_bytes = sum(v.numel() * v.element_size() for k, v in
+                       params.items() if k.startswith(("decoder.", "lm_head",
+                                                       "final_norm")) and
+                       k not in ("decoder.cross_attn.wk",
+                                 "decoder.cross_attn.wv"))
+    cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    bound_ms = (weight_bytes + cache_bytes) / PEAK_BYTES * 1e3
+    out = dict(
+        params=sum(p.numel() for p in params.values()),
+        param_gb=sum(p.numel() * p.element_size()
+                     for p in params.values()) / 1e9,
+        build_s=build_s, init_peak_gb=init_peak_gb,
+        first_pass=first, timed=second,
+        second_pass_bitwise=bool(torch.equal(logits1, logits2) and
+                                 torch.equal(seq1, seq2)),
+        finite=bool(torch.isfinite(logits1).all()),
+        decode_past_cache_raises=raised,
+        greedy_tokens=seq1[0].tolist(),
+        cache_entries={k: v.shape[2] for k, v in cache.items()},
+        decode_bound_ms=bound_ms,
+        decode_bound_bytes=weight_bytes + cache_bytes,
+        held_at_start_gb=held_gb,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9 - held_gb,
+        nvidia_smi=smi_line)
+    out["profile_decode"] = _profile(
+        torch, lambda n: [serve(params, tok, cache, t + i)
+                          for i in range(n)], 4,
+        f"{cfg.name} bf16 decode step (batch 2; 'step' = token)")
+    prof = out["profile_decode"]
+    ms = second["decode_ms_per_token"]
+    out["decode_over_bound"] = ms / bound_ms
+    print(f"  (b) {cfg.name} bf16 ({out['params']:,} parameters, "
+          f"{out['param_gb']:.2f} GB, drawn in {build_s:.2f} s; {smi_line})"
+          f": prefill of {b} x {t} tokens over {b} x {ENCDEC_SRC} frames "
+          f"{second['prefill_ms']:.2f} ms (first {first['prefill_ms']:.2f});"
+          f" decode {ms:.3f} ms/token ({second['tokens_per_s']:.1f} "
+          f"tokens/s), {out['decode_over_bound']:.2f}x the bytes bound "
+          f"{bound_ms:.4f} ms ({(weight_bytes + cache_bytes) / 1e9:.4f} GB "
+          f"at {PEAK_BYTES / 1e12:.2f} TB/s); decode step busy "
+          f"{prof['device_busy_ms_per_step']:.3f} ms, idle share "
+          f"{prof['idle_share']:.3f}, {prof['kernels_per_step']:.1f} "
+          f"kernels; init peak {init_peak_gb:.2f} GB, serving peak "
+          f"{out['peak_gb']:.2f} GB (net of {held_gb:.2f} GB held by "
+          f"earlier phases); launches a prefill "
+          f"{first['launches_prefill']['flash_attn_f32']}, a decode step 0;"
+          f" cache entries {out['cache_entries']}; greedy "
+          f"{out['greedy_tokens'][:6]}")
+    if not out["second_pass_bitwise"]:
+        fail("phase 29 (b): a second pass's logits or tokens differ")
+    if not out["finite"]:
+        fail("phase 29 (b): non-finite logits")
+    if not raised:
+        fail(f"phase 29 (b): decode at position {t + new} past the grown "
+             f"cache's {t + new} entries did not raise")
+    del serve, cache, logits1, logits2
+    f32 = _f32_twin(params)
+    del params, model
+    torch.cuda.empty_cache()
+
+    # (c) the f32 twin
+    m32 = build_model(dataclasses.replace(cfg, param_dtype="float32"))
+    batch = {"tokens": tokens, "src_embeds": src.float()}
+    lk, lp, nk, np_ = _kernel_vs_plain_prefill(torch, m32, f32, batch)
+    with torch.no_grad():
+        full = m32.forward(f32, batch)
+        _, c15 = m32.prefill(f32, {"tokens": tokens[:, :-1],
+                                   "src_embeds": batch["src_embeds"]})
+        ld, _ = m32.decode(f32, tokens[:, -1:], _grow(c15, 1, ("k", "v")),
+                           t - 1)
+    oracle = dict(kernel_launches=nk, plain_launches=np_,
+                  kernel_vs_plain_rel_err=_normwise(lk, lp),
+                  roundtrip_rel_err=_normwise(ld[:, 0], full[:, -1]),
+                  prefill_vs_forward_rel_err=_normwise(lk[:, 0], full[:, -1]),
+                  max_abs_logit=float(lk.abs().max()))
+    out["f32_oracle"] = oracle
+    print(f"  (c) {cfg.name} f32 twin: prefill through the kernel vs "
+          f"attention_ref {oracle['kernel_vs_plain_rel_err']:.3e} (limit "
+          f"{DENSE_KERNEL_REL_TOL:g}; attention launches {nk} / {np_}); "
+          f"prefill({t - 1})+decode vs forward({t}) "
+          f"{oracle['roundtrip_rel_err']:.3e} (limit "
+          f"{DENSE_ROUNDTRIP_REL_TOL:g}); prefill vs forward at the last "
+          f"position {oracle['prefill_vs_forward_rel_err']:.3e}")
+    if nk != n_launch or np_ != 0:
+        fail(f"phase 29 (c): {nk} attention launches through the kernel and "
+             f"{np_} through attention_ref; expected {n_launch} and 0")
+    if not oracle["kernel_vs_plain_rel_err"] <= DENSE_KERNEL_REL_TOL:
+        fail("phase 29 (c): the f32 prefill through the kernel disagrees "
+             "with the one through attention_ref")
+    if not oracle["roundtrip_rel_err"] <= DENSE_ROUNDTRIP_REL_TOL:
+        fail("phase 29 (c): prefill(T-1) + decode disagrees with forward(T)")
+    del m32, f32, c15
+    torch.cuda.empty_cache()
+    return out
+
+
+def encdec_phase(torch, smi_line):
+    """Phase 29; returns its measurements by part."""
+    return dict(card_vs_cpu=encdec_card_vs_cpu(torch, smi_line),
+                full_width=serve_encdec(torch, smi_line))
+
+
+def encdec_attention_launches(encdec):
+    """Phase 29's attention launches: (b)'s two counted passes."""
+    full = encdec["full_width"]
+    return sum(full[p][part]["flash_attn_f32"]
+               for p in ("first_pass", "timed")
+               for part in ("launches_prefill", "launches_decode"))
+
+
 def main(argv):
     """No arguments: every phase. ``--planted-faults``: phases 1-2, then
     `planted_faults` (a calibration of phase 5's checks; no result line)."""
@@ -7830,7 +8213,7 @@ def main(argv):
     # phase 26: SSM training on the card
     phase("26", "SSM training through make_step('train'): rwkv6-7b and "
           "zamba2-7b reduced card vs CPU in f32; at full width in bf16 "
-          "(4 and 9 layers), 16 × 4,096 tokens a step; 2-layer bf16 vs f32")
+          "(2 and 6 layers), 16 × 4,096 tokens a step; 2-layer bf16 vs f32")
     ssm_train = ssm_train_phase(torch, smi_line)
 
     # phase 27: MoE serving
@@ -7844,6 +8227,12 @@ def main(argv):
           "head dims, card vs CPU in f32; in bf16 at full width and depth "
           "(27 layers) through make_step, eager and captured decode")
     mla = mla_phase(torch, smi_line)
+
+    # phase 29: encoder-decoder serving
+    phase("29", f"encoder-decoder serving: {ENCDEC_NAME} reduced, card vs "
+          "CPU in f32; in bf16 at full width and depth through make_step, "
+          "2 x 1,000 source frames; the f32 twin against its oracles")
+    encdec = encdec_phase(torch, smi_line)
     phase(None)
 
     step_rows = [r for r in rows if r["main_path"]]
@@ -7880,8 +8269,9 @@ def main(argv):
            gla_bwd_entry(ssm_out, ssm_train)]}
     # flash attention's main paths: phase 11's replays, zamba2-7b's
     # served prefill and decode steps (phase 14), the dense prefills of
-    # phase 23, the MoE prefills of phase 27 and the MLA prefills of
-    # phase 28 (the (192, 128) instance; its phase-10 row beside)
+    # phase 23, the MoE prefills of phase 27, the MLA prefills of
+    # phase 28 (the (192, 128) instance; its phase-10 row beside) and the
+    # encoder-decoder's prefills of phase 29 (non-causal, Tq ≠ Tk)
     zamba = ssm_out["ssm_serving"]["zamba2-7b"]["bf16"]
     for entry in kernels["kernels"]:
         if entry["name"] == "flash_attn_f32":
@@ -7894,6 +8284,21 @@ def main(argv):
             entry["launches"] += moe_attention_launches(moe)
             entry["mla_launches"] = moe_attention_launches(mla)
             entry["launches"] += entry["mla_launches"]
+            entry["encdec_launches"] = encdec_attention_launches(encdec)
+            entry["launches"] += entry["encdec_launches"]
+            # the non-causal rows, Tq ≠ Tk (phase 29's encoder and
+            # cross-attention, and a group of 4), in bf16
+            entry["noncausal_bf16"] = {r["shape"]: {k: r[k] for k in (
+                "tq", "tk", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")} for r in serving["attention"]
+                if not r["causal"] and "bfloat16" in r["dtype"]}
+            # and its decoder's causal self-attention
+            row = next(r for r in serving["attention"]
+                       if r["shape"] == "s2t_dec" and "bfloat16" in
+                       r["dtype"])
+            entry["s2t_dec_bf16"] = {k: row[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "max_abs_err")}
             row = next(r for r in serving["attention"]
                        if r["shape"] == "dsv2lite" and "bfloat16" in
                        r["dtype"])
@@ -7926,7 +8331,7 @@ def main(argv):
         batched=batched, checkpoints=checkpoints, fleets=fleets,
         dense_serving=dense, lm_training=lm, train_step=train,
         ssm_training=ssm_train, moe_serving=moe, mla_serving=mla,
-        phase_s=PHASE_S,
+        encdec_serving=encdec, phase_s=PHASE_S,
         total_s=time.perf_counter() - t_start)))
     phase_table()
     print(f"total {time.perf_counter() - t_start:.1f} s")

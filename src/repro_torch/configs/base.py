@@ -3,8 +3,9 @@
 `ArchConfig` keeps the fields of the families this port runs — the paper
 CNN, the dense decoder-only transformer (also the backbone of the
 reference's `vlm` and `audio` families), its Mixture-of-Experts variant,
-Multi-head Latent Attention (`mla`), the SSM family (RWKV6) and the
-hybrid (Mamba2 + a shared attention block) — with the reference's
+Multi-head Latent Attention (`mla`), the SSM family (RWKV6), the
+hybrid (Mamba2 + a shared attention block) and the encoder-decoder
+(`n_encoder_layers`) — with the reference's
 defaults and its `reduced()` smoke-test variant; `ShapeConfig` and
 `INPUT_SHAPES` are the reference's step shapes; `FedConfig` is the full
 FedELMY hyper-parameter set with the reference's validation, error
@@ -47,7 +48,8 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                   # cnn | dense | moe | ssm | hybrid | vlm | audio
+    # cnn | dense | moe | ssm | hybrid | vlm | audio | encdec
+    family: str
     n_layers: int                 # cnn: conv blocks
     d_model: int                  # cnn: base conv width
     n_heads: int
@@ -64,6 +66,7 @@ class ArchConfig:
     ssm: Optional[SSMConfig] = None
     # hybrid: apply one shared attention block every `shared_attn_every` layers
     shared_attn_every: int = 0
+    n_encoder_layers: int = 0     # encdec: the encoder's layers
     sliding_window: int = 0       # 0 = full attention
     param_dtype: str = "bfloat16"
     source: str = ""              # citation
@@ -86,8 +89,9 @@ class ArchConfig:
 
     def reduced(self) -> "ArchConfig":
         """A smoke-test-sized variant of the same family (<=2 layers,
-        d<=256), the reference's rules for the dense, MoE, MLA, SSM and
-        hybrid families (MLA: its own small dims, and no head_dim)."""
+        d<=256), the reference's rules for the dense, MoE, MLA, SSM,
+        hybrid and encoder-decoder families (MLA: its own small dims, and
+        no head_dim)."""
         heads = min(4, self.n_heads)
         kv = max(1, min(self.n_kv_heads, heads))
         while heads % kv:         # keep heads % kv == 0
@@ -111,6 +115,7 @@ class ArchConfig:
             head_dim=None if mla else d // heads,
             param_dtype="float32", moe=moe, mla=mla, ssm=ssm,
             shared_attn_every=1 if self.shared_attn_every else 0,
+            n_encoder_layers=min(2, self.n_encoder_layers),
             sliding_window=64 if self.sliding_window else 0)
 
 

@@ -21,8 +21,12 @@ from typing import Any, Callable, Dict, Sequence
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).with_name("build")
+# -split-compile=0: the device optimizer's passes on every host thread,
+# which shortens the largest sources' builds (flash_attn_f32.cu's most)
+# and leaves every kernel's registers and spills as they were
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 def _nvcc() -> str:

@@ -1,6 +1,8 @@
 """Flash attention (port of ``repro/kernels/flash_attention.py``) and its
-backward: causal or sliding-window GQA softmax attention with an online
-softmax over key tiles.
+backward: causal, sliding-window or non-causal GQA softmax attention
+with an online softmax over key tiles; non-causal with Tq ≠ Tk either
+way (the encoder's self-attention over T_src frames, the decoder's
+cross-attention of T target queries over them).
 
     q (B, Tq, H, hd); k (B, Tk, KV, hd); v (B, Tk, KV, dv)  →  out (B, Tq,
     H, dv) in q's dtype; query head h reads kv head h // (H / KV); scores
@@ -22,13 +24,15 @@ versions are
 `FlashAttention` is the autograd Function over the two: its forward
 saves q, k, v, out and lse, its backward launches the backward kernel.
 Its forward raises for dv ≠ hd (MLA training: the backward kernel has no
-such instance yet). It syncs nothing and allocates with `torch.empty` on
-the current stream,
-so a training step through it can be captured in a CUDA graph; under
-`torch.func.vmap` it raises (batched LM sweeps are not ported). The
-model reaches them through `models/layers.flash_attention`, which routes
-by device: on CUDA the Function where an input requires grad, else the
-forward kernel; on the CPU the reference's chunked formulation. A direct
+such instance yet) and for non-causal attention or Tq ≠ Tk
+(encoder-decoder training, ROADMAP 8d-train: the backward kernel has
+never been held on the card there). It syncs nothing and allocates
+with `torch.empty` on the current stream, so a training step through it
+can be captured in a CUDA graph; under `torch.func.vmap` it raises
+(batched LM sweeps are not ported). The model reaches them through
+`models/layers.flash_attention`, which routes by device: on CUDA the
+Function where an input requires grad, else the forward kernel; on the
+CPU the reference's chunked formulation. A direct
 `flash_attn_f32` call on an input that requires grad raises: the
 Function is the route that has a backward."""
 from __future__ import annotations
@@ -215,7 +219,9 @@ class FlashAttention(torch.autograd.Function):
     its gradient: ``FlashAttention.apply(q, k, v, causal, window)`` on
     contiguous CUDA tensors (the launchers' conditions) with v as wide as
     q and k: MLA's narrower values raise (the backward kernel has no
-    such instance). Capturable; under `torch.func.vmap` it raises."""
+    such instance), and so do non-causal attention and Tq ≠ Tk (its
+    backward is not held there yet). Capturable; under `torch.func.vmap`
+    it raises."""
 
     @staticmethod
     def forward(q, k, v, causal, window):
@@ -224,6 +230,12 @@ class FlashAttention(torch.autograd.Function):
                 f"FlashAttention: values of head dim {v.shape[-1]} under "
                 f"queries and keys of {q.shape[-1]} (MLA training) have no "
                 "backward kernel yet")
+        if not causal or q.shape[1] != k.shape[1]:
+            raise NotImplementedError(
+                f"FlashAttention: {'causal' if causal else 'non-causal'} "
+                f"attention of {q.shape[1]} queries over {k.shape[1]} keys "
+                "(encoder-decoder training, ROADMAP 8d-train): the "
+                "backward kernel is held only at causal Tq = Tk so far")
         return flash_attn_f32(q, k, v, causal=causal, window=window,
                               return_lse=True)
 

@@ -26,9 +26,9 @@
               the reference's ``jax.jit(model.decode)``: one CUDA graph
               on the card, replayed every token; the MoE, MLA, `vlm`
               and `audio` families', built by the same
-              `build_decoder_only`, likewise. The hybrid's
-              and RWKV6's decode run eagerly (their decode takes a host
-              position).
+              `build_decoder_only`, likewise. The hybrid's, RWKV6's and
+              the encoder-decoder's decode run eagerly (their decode
+              takes a host position).
 
 `input_specs(cfg, shape, fed)` gives every argument of that step as
 tensors on the meta device, shapes and dtypes with nothing allocated:
@@ -54,7 +54,7 @@ from repro_torch.kernels.local_step import fused_loss_for
 from repro_torch.models import build_model
 from repro_torch.models.base import Model, Params
 from repro_torch.models.transformer import (DECODE_INTO_ATTR,
-                                            check_decode_pos)
+                                            check_decode_pos, param_dtype)
 from repro_torch.optim import make_optimizer
 
 I32 = torch.int32
@@ -84,9 +84,10 @@ def _abstract(fn: Callable[[], Dict[str, torch.Tensor]]
 def batch_specs_for(cfg: ArchConfig, shape: ShapeConfig
                     ) -> Dict[str, torch.Tensor]:
     """The batch of a `shape.kind` step: images and labels for the CNN;
-    int32 tokens (and labels for train) of (B, T) for a language model;
-    one token (B, 1) and a 0-d position for decode. (The reference's
-    encoder-decoder source embeddings wait for that family's slice.)"""
+    int32 tokens (and labels for train) of (B, T) for a language model,
+    and for the encoder-decoder the source frame embeddings `src_embeds`
+    (B, T, d_model) in the param dtype; one token (B, 1) and a 0-d
+    position for decode."""
     b, t = shape.global_batch, shape.seq_len
     if cfg.family == "cnn":
         return {"images": _spec((b, 32, 32, 3), F32),
@@ -95,13 +96,18 @@ def batch_specs_for(cfg: ArchConfig, shape: ShapeConfig
         specs = {"tokens": _spec((b, t), I32)}
         if shape.kind == "train":
             specs["labels"] = _spec((b, t), I32)
+        if cfg.family == "encdec":
+            specs["src_embeds"] = _spec((b, t, cfg.d_model),
+                                        param_dtype(cfg))
         return specs
     return {"token": _spec((b, 1), I32), "pos": _spec((), I32)}
 
 
 def cache_specs_for(cfg: ArchConfig, shape: ShapeConfig
                     ) -> Dict[str, torch.Tensor]:
-    """The model's `init_cache(B, T)` as meta tensors."""
+    """The model's `init_cache(B, T)` as meta tensors (the
+    encoder-decoder's cross leaves at T source entries, as the
+    reference's)."""
     model = build_model(cfg, "cpu")
     return _abstract(lambda: model.init_cache(shape.global_batch,
                                               shape.seq_len))

@@ -2,13 +2,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models.base import Model
 from repro_torch.models.cnn import PaperCNN, build_cnn
-from repro_torch.models.transformer import (build_decoder_only, build_hybrid,
-                                            build_rwkv, lm_eval_fn)
-
-# Families of the reference not ported yet, and the slice each waits for.
-_NOT_PORTED = {
-    "encdec": "the encoder-decoder slice",
-}
+from repro_torch.models.transformer import (build_decoder_only, build_encdec,
+                                            build_hybrid, build_rwkv,
+                                            lm_eval_fn)
 
 
 def build_model(cfg: ArchConfig, device: DeviceLike = None) -> Model:
@@ -24,12 +20,11 @@ def build_model(cfg: ArchConfig, device: DeviceLike = None) -> Model:
         if cfg.ssm.kind == "rwkv6":
             return build_rwkv(cfg, device)
         return build_hybrid(cfg, device)
-    if cfg.family in _NOT_PORTED:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not ported yet; it arrives "
-            f"with {_NOT_PORTED[cfg.family]}")
+    if cfg.family == "encdec":
+        return build_encdec(cfg, device)
     raise ValueError(cfg.family)
 
 
 __all__ = ["Model", "PaperCNN", "build_cnn", "build_decoder_only",
-           "build_hybrid", "build_model", "build_rwkv", "lm_eval_fn"]
+           "build_encdec", "build_hybrid", "build_model", "build_rwkv",
+           "lm_eval_fn"]

@@ -1,5 +1,6 @@
-"""Transformer building blocks of the decoder family (port of the dense
-and MLA subset of ``repro/models/layers.py``).
+"""Transformer building blocks of the decoder and encoder-decoder families
+(port of the dense, cross-attention and MLA subset of
+``repro/models/layers.py``).
 
 Conventions, as in the reference: activations (B, T, D); attention heads
 in the last-but-one axis, q (B, T, H, hd); parameters are name → tensor
@@ -18,6 +19,11 @@ differentiates it as `jax.grad` differentiates the reference's.
 `decode_attention` (one query against a KV cache, with the sliding
 window of the dense family's ring buffer) is plain PyTorch on every
 device, as the reference has no kernel for it.
+
+`cross_attention` (the encoder-decoder's): queries from the decoder's
+x, no rope, over keys and values projected from the encoder's output
+beforehand, through `flash_attention` non-causal with Tq ≠ Tk (on the
+card the forward kernel's non-causal mode).
 
 MLA (DeepSeek-V2's Multi-head Latent Attention): `mla_latent` compresses
 x into the cacheables, the normed latent c_kv (B, S, r) and one rope key
@@ -201,7 +207,8 @@ def _chunked_attention(q, k, v, *, causal, window, q_offset, kv_block):
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0, q_offset: int = 0,
                     kv_block: int = 512) -> torch.Tensor:
-    """Causal / sliding-window GQA attention. q: (B, Tq, H, hd); k: (B,
+    """Causal / sliding-window / non-causal GQA attention. q: (B, Tq, H,
+    hd); k: (B,
     Tk, KV, hd); v: (B, Tk, KV, dv), dv = hd or, for MLA, narrower; out
     (B, Tq, H, dv). q_offset: absolute position of q[0] relative to k[0].
     window: 0 = full; > 0 = only keys fewer than `window` positions back.
@@ -298,6 +305,23 @@ def self_attention(p: Params, cfg, x: torch.Tensor, positions: torch.Tensor,
     window = cfg.sliding_window if window is None else window
     o = flash_attention(q, k, v, causal=True, window=window)
     return attn_out(p, o)
+
+
+def cross_attn_init(gen: torch.Generator, cfg, dtype, lead=()) -> Params:
+    """The cross-attention's projections: `attn_init`'s leaves (wk and wv
+    project the encoder's output)."""
+    return attn_init(gen, cfg, dtype, lead)
+
+
+def cross_attention(p: Params, cfg, x: torch.Tensor, enc_kv) -> torch.Tensor:
+    """Queries from x (B, T, D), no rope, over `enc_kv` = (k, v), each
+    (B, T_src, KV, hd), projected from the encoder's output beforehand;
+    non-causal attention, out through wo."""
+    b, t, _ = x.shape
+    h, hd = cfg.n_heads, cfg.resolved_head_dim
+    q = _proj(x, p["wq"], p.get("bq")).reshape(b, t, h, hd)
+    k, v = enc_kv
+    return attn_out(p, flash_attention(q, k, v, causal=False))
 
 
 # ---------------------------------------------------------------------------

@@ -1,11 +1,12 @@
 """Model factories of the language-model families (port of
 `build_decoder_only`, `build_hybrid`, `build_rwkv`, `lm_logits`,
-`chunked_xent` and `lm_eval_fn` of ``repro/models/transformer.py``: the
-dense decoder-only family (also the backbone of the `vlm` and `audio`
-families, as in the reference), its Mixture-of-Experts variant, its
-Multi-head Latent Attention variant (MLA, deepseek-v2), the hybrid
-(Mamba2 layers with a weight-tied attention + MLP block between
-segments, zamba2) and RWKV6).
+`build_encdec`, `chunked_xent` and `lm_eval_fn` of
+``repro/models/transformer.py``: the dense decoder-only family (also the
+backbone of the `vlm` and `audio` families, as in the reference), its
+Mixture-of-Experts variant, its Multi-head Latent Attention variant (MLA,
+deepseek-v2), the hybrid (Mamba2 layers with a weight-tied attention +
+MLP block between segments, zamba2), RWKV6 and the encoder-decoder
+(seamless-m4t)).
 
 Parameters are a name → tensor dict in the reference's leaf order:
 ``embed``, ``final_norm.scale``, ``layers.attn.{wk,wo,wq,wv}``,
@@ -65,7 +66,21 @@ The hybrid's and RWKV6's leaves are ``embed``, ``final_norm.scale``,
 copies of ``shared_k``/``shared_v`` at `pos` and raises when `pos` lies
 past their length (grow them after prefill, as
 ``examples/serve_batched.py`` does); the reference clamps such a write.
-The encoder-decoder family is not ported."""
+
+The encoder-decoder's leaves are ``embed``, ``final_norm.scale``,
+``lm_head``, ``encoder.{attn,ffn,ln1,ln2}.*`` (n_encoder_layers-stacked)
+and ``decoder.{cross_attn,ffn,ln1,ln2,ln_x,self_attn}.*`` (L-stacked).
+Its batch carries ``src_embeds`` (B, T_src, D), the stubbed audio
+frontend's frame embeddings, cast to the param dtype; the encoder attends
+over them non-causally with rope, the decoder causally over its tokens
+and, through `layers.cross_attention`, non-causally over the encoder's
+output (Tq ≠ Tk). Its cache is ``{"k", "v"}`` (L, B, W, KV, hd), the
+decoder's self-attention, and ``{"cross_k", "cross_v"}`` (L, B, T_src,
+KV, hd), each layer's keys and values of the encoder's output, kept by
+prefill. Decode writes the new key and value at `pos` into copies of k
+and v and attends over them and over every source entry with
+`layers.decode_attention`; it returns the cross leaves as they came and
+raises at pos ≥ W, where the reference clamps the write (ROADMAP C8)."""
 from __future__ import annotations
 
 from typing import Callable, Dict
@@ -96,10 +111,10 @@ def sub_params(params: Params, prefix: str) -> Params:
     return {k[n:]: v for k, v in params.items() if k.startswith(prefix + ".")}
 
 
-def layer_params(params: Params, l: int) -> Params:
-    """Layer l's slice of every ``layers.`` leaf, names without the
+def layer_params(params: Params, l: int, prefix: str = "layers") -> Params:
+    """Layer l's slice of every ``{prefix}.`` leaf, names without the
     prefix (contiguous views: the layer axis leads)."""
-    return {k: v[l] for k, v in sub_params(params, "layers").items()}
+    return {k: v[l] for k, v in sub_params(params, prefix).items()}
 
 
 EVAL_ROWS = 16
@@ -663,6 +678,162 @@ def build_rwkv(cfg: ArchConfig, device: DeviceLike = None) -> Model:
             prevs.append(xp)
         return lm_logits(params, cfg, x), \
             {"state": torch.stack(states), "x_prev": torch.stack(prevs)}
+
+    return Model(cfg, init, forward, loss_fn, prefill, decode, init_cache,
+                 dev)
+
+
+# ---------------------------------------------------------------------------
+# Encoder-decoder (seamless-m4t): a stubbed audio frontend feeds embeddings
+# ---------------------------------------------------------------------------
+
+def build_encdec(cfg: ArchConfig, device: DeviceLike = None) -> Model:
+    """A transformer encoder over precomputed frame embeddings and a
+    decoder with cross-attention over its output (see the module
+    docstring)."""
+    dev = resolve_device(device)
+    kv, hd = cfg.n_kv_heads, cfg.resolved_head_dim
+    dtype = param_dtype(cfg)
+
+    def init(seed: int) -> Params:
+        gen = torch.Generator(device=dev).manual_seed(int(seed))
+        d, enc, dec = cfg.d_model, (cfg.n_encoder_layers,), (cfg.n_layers,)
+        p = _embed_init(cfg, gen)
+        p.update(_prefixed("encoder.attn", L.attn_init(gen, cfg, dtype, enc)))
+        p.update(_prefixed("encoder.ffn",
+                           L.mlp_init(gen, d, cfg.d_ff, dtype, enc)))
+        p.update(_prefixed("encoder", _norm_scales(cfg, dev, ("ln1", "ln2"),
+                                                   enc)))
+        p.update(_prefixed("decoder.self_attn",
+                           L.attn_init(gen, cfg, dtype, dec)))
+        p.update(_prefixed("decoder.cross_attn",
+                           L.cross_attn_init(gen, cfg, dtype, dec)))
+        p.update(_prefixed("decoder.ffn",
+                           L.mlp_init(gen, d, cfg.d_ff, dtype, dec)))
+        p.update(_prefixed("decoder", _norm_scales(
+            cfg, dev, ("ln1", "ln2", "ln_x"), dec)))
+        p.update(_lm_head_init(cfg, gen))
+        return _in_leaf_order(p)
+
+    def _positions(b: int, t: int, device) -> torch.Tensor:
+        return torch.arange(t, device=device).expand(b, t)
+
+    def encode(params: Params, src: torch.Tensor) -> torch.Tensor:
+        """src (B, T_src, D), the frame embeddings, cast to the param
+        dtype; non-causal self-attention with rope."""
+        b, t, _ = src.shape
+        positions = _positions(b, t, src.device)
+        x = src.to(dtype)
+        for l in range(cfg.n_encoder_layers):
+            lp = layer_params(params, l, "encoder")
+            attn = sub_params(lp, "attn")
+            h = L.rms_norm(lp["ln1.scale"], x, cfg.norm_eps)
+            q, k, v = L.attn_qkv(attn, cfg, h, positions)
+            x = x + L.attn_out(attn, L.flash_attention(q, k, v,
+                                                       causal=False))
+            x = x + L.mlp(sub_params(lp, "ffn"),
+                          L.rms_norm(lp["ln2.scale"], x, cfg.norm_eps))
+        return x
+
+    def _cross_kv(lp: Params, enc_out: torch.Tensor):
+        b, t, _ = enc_out.shape
+        k = L._proj(enc_out, lp["cross_attn.wk"]).reshape(b, t, kv, hd)
+        v = L._proj(enc_out, lp["cross_attn.wv"]).reshape(b, t, kv, hd)
+        return k, v
+
+    def _decode_layers(params: Params, tokens: torch.Tensor,
+                       enc_out: torch.Tensor, keep: bool):
+        """The decoder over `tokens` (B, T): its final hidden states and,
+        with `keep`, each layer's (k, v, cross k, cross v)."""
+        b, t = tokens.shape
+        x = params["embed"][tokens.long()]
+        positions = _positions(b, t, tokens.device)
+        kept = []
+        for l in range(cfg.n_layers):
+            lp = layer_params(params, l, "decoder")
+            self_p = sub_params(lp, "self_attn")
+            h = L.rms_norm(lp["ln1.scale"], x, cfg.norm_eps)
+            if keep:        # the reference's prefill: causal, no window
+                q, k, v = L.attn_qkv(self_p, cfg, h, positions)
+                x = x + L.attn_out(self_p, L.flash_attention(q, k, v,
+                                                             causal=True))
+            else:
+                x = x + L.self_attention(self_p, cfg, h, positions)
+            h = L.rms_norm(lp["ln_x.scale"], x, cfg.norm_eps)
+            ck, cv = _cross_kv(lp, enc_out)
+            x = x + L.cross_attention(sub_params(lp, "cross_attn"), cfg, h,
+                                      (ck, cv))
+            x = x + L.mlp(sub_params(lp, "ffn"),
+                          L.rms_norm(lp["ln2.scale"], x, cfg.norm_eps))
+            if keep:
+                kept.append((k, v, ck, cv))
+        return x, kept
+
+    def forward(params: Params, batch) -> torch.Tensor:
+        enc_out = encode(params, batch["src_embeds"])
+        x, _ = _decode_layers(params, batch["tokens"], enc_out, False)
+        return lm_logits(params, cfg, x)
+
+    def loss_fn(params: Params, batch) -> torch.Tensor:
+        enc_out = encode(params, batch["src_embeds"])
+        x, _ = _decode_layers(params, batch["tokens"], enc_out, False)
+        return chunked_xent(params, cfg, x, batch["labels"])
+
+    def init_cache(batch: int, seq_len: int, dtype=None, src_len=None):
+        dtype = dtype or param_dtype(cfg)
+        src_len = src_len or seq_len
+        return {n: torch.zeros((cfg.n_layers, batch, w, kv, hd),
+                               dtype=dtype, device=dev)
+                for n, w in (("k", seq_len), ("v", seq_len),
+                             ("cross_k", src_len), ("cross_v", src_len))}
+
+    def prefill(params: Params, batch):
+        """Encode the source and run the decoder over the target prefix:
+        the last position's f32 logits (B, 1, V) and the cache (each
+        layer's self k/v over the prefix, cross k/v over the source)."""
+        enc_out = encode(params, batch["src_embeds"])
+        x, kept = _decode_layers(params, batch["tokens"], enc_out, True)
+        cache = {n: torch.stack(c) for n, c in
+                 zip(("k", "v", "cross_k", "cross_v"), zip(*kept))}
+        return lm_logits(params, cfg, x[:, -1:]), cache
+
+    def decode(params: Params, token: torch.Tensor, cache, pos):
+        """One token (B, 1) at position `pos` (an int or a 0-d integer
+        tensor): the f32 logits (B, 1, V) and a new cache, k and v
+        written at pos in copies, the cross leaves passed through (the
+        one passed in is left as it is)."""
+        pos = int(pos)
+        b = token.shape[0]
+        s, s_src = cache["k"].shape[2], cache["cross_k"].shape[2]
+        if not 0 <= pos < s:
+            raise ValueError(
+                f"decode at position {pos} past the KV cache's {s} entries "
+                "(or negative): grow k/v after prefill")
+        x = params["embed"][token.long()]
+        positions = torch.full((b, 1), pos, device=token.device)
+        pos_b = torch.full((b,), pos, device=token.device)
+        entry_pos = torch.arange(s, device=token.device).expand(b, s)
+        src_pos = torch.arange(s_src, device=token.device).expand(b, s_src)
+        past_src = torch.full((b,), s_src + 1, device=token.device)
+        k_all, v_all = cache["k"].clone(), cache["v"].clone()
+        for l in range(cfg.n_layers):
+            lp = layer_params(params, l, "decoder")
+            self_p, cross_p = (sub_params(lp, "self_attn"),
+                               sub_params(lp, "cross_attn"))
+            h = L.rms_norm(lp["ln1.scale"], x, cfg.norm_eps)
+            q, k, v = L.attn_qkv(self_p, cfg, h, positions)
+            k_all[l, :, pos] = k[:, 0].to(k_all.dtype)
+            v_all[l, :, pos] = v[:, 0].to(v_all.dtype)
+            a = L.decode_attention(q, k_all[l], v_all[l], entry_pos, pos_b)
+            x = x + L.attn_out(self_p, a)
+            h = L.rms_norm(lp["ln_x.scale"], x, cfg.norm_eps)
+            qc = L._proj(h, cross_p["wq"]).reshape(b, 1, cfg.n_heads, hd)
+            ac = L.decode_attention(qc, cache["cross_k"][l],
+                                    cache["cross_v"][l], src_pos, past_src)
+            x = x + L.attn_out(cross_p, ac)
+            x = x + L.mlp(sub_params(lp, "ffn"),
+                          L.rms_norm(lp["ln2.scale"], x, cfg.norm_eps))
+        return lm_logits(params, cfg, x), {**cache, "k": k_all, "v": v_all}
 
     return Model(cfg, init, forward, loss_fn, prefill, decode, init_cache,
                  dev)

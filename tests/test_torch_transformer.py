@@ -20,7 +20,7 @@ from repro.kernels.flash_attention import flash_attention_pallas
 from repro.models import build_model as jax_build_model
 from repro.models import layers as JL
 from repro.models.transformer import lm_eval_fn as jax_lm_eval_fn
-from repro_torch.configs import ArchConfig, MoEConfig, get_arch
+from repro_torch.configs import ARCHS, ArchConfig, MoEConfig, get_arch
 from repro_torch.convert import from_jax_params, to_jax_params
 from repro_torch.kernels.ref import attention_ref
 from repro_torch.models import build_model, lm_eval_fn
@@ -124,8 +124,22 @@ def test_kernel_plain_version_matches_pallas(b, tq, tk, h, kv, causal,
 def test_families_not_ported_raise():
     base = dict(name="x", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
                 d_ff=128, vocab_size=100)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        build_model(ArchConfig(family="encdec", **base), device="cpu")
+    # every family of the reference builds: the encoder-decoder (ported)
+    # runs a forward over source embeddings
+    encdec = build_model(ArchConfig(family="encdec", n_encoder_layers=1,
+                                    **base), device="cpu")
+    logits = encdec.forward(encdec.init(0), {
+        "tokens": torch.zeros((1, 5), dtype=torch.int64),
+        "src_embeds": torch.ones((1, 7, 64))})
+    assert logits.shape == (1, 5, 100) and torch.isfinite(logits).all()
+    assert set(encdec.init_cache(1, 5)) == {"k", "v", "cross_k", "cross_v"}
+    families = set()
+    for cfg in ARCHS.values():              # no registered family raises
+        assert build_model(cfg.reduced(), device="cpu").cfg.family == \
+            cfg.family
+        families.add(cfg.family)
+    assert families == {"cnn", "dense", "encdec", "hybrid", "moe", "ssm",
+                        "vlm"}
     for family in ("vlm", "audio"):         # the dense backbone, ported
         m = build_model(ArchConfig(family=family, **base), device="cpu")
         assert m.init_cache(1, 5)["k"].shape == (2, 1, 5, 2, 16)
