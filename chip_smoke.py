@@ -64,7 +64,9 @@ Phases, each failing the run with a nonzero exit:
              version and a library call, and each BGMV kernel's device
              time at the sites; the attention backward
              (`flash_attn_bwd_f32`) at BWD_SHAPES (phase 25's 4,096-token
-             layer call among them) in f32 (normwise against
+             layer call among them; non-causal with Tq = Tk and Tq ≠ Tk
+             at phase 30's encoder and cross-attention, 4,096 over 4,096,
+             and phase 29's shapes) in f32 (normwise against
              the f64 plain version) and bf16 (elementwise within one bf16
              rounding; the bf16 route on the tensor cores, its time
              printed beside its earlier FFMA route's), launched twice and
@@ -301,6 +303,28 @@ Phases, each failing the run with a nonzero exit:
              f32 twin: the prefill through the kernel against
              `ref.attention_ref` in its place, and prefill(T−1) +
              decode(1) against forward(T), within 1e-4
+30. encoder-decoder training — the train step of seamless-m4t-medium
+             through `launch.make_step(cfg, train shape)`, its encoder's
+             and cross-attention's attention non-causal under grad
+             through `FlashAttention` (forward kernel with lse, backward
+             kernel): (a) the reduced config in f32, one step on the card
+             and the CPU from one init at 32 target tokens over sources
+             of 45 and 19 frames (4 rows in 2 row blocks, the moment
+             pool): task and every leaf's gradient within 1e-4 normwise,
+             exact attention forward and backward launches on the card,
+             none on the CPU; (b) the config in bf16 at full width and
+             depth (12 + 12 layers, 977.76 M parameters), 16 × 4,096
+             target tokens over 4,096 source frames a row,
+             REPRO_MICROBATCH=8, the moment pool: a warm-up and 2 timed
+             steps, exact attention (36 applications × 8) and sweep
+             launches a step, every value finite, steps/s, tokens/s, the
+             model FLOP rate and its share of the bf16 peak, peak memory
+             net of earlier phases, a second run bitwise, one step
+             profiled; (c) at full width cut to 2 + 2 layers, 16 rows,
+             the bf16 step's first gradient against its f32 twin's (5e-2
+             normwise, task 5e-3), and the same at full depth and 2 rows,
+             printed (at 12 + 12 layers the reference's own bf16 step
+             lies ~8% from its twin)
 
 Every phase prints its wall time ("phase N: … s"), and a table of them
 comes before the total. Before the last lines it prints every
@@ -1994,23 +2018,33 @@ def check_flash_attention(torch, fa_mod, ref):
     return rows, max_abs
 
 
-# phase 10: the attention backward's shapes (name, B, T, H, KV, hd,
+# phase 10: the attention backward's shapes (name, B, Tq, Tk, H, KV, hd,
 # causal, window): llama3.2-1b's training steps (phase 24 (c): 16 × 128;
 # phase 25: 4,096-token sequences, 2 a microbatch, here 1 so that the
 # f64 plain version fits; both with the registered 8,192 window), long
 # causal and windowed sequences,
 # ragged T on both sides of a tile, GQA groups of 1, 4, 7 and 8, and
-# every head dim of `HEAD_DIMS`
-BWD_SHAPES = [("llama_train", 16, 128, 32, 8, 64, True, 8192),
-              ("train4k", 1, 4096, 32, 8, 64, True, 8192),
-              ("causal2048", 2, 2048, 32, 8, 64, True, 0),
-              ("window256", 2, 1024, 32, 8, 64, True, 256),
-              ("ragged127", 4, 127, 32, 8, 64, True, 0),
-              ("ragged129", 4, 129, 32, 8, 64, True, 0),
-              ("g1", 2, 300, 8, 8, 64, True, 0),
-              ("g8_hd32", 2, 333, 16, 2, 32, True, 100),
-              ("hd112", 2, 256, 32, 32, 112, True, 0),
-              ("hd128", 2, 512, 28, 4, 128, True, 0)]
+# every head dim of `HEAD_DIMS`; then non-causal, the encoder-decoder's
+# (phase 30): seamless-m4t-medium's encoder self-attention and its
+# cross-attention at train_4k (4,096 target queries over 4,096 source
+# frames, one row of a microbatch), phase 29's encoder (1,000 frames),
+# prefill's cross-attention (16 target queries over them: a tile's rows
+# mostly empty), Tq > Tk, and a group of 4 query heads with Tq ≠ Tk
+BWD_SHAPES = [("llama_train", 16, 128, 128, 32, 8, 64, True, 8192),
+              ("train4k", 1, 4096, 4096, 32, 8, 64, True, 8192),
+              ("causal2048", 2, 2048, 2048, 32, 8, 64, True, 0),
+              ("window256", 2, 1024, 1024, 32, 8, 64, True, 256),
+              ("ragged127", 4, 127, 127, 32, 8, 64, True, 0),
+              ("ragged129", 4, 129, 129, 32, 8, 64, True, 0),
+              ("g1", 2, 300, 300, 8, 8, 64, True, 0),
+              ("g8_hd32", 2, 333, 333, 16, 2, 32, True, 100),
+              ("hd112", 2, 256, 256, 32, 32, 112, True, 0),
+              ("hd128", 2, 512, 512, 28, 4, 128, True, 0),
+              ("s2t_enc_train", 1, 4096, 4096, 16, 16, 64, False, 0),
+              ("s2t_enc", 2, 1000, 1000, 16, 16, 64, False, 0),
+              ("s2t_cross", 2, 16, 1000, 16, 16, 64, False, 0),
+              ("s2t_cross_long_tgt", 2, 512, 300, 16, 16, 64, False, 0),
+              ("xgqa", 3, 77, 333, 32, 8, 64, False, 0)]
 # the bf16 route's times at BWD_SHAPES when it ran in FFMA on f32 shared
 # tiles, before its tensor-core design (chip_smoke.py phase 10, NVIDIA
 # H100 80GB HBM3, 700 W; PERF.md §6 row 6b), printed beside this run's
@@ -2028,13 +2062,13 @@ BWD_F32_REL_TOL = 1e-5
 LSE_REL_TOL = 1e-6
 
 
-def _bwd_bound(b, t, h, kv, hd, causal, window, esz, peak):
+def _bwd_bound(b, tq, tk, h, kv, hd, causal, window, esz, peak):
     """(bound ms, bound_by, parts) of one backward call: 10·hd FLOP per
-    valid (query, key) pair; q, out, dout, dq at (B, T, H, hd), k, v, dk,
-    dv at (B, T, KV, hd) in the inputs' element size, lse and D f32."""
-    pairs = _pairs(t, t, causal, window) * b * h
-    nbytes = esz * (4 * b * t * h * hd + 4 * b * t * kv * hd) + \
-        2 * 4 * b * h * t
+    valid (query, key) pair; q, out, dout, dq at (B, Tq, H, hd), k, v, dk,
+    dv at (B, Tk, KV, hd) in the inputs' element size, lse and D f32."""
+    pairs = _pairs(tq, tk, causal, window) * b * h
+    nbytes = esz * (4 * b * tq * h * hd + 4 * b * tk * kv * hd) + \
+        2 * 4 * b * h * tq
     return _bound(nbytes, 10 * hd * pairs, peak)
 
 
@@ -2076,12 +2110,12 @@ def check_attention_backward(torch, fa_mod, ref):
     repeated, the bound."""
     gen = torch.Generator(device=CARD).manual_seed(24)
     rows, max_abs = [], 0.0
-    for name, b, t, h, kv, hd, causal, window in BWD_SHAPES:
+    for name, b, tq, tk, h, kv, hd, causal, window in BWD_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, dout = (torch.randn(shape, device=CARD, generator=gen)
                              .to(dtype)
-                             for shape in ((b, t, h, hd), (b, t, kv, hd),
-                                           (b, t, kv, hd), (b, t, h, hd)))
+                             for shape in ((b, tq, h, hd), (b, tk, kv, hd),
+                                           (b, tk, kv, hd), (b, tq, h, hd)))
             mask = dict(causal=causal, window=window)
             out, lse = fa_mod.flash_attn_f32(q, k, v, return_lse=True, **mask)
             plain_out = fa_mod.flash_attn_f32(q, k, v, **mask)
@@ -2128,9 +2162,10 @@ def check_attention_backward(torch, fa_mod, ref):
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
                 else PEAK_F32_FLOPS
             bound_ms, bound_by, parts = _bwd_bound(
-                b, t, h, kv, hd, causal, window, q.element_size(), peak)
-            reps = 10 if t >= 1024 else 25
-            row = dict(parts, shape=name, b=b, t=t, h=h, kv=kv, hd=hd,
+                b, tq, tk, h, kv, hd, causal, window, q.element_size(), peak)
+            reps = 10 if max(tq, tk) >= 1024 else 25
+            row = dict(parts, shape=name, b=b, t=tq, tk=tk, h=h, kv=kv,
+                       hd=hd,
                        causal=causal, window=window, dtype=str(dtype),
                        out_bitwise_with_lse=out_bitwise, lse_rel_err=lse_err,
                        rel_err_f64=dict(zip("qkv", rel64)),
@@ -2158,7 +2193,8 @@ def check_attention_backward(torch, fa_mod, ref):
                   f"{'bitwise' if repeat else 'DIFFERS'}; kernel "
                   f"{row['ms']:.4f} ms"
                   + (f" (FFMA route before: {BWD_BF16_FFMA_MS[name]:.4f})"
-                     if dtype == torch.bfloat16 else "") +
+                     if dtype == torch.bfloat16 and name in BWD_BF16_FFMA_MS
+                     else "") +
                   f", plain {row['plain_ms']:.4f}, sdpa "
                   f"bwd {row['library_ms']:.4f}, bound {bound_ms:.4f} "
                   f"({bound_by})")
@@ -6739,6 +6775,114 @@ def _train_run(torch, step, params, opt, batch, pool, n_steps, keep_first):
     return p, o, rows, first
 
 
+def _step_card_and_cpu(torch, cfg, shape, micro, m0, members, batch,
+                       group):
+    """One train step of `cfg` through `make_step` (REPRO_MICROBATCH =
+    `micro`, FedConfig's defaults) from the CPU params `m0` with the
+    moment pool of m0 and `members`, on the card and on the CPU: {device:
+    (Adam's m on the CPU, task, the launches of `_train_counters()`'s
+    `group`, seconds)}."""
+    from repro_torch.configs import FedConfig
+    from repro_torch.launch import make_step
+    from repro_torch.optim import make_optimizer
+
+    fed = FedConfig()
+    opt = make_optimizer(fed.optimizer, fed.learning_rate, fed.weight_decay)
+    runs = {}
+    for dev in (CARD, "cpu"):
+        with _env(REPRO_MICROBATCH=micro):
+            step = make_step(cfg, shape, fed, device=dev)
+        p = {k: v.to(dev) for k, v in m0.items()}
+        pool = _train_pool(torch, "moment", p,
+                           [{k: v.to(dev) for k, v in m.items()}
+                            for m in members], fed.pool_size)
+        _reset_train_counts()
+        t0 = time.perf_counter()
+        _, o, task = step(p, opt.init(p), {k: v.to(dev) for k, v in
+                                           batch.items()}, pool, 0)
+        if dev == CARD:
+            torch.cuda.synchronize()
+        runs[dev] = ({k: v.cpu() for k, v in o["m"].items()}, float(task),
+                     _read_train_counts()[group], time.perf_counter() - t0)
+    return runs
+
+
+def _train_twice(torch, label, step, params, opt, batch, pool, want):
+    """A full-width phase's main path: a warm-up step and TRAIN_STEPS
+    timed steps chained from `params` and a fresh Adam state (counts
+    reset before each step and held to `want`), then the same steps
+    again. Returns (the first run's records, its peak GB since the
+    caller's reset, every task, parameter and Adam moment finite, the
+    second run bitwise the first)."""
+    p1, o1, rows, _ = _train_run(torch, step, params, opt, batch, pool,
+                                 1 + TRAIN_STEPS, False)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    finite = _finite(p1) and _finite(o1["m"]) and _finite(o1["v"]) and \
+        all(math.isfinite(r["task"]) for r in rows)
+    first = dict(params={k: v.cpu() for k, v in p1.items()},
+                 m={k: v.cpu() for k, v in o1["m"].items()},
+                 v={k: v.cpu() for k, v in o1["v"].items()})
+    del p1, o1
+    torch.cuda.empty_cache()
+    p2, o2, rows2, _ = _train_run(torch, step, params, opt, batch, pool,
+                                  1 + TRAIN_STEPS, False)
+    for name, records in ((label, rows), (f"{label}, second run", rows2)):
+        _hold_counts(name, records, want)
+    bitwise = [r["task"] for r in rows2] == [r["task"] for r in rows] \
+        and all(torch.equal(first["params"][k], v.cpu())
+                for k, v in p2.items()) \
+        and all(torch.equal(first[m][k], v.cpu())
+                for m in ("m", "v") for k, v in o2[m].items())
+    del p2, o2, first
+    torch.cuda.empty_cache()
+    return rows, peak, finite, bitwise
+
+
+def _bf16_and_f32_twin(torch, cfg, shape, micro, batch, group):
+    """The first step of `cfg` in bf16 (REPRO_MICROBATCH = micro[0]) and
+    of its f32 twin (micro[1]) on the same values widened: params from
+    seed 0 on the card, the moment pool of them and two noisy members,
+    `batch` (its floating tensors widened for the twin). Returns
+    (Adam's m per leaf normwise, over all leaves, the task's relative
+    error, {"bf16" | "f32": (task, `group`'s launches, seconds)})."""
+    import dataclasses
+
+    from repro_torch.configs import FedConfig
+    from repro_torch.launch import make_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import make_optimizer
+
+    fed = FedConfig()
+    opt = make_optimizer(fed.optimizer, fed.learning_rate, fed.weight_decay)
+    params = build_model(cfg).init(0)
+    runs = {}
+    for key, c, blocks in (
+            ("bf16", cfg, micro[0]),
+            ("f32", dataclasses.replace(cfg, param_dtype="float32"),
+             micro[1])):
+        def put(x):
+            return {k: v.float() if v.is_floating_point() else v
+                    for k, v in x.items()} if key == "f32" else x
+        with _env(REPRO_MICROBATCH=blocks):
+            step = make_step(c, shape, fed)
+        p = put(params)
+        pool = _train_pool(torch, "moment", p,
+                           [put(_noisy_member(torch, params, s))
+                            for s in (1, 2)], fed.pool_size)
+        _reset_train_counts()
+        t0 = time.perf_counter()
+        _, o, task = step(p, opt.init(p), put(batch), pool, 0)
+        torch.cuda.synchronize()
+        runs[key] = (o["m"], float(task), _read_train_counts()[group],
+                     time.perf_counter() - t0)
+        del o, p, pool, step
+        torch.cuda.empty_cache()
+    errs, total = _leaf_errs(runs["bf16"][0], runs["f32"][0])
+    task_err = abs(runs["bf16"][1] - runs["f32"][1]) / abs(runs["f32"][1])
+    del params
+    return errs, total, task_err, {k: r[1:] for k, r in runs.items()}
+
+
 def _attention_flops(cfg, rows, t):
     """Attention's products in a step, beside 6·N a token: QKᵀ and PV over
     the causal half of the T × T square, 2·T²·hd a head forward and twice
@@ -7119,7 +7263,7 @@ def attention_bwd_entry(serving, lm):
     phase 24 (c)'s first run; times, bound and SDPA's backward at its
     shape in f32 (phase 10's `llama_train` row: one layer's backward),
     and beside them the bf16 route's (on the tensor cores) at phase 25's
-    layer call (`train4k`)."""
+    layer call (`train4k`) and each non-causal row's, both dtypes."""
     rows = {(r["shape"], r["dtype"]): r for r in serving["attention_bwd"]}
     row = rows["llama_train", "torch.float32"]
     bf16 = rows["train4k", "torch.bfloat16"]
@@ -7136,7 +7280,13 @@ def attention_bwd_entry(serving, lm):
                 "bf16 terms), f32 in FFMA",
         "bf16_train4k": {key: bf16[key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "max_abs_err", "worst_share_of_limit")}}
+            "max_abs_err", "worst_share_of_limit")},
+        # non-causal, Tq = Tk and not (phase 30's encoder-decoder)
+        "noncausal": {f"{r['shape']}_{r['dtype'][6:]}": {key: r[key] for
+                                                         key in (
+            "t", "tk", "h", "kv", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "max_abs_err", "worst_share_of_limit")}
+            for r in serving["attention_bwd"] if not r["causal"]}}
     if not entry["launches"]:
         fail("flash_attn_bwd_f32 was launched no time on its main path")
     return entry
@@ -7147,13 +7297,10 @@ def attention_bwd_entry(serving, lm):
 # ---------------------------------------------------------------------------
 
 # (b), (c): the full configs at full width, cut in depth for the card's 80
-# GB and the run's time limit: rwkv6-7b to 4 of its 32 layers; zamba2-7b
-# to 9 of its 81 Mamba2 layers with the tied block after every 3 (the
-# full config's three applications, so its gradient still sums over three
-# uses)
-# (b), (c): depths cut for the script's time limit (4 and 9 layers until
-# the script outgrew it); zamba2-7b keeps two applications of its tied
-# block, so that block's gradient still sums over applications
+# GB and the script's time limit (4 and 9 layers until the script outgrew
+# it): rwkv6-7b to 2 of its 32 layers; zamba2-7b to 6 of its 81 Mamba2
+# layers with the tied block after every 3, so that block's gradient
+# still sums over two applications
 SSM_TRAIN_CUTS = {"rwkv6-7b": dict(n_layers=2),
                   "zamba2-7b": dict(n_layers=6, shared_attn_every=3)}
 # (d): each model at 2 layers (zamba2-7b's tied block after each, as
@@ -7228,34 +7375,16 @@ def ssm_train_card_vs_cpu(torch, name, smi_line):
     forward and backward launches), and on the CPU, through autograd of
     the plain GLA; the task and each leaf's gradient (Adam's m) within
     SSM_CVC_TOL normwise."""
-    from repro_torch.configs import FedConfig, ShapeConfig, get_arch
-    from repro_torch.launch import make_step
+    from repro_torch.configs import ShapeConfig, get_arch
     from repro_torch.models import build_model
-    from repro_torch.optim import make_optimizer
 
     cfg = get_arch(name).reduced()
     shape = ShapeConfig("train_4k", TRAIN_T, SSM_CVC_ROWS, "train")
-    fed = FedConfig()
-    opt = make_optimizer(fed.optimizer, fed.learning_rate, fed.weight_decay)
     m0 = build_model(cfg, "cpu").init(0)
     members = [_noisy_member(torch, m0, s) for s in (1, 2)]
     batch = _train_batch(torch, cfg.vocab_size, TRAIN_T, SSM_CVC_ROWS, "cpu")
-    runs = {}
-    for dev in (CARD, "cpu"):
-        with _env(REPRO_MICROBATCH=SSM_CVC_MICRO):
-            step = make_step(cfg, shape, fed, device=dev)
-        p = {k: v.to(dev) for k, v in m0.items()}
-        pool = _train_pool(torch, "moment", p,
-                           [{k: v.to(dev) for k, v in m.items()}
-                            for m in members], fed.pool_size)
-        _reset_train_counts()
-        t0 = time.perf_counter()
-        _, o, task = step(p, opt.init(p), {k: v.to(dev) for k, v in
-                                           batch.items()}, pool, 0)
-        if dev == CARD:
-            torch.cuda.synchronize()
-        runs[dev] = ({k: v.cpu() for k, v in o["m"].items()}, float(task),
-                     _read_train_counts()["gla"], time.perf_counter() - t0)
+    runs = _step_card_and_cpu(torch, cfg, shape, SSM_CVC_MICRO, m0, members,
+                              batch, "gla")
     errs, total = _leaf_errs(runs[CARD][0], runs["cpu"][0])
     task_err = abs(runs[CARD][1] - runs["cpu"][1]) / abs(runs["cpu"][1])
     want = {"forward": cfg.n_layers * SSM_CVC_MICRO,
@@ -7321,29 +7450,11 @@ def ssm_train_full_width(torch, name, smi_line):
     pool = _train_pool(torch, "moment", params,
                        [_noisy_member(torch, params, s) for s in (1, 2)],
                        fed.pool_size)
-    p1, o1, rows, _ = _train_run(torch, step, params, opt, batch, pool,
-                                 1 + TRAIN_STEPS, False)
-    peak = torch.cuda.max_memory_allocated() / 1e9
-    _hold_counts(f"phase 26 {name}", rows, want)
+    rows, peak, finite, bitwise = _train_twice(
+        torch, f"phase 26 {name}", step, params, opt, batch, pool, want)
     timed = sum(r["s"] for r in rows[1:])
     rate = TRAIN_STEPS / timed
-    finite = _finite(p1) and _finite(o1["m"]) and _finite(o1["v"])
-    first = dict(params={k: v.cpu() for k, v in p1.items()},
-                 m={k: v.cpu() for k, v in o1["m"].items()},
-                 v={k: v.cpu() for k, v in o1["v"].items()},
-                 tasks=[r["task"] for r in rows])
-    del p1, o1
-    torch.cuda.empty_cache()
-    p2, o2, rows2, _ = _train_run(torch, step, params, opt, batch, pool,
-                                  1 + TRAIN_STEPS, False)
-    bitwise = [r["task"] for r in rows2] == first["tasks"] and all(
-        torch.equal(first["params"][k], v.cpu()) for k, v in p2.items()) \
-        and all(torch.equal(first[n][k], v.cpu())
-                for n in ("m", "v") for k, v in o2[n].items())
-    del p2, o2
-    torch.cuda.empty_cache()
-    finite = finite and all(math.isfinite(t) for t in first["tasks"])
-    del first["params"], first["m"], first["v"]
+    tasks = [r["task"] for r in rows]
     out = dict(config=cfg.name, layers=cfg.n_layers, cut=SSM_TRAIN_CUTS[name],
                n_params=n_params, tokens_per_step=tokens,
                flops_per_step=flops, gla_flops_per_step=gla_flops,
@@ -7351,8 +7462,7 @@ def ssm_train_full_width(torch, name, smi_line):
                steps_per_s=rate, tokens_per_s=rate * tokens,
                model_flops_per_s=rate * flops,
                peak_share=rate * flops / PEAK_BF16_FLOPS, peak_gb=peak,
-               second_run_bitwise=bitwise, finite=finite,
-               tasks=first["tasks"])
+               second_run_bitwise=bitwise, finite=finite, tasks=tasks)
     print(f"  {name} bf16, {cfg.n_layers} layers at full width "
           f"({n_params} parameters), {TRAIN_ROWS} × {TRAIN_T} tokens a step "
           f"in {TRAIN_MICRO} microbatches: {TRAIN_STEPS} steps in "
@@ -7360,7 +7470,7 @@ def ssm_train_full_width(torch, name, smi_line):
           f" warm-up {rows[0]['s']:.3f} s), model FLOP rate "
           f"{rate * flops / 1e12:.2f} TFLOP/s ({out['peak_share']:.4f} of "
           f"the dense bf16 peak), peak {peak:.2f} GB; tasks "
-          + ", ".join(f"{t:.6f}" for t in first["tasks"]) +
+          + ", ".join(f"{t:.6f}" for t in tasks) +
           f"; launches a step {want}; second run "
           f"{'bitwise' if bitwise else 'DIFFERS'} ({smi_line})")
     if not finite:
@@ -7386,55 +7496,29 @@ def ssm_train_oracle(torch, name, smi_line):
     values widened (REPRO_MICROBATCH=16), phase 25 (d)'s limits:
     TRAIN_ORACLE_GRAD_TOL normwise over all leaves, TRAIN_TASK_TOL on the
     task."""
-    import dataclasses
-
-    from repro_torch.configs import FedConfig, ShapeConfig
-    from repro_torch.launch import make_step
-    from repro_torch.models import build_model
-    from repro_torch.optim import make_optimizer
+    from repro_torch.configs import ShapeConfig
 
     _release()
     cfg = _ssm_cfg(name, **SSM_ORACLE_CUTS[name])
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32")
     shape = ShapeConfig("train_4k", TRAIN_T, TRAIN_ROWS, "train")
-    fed = FedConfig()
-    opt = make_optimizer(fed.optimizer, fed.learning_rate, fed.weight_decay)
-    params = build_model(cfg).init(0)
     batch = _train_batch(torch, cfg.vocab_size, TRAIN_T, TRAIN_ROWS, CARD)
-    runs = {}
-    for key, c, micro, widen in (("bf16", cfg, TRAIN_MICRO, False),
-                                 ("f32", cfg32, TRAIN_ORACLE_MICRO, True)):
-        def put(p):
-            return {k: v.float() if widen else v for k, v in p.items()}
-        with _env(REPRO_MICROBATCH=micro):
-            step = make_step(c, shape, fed)
-        p = put(params)
-        pool = _train_pool(torch, "moment", p,
-                           [put(_noisy_member(torch, params, s))
-                            for s in (1, 2)], fed.pool_size)
-        _reset_train_counts()
-        _, o, task = step(p, opt.init(p), batch, pool, 0)
-        torch.cuda.synchronize()
-        runs[key] = (o["m"], float(task), _read_train_counts()["gla"])
-        del o, p, pool, step
-        torch.cuda.empty_cache()
-    errs, total = _leaf_errs(runs["bf16"][0], runs["f32"][0])
-    task_err = abs(runs["bf16"][1] - runs["f32"][1]) / abs(runs["f32"][1])
+    errs, total, task_err, runs = _bf16_and_f32_twin(
+        torch, cfg, shape, (TRAIN_MICRO, TRAIN_ORACLE_MICRO), batch, "gla")
     worst = max(errs, key=errs.get)
     out = dict(config=cfg.name, layers=cfg.n_layers, grad_err=errs,
-               grad_err_total=total, task=runs["bf16"][1],
-               task_f32=runs["f32"][1], task_err=task_err,
-               gla_launches={k: r[2] for k, r in runs.items()})
+               grad_err_total=total, task=runs["bf16"][0],
+               task_f32=runs["f32"][0], task_err=task_err,
+               gla_launches={k: r[1] for k, r in runs.items()})
     print(f"  (d) {name} at {cfg.n_layers} layers, full width: the bf16 "
           f"step's first gradient within {total:.3e} normwise of its f32 "
           f"twin's (worst leaf {errs[worst]:.3e}, {worst}), task "
-          f"{runs['bf16'][1]:.6f} vs {runs['f32'][1]:.6f} ({task_err:.2e});"
+          f"{runs['bf16'][0]:.6f} vs {runs['f32'][0]:.6f} ({task_err:.2e});"
           f" limits {TRAIN_ORACLE_GRAD_TOL:g} / {TRAIN_TASK_TOL:g}; GLA "
           f"launches {out['gla_launches']} ({smi_line})")
     if total > TRAIN_ORACLE_GRAD_TOL or task_err > TRAIN_TASK_TOL:
         fail(f"phase 26 (d) {name}: the bf16 step lies {total:.3e} "
              f"(gradient) / {task_err:.3e} (task) from the f32 twin")
-    del params, batch, runs
+    del batch
     torch.cuda.empty_cache()
     return out
 
@@ -8051,6 +8135,250 @@ def encdec_attention_launches(encdec):
                for part in ("launches_prefill", "launches_decode"))
 
 
+# ---------------------------------------------------------------------------
+# phase 30: the encoder-decoder's train step on the card
+# ---------------------------------------------------------------------------
+
+# (a): the reduced config (2 + 2 layers) in f32, one step at 32 target
+# tokens over sources of 45 and 19 frames (the encoder's self-attention
+# Tq = Tk, the cross-attention Tq ≠ Tk), 4 rows in 2 row blocks, the
+# moment pool, on the card and on the CPU from one init: task and each
+# leaf's gradient (Adam's m) within phase 26 (a)'s limit, SSM_CVC_TOL
+ENCDEC_TRAIN_CVC_ROWS, ENCDEC_TRAIN_CVC_MICRO = 4, 2
+# (b): the full config in bf16 at train_4k's 4,096 target tokens over
+# 4,096 source frames (the train shape's layout: T_src = T), phase 25's
+# global batch of 16 rows in TRAIN_MICRO row blocks
+# (c): the bf16 step's first gradient against its f32 twin's at full
+# width cut to 2 + 2 layers, phase 26 (d)'s cut and rows, held to phase
+# 25 (d)'s limits; and, printed only, the same at full depth and 2 rows
+# (the f32 twin's attention backward runs in FFMA). At 12 + 12 layers the
+# reference's own bf16 step lies ~8% from its f32 twin (on the CPU at
+# `reduced()`'s width; ~2% at 2 + 2 layers), so at full depth the limits
+# would read the model's depth, not the port: tests/
+# test_torch_encdec_train.py holds the port's bf16 step there to twice
+# the reference's error
+ENCDEC_ORACLE_DEPTH = 2
+ENCDEC_DEEP_ROWS, ENCDEC_DEEP_MICRO = 2, 2
+
+
+def _encdec_train_batch(torch, cfg, t, t_src, rows, device, seed):
+    """`_train_batch`'s tokens and labels, and `src_embeds` (rows, t_src,
+    d_model) in the param dtype: N(0, 1) from a generator seeded `seed`
+    on `device`."""
+    from repro_torch.models.transformer import param_dtype
+    batch = _train_batch(torch, cfg.vocab_size, t, rows, device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    batch["src_embeds"] = torch.randn(
+        (rows, t_src, cfg.d_model), generator=gen, device=device).to(
+        param_dtype(cfg))
+    return batch
+
+
+def _encdec_attention_flops(cfg, rows, t, t_src):
+    """Attention's products in a step, forward and backward (3× the
+    forward's 4·hd a valid pair): the encoder's full T_src² square, the
+    cross-attention's T × T_src, the decoder's causal half of T²."""
+    per_head = 12 * cfg.resolved_head_dim * (
+        cfg.n_encoder_layers * t_src * t_src +
+        cfg.n_layers * (t * t_src + t * t / 2))
+    return int(rows * cfg.n_heads * per_head)
+
+
+def encdec_train_card_vs_cpu(torch, smi_line):
+    """(a) of phase 30 (see ENCDEC_TRAIN_CVC_ROWS): exact attention
+    forward and backward launches on the card (the model's 6 applications
+    × 2 row blocks each), none on the CPU."""
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.models import build_model
+
+    cfg = get_arch(ENCDEC_NAME).reduced()
+    t, rows, micro = ENCDEC_CVC_T, ENCDEC_TRAIN_CVC_ROWS, \
+        ENCDEC_TRAIN_CVC_MICRO
+    m0 = build_model(cfg, "cpu").init(0)
+    members = [_noisy_member(torch, m0, s) for s in (1, 2)]
+    n = _encdec_launches(cfg) * micro
+    want = {"forward": n, "backward": n}
+    out = {}
+    for t_src in ENCDEC_CVC_SRC:
+        batch = _encdec_train_batch(torch, cfg, t, t_src, rows, "cpu", 30)
+        runs = _step_card_and_cpu(
+            torch, cfg, ShapeConfig(f"train_{t}", t, rows, "train"), micro,
+            m0, members, batch, "attention")
+        errs, total = _leaf_errs(runs[CARD][0], runs["cpu"][0])
+        task_err = abs(runs[CARD][1] - runs["cpu"][1]) / abs(runs["cpu"][1])
+        worst = max(errs, key=errs.get)
+        out[f"t_src={t_src}"] = dict(
+            grad_err=errs, grad_err_total=total, task_card=runs[CARD][1],
+            task_cpu=runs["cpu"][1], task_err=task_err,
+            launches_card=runs[CARD][2], launches_cpu=runs["cpu"][2])
+        print(f"  (a) reduced {cfg.name} f32, T_src {t_src}, T {t}, {rows} "
+              f"rows in {micro} blocks: card vs CPU worst leaf "
+              f"{errs[worst]:.3e} ({worst}), all leaves {total:.3e}, task "
+              f"{runs[CARD][1]:.6f} vs {runs['cpu'][1]:.6f} "
+              f"({task_err:.2e}); limit {SSM_CVC_TOL:g}; attention "
+              f"launches {runs[CARD][2]} on the card, {runs['cpu'][2]} on "
+              f"the CPU ({smi_line})")
+        if runs[CARD][2] != want or any(runs["cpu"][2].values()):
+            fail(f"phase 30 (a), T_src {t_src}: attention launches "
+                 f"{runs[CARD][2]} on the card (want {want}) and "
+                 f"{runs['cpu'][2]} on the CPU")
+        if not (errs[worst] <= SSM_CVC_TOL and task_err <= SSM_CVC_TOL):
+            fail(f"phase 30 (a), T_src {t_src}: the card's step lies "
+                 f"{errs[worst]:.3e} (leaf {worst}) / {task_err:.3e} "
+                 "(task) from the CPU's")
+    return out
+
+
+def encdec_train_full_width(torch, smi_line):
+    """(b) seamless-m4t-medium in bf16 at full width and depth through
+    `make_step(cfg, train_4k cut to 16 rows)` with REPRO_MICROBATCH=8, the
+    moment pool, 4,096 target tokens over 4,096 source frames a row:
+    `_train_twice` (exact attention forward and backward (36 applications
+    × 8 row blocks) and sweep (one each a leaf dtype) launches a step,
+    every value finite, a second run bitwise the first), peak memory net
+    of what earlier phases hold, one step under the profiler."""
+    from repro_torch.configs import FedConfig, ShapeConfig, get_arch
+    from repro_torch.launch import make_step
+    from repro_torch.optim import make_optimizer
+
+    cfg = get_arch(ENCDEC_NAME)
+    shape = ShapeConfig("train_4k", TRAIN_T, TRAIN_ROWS, "train")
+    fed = FedConfig()
+    opt = make_optimizer(fed.optimizer, fed.learning_rate, fed.weight_decay)
+    _release()
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    model, params, _, _ = _served_model(torch, cfg, ENCDEC_PARAMS)
+    batch = _encdec_train_batch(torch, cfg, TRAIN_T, TRAIN_T, TRAIN_ROWS,
+                                CARD, 30)
+    tokens = TRAIN_ROWS * TRAIN_T
+    # the embedding is a gather: its rows add no product
+    flops = 6 * (ENCDEC_PARAMS - params["embed"].numel()) * tokens + \
+        _encdec_attention_flops(cfg, TRAIN_ROWS, TRAIN_T, TRAIN_T)
+    n = _encdec_launches(cfg) * TRAIN_MICRO
+    n_types = len({v.dtype for v in params.values()})
+    want = dict(attention={"forward": n, "backward": n},
+                sweep={"forward": n_types, "backward": n_types},
+                gla={"forward": 0, "backward": 0})
+    with _env(REPRO_MICROBATCH=TRAIN_MICRO):
+        step = make_step(cfg, shape, fed)
+    pool = _train_pool(torch, "moment", params,
+                       [_noisy_member(torch, params, s) for s in (1, 2)],
+                       fed.pool_size)
+    rows, peak, finite, bitwise = _train_twice(
+        torch, "phase 30 (b)", step, params, opt, batch, pool, want)
+    peak -= held_gb
+    timed = sum(r["s"] for r in rows[1:])
+    rate = TRAIN_STEPS / timed
+    tasks = [r["task"] for r in rows]
+    out = dict(config=cfg.name, n_params=ENCDEC_PARAMS,
+               layers=(cfg.n_encoder_layers, cfg.n_layers),
+               tokens_per_step=tokens, source_frames_per_step=tokens,
+               flops_per_step=flops, want=want, steps=rows,
+               steps_per_s=rate, tokens_per_s=rate * tokens,
+               model_flops_per_s=rate * flops,
+               peak_share=rate * flops / PEAK_BF16_FLOPS,
+               held_at_start_gb=held_gb, peak_gb=peak,
+               second_run_bitwise=bitwise, finite=finite, tasks=tasks)
+    print(f"  (b) {cfg.name} bf16, {cfg.n_encoder_layers} + {cfg.n_layers} "
+          f"layers ({ENCDEC_PARAMS} parameters), {TRAIN_ROWS} × {TRAIN_T} "
+          f"tokens over as many source frames a step in {TRAIN_MICRO} "
+          f"microbatches: {TRAIN_STEPS} steps in {timed:.3f} s "
+          f"({rate:.4f} steps/s, {rate * tokens:.1f} tokens/s; warm-up "
+          f"{rows[0]['s']:.3f} s), model FLOP rate "
+          f"{rate * flops / 1e12:.2f} TFLOP/s ({out['peak_share']:.4f} of "
+          f"the dense bf16 peak), peak {peak:.2f} GB net of "
+          f"{held_gb:.2f} held; tasks "
+          + ", ".join(f"{t:.6f}" for t in tasks) +
+          f"; launches a step {want}; second run "
+          f"{'bitwise' if bitwise else 'DIFFERS'} ({smi_line})")
+    if not finite:
+        fail("phase 30 (b): a non-finite task, parameter or Adam moment")
+    if not bitwise:
+        fail("phase 30 (b): a second run of the same steps differs")
+    state = opt.init(params)
+
+    def profiled(k):
+        for _ in range(k):
+            step(params, state, batch, pool, 0)
+    out["profile"] = _profile(torch, profiled, 1, f"{cfg.name}: one step",
+                              watch=("flash_attn", "attn_bwd",
+                                     "pool_distance"))
+    del state, params, pool, model, step, batch
+    _release()
+    return out
+
+
+def encdec_train_oracle(torch, smi_line, depth, rows, micro, gated):
+    """(c) The full config at full width, `depth` encoder and decoder
+    layers each, `rows` rows: `_bf16_and_f32_twin` (`micro` = (bf16, f32)
+    row blocks), exact attention launches; `gated`: phase 25 (d)'s
+    limits, TRAIN_ORACLE_GRAD_TOL normwise over all leaves and
+    TRAIN_TASK_TOL on the task."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_arch
+
+    _release()
+    cfg = dataclasses.replace(get_arch(ENCDEC_NAME), n_layers=depth,
+                              n_encoder_layers=depth)
+    batch = _encdec_train_batch(torch, cfg, TRAIN_T, TRAIN_T, rows, CARD,
+                                30)
+    errs, total, task_err, runs = _bf16_and_f32_twin(
+        torch, cfg, ShapeConfig("train_4k", TRAIN_T, rows, "train"), micro,
+        batch, "attention")
+    worst = max(errs, key=errs.get)
+    out = dict(layers=(depth, depth), rows=rows, gated=gated, grad_err=errs,
+               grad_err_total=total, task=runs["bf16"][0],
+               task_f32=runs["f32"][0], task_err=task_err,
+               launches={k: r[1] for k, r in runs.items()},
+               step_s={k: r[2] for k, r in runs.items()})
+    print(f"  (c) {cfg.name} at {depth} + {depth} layers, full width, "
+          f"{rows} × {TRAIN_T} tokens: the bf16 step's first gradient "
+          f"within {total:.3e} normwise of its f32 twin's (worst leaf "
+          f"{errs[worst]:.3e}, {worst}), task {runs['bf16'][0]:.6f} vs "
+          f"{runs['f32'][0]:.6f} ({task_err:.2e}); "
+          + (f"limits {TRAIN_ORACLE_GRAD_TOL:g} / {TRAIN_TASK_TOL:g}"
+             if gated else "printed, not gated") +
+          f"; attention launches {out['launches']}; steps "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in out["step_s"].items()) +
+          f" ({smi_line})")
+    for key, blocks in zip(("bf16", "f32"), micro):
+        n = _encdec_launches(cfg) * blocks
+        if out["launches"][key] != {"forward": n, "backward": n}:
+            fail(f"phase 30 (c) {key}, {depth} layers: attention launches "
+                 f"{out['launches'][key]}, want {n} each way")
+    if gated and not (total <= TRAIN_ORACLE_GRAD_TOL and
+                      task_err <= TRAIN_TASK_TOL):
+        fail(f"phase 30 (c): the bf16 step lies {total:.3e} (gradient) / "
+             f"{task_err:.3e} (task) from the f32 twin")
+    del batch
+    _release()
+    return out
+
+
+def encdec_train_phase(torch, smi_line):
+    """Phase 30; returns its measurements by part."""
+    from repro_torch.configs import get_arch
+    t0 = time.perf_counter()
+    out = dict(card_vs_cpu=encdec_train_card_vs_cpu(torch, smi_line),
+               full_width=encdec_train_full_width(torch, smi_line),
+               oracle=encdec_train_oracle(
+                   torch, smi_line, ENCDEC_ORACLE_DEPTH, TRAIN_ROWS,
+                   (TRAIN_MICRO, TRAIN_ORACLE_MICRO), True),
+               oracle_full_depth=encdec_train_oracle(
+                   torch, smi_line, get_arch(ENCDEC_NAME).n_layers,
+                   ENCDEC_DEEP_ROWS, (ENCDEC_DEEP_MICRO, ENCDEC_DEEP_MICRO),
+                   False))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def encdec_train_launches(encdec_train):
+    """Phase 30's main-path launches by wrapper name: (b)'s first run."""
+    return _launches_by_wrapper(encdec_train["full_width"]["steps"])
+
+
 def main(argv):
     """No arguments: every phase. ``--planted-faults``: phases 1-2, then
     `planted_faults` (a calibration of phase 5's checks; no result line)."""
@@ -8233,6 +8561,13 @@ def main(argv):
           "CPU in f32; in bf16 at full width and depth through make_step, "
           "2 x 1,000 source frames; the f32 twin against its oracles")
     encdec = encdec_phase(torch, smi_line)
+
+    # phase 30: the encoder-decoder's train step
+    phase("30", f"encoder-decoder training through make_step('train'): "
+          f"{ENCDEC_NAME} reduced card vs CPU in f32 (T_src 45 and 19 "
+          "over T 32); in bf16 at full width and depth, 16 × 4,096 tokens "
+          "over 4,096 source frames a row; bf16 vs its f32 twin")
+    encdec_train = encdec_train_phase(torch, smi_line)
     phase(None)
 
     step_rows = [r for r in rows if r["main_path"]]
@@ -8307,11 +8642,14 @@ def main(argv):
                 "max_abs_err", "hd", "dv")}
     # phase 25's train steps: (b)'s first run and (c)
     # and phase 26's SSM train steps ((b) and (c)'s first runs; the GLA
-    # backward's entry counts them already)
+    # backward's entry counts them already) and phase 30's encoder-decoder
+    # train steps ((b)'s first run)
     ssm_launches = ssm_train_launches(ssm_train)
+    encdec_launches = encdec_train_launches(encdec_train)
     for entry in kernels["kernels"]:
         entry["launches"] += train_step_launches(train).get(entry["name"],
                                                             0)
+        entry["launches"] += encdec_launches.get(entry["name"], 0)
         if entry["name"] != "gla_chunk_bwd_f32":
             entry["launches"] += ssm_launches.get(entry["name"], 0)
         if entry["name"] == "pool_distance_bwd_f32":
@@ -8331,7 +8669,8 @@ def main(argv):
         batched=batched, checkpoints=checkpoints, fleets=fleets,
         dense_serving=dense, lm_training=lm, train_step=train,
         ssm_training=ssm_train, moe_serving=moe, mla_serving=mla,
-        encdec_serving=encdec, phase_s=PHASE_S,
+        encdec_serving=encdec, encdec_training=encdec_train,
+        phase_s=PHASE_S,
         total_s=time.perf_counter() - t_start)))
     phase_table()
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -1,7 +1,7 @@
 // Flash attention, backward, for Hopper (sm_90a): the gradients of the
-// causal or sliding-window GQA softmax attention that flash_attn_f32.cu
-// computes forward, inputs and outputs in bf16 (tensor cores) or f32
-// (FFMA), f32 arithmetic.
+// causal, sliding-window or non-causal GQA softmax attention that
+// flash_attn_f32.cu computes forward, Tq = Tk or not, inputs and outputs
+// in bf16 (tensor cores) or f32 (FFMA), f32 arithmetic.
 //
 //   q, out, dout (B, Tq, H, hd); k, v (B, Tk, KV, hd); lse (B, H, Tq) f32
 //   from the forward (+inf on a row with no valid key)
@@ -20,8 +20,13 @@
 // S the scaled scores as the forward computes them ((scale·q)·kᵀ by the
 // same FFMA chain for f32 inputs, scale·(q·kᵀ) for bf16), and the masks
 // the forward's: a key at or past Tk, after the query (causal), or `window` or
-// more positions before it is invalid. A row with lse = +inf gets P = 0:
-// its dq is 0 and it adds nothing to dk and dv (ROADMAP C7).
+// more positions before it is invalid; query and key positions both count
+// from 0, so non-causal attention with Tq ≠ Tk (the encoder-decoder's
+// cross-attention, T target queries over T_src source keys) masks only
+// the keys past Tk. A row with lse = +inf gets P = 0: its dq is 0 and it
+// adds nothing to dk and dv (ROADMAP C7). Rows past the last of a tile
+// (tq·g rows need not fill one: 16 target queries a head over 1,000
+// keys) read 0 and are masked; keys past Tk likewise.
 //
 // Three passes, each deterministic: no atomics; every sum is taken by one
 // thread (or one warp's tensor-core fragment) in a fixed order.
@@ -32,7 +37,9 @@
 //    orders them, so the sum over the group's heads happens inside the
 //    block, in row order, and dK, dV are written once. Query positions
 //    before the tile (causal) or `window` or more past its last key are
-//    skipped: they add exactly nothing.
+//    skipped: they add exactly nothing. Non-causal, a block walks every
+//    row of its batch row and kv head (all Tq·g of them), still in one
+//    block and in row order: no float atomics.
 //  * dQ: a block owns (batch, kv head, 64 rows) and walks the key tiles
 //    the forward walks for them (the same skipping rule); it recomputes S
 //    and dP, the price of writing dQ without atomics (a fused dQ would
@@ -48,7 +55,8 @@
 // split3). Blocks of 4 warps; the grid is one-dimensional with the (kv
 // head, batch) pair fastest, so that the tiles with the longest walks
 // (causal: dK/dV's first key tiles, dQ's last row tiles) launch first
-// and the short ones fill the tail.
+// and the short ones fill the tail; non-causal, every block of a pass
+// walks as far as every other, and the order does not matter.
 //  * dK/dV: each warp owns 16 of the block's 64 keys. K and V load once;
 //    the row tiles' Q and dO are copied as bf16 with 16-byte cp.async
 //    into padded shared rows (ldmatrix reads them without bank

@@ -22,11 +22,12 @@ versions are
 `ref.attention_ref`, `ref.attention_lse_ref` and `ref.attention_bwd_ref`.
 
 `FlashAttention` is the autograd Function over the two: its forward
-saves q, k, v, out and lse, its backward launches the backward kernel.
-Its forward raises for dv ≠ hd (MLA training: the backward kernel has no
-such instance yet) and for non-causal attention or Tq ≠ Tk
-(encoder-decoder training, ROADMAP 8d-train: the backward kernel has
-never been held on the card there). It syncs nothing and allocates
+saves q, k, v, out and lse, its backward launches the backward kernel,
+with the forward's masks: causal or non-causal, Tq = Tk or not (the
+encoder-decoder trains through both: its encoder's self-attention and
+every cross-attention are non-causal, the latter with Tq ≠ Tk). Its
+forward raises for dv ≠ hd (MLA training: the backward kernel has no
+such instance yet). It syncs nothing and allocates
 with `torch.empty` on the current stream, so a training step through it
 can be captured in a CUDA graph; under `torch.func.vmap` it raises
 (batched LM sweeps are not ported). The model reaches them through
@@ -217,11 +218,10 @@ flash_attn_bwd_f32.launches = 0
 class FlashAttention(torch.autograd.Function):
     """Attention through the forward kernel with the backward kernel as
     its gradient: ``FlashAttention.apply(q, k, v, causal, window)`` on
-    contiguous CUDA tensors (the launchers' conditions) with v as wide as
-    q and k: MLA's narrower values raise (the backward kernel has no
-    such instance), and so do non-causal attention and Tq ≠ Tk (its
-    backward is not held there yet). Capturable; under `torch.func.vmap`
-    it raises."""
+    contiguous CUDA tensors (the launchers' conditions), causal or not,
+    with any Tq and Tk, and v as wide as q and k: MLA's narrower values
+    raise (the backward kernel has no such instance). Capturable; under
+    `torch.func.vmap` it raises."""
 
     @staticmethod
     def forward(q, k, v, causal, window):
@@ -230,12 +230,6 @@ class FlashAttention(torch.autograd.Function):
                 f"FlashAttention: values of head dim {v.shape[-1]} under "
                 f"queries and keys of {q.shape[-1]} (MLA training) have no "
                 "backward kernel yet")
-        if not causal or q.shape[1] != k.shape[1]:
-            raise NotImplementedError(
-                f"FlashAttention: {'causal' if causal else 'non-causal'} "
-                f"attention of {q.shape[1]} queries over {k.shape[1]} keys "
-                "(encoder-decoder training, ROADMAP 8d-train): the "
-                "backward kernel is held only at causal Tq = Tk so far")
         return flash_attn_f32(q, k, v, causal=causal, window=window,
                               return_lse=True)
 

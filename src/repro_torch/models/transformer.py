@@ -143,6 +143,15 @@ def lm_eval_fn(model: Model, test_batch: Dict) -> Callable:
     return nll
 
 
+def embed_tokens(params: Params, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of `tokens` (any int dtype). Through
+    `F.embedding`, whose backward sums a repeated token's rows in a fixed
+    order on either device: the backward of indexing (`index_put_` with
+    accumulate) adds them on the CPU with atomic adds from several threads,
+    in an order that follows the threads' timing (ROADMAP C19)."""
+    return torch.nn.functional.embedding(tokens.long(), params["embed"])
+
+
 def _unembed_w(params: Params, cfg: ArchConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
 
@@ -293,7 +302,7 @@ def build_decoder_only(cfg: ArchConfig, device: DeviceLike = None) -> Model:
         """The final hidden states and the layers' summed aux loss (0.0
         without MoE)."""
         b, t = tokens.shape
-        x = params["embed"][tokens.long()]
+        x = embed_tokens(params, tokens)
         positions = torch.arange(t, device=tokens.device).expand(b, t)
         aux = 0.0
         for l in range(cfg.n_layers):
@@ -328,7 +337,7 @@ def build_decoder_only(cfg: ArchConfig, device: DeviceLike = None) -> Model:
         and the cache, ring-packed when the prompt passes the window."""
         tokens = batch["tokens"]
         b, t = tokens.shape
-        x = params["embed"][tokens.long()]
+        x = embed_tokens(params, tokens)
         positions = torch.arange(t, device=tokens.device).expand(b, t)
         kept = []                   # a layer's (k, v) or (c_kv, k_rope)
         for l in range(cfg.n_layers):
@@ -360,7 +369,7 @@ def build_decoder_only(cfg: ArchConfig, device: DeviceLike = None) -> Model:
         (`check_decode_pos`)."""
         b = token.shape[0]
         w = _entries(cache)
-        x = params["embed"][token.long()]
+        x = embed_tokens(params, token)
         idx = torch.arange(w, device=pos.device)
         if window:
             slot = torch.remainder(pos, w)
@@ -481,7 +490,7 @@ def build_hybrid(cfg: ArchConfig, device: DeviceLike = None) -> Model:
 
     def backbone(params: Params, tokens: torch.Tensor) -> torch.Tensor:
         b, t = tokens.shape
-        x = params["embed"][tokens.long()]
+        x = embed_tokens(params, tokens)
         positions = torch.arange(t, device=tokens.device).expand(b, t)
         sp = sub_params(params, "shared_attn")
         for _, layers in segments():
@@ -516,7 +525,7 @@ def build_hybrid(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     def prefill(params: Params, batch):
         tokens = batch["tokens"]
         b, t = tokens.shape
-        x = params["embed"][tokens.long()]
+        x = embed_tokens(params, tokens)
         positions = torch.arange(t, device=tokens.device).expand(b, t)
         sp = sub_params(params, "shared_attn")
         states, convs, sk, sv = [], [], [], []
@@ -550,7 +559,7 @@ def build_hybrid(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     def decode(params: Params, token: torch.Tensor, cache, pos):
         pos = int(pos)
         b = token.shape[0]
-        x = params["embed"][token.long()]
+        x = embed_tokens(params, token)
         sp = sub_params(params, "shared_attn")
         if every:
             s_len = cache["shared_k"].shape[2]
@@ -621,7 +630,7 @@ def build_rwkv(cfg: ArchConfig, device: DeviceLike = None) -> Model:
         return x + L.mlp(sub_params(lp, "ffn"), h)
 
     def backbone(params: Params, tokens: torch.Tensor) -> torch.Tensor:
-        x = params["embed"][tokens.long()]
+        x = embed_tokens(params, tokens)
         for l in range(cfg.n_layers):
             lp = layer_params(params, l)
             x = x + SSM.rwkv6_block(sub_params(lp, "mixer"), cfg,
@@ -648,7 +657,7 @@ def build_rwkv(cfg: ArchConfig, device: DeviceLike = None) -> Model:
     def prefill(params: Params, batch):
         tokens = batch["tokens"]
         t = tokens.shape[1]
-        x = params["embed"][tokens.long()]
+        x = embed_tokens(params, tokens)
         states, lasts = [], []
         for l in range(cfg.n_layers):
             lp = layer_params(params, l)
@@ -665,7 +674,7 @@ def build_rwkv(cfg: ArchConfig, device: DeviceLike = None) -> Model:
             {"state": torch.stack(states), "x_prev": torch.stack(lasts)}
 
     def decode(params: Params, token: torch.Tensor, cache, pos):
-        x = params["embed"][token.long()]
+        x = embed_tokens(params, token)
         states, prevs = [], []
         for l in range(cfg.n_layers):
             lp = layer_params(params, l)
@@ -746,7 +755,7 @@ def build_encdec(cfg: ArchConfig, device: DeviceLike = None) -> Model:
         """The decoder over `tokens` (B, T): its final hidden states and,
         with `keep`, each layer's (k, v, cross k, cross v)."""
         b, t = tokens.shape
-        x = params["embed"][tokens.long()]
+        x = embed_tokens(params, tokens)
         positions = _positions(b, t, tokens.device)
         kept = []
         for l in range(cfg.n_layers):
@@ -809,7 +818,7 @@ def build_encdec(cfg: ArchConfig, device: DeviceLike = None) -> Model:
             raise ValueError(
                 f"decode at position {pos} past the KV cache's {s} entries "
                 "(or negative): grow k/v after prefill")
-        x = params["embed"][token.long()]
+        x = embed_tokens(params, token)
         positions = torch.full((b, 1), pos, device=token.device)
         pos_b = torch.full((b,), pos, device=token.device)
         entry_pos = torch.arange(s, device=token.device).expand(b, s)

@@ -246,8 +246,18 @@ def _emulated_backward(q, k, v, out, do, lse, causal, window):
     return dq, dk, dv
 
 
+# non-causal with Tq ≠ Tk (the encoder-decoder's cross-attention and
+# Tq > Tk) and the encoder's Tq = Tk over more than one key tile: every
+# query row of a batch row reaches every dK/dV block, and rows need not
+# fill a tile (16 rows over 150 keys)
+NONCAUSAL_CASES = [(2, 16, 150, 4, 4, 64, False, 0),
+                   (1, 100, 30, 8, 2, 32, False, 0),
+                   (1, 130, 130, 4, 4, 32, False, 0)]
+
+
 @pytest.mark.parametrize("case", CASES + [(1, 12, 5, 4, 2, 32, False, 3),
-                                          (1, 200, 200, 8, 2, 32, True, 48)])
+                                          (1, 200, 200, 8, 2, 32, True, 48)]
+                         + NONCAUSAL_CASES)
 def test_kernel_tiling_emulation_matches_plain(case):
     b, tq, tk, h, kv, hd, causal, window = case
     q, k, v, do = (torch.from_numpy(x).double()
@@ -457,6 +467,10 @@ BF16_CASES = {
     "g8_t129_window": (1, 129, 129, 16, 2, 32, True, 40),
     "g4_bidirectional": (1, 70, 70, 8, 2, 64, False, 0),
     "g2_dead_rows": (1, 12, 5, 4, 2, 32, False, 3),
+    # non-causal with Tq ≠ Tk: 16 target rows over 150 source keys (a
+    # tile's 64 rows mostly empty), and a group of 4 with Tq > Tk
+    "cross_16_over_150": (2, 16, 150, 4, 4, 64, False, 0),
+    "g4_tq_gt_tk": (1, 100, 30, 8, 2, 64, False, 0),
 }
 
 

@@ -8,7 +8,8 @@ across by `convert.from_jax_params`. Also the attention's non-causal mode
 with Tq ≠ Tk (both ways), which the encoder and the cross-attention take:
 the kernel's plain version and the model's chunked CPU route against the
 reference's Pallas kernel (interpret mode) and its jnp formulation, and
-`FlashAttention`'s refusal of that mode (its backward is not held there).
+`FlashAttention` taking that mode on to the launchers (it still refuses
+values narrower than the keys).
 
 The config is seamless-m4t-medium `reduced()`: 2 encoder + 2 decoder
 layers, d 256, 4/4 heads at head dim 64, d_ff 512, vocab 1,024, f32. The
@@ -443,17 +444,33 @@ def test_noncausal_attention_matches_pallas_and_jnp(b, tq, tk, h, kv, hd,
                                           (True, 8, 20), (True, 20, 8)])
 def test_flash_attention_function_refuses_noncausal_and_tq_ne_tk(causal, tq,
                                                                  tk):
-    """`FlashAttention` (the route under grad) raises NotImplementedError
-    for non-causal attention or Tq ≠ Tk before any launch, naming 8d-train;
-    the forward launcher alone still takes those shapes (it stops at the
-    device check on CPU tensors)."""
+    """`FlashAttention` (the route under grad) no longer refuses
+    non-causal attention or Tq ≠ Tk (encoder-decoder training, ROADMAP
+    8d-train): on CPU tensors it gets past its own checks and stops at
+    the forward launcher's device check, as the launcher alone does, with
+    no launch of either kernel."""
     q = torch.zeros(1, tq, 2, 64, requires_grad=True)
     k, v = torch.zeros(1, tk, 2, 64), torch.zeros(1, tk, 2, 64)
-    launches = FA.flash_attn_f32.launches
-    with pytest.raises(NotImplementedError, match="8d-train"):
+    launches = (FA.flash_attn_f32.launches, FA.flash_attn_bwd_f32.launches)
+    with pytest.raises(ValueError, match="not CUDA"):
         FA.FlashAttention.apply(q, k, v, causal, 0)
     with pytest.raises(ValueError, match="not CUDA"):
         FA.flash_attn_f32(q.detach(), k, v, causal=causal)
+    assert (FA.flash_attn_f32.launches,
+            FA.flash_attn_bwd_f32.launches) == launches
+
+
+@pytest.mark.parametrize("causal,tq,tk", [(False, 8, 20), (True, 8, 8)])
+def test_flash_attention_function_still_refuses_narrow_values(causal, tq,
+                                                              tk):
+    """dv ≠ hd (MLA training) still raises NotImplementedError in the
+    Function before any launch: the backward kernel has no such
+    instance."""
+    q = torch.zeros(1, tq, 2, 192, requires_grad=True)
+    k, v = torch.zeros(1, tk, 2, 192), torch.zeros(1, tk, 2, 128)
+    launches = FA.flash_attn_f32.launches
+    with pytest.raises(NotImplementedError, match="MLA training"):
+        FA.FlashAttention.apply(q, k, v, causal, 0)
     assert FA.flash_attn_f32.launches == launches
 
 

@@ -384,6 +384,36 @@ def test_c6_fresh_moment_pool(monkeypatch, llama, jax_steps_cache, dtype):
         _hold_f32(got, want)
 
 
+def test_c19_embedding_backward_in_a_fixed_order():
+    """ROADMAP C19: the token embedding's gradient (`transformer.
+    embed_tokens`, the gather every family's forward starts with) is
+    bitwise on repeat on the CPU with several threads, at a batch where
+    every row of the table is hit ~2,000 times. The backward of indexing
+    (`embed[tokens]`, `index_put_` with accumulate) added those rows with
+    atomic adds in the threads' order and gave a new result on most
+    repeats here, which made C6's bitwise comparison fail under load."""
+    from repro_torch.models.transformer import embed_tokens
+    rng = np.random.default_rng(19)
+    table = torch.from_numpy(rng.standard_normal((8, 256)).astype(
+        np.float32))
+    tokens = torch.from_numpy(rng.integers(0, 8, (4, 4096)).astype(
+        np.int32))
+    g = torch.from_numpy(rng.standard_normal((4, 4096, 256)).astype(
+        np.float32))
+    with torch.no_grad():
+        want = torch.zeros_like(table).index_add_(
+            0, tokens.reshape(-1).long(), g.reshape(-1, 256))
+    seen = set()
+    for _ in range(20):
+        leaf = table.clone().requires_grad_(True)
+        x = embed_tokens({"embed": leaf}, tokens)
+        assert torch.equal(x.detach(), table[tokens.long()])
+        (grad,) = torch.autograd.grad(x, [leaf], g)
+        seen.add(grad.numpy().tobytes())
+    assert len(seen) == 1
+    torch.testing.assert_close(grad, want, rtol=1e-5, atol=1e-3)
+
+
 def test_moment_d1_conditioning():
     """The moment-form d1 at members 1e-3·RMS apart: the reference's and
     the port's f32 values of ‖w‖² − 2⟨w, μ⟩ + q differ from the f64 value
