@@ -66,7 +66,9 @@ Phases, each failing the run with a nonzero exit:
              (`flash_attn_bwd_f32`) at BWD_SHAPES (phase 25's 4,096-token
              layer call among them; non-causal with Tq = Tk and Tq ≠ Tk
              at phase 30's encoder and cross-attention, 4,096 over 4,096,
-             and phase 29's shapes) in f32 (normwise against
+             and phase 29's shapes; phase 31's MLA at (q/k 192, v 128),
+             one row of 4,096 and a ragged 777, and qwen3-moe's causal
+             group of 16 at 4,096) in f32 (normwise against
              the f64 plain version) and bf16 (elementwise within one bf16
              rounding; the bf16 route on the tensor cores, its time
              printed beside its earlier FFMA route's), launched twice and
@@ -325,6 +327,33 @@ Phases, each failing the run with a nonzero exit:
              normwise, task 5e-3), and the same at full depth and 2 rows,
              printed (at 12 + 12 layers the reference's own bf16 step
              lies ~8% from its twin)
+31. MoE training — the train step of the `moe` family through
+             `launch.make_step(cfg, train shape)`: the expert products
+             under grad through `layers._MatmulF32Out` on stacks, the
+             dispatch's backward a gather by a permutation and a sum over
+             a token's k rows, MLA's attention under grad
+             through the backward kernel's (192, 128) instance: (a)
+             qwen3-moe-235b-a22b and deepseek-v2-lite-16b reduced (the
+             latter at deepseek's published MLA head dims) in f32, one
+             step on the card and the CPU from one init (4 rows of 64
+             tokens in 2 row blocks, the moment pool): every router
+             call's experts the same on both devices, task and every
+             leaf's gradient within 1e-4 normwise, exact attention
+             launches on the card, none on the CPU; (b)
+             deepseek-v2-lite-16b in bf16 at full width, 3 of its 27
+             layers (what 80 GB holds in training), 16 × 4,096 tokens a
+             step, REPRO_MICROBATCH=8, the moment pool: a warm-up and 2
+             timed steps, exact attention (3 layers × 8) and sweep
+             launches a step, every value finite, steps/s, tokens/s, the
+             model FLOP rate on the active parameters and its share of
+             the bf16 peak, the executed expert rows E·C, drops a layer,
+             peak memory net of earlier phases, a second run bitwise, one
+             step profiled; (c) the same at 2 layers and 16 rows, the
+             bf16 step's first gradient against its f32 twin's in the
+             same 8 row blocks, routed as the bf16 step routed (5e-2
+             normwise, task 5e-3); before (a), the expert products'
+             backward (`_MatmulF32Out`) against f64 at one microbatch's
+             shapes
 
 Every phase prints its wall time ("phase N: … s"), and a table of them
 comes before the total. Before the last lines it prints every
@@ -2044,7 +2073,14 @@ BWD_SHAPES = [("llama_train", 16, 128, 128, 32, 8, 64, True, 8192),
               ("s2t_enc", 2, 1000, 1000, 16, 16, 64, False, 0),
               ("s2t_cross", 2, 16, 1000, 16, 16, 64, False, 0),
               ("s2t_cross_long_tgt", 2, 512, 300, 16, 16, 64, False, 0),
-              ("xgqa", 3, 77, 333, 32, 8, 64, False, 0)]
+              ("xgqa", 3, 77, 333, 32, 8, 64, False, 0),
+              # phase 31's shapes, v's head dim last where it is not hd:
+              # MLA at deepseek-v2-lite-16b's (192, 128), one row of a
+              # microbatch, and at a ragged T; qwen3-moe-235b-a22b's
+              # causal group of 16 (64 / 4 heads), one row
+              ("dsv2lite_train", 1, 4096, 4096, 16, 16, 192, True, 0, 128),
+              ("dsv2lite_ragged", 2, 777, 777, 16, 16, 192, True, 0, 128),
+              ("qwen3moe_g16_train", 1, 4096, 4096, 64, 4, 128, True, 0)]
 # the bf16 route's times at BWD_SHAPES when it ran in FFMA on f32 shared
 # tiles, before its tensor-core design (chip_smoke.py phase 10, NVIDIA
 # H100 80GB HBM3, 700 W; PERF.md §6 row 6b), printed beside this run's
@@ -2060,16 +2096,38 @@ BWD_BF16_FFMA_MS = {"llama_train": 0.4633, "train4k": 14.9630,
 BWD_F32_REL_TOL = 1e-5
 # the forward's lse against `attention_lse_ref` in f64, normwise
 LSE_REL_TOL = 1e-6
+# the f64 plain version's score-sized temporaries: above this many bytes
+# of one (B, H, Tq, Tk) f64 tensor it runs a kv head at a time (the
+# group-16 row's would be 8.6 GB, ~5 of them alive at once)
+BWD_REF_SPLIT_BYTES = 4.5e9
 
 
-def _bwd_bound(b, tq, tk, h, kv, hd, causal, window, esz, peak):
-    """(bound ms, bound_by, parts) of one backward call: 10·hd FLOP per
-    valid (query, key) pair; q, out, dout, dq at (B, Tq, H, hd), k, v, dk,
-    dv at (B, Tk, KV, hd) in the inputs' element size, lse and D f32."""
+def _bwd_bound(b, tq, tk, h, kv, hd, dv, causal, window, esz, peak):
+    """(bound ms, bound_by, parts) of one backward call: 2·(3·hd + 2·dv)
+    FLOP per valid (query, key) pair (10·hd at dv = hd); q and dq at (B,
+    Tq, H, hd), out and dout at (B, Tq, H, dv), k and dk at (B, Tk, KV,
+    hd), v and dv at (B, Tk, KV, dv) in the inputs' element size, lse and
+    D f32."""
     pairs = _pairs(tq, tk, causal, window) * b * h
-    nbytes = esz * (4 * b * tq * h * hd + 4 * b * tk * kv * hd) + \
-        2 * 4 * b * h * tq
-    return _bound(nbytes, 10 * hd * pairs, peak)
+    nbytes = esz * 2 * (b * tq * h * (hd + dv) + b * tk * kv * (hd + dv)) \
+        + 2 * 4 * b * h * tq
+    return _bound(nbytes, 2 * (3 * hd + 2 * dv) * pairs, peak)
+
+
+def _bwd_ref(torch, ref, q, k, v, out, lse, dout, **mask):
+    """`ref.attention_bwd_ref`, a kv head at a time (its query heads with
+    it) where one f64 score tensor would pass BWD_REF_SPLIT_BYTES: the
+    same formulas, each group's sums unchanged."""
+    b, tq, h, _ = q.shape
+    tk, kv = k.shape[1], k.shape[2]
+    if b * h * tq * tk * 8 <= BWD_REF_SPLIT_BYTES or kv == 1:
+        return ref.attention_bwd_ref(q, k, v, out, lse, dout, **mask)
+    g = h // kv
+    parts = [ref.attention_bwd_ref(
+        q[:, :, i * g:(i + 1) * g], k[:, :, i:i + 1], v[:, :, i:i + 1],
+        out[:, :, i * g:(i + 1) * g], lse[:, i * g:(i + 1) * g],
+        dout[:, :, i * g:(i + 1) * g], **mask) for i in range(kv)]
+    return tuple(torch.cat([p[j] for p in parts], dim=2) for j in range(3))
 
 
 def _sdpa_backward(torch, q, k, v, dout, causal, window):
@@ -2110,12 +2168,13 @@ def check_attention_backward(torch, fa_mod, ref):
     repeated, the bound."""
     gen = torch.Generator(device=CARD).manual_seed(24)
     rows, max_abs = [], 0.0
-    for name, b, tq, tk, h, kv, hd, causal, window in BWD_SHAPES:
+    for name, b, tq, tk, h, kv, hd, causal, window, *narrow in BWD_SHAPES:
+        dv = narrow[0] if narrow else hd
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, dout = (torch.randn(shape, device=CARD, generator=gen)
                              .to(dtype)
                              for shape in ((b, tq, h, hd), (b, tk, kv, hd),
-                                           (b, tk, kv, hd), (b, tq, h, hd)))
+                                           (b, tk, kv, dv), (b, tq, h, dv)))
             mask = dict(causal=causal, window=window)
             out, lse = fa_mod.flash_attn_f32(q, k, v, return_lse=True, **mask)
             plain_out = fa_mod.flash_attn_f32(q, k, v, **mask)
@@ -2129,8 +2188,8 @@ def check_attention_backward(torch, fa_mod, ref):
             lse_err = float((lse.double() - want_lse).norm() /
                             want_lse.norm())
             del plain_out, again
-            want64 = ref.attention_bwd_ref(
-                q.double(), k.double(), v.double(), out.double(),
+            want64 = _bwd_ref(
+                torch, ref, q.double(), k.double(), v.double(), out.double(),
                 lse.double(), dout.double(), **mask)
             rel64 = [float((g.double() - w).norm() / w.norm())
                      for g, w in zip(grads, want64)]
@@ -2143,8 +2202,8 @@ def check_attention_backward(torch, fa_mod, ref):
             else:
                 worst = 0.0
                 shares = {"f32": 0.0, "f64": 0.0, "plain_f32": 0.0}
-                want32 = ref.attention_bwd_ref(q, k, v, out, lse, dout,
-                                               **mask)
+                want32 = _bwd_ref(torch, ref, q, k, v, out, lse, dout,
+                                  **mask)
                 for g, w64, w32 in zip(grads, want64, want32):
                     g, w32 = g.double(), w32.double()
                     gap = (g - w64).abs()
@@ -2162,10 +2221,11 @@ def check_attention_backward(torch, fa_mod, ref):
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 \
                 else PEAK_F32_FLOPS
             bound_ms, bound_by, parts = _bwd_bound(
-                b, tq, tk, h, kv, hd, causal, window, q.element_size(), peak)
+                b, tq, tk, h, kv, hd, dv, causal, window, q.element_size(),
+                peak)
             reps = 10 if max(tq, tk) >= 1024 else 25
             row = dict(parts, shape=name, b=b, t=tq, tk=tk, h=h, kv=kv,
-                       hd=hd,
+                       hd=hd, dv=dv,
                        causal=causal, window=window, dtype=str(dtype),
                        out_bitwise_with_lse=out_bitwise, lse_rel_err=lse_err,
                        rel_err_f64=dict(zip("qkv", rel64)),
@@ -2180,7 +2240,8 @@ def check_attention_backward(torch, fa_mod, ref):
                            torch, q, k, v, dout, causal, window), reps=reps),
                        bound_ms=bound_ms, bound_by=bound_by)
             rows.append(row)
-            print(f"  attn bwd {name:11s} {str(dtype)[6:]:8s}: out with lse "
+            print(f"  attn bwd {name:11s} {str(dtype)[6:]:8s}"
+                  + (f" (v {dv})" if dv != hd else "") + ": out with lse "
                   f"{'bitwise' if out_bitwise else 'DIFFERS'}, lse "
                   f"{lse_err:.2e}; dq/dk/dv vs f64 "
                   + "/".join(f"{r:.2e}" for r in rel64) +
@@ -6536,16 +6597,18 @@ def _env(**values):
                 os.environ[k] = v
 
 
-def _noisy_member(torch, params, seed):
-    """m0 plus Gaussian noise at TRAIN_NOISE of each leaf's RMS, drawn from
-    a generator seeded `seed` on the params' device, in the leaf's dtype."""
+def _noisy_member(torch, params, seed, noise=None):
+    """m0 plus Gaussian noise at `noise` (TRAIN_NOISE by default) of each
+    leaf's RMS, drawn from a generator seeded `seed` on the params'
+    device, in the leaf's dtype."""
     dev = next(iter(params.values())).device
     gen = torch.Generator(device=dev).manual_seed(seed)
+    noise = TRAIN_NOISE if noise is None else noise
     out = {}
     for k, x in params.items():
         xf = x.float()
         rms = xf.square().mean().sqrt()
-        out[k] = (xf + TRAIN_NOISE * rms * torch.randn(
+        out[k] = (xf + noise * rms * torch.randn(
             x.shape, generator=gen, device=dev)).to(x.dtype)
     return out
 
@@ -7258,6 +7321,11 @@ def train_step_launches(train):
                                 train["exact"]["steps"])
 
 
+# phase 10's backward rows at phase 31's shapes (BWD_SHAPES)
+MOE_TRAIN_BWD_SHAPES = ("dsv2lite_train", "dsv2lite_ragged",
+                        "qwen3moe_g16_train")
+
+
 def attention_bwd_entry(serving, lm):
     """The kernels line's entry of the attention backward: launches from
     phase 24 (c)'s first run; times, bound and SDPA's backward at its
@@ -7286,7 +7354,14 @@ def attention_bwd_entry(serving, lm):
                                                          key in (
             "t", "tk", "h", "kv", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "max_abs_err", "worst_share_of_limit")}
-            for r in serving["attention_bwd"] if not r["causal"]}}
+            for r in serving["attention_bwd"] if not r["causal"]},
+        # phase 31's: MLA's (192, 128) and qwen3-moe's group of 16
+        "moe_train": {f"{r['shape']}_{r['dtype'][6:]}": {key: r[key] for
+                                                         key in (
+            "t", "h", "kv", "hd", "dv", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "max_abs_err", "worst_share_of_limit")}
+            for r in serving["attention_bwd"]
+            if r["shape"] in MOE_TRAIN_BWD_SHAPES}}
     if not entry["launches"]:
         fail("flash_attn_bwd_f32 was launched no time on its main path")
     return entry
@@ -8379,6 +8454,470 @@ def encdec_train_launches(encdec_train):
     return _launches_by_wrapper(encdec_train["full_width"]["steps"])
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the MoE train step on the card
+# ---------------------------------------------------------------------------
+
+# (a): qwen3-moe-235b-a22b `reduced()` and deepseek-v2-lite-16b `reduced()`
+# with deepseek's published MLA head dims (MLA_CVC_DIMS: the card runs the
+# attention backward's (192, 128) instance) in f32, one step at 64 tokens
+# a row, 4 rows in 2 row blocks, the moment pool, on the card and on the
+# CPU from one init: every router call's top-k experts the same on both
+# devices (a flip, near-tie or not, fails with its margin printed), then
+# task and each leaf's gradient (Adam's m) within SSM_CVC_TOL. The pool's
+# members lie MOE_TRAIN_CVC_NOISE of each leaf's RMS from m0, the CPU
+# parity tests' spacing (ROADMAP C6): at TRAIN_NOISE's 1e-3 the moment
+# form's ‖w‖² − 2⟨w, μ⟩ + q keeps too few bits of the expert stacks'
+# large norms (C20's fan-in), so that two summation orders on one CPU (1 and
+# 6 threads) already move w_gate's gradient by percents
+MOE_TRAIN_CVC_T, MOE_TRAIN_CVC_ROWS, MOE_TRAIN_CVC_MICRO = 64, 4, 2
+MOE_TRAIN_CVC_NOISE = 0.1
+# (b): deepseek-v2-lite-16b in bf16 at full width, phase 25's cell
+# (train_4k's 4,096 tokens, 16 rows in TRAIN_MICRO row blocks), cut in
+# depth to MOE_TRAIN_LAYERS of its 27 layers: what one 80 GB card holds
+# in training (bf16 params, f32 Adam moments, the f32 microbatch
+# accumulator and the moment pool's f32 mean, ~30 B a parameter, 585 M
+# parameters a layer: 3 layers peak at ~74 GB, PERF.md §4); (c): the
+# bf16 step's first gradient against its f32 twin's at MOE_ORACLE_DEPTH
+# layers, the twin in the same row blocks and routed as the bf16 step
+# routed, held to phase 25 (d)'s limits (the f32 twin's attention
+# backward runs in FFMA)
+MOE_TRAIN_LAYERS = 3
+MOE_TRAIN_PARAMS = 2_173_976_064        # 3 of 27 layers
+MOE_ORACLE_DEPTH = 2
+
+
+def _route_spy(torch, calls):
+    """A stand-in for `moe.route` that records each call's device, top-k
+    experts and softmax probabilities (on the CPU) and returns the
+    router's own result."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    route = MOE.route
+
+    def spy(p, c, xf):
+        got = route(p, c, xf)
+        with torch.no_grad():
+            probs = torch.softmax(L.matmul_f32(xf.float(), p["router"]), -1)
+        calls.append((xf.device.type, got[0].detach().cpu(), probs.cpu()))
+        return got
+    return spy
+
+
+def _hold_routes(cfg, calls, label):
+    """The card's router calls against the CPU's, in call order: every
+    assignment's expert the same. Returns (calls a device, near-ties,
+    smallest top-k margin); fails on any token routed otherwise, with its
+    margin."""
+    card = [c for c in calls if c[0] == "cuda"]
+    cpu = [c for c in calls if c[0] == "cpu"]
+    k = cfg.moe.top_k
+    ties, margin, flips = 0, float("inf"), []
+    for (_, e_card, _), (_, e_cpu, probs) in zip(card, cpu):
+        top = probs.sort(-1, descending=True).values
+        share = (top[:, k - 1] - top[:, k]) / top[:, k - 1]
+        ties += int((share < MOE_ROUTE_TIE).sum())
+        margin = min(margin, float(share.min()))
+        bad = (e_card != e_cpu).any(-1)
+        flips += [float(m) for m in share[bad]]
+    if len(card) != len(cpu) or not card:
+        fail(f"phase {label}: {len(card)} router calls on the card, "
+             f"{len(cpu)} on the CPU")
+    if flips:
+        fail(f"phase {label}: {len(flips)} tokens routed otherwise on the "
+             f"card than on the CPU, at top-{k} margins {flips[:8]} of the "
+             f"k-th probability (near-tie below {MOE_ROUTE_TIE:g})")
+    return len(card), ties, margin
+
+
+# (a): `layers._MatmulF32Out`'s backward at deepseek-v2-lite-16b's expert
+# products of one (b) microbatch (E, C, ·): the gate/up product (64 × 960
+# rows, 2,048 → 1,408) and the down product (1,408 → 2,048)
+BMM_SHAPES = (("expert_up", 64, 960, 2048, 1408),
+              ("expert_down", 64, 960, 1408, 2048))
+
+
+def bmm_backward_check(torch, smi_line):
+    """(a) The expert products' backward on the card: `layers.matmul_f32`
+    on stacks under grad (`_MatmulF32Out`, g in two bf16 terms) at
+    BMM_SHAPES, da and db against the f64 batched products of the same
+    f32 cotangent g, each element within one bf16 rounding plus
+    2⁻¹⁶·|g|·|b| (phase 25 (a)'s bound on matrices); the forward bitwise
+    `torch.bmm(..., out_dtype=f32)`; the backward's time."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=CARD).manual_seed(31)
+    rows = []
+
+    def held(got, a, b):
+        want = torch.bmm(a.double(), b.double())
+        bound = 2.0 ** -8 * want.abs() + 2.0 ** -16 * torch.bmm(
+            a.double().abs(), b.double().abs())
+        return float(((got.double() - want).abs() / bound).max())
+
+    for name, e, c, k, n in BMM_SHAPES:
+        a = torch.randn((e, c, k), device=CARD, generator=gen).bfloat16() \
+            .requires_grad_(True)
+        b = (torch.randn((e, k, n), device=CARD, generator=gen) *
+             k ** -0.5).bfloat16().requires_grad_(True)
+        g = torch.randn((e, c, n), device=CARD, generator=gen)
+        with torch.enable_grad():
+            y = L.matmul_f32(a, b)
+        forward_bitwise = bool(torch.equal(
+            y, torch.bmm(a.detach(), b.detach(), out_dtype=torch.float32)))
+        da, db = torch.autograd.grad(y, (a, b), g, retain_graph=True)
+        ad, bd = a.detach(), b.detach()
+        worst = max(held(da, g, bd.transpose(1, 2)),
+                    held(db, ad.transpose(1, 2), g))
+        del da, db
+        ms = median_ms(lambda: torch.autograd.grad(
+            y, (a, b), g, retain_graph=True), reps=10)
+        rows.append(dict(shape=name, experts=e, rows=c, d_in=k, d_out=n,
+                         worst_share_of_bound=worst,
+                         forward_bitwise=forward_bitwise, ms=ms))
+        print(f"  (a) expert product backward {name} {e}×{c}×{k}→{n}: da, "
+              f"db {worst:.3f} of the bound, forward "
+              f"{'bitwise' if forward_bitwise else 'DIFFERS'}; {ms:.4f} ms "
+              f"({smi_line})")
+        if worst > 1.0 or not forward_bitwise:
+            fail(f"phase 31 (a): the expert product's backward at {name} "
+                 f"lies {worst:.3f} of its bound from the f64 product, or "
+                 "its forward differs from torch.bmm's")
+        del a, b, g, y, ad, bd
+        torch.cuda.empty_cache()
+    return rows
+
+
+def moe_train_card_vs_cpu(torch, smi_line):
+    """(a) of phase 31 (see MOE_TRAIN_CVC_T): exact attention forward and
+    backward launches on the card (a layer × 2 row blocks each), none on
+    the CPU."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import MLAConfig, ShapeConfig, get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as MOE
+
+    t, rows, micro = MOE_TRAIN_CVC_T, MOE_TRAIN_CVC_ROWS, MOE_TRAIN_CVC_MICRO
+    out = {}
+    for cfg in (get_arch(MOE_NAME).reduced(),
+                dataclasses.replace(get_arch(MLA_NAME).reduced(),
+                                    mla=MLAConfig(**MLA_CVC_DIMS))):
+        m0 = build_model(cfg, "cpu").init(0)
+        members = [_noisy_member(torch, m0, s, MOE_TRAIN_CVC_NOISE)
+                   for s in (1, 2)]
+        batch = _train_batch(torch, cfg.vocab_size, t, rows, "cpu")
+        calls = []
+        with mock.patch.object(MOE, "route", _route_spy(torch, calls)):
+            runs = _step_card_and_cpu(
+                torch, cfg, ShapeConfig(f"train_{t}", t, rows, "train"),
+                micro, m0, members, batch, "attention")
+        n_calls, ties, margin = _hold_routes(cfg, calls, "31 (a)")
+        n = cfg.n_layers * micro
+        want = {"forward": n, "backward": n}
+        errs, total = _leaf_errs(runs[CARD][0], runs["cpu"][0])
+        task_err = abs(runs[CARD][1] - runs["cpu"][1]) / abs(runs["cpu"][1])
+        worst = max(errs, key=errs.get)
+        dims = (f"MLA q/k {cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim}, v "
+                f"{cfg.mla.v_head_dim}" if cfg.mla else
+                f"head dim {cfg.resolved_head_dim}")
+        out[cfg.name] = dict(
+            grad_err=errs, grad_err_total=total, task_card=runs[CARD][1],
+            task_cpu=runs["cpu"][1], task_err=task_err,
+            router_calls=n_calls, near_ties=ties, smallest_margin=margin,
+            launches_card=runs[CARD][2], launches_cpu=runs["cpu"][2])
+        print(f"  (a) reduced {cfg.name} f32 ({dims}), {rows} × {t} tokens "
+              f"in {micro} blocks: {n_calls} router calls routed alike "
+              f"(top-{cfg.moe.top_k} margins ≥ {margin:.3e}, {ties} "
+              f"near-ties); card vs CPU worst leaf {errs[worst]:.3e} "
+              f"({worst}), all leaves {total:.3e}, task "
+              f"{runs[CARD][1]:.6f} vs {runs['cpu'][1]:.6f} "
+              f"({task_err:.2e}); limit {SSM_CVC_TOL:g}; attention "
+              f"launches {runs[CARD][2]} on the card, {runs['cpu'][2]} on "
+              f"the CPU ({smi_line})")
+        if runs[CARD][2] != want or any(runs["cpu"][2].values()):
+            fail(f"phase 31 (a), {cfg.name}: attention launches "
+                 f"{runs[CARD][2]} on the card (want {want}) and "
+                 f"{runs['cpu'][2]} on the CPU")
+        if not (errs[worst] <= SSM_CVC_TOL and task_err <= SSM_CVC_TOL):
+            fail(f"phase 31 (a), {cfg.name}: the card's step lies "
+                 f"{errs[worst]:.3e} (leaf {worst}) / {task_err:.3e} "
+                 "(task) from the CPU's")
+    return out
+
+
+def _moe_active_params(cfg, params):
+    """The parameters a token runs through: all but the embedding (a
+    gather) and the routed experts its router does not pick (top-k of
+    E)."""
+    m = cfg.moe
+    routed = sum(params[f"layers.ffn.{n}"].numel()
+                 for n in ("w_gate", "w_up", "w_down"))
+    total = sum(v.numel() for v in params.values())
+    return int(total - params["embed"].numel() -
+               routed * (1 - m.top_k / m.n_experts))
+
+
+def _mla_attention_flops(cfg, rows, t):
+    """MLA attention's products in a step, forward and backward: 2·(hd +
+    dv) a valid pair forward and twice that backward over the causal half
+    of T², a head, layer and sequence (hd = nope + rope, dv v's)."""
+    m = cfg.mla
+    return 3 * (m.qk_nope_dim + m.qk_rope_dim + m.v_head_dim) * \
+        cfg.n_layers * rows * t * t * cfg.n_heads
+
+
+def _train_drops(torch, model, params, batch):
+    """The assignments each layer's router drops over one row block of
+    `batch` (the rows a microbatch routes together, at its capacity),
+    from a forward with the step's params."""
+    from unittest import mock
+
+    from repro_torch.models import moe as MOE
+    drops, ffn = [], MOE.moe_ffn
+
+    def spy(p, c, x):
+        drops.append(int(MOE.drops(p, c, x)))
+        return ffn(p, c, x)
+    block = {k: v[:TRAIN_ROWS // TRAIN_MICRO] for k, v in batch.items()}
+    with torch.no_grad(), mock.patch.object(MOE, "moe_ffn", spy):
+        model.loss_fn(params, block)
+    return drops
+
+
+def moe_train_full_width(torch, smi_line):
+    """(b) deepseek-v2-lite-16b in bf16 at full width, MOE_TRAIN_LAYERS
+    layers, through `make_step(cfg, train_4k cut to 16 rows)` with
+    REPRO_MICROBATCH=8 and the moment pool: `_train_twice` (exact
+    attention forward and backward (a layer × 8 row blocks) and sweep
+    (one each a leaf dtype: bf16, and the f32 router) launches a step,
+    every value finite, a second run bitwise the first), peak memory net
+    of what earlier phases hold, the model FLOP rate on the active
+    parameters, the executed expert rows, each layer's drops, one step
+    under the profiler."""
+    import dataclasses
+
+    from repro_torch.configs import FedConfig, ShapeConfig, get_arch
+    from repro_torch.launch import make_step
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim import make_optimizer
+
+    cfg = dataclasses.replace(get_arch(MLA_NAME), n_layers=MOE_TRAIN_LAYERS)
+    shape = ShapeConfig("train_4k", TRAIN_T, TRAIN_ROWS, "train")
+    fed = FedConfig()
+    opt = make_optimizer(fed.optimizer, fed.learning_rate, fed.weight_decay)
+    _release()
+    torch.cuda.synchronize()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    model, params, _, _ = _served_model(torch, cfg, MOE_TRAIN_PARAMS)
+    batch = _train_batch(torch, cfg.vocab_size, TRAIN_T, TRAIN_ROWS, CARD)
+    tokens = TRAIN_ROWS * TRAIN_T
+    active = _moe_active_params(cfg, params)
+    flops = 6 * active * tokens + _mla_attention_flops(cfg, TRAIN_ROWS,
+                                                       TRAIN_T)
+    m = cfg.moe
+    n_block = tokens // TRAIN_MICRO
+    cap = MOE._capacity(n_block, cfg)
+    n = cfg.n_layers * TRAIN_MICRO
+    n_types = len({v.dtype for v in params.values()})
+    want = dict(attention={"forward": n, "backward": n},
+                sweep={"forward": n_types, "backward": n_types},
+                gla={"forward": 0, "backward": 0})
+    with _env(REPRO_MICROBATCH=TRAIN_MICRO):
+        step = make_step(cfg, shape, fed)
+    pool = _train_pool(torch, "moment", params,
+                       [_noisy_member(torch, params, s) for s in (1, 2)],
+                       fed.pool_size)
+    rows, peak, finite, bitwise = _train_twice(
+        torch, "phase 31 (b)", step, params, opt, batch, pool, want)
+    peak -= held_gb
+    timed = sum(r["s"] for r in rows[1:])
+    rate = TRAIN_STEPS / timed
+    tasks = [r["task"] for r in rows]
+    drops = _train_drops(torch, model, params, batch)
+    out = dict(config=cfg.name, layers=cfg.n_layers,
+               full_layers=get_arch(MLA_NAME).n_layers,
+               n_params=MOE_TRAIN_PARAMS, active_params=active,
+               tokens_per_step=tokens, flops_per_step=flops, want=want,
+               steps=rows, steps_per_s=rate, tokens_per_s=rate * tokens,
+               model_flops_per_s=rate * flops,
+               peak_share=rate * flops / PEAK_BF16_FLOPS,
+               routed_rows_per_block=n_block * m.top_k,
+               executed_rows_per_block=m.n_experts * cap, capacity=cap,
+               drops_per_layer=drops, held_at_start_gb=held_gb,
+               peak_gb=peak, second_run_bitwise=bitwise, finite=finite,
+               tasks=tasks)
+    print(f"  (b) {cfg.name} bf16, {cfg.n_layers} of "
+          f"{out['full_layers']} layers ({MOE_TRAIN_PARAMS} parameters, "
+          f"{active} active a token: top-{m.top_k} of {m.n_experts} routed "
+          f"experts, {m.n_shared_experts} shared, MLA, the head), "
+          f"{TRAIN_ROWS} × {TRAIN_T} tokens a step in {TRAIN_MICRO} "
+          f"microbatches: {TRAIN_STEPS} steps in {timed:.3f} s ({rate:.4f} "
+          f"steps/s, {rate * tokens:.1f} tokens/s; warm-up "
+          f"{rows[0]['s']:.3f} s), model FLOP rate on the active "
+          f"parameters {rate * flops / 1e12:.2f} TFLOP/s "
+          f"({out['peak_share']:.4f} of the dense bf16 peak); expert rows "
+          f"executed E·C = {m.n_experts} × {cap} = {m.n_experts * cap} a "
+          f"layer a microbatch against {n_block * m.top_k} routed "
+          f"assignments; drops a layer over one microbatch {drops}; peak "
+          f"{peak:.2f} GB net of {held_gb:.2f} held; tasks "
+          + ", ".join(f"{t:.6f}" for t in tasks) +
+          f"; launches a step {want}; second run "
+          f"{'bitwise' if bitwise else 'DIFFERS'} ({smi_line})")
+    if not finite:
+        fail("phase 31 (b): a non-finite task, parameter or Adam moment")
+    if not bitwise:
+        fail("phase 31 (b): a second run of the same steps differs")
+    state = opt.init(params)
+
+    def profiled(k):
+        for _ in range(k):
+            step(params, state, batch, pool, 0)
+    out["profile"] = _profile(torch, profiled, 1, f"{cfg.name}: one step",
+                              watch=("flash_attn", "attn_bwd",
+                                     "pool_distance"))
+    del state, params, pool, model, step, batch
+    _release()
+    return out
+
+
+class _RoutePin:
+    """A stand-in for `moe.route` that pins the routing: while recording
+    it routes as `moe.route` does and keeps each call's top-k experts in
+    call order; while replaying, call i takes the experts recorded at
+    call i, its gates the call's own probabilities at those experts,
+    renormalised, and the aux loss's top-1 the first of them: the
+    router's arithmetic on the recorded decisions, so that the gradient
+    still flows through the gates and the aux loss."""
+
+    def __init__(self, torch):
+        from repro_torch.models import moe as MOE
+        self.torch, self.route = torch, MOE.route
+        self.experts, self.replay, self.at = [], False, 0
+
+    def __call__(self, p, c, xf):
+        torch = self.torch
+        if not self.replay:
+            got = self.route(p, c, xf)
+            self.experts.append(got[0].detach().clone())
+            return got
+        from repro_torch.models import layers as L
+        experts = self.experts[self.at]
+        self.at += 1
+        probs = torch.softmax(L.matmul_f32(xf.float(), p["router"]), -1)
+        gates = probs.gather(-1, experts)
+        gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
+        ids = torch.arange(c.moe.n_experts, device=xf.device)
+        top1 = (experts[:, :1] == ids).float()
+        aux = c.moe.n_experts * torch.sum(probs.mean(0) * top1.mean(0))
+        return experts, gates, aux
+
+
+def moe_train_oracle(torch, smi_line):
+    """(c) deepseek-v2-lite-16b at full width, MOE_ORACLE_DEPTH layers,
+    16 rows in TRAIN_MICRO row blocks on both sides (each block routes
+    its own tokens at its own capacity, so the twin takes the same
+    blocks): the bf16 step's first gradient (Adam's m) against its f32
+    twin's on the same values widened, the twin routed as the bf16 step
+    routed (`_RoutePin`: bf16's rounding of the router's input flips
+    near-tied top-6 choices, and a flip moves a token to other experts),
+    held to phase 25 (d)'s limits, TRAIN_ORACLE_GRAD_TOL normwise over
+    all leaves and TRAIN_TASK_TOL on the task; exact attention
+    launches."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.configs import FedConfig, ShapeConfig, get_arch
+    from repro_torch.launch import make_step
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as MOE
+    from repro_torch.optim import make_optimizer
+
+    _release()
+    cfg = dataclasses.replace(get_arch(MLA_NAME), n_layers=MOE_ORACLE_DEPTH)
+    shape = ShapeConfig("train_4k", TRAIN_T, TRAIN_ROWS, "train")
+    fed = FedConfig()
+    opt = make_optimizer(fed.optimizer, fed.learning_rate, fed.weight_decay)
+    batch = _train_batch(torch, cfg.vocab_size, TRAIN_T, TRAIN_ROWS, CARD)
+    params = build_model(cfg).init(0)
+    pin = _RoutePin(torch)
+    runs = {}
+    for key, c in (("bf16", cfg),
+                   ("f32", dataclasses.replace(cfg, param_dtype="float32"))):
+        def put(x):
+            return x if key == "bf16" else {k: v.float()
+                                            for k, v in x.items()}
+        with _env(REPRO_MICROBATCH=TRAIN_MICRO):
+            step = make_step(c, shape, fed)
+        p = put(params)
+        pool = _train_pool(torch, "moment", p,
+                           [put(_noisy_member(torch, params, s))
+                            for s in (1, 2)], fed.pool_size)
+        pin.replay, pin.at = key == "f32", 0
+        _reset_train_counts()
+        t0 = time.perf_counter()
+        with mock.patch.object(MOE, "route", pin):
+            _, o, task = step(p, opt.init(p), batch, pool, 0)
+        torch.cuda.synchronize()
+        runs[key] = dict(m=o["m"], task=float(task),
+                         launches=_read_train_counts()["attention"],
+                         s=time.perf_counter() - t0)
+        if key == "bf16":
+            runs[key]["m"] = {k: v.cpu() for k, v in o["m"].items()}
+        del o, p, pool, step
+        _release()
+    if pin.at != len(pin.experts):
+        fail(f"phase 31 (c): the twin routed {pin.at} times, the bf16 step "
+             f"{len(pin.experts)}")
+    errs, total = _leaf_errs(runs["bf16"]["m"], runs["f32"]["m"])
+    task_err = abs(runs["bf16"]["task"] - runs["f32"]["task"]) / \
+        abs(runs["f32"]["task"])
+    del params, batch, runs["bf16"]["m"], runs["f32"]["m"]
+    _release()
+    worst = max(errs, key=errs.get)
+    out = dict(layers=MOE_ORACLE_DEPTH, rows=TRAIN_ROWS, micro=TRAIN_MICRO,
+               grad_err=errs, grad_err_total=total,
+               task=runs["bf16"]["task"], task_f32=runs["f32"]["task"],
+               task_err=task_err,
+               launches={k: r["launches"] for k, r in runs.items()},
+               step_s={k: r["s"] for k, r in runs.items()})
+    print(f"  (c) {cfg.name} at {MOE_ORACLE_DEPTH} layers, full width, "
+          f"{TRAIN_ROWS} × {TRAIN_T} tokens in {TRAIN_MICRO} blocks: the "
+          f"bf16 step's first gradient within {total:.3e} normwise of its "
+          f"f32 twin's routed alike (worst leaf {errs[worst]:.3e}, "
+          f"{worst}), task {out['task']:.6f} vs {out['task_f32']:.6f} "
+          f"({task_err:.2e}); limits {TRAIN_ORACLE_GRAD_TOL:g} / "
+          f"{TRAIN_TASK_TOL:g}; attention launches {out['launches']}; "
+          "steps " + ", ".join(f"{k} {v:.2f} s"
+                               for k, v in out["step_s"].items()) +
+          f" ({smi_line})")
+    n = MOE_ORACLE_DEPTH * TRAIN_MICRO
+    for key, got in out["launches"].items():
+        if got != {"forward": n, "backward": n}:
+            fail(f"phase 31 (c) {key}: attention launches {got}, want {n} "
+                 "each way")
+    if not (total <= TRAIN_ORACLE_GRAD_TOL and task_err <= TRAIN_TASK_TOL):
+        fail(f"phase 31 (c): the bf16 step lies {total:.3e} (gradient) / "
+             f"{task_err:.3e} (task) from the f32 twin routed alike")
+    return out
+
+
+def moe_train_phase(torch, smi_line):
+    """Phase 31; returns its measurements by part."""
+    t0 = time.perf_counter()
+    out = dict(bmm_backward=bmm_backward_check(torch, smi_line),
+               card_vs_cpu=moe_train_card_vs_cpu(torch, smi_line),
+               full_width=moe_train_full_width(torch, smi_line),
+               oracle=moe_train_oracle(torch, smi_line))
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def moe_train_launches(moe_train):
+    """Phase 31's main-path launches by wrapper name: (b)'s first run."""
+    return _launches_by_wrapper(moe_train["full_width"]["steps"])
+
+
 def main(argv):
     """No arguments: every phase. ``--planted-faults``: phases 1-2, then
     `planted_faults` (a calibration of phase 5's checks; no result line)."""
@@ -8568,6 +9107,13 @@ def main(argv):
           "over T 32); in bf16 at full width and depth, 16 × 4,096 tokens "
           "over 4,096 source frames a row; bf16 vs its f32 twin")
     encdec_train = encdec_train_phase(torch, smi_line)
+
+    # phase 31: the MoE train step
+    phase("31", f"MoE training through make_step('train'): {MOE_NAME} and "
+          f"{MLA_NAME} reduced card vs CPU in f32 (MLA at (192, 128)); "
+          f"{MLA_NAME} in bf16 at full width ({MOE_TRAIN_LAYERS} layers), "
+          "16 × 4,096 tokens a step; bf16 vs its f32 twin")
+    moe_train = moe_train_phase(torch, smi_line)
     phase(None)
 
     step_rows = [r for r in rows if r["main_path"]]
@@ -8643,13 +9189,16 @@ def main(argv):
     # phase 25's train steps: (b)'s first run and (c)
     # and phase 26's SSM train steps ((b) and (c)'s first runs; the GLA
     # backward's entry counts them already) and phase 30's encoder-decoder
-    # train steps ((b)'s first run)
+    # train steps ((b)'s first run), and phase 31's MoE train steps
+    # ((b)'s first run)
     ssm_launches = ssm_train_launches(ssm_train)
     encdec_launches = encdec_train_launches(encdec_train)
+    moe_launches = moe_train_launches(moe_train)
     for entry in kernels["kernels"]:
         entry["launches"] += train_step_launches(train).get(entry["name"],
                                                             0)
         entry["launches"] += encdec_launches.get(entry["name"], 0)
+        entry["launches"] += moe_launches.get(entry["name"], 0)
         if entry["name"] != "gla_chunk_bwd_f32":
             entry["launches"] += ssm_launches.get(entry["name"], 0)
         if entry["name"] == "pool_distance_bwd_f32":
@@ -8670,7 +9219,7 @@ def main(argv):
         dense_serving=dense, lm_training=lm, train_step=train,
         ssm_training=ssm_train, moe_serving=moe, mla_serving=mla,
         encdec_serving=encdec, encdec_training=encdec_train,
-        phase_s=PHASE_S,
+        moe_training=moe_train, phase_s=PHASE_S,
         total_s=time.perf_counter() - t_start)))
     phase_table()
     print(f"total {time.perf_counter() - t_start:.1f} s")

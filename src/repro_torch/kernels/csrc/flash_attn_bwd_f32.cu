@@ -3,9 +3,16 @@
 // flash_attn_f32.cu computes forward, Tq = Tk or not, inputs and outputs
 // in bf16 (tensor cores) or f32 (FFMA), f32 arithmetic.
 //
-//   q, out, dout (B, Tq, H, hd); k, v (B, Tk, KV, hd); lse (B, H, Tq) f32
-//   from the forward (+inf on a row with no valid key)
-//   → dq (B, Tq, H, hd), dk, dv (B, Tk, KV, hd) in the inputs' dtype
+//   q (B, Tq, H, hd); k (B, Tk, KV, hd); v (B, Tk, KV, dv); out, dout
+//   (B, Tq, H, dv); lse (B, H, Tq) f32 from the forward (+inf on a row
+//   with no valid key)
+//   → dq (B, Tq, H, hd), dk (B, Tk, KV, hd), dv (B, Tk, KV, dv) in the
+//   inputs' dtype
+//
+// Instances (HD, DV): (32, 32), (64, 64), (112, 112), (128, 128), and
+// MLA's (192, 128) (deepseek-v2-lite-16b: q/k = nope 128 + rope 64, v
+// 128), the forward's. Δ, dP = dO·Vᵀ and dV = Pᵀ·dO run over DV columns;
+// S, dQ and dK over HD; scale = hd^-1/2 of the q/k head dim.
 //
 // Replaces no TPU kernel: the reference has no Pallas backward. Its LM
 // training differentiates the jnp chunked attention
@@ -45,10 +52,11 @@
 //    and dP, the price of writing dQ without atomics (a fused dQ would
 //    add it up with atomics, in an order that changes from run to run).
 //
-// Bound on an H100 SXM: 10·hd FLOP per valid (query, key) pair (S twice,
-// dP twice, dV, dK, dQ: 2·hd each) at 989 TFLOP/s (bf16 tensor cores) or
-// 67 TFLOP/s (f32), against the bytes of q, k, v, out, dout, lse, D, dq,
-// dk and dv at 3.35 TB/s. Long sequences are bound by operations.
+// Bound on an H100 SXM: 2·(3·hd + 2·dv) FLOP per valid (query, key) pair
+// (S twice and dQ, dK at 2·hd each; dP twice and dV at 2·dv each: 10·hd
+// at dv = hd) at 989 TFLOP/s (bf16 tensor cores) or 67 TFLOP/s (f32),
+// against the bytes of q, k, v, out, dout, lse, D, dq, dk and dv at 3.35
+// TB/s. Long sequences are bound by operations.
 //
 // bf16: tensor cores, the FlashAttention-2 backward's shape, with the
 // forward's building blocks (flash_attn_f32.cu: ldmatrix, mma.sync,
@@ -70,9 +78,10 @@
 //    diagonal, the window's edge, Tk or the last row compute the mask),
 //    and the accumulator fragment of Pᵀ (dSᵀ) is the A fragment of
 //    dV += Pᵀ·dO (dK += dSᵀ·Q), with dO (Q) as B through ldmatrix.trans.
-//    A row tile is 64 rows at hd 32 and 64 and 32 rows at hd 112 and
-//    128, where the running dK and dV (hd f32 a thread) leave too few
-//    registers for 64 (ptxas still spills 20–180 bytes a thread there).
+//    A row tile is 64 rows at hd 32 and 64 and 32 rows at hd 112, 128
+//    and 192, where the running dK and dV (hd + dv f32 a thread) leave
+//    too few registers for 64 (ptxas still spills 20–180 bytes a thread
+//    at 112 and 128, more at (192, 128): a simple instance first).
 //  * dQ: each warp owns 16 of the block's 64 rows; Q, dO, lse and D load
 //    once, K and V tiles are double-buffered as above. S = Q·Kᵀ and
 //    dP = dO·Vᵀ on mma.sync, then dQ += dS·K with K as B through
@@ -107,7 +116,9 @@
 //  bf16 gradient's own rounding (2⁻⁹ relative) is far above this.
 //
 // f32: FFMA (phase 10's 1e-5 gate against f64; TF32 would miss it).
-// Per tile, each block stages its operands in shared memory as f32,
+// Per tile, each block stages its operands in shared memory as f32 (Q
+// and K rows HD wide, dO and V rows DV wide: 194 KB a dK/dV block at
+// (192, 128)),
 // computes S and dP for 64 × 64 (row, key) pairs (each of 256 threads a
 // 4 × 4 set: rows a + 16i, keys b + 16j, so that a warp reads 16
 // different rows of the K/V tile, on 16 banks), writes P and dS to
@@ -153,7 +164,7 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 // Δ = rowsum(dO∘O)
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <typename T, int DV>
 __global__ void __launch_bounds__(THREADS)
 attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
                       float* __restrict__ delta, int tq, int h,
@@ -162,8 +173,8 @@ attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
   const int64_t row = (int64_t)blockIdx.x * DELTA_ROWS + warp;  // (b, t, h)
   if (row >= n_rows) return;
   float acc = 0.f;
-  for (int c = lane; c < HD; c += 32)
-    acc = fmaf(to_f32(dout[row * HD + c]), to_f32(o[row * HD + c]), acc);
+  for (int c = lane; c < DV; c += 32)
+    acc = fmaf(to_f32(dout[row * DV + c]), to_f32(o[row * DV + c]), acc);
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -178,13 +189,15 @@ attn_bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
 // f32, FFMA: shared tiles and the (S, dP) → (P, dS) step both kernels share
 // ---------------------------------------------------------------------------
 
-template <int HD>
+template <int HD, int DV>
 struct Tiles {
-  static constexpr int LD = HD + 1;  // f32 per shared row of a (·, hd) tile
-  static constexpr int NC = HD / 16;  // output columns a thread: b + 16j
+  static constexpr int LD = HD + 1;   // f32 per shared row of a Q or K tile
+  static constexpr int LDV = DV + 1;  // of a dO or V tile
+  static constexpr int NC = HD / 16;  // dQ, dK columns a thread: b + 16j
+  static constexpr int NCV = DV / 16;  // dV columns a thread
   static constexpr size_t bytes(int n_ps) {
     // Q (scaled), dO, K, V; n_ps tiles of (row, key); lse, D, position
-    return sizeof(float) * ((size_t)(2 * BQ + 2 * BK) * LD +
+    return sizeof(float) * ((size_t)(BQ + BK) * (LD + LDV) +
                             (size_t)n_ps * BQ * PS + 3 * BQ);
   }
 };
@@ -192,26 +205,28 @@ struct Tiles {
 // rows [r0, r0 + BQ) of kv head `kvh`'s group: row r is position r / g of
 // query head kvh·g + r % g. Q is stored scaled, dO as it is; rows past the
 // last read 0 and are marked invalid (position −1).
-template <typename T, int HD>
+template <typename T, int HD, int DV>
 __device__ void load_rows(float* qs, float* dos, float* lse_s, float* d_s,
                           int* pos_s, const T* __restrict__ q,
                           const T* __restrict__ dout,
                           const float* __restrict__ lse,
                           const float* __restrict__ delta, int b, int kvh,
                           int g, int h, int tq, int r0, float scale) {
-  constexpr int LD = Tiles<HD>::LD;
+  constexpr int LD = Tiles<HD, DV>::LD, LDV = Tiles<HD, DV>::LDV;
   const int rows = tq * g;
   for (int i = threadIdx.x; i < BQ * HD; i += THREADS) {
     const int row = i / HD, c = i % HD, r = r0 + row;
-    float x = 0.f, dx = 0.f;
-    if (r < rows) {
-      const size_t off =
-          (((size_t)b * tq + r / g) * h + kvh * g + r % g) * HD + c;
-      x = to_f32(q[off]) * scale;
-      dx = to_f32(dout[off]);
-    }
-    qs[row * LD + c] = x;
-    dos[row * LD + c] = dx;
+    qs[row * LD + c] =
+        r < rows ? to_f32(q[(((size_t)b * tq + r / g) * h + kvh * g + r % g) *
+                                HD + c]) * scale
+                 : 0.f;
+  }
+  for (int i = threadIdx.x; i < BQ * DV; i += THREADS) {
+    const int row = i / DV, c = i % DV, r = r0 + row;
+    dos[row * LDV + c] =
+        r < rows ? to_f32(dout[(((size_t)b * tq + r / g) * h + kvh * g +
+                                 r % g) * DV + c])
+                 : 0.f;
   }
   for (int row = threadIdx.x; row < BQ; row += THREADS) {
     const int r = r0 + row;
@@ -229,56 +244,87 @@ __device__ void load_rows(float* qs, float* dos, float* lse_s, float* d_s,
 }
 
 // keys [k0, k0 + BK) of kv head `kvh`; keys at or past Tk read 0
-template <typename T, int HD>
+template <typename T, int HD, int DV>
 __device__ void load_keys(float* ks, float* vs, const T* __restrict__ k,
                           const T* __restrict__ v, int b, int kvh, int kv,
                           int tk, int k0) {
-  constexpr int LD = Tiles<HD>::LD;
+  constexpr int LD = Tiles<HD, DV>::LD, LDV = Tiles<HD, DV>::LDV;
   for (int i = threadIdx.x; i < BK * HD; i += THREADS) {
     const int key = i / HD, c = i % HD, kpos = k0 + key;
-    float kx = 0.f, vx = 0.f;
-    if (kpos < tk) {
-      const size_t off = (((size_t)b * tk + kpos) * kv + kvh) * HD + c;
-      kx = to_f32(k[off]);
-      vx = to_f32(v[off]);
-    }
-    ks[key * LD + c] = kx;
-    vs[key * LD + c] = vx;
+    ks[key * LD + c] =
+        kpos < tk ? to_f32(k[(((size_t)b * tk + kpos) * kv + kvh) * HD + c])
+                  : 0.f;
+  }
+  for (int i = threadIdx.x; i < BK * DV; i += THREADS) {
+    const int key = i / DV, c = i % DV, kpos = k0 + key;
+    vs[key * LDV + c] =
+        kpos < tk ? to_f32(v[(((size_t)b * tk + kpos) * kv + kvh) * DV + c])
+                  : 0.f;
   }
 }
 
 // This thread's 4 × 4 (row, key) pairs of the staged tiles, rows a + 16i
 // and keys b + 16j: P = exp(S − lse) (0 on an invalid pair) into p and
-// dS = P∘(dP − D) into ds.
-template <int HD>
+// dS = P∘(dP − D) into ds. S sums over HD columns, dP over DV, each in
+// column order (in one loop at HD = DV).
+template <int HD, int DV>
 __device__ __forceinline__ void p_and_ds(
     const float* qs, const float* dos, const float* ks, const float* vs,
     const float* lse_s, const float* d_s, const int* pos_s, int a, int bc,
     int k0, int tk, int causal, int window, float (&p)[4][4],
     float (&ds)[4][4]) {
-  constexpr int LD = Tiles<HD>::LD;
+  constexpr int LD = Tiles<HD, DV>::LD, LDV = Tiles<HD, DV>::LDV;
   float s[4][4], dp[4][4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+  if constexpr (HD == DV) {
 #pragma unroll 4
-  for (int c = 0; c < HD; ++c) {
-    float qv[4], dov[4], kv_[4], vv[4];
+    for (int c = 0; c < HD; ++c) {
+      float qv[4], dov[4], kv_[4], vv[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      qv[i] = qs[(a + 16 * i) * LD + c];
-      dov[i] = dos[(a + 16 * i) * LD + c];
-      kv_[i] = ks[(bc + 16 * i) * LD + c];
-      vv[i] = vs[(bc + 16 * i) * LD + c];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = fmaf(qv[i], kv_[j], s[i][j]);
-        dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = qs[(a + 16 * i) * LD + c];
+        dov[i] = dos[(a + 16 * i) * LD + c];
+        kv_[i] = ks[(bc + 16 * i) * LD + c];
+        vv[i] = vs[(bc + 16 * i) * LD + c];
       }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          s[i][j] = fmaf(qv[i], kv_[j], s[i][j]);
+          dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+        }
+    }
+  } else {
+#pragma unroll 4
+    for (int c = 0; c < HD; ++c) {
+      float qv[4], kv_[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        qv[i] = qs[(a + 16 * i) * LD + c];
+        kv_[i] = ks[(bc + 16 * i) * LD + c];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv_[j], s[i][j]);
+    }
+#pragma unroll 4
+    for (int c = 0; c < DV; ++c) {
+      float dov[4], vv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        dov[i] = dos[(a + 16 * i) * LDV + c];
+        vv[i] = vs[(bc + 16 * i) * LDV + c];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) dp[i][j] = fmaf(dov[i], vv[j], dp[i][j]);
+    }
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -301,7 +347,7 @@ __device__ __forceinline__ void p_and_ds(
 // dK, dV: a block a (key tile, kv head, batch)
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <typename T, int HD, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ dout,
@@ -309,15 +355,16 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const float* __restrict__ delta, T* __restrict__ dk,
                     T* __restrict__ dv, int tq, int tk, int h, int kv,
                     int causal, int window, float scale) {
-  using TL = Tiles<HD>;
-  constexpr int LD = TL::LD, NC = TL::NC;
-  static_assert(HD % 16 == 0, "head dim in steps of 16 columns");
+  using TL = Tiles<HD, DV>;
+  constexpr int LD = TL::LD, LDV = TL::LDV, NC = TL::NC, NCV = TL::NCV;
+  static_assert(HD % 16 == 0 && DV % 16 == 0,
+                "head dims in steps of 16 columns");
   extern __shared__ float smem[];
   float* qs = smem;
   float* dos = qs + BQ * LD;
-  float* ks = dos + BQ * LD;
+  float* ks = dos + BQ * LDV;
   float* vs = ks + BK * LD;
-  float* ps = vs + BK * LD;   // [BQ][PS]
+  float* ps = vs + BK * LDV;  // [BQ][PS]
   float* dss = ps + BQ * PS;  // [BQ][PS]
   float* lse_s = dss + BQ * PS;
   float* d_s = lse_s + BQ;
@@ -333,21 +380,24 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int q_hi = window > 0 ? min(tq - 1, k_last + window - 1) : tq - 1;
   const int r_begin = q_lo * g, r_end = min(rows, (q_hi + 1) * g);
 
-  load_keys<T, HD>(ks, vs, k, v, b, kvh, kv, tk, k0);
-  double acc_k[4][NC], acc_v[4][NC];
+  load_keys<T, HD, DV>(ks, vs, k, v, b, kvh, kv, tk, k0);
+  double acc_k[4][NC], acc_v[4][NCV];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int j = 0; j < NC; ++j) acc_k[i][j] = acc_v[i][j] = 0.0;
+    for (int j = 0; j < NC; ++j) acc_k[i][j] = 0.0;
+#pragma unroll
+    for (int j = 0; j < NCV; ++j) acc_v[i][j] = 0.0;
+  }
 
   for (int r0 = r_begin; r0 < r_end; r0 += BQ) {
     __syncthreads();  // the last tile's Q, dO, P and dS are read
-    load_rows<T, HD>(qs, dos, lse_s, d_s, pos_s, q, dout, lse, delta, b, kvh,
-                     g, h, tq, r0, scale);
+    load_rows<T, HD, DV>(qs, dos, lse_s, d_s, pos_s, q, dout, lse, delta, b,
+                         kvh, g, h, tq, r0, scale);
     __syncthreads();
     float p[4][4], ds[4][4];
-    p_and_ds<HD>(qs, dos, ks, vs, lse_s, d_s, pos_s, a, bc, k0, tk, causal,
-                 window, p, ds);
+    p_and_ds<HD, DV>(qs, dos, ks, vs, lse_s, d_s, pos_s, a, bc, k0, tk,
+                     causal, window, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -356,52 +406,56 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         dss[(a + 16 * i) * PS + bc + 16 * j] = ds[i][j];
       }
     __syncthreads();
-    // the tile's Pᵀ·dO and dSᵀ·(scale·Q) for keys a + 16i, columns
-    // bc + 16j, from 0, then into the running sums
-    float tv[4][NC], tk_[4][NC];
+    // the tile's Pᵀ·dO (DV columns) and dSᵀ·(scale·Q) (HD columns) for
+    // keys a + 16i, columns bc + 16j, from 0, then into the running sums
+    float tv[4][NCV], tk_[4][NC];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int j = 0; j < NC; ++j) tv[i][j] = tk_[i][j] = 0.f;
+      for (int j = 0; j < NCV; ++j) tv[i][j] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NC; ++j) tk_[i][j] = 0.f;
+    }
     for (int row = 0; row < BQ; ++row) {
-      float pk[4], dsk[4], dov[NC], qv[NC];
+      float pk[4], dsk[4], dov[NCV], qv[NC];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         pk[i] = ps[row * PS + a + 16 * i];
         dsk[i] = dss[row * PS + a + 16 * i];
       }
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        dov[j] = dos[row * LD + bc + 16 * j];
-        qv[j] = qs[row * LD + bc + 16 * j];
-      }
+      for (int j = 0; j < NCV; ++j) dov[j] = dos[row * LDV + bc + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NC; ++j) qv[j] = qs[row * LD + bc + 16 * j];
 #pragma unroll
-        for (int j = 0; j < NC; ++j) {
-          tv[i][j] = fmaf(pk[i], dov[j], tv[i][j]);
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < NCV; ++j) tv[i][j] = fmaf(pk[i], dov[j], tv[i][j]);
+#pragma unroll
+        for (int j = 0; j < NC; ++j)
           tk_[i][j] = fmaf(dsk[i], qv[j], tk_[i][j]);
-        }
+      }
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 4; ++i) {
 #pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        acc_v[i][j] += (double)tv[i][j];
-        acc_k[i][j] += (double)tk_[i][j];
-      }
+      for (int j = 0; j < NCV; ++j) acc_v[i][j] += (double)tv[i][j];
+#pragma unroll
+      for (int j = 0; j < NC; ++j) acc_k[i][j] += (double)tk_[i][j];
+    }
   }
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int kpos = k0 + a + 16 * i;
     if (kpos >= tk) continue;
-    const size_t base = (((size_t)b * tk + kpos) * kv + kvh) * HD + bc;
+    const size_t row = ((size_t)b * tk + kpos) * kv + kvh;
 #pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      dk[base + 16 * j] = from_f32<T>((float)acc_k[i][j]);
-      dv[base + 16 * j] = from_f32<T>((float)acc_v[i][j]);
-    }
+    for (int j = 0; j < NC; ++j)
+      dk[row * HD + bc + 16 * j] = from_f32<T>((float)acc_k[i][j]);
+#pragma unroll
+    for (int j = 0; j < NCV; ++j)
+      dv[row * DV + bc + 16 * j] = from_f32<T>((float)acc_v[i][j]);
   }
 }
 
@@ -409,7 +463,7 @@ attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // dQ: a block a (row tile, kv head, batch)
 // ---------------------------------------------------------------------------
 
-template <typename T, int HD>
+template <typename T, int HD, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const T* __restrict__ v, const T* __restrict__ dout,
@@ -417,14 +471,14 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                    const float* __restrict__ delta, T* __restrict__ dq,
                    int tq, int tk, int h, int kv, int causal, int window,
                    float scale) {
-  using TL = Tiles<HD>;
-  constexpr int LD = TL::LD, NC = TL::NC;
+  using TL = Tiles<HD, DV>;
+  constexpr int LD = TL::LD, LDV = TL::LDV, NC = TL::NC;
   extern __shared__ float smem[];
   float* qs = smem;
   float* dos = qs + BQ * LD;
-  float* ks = dos + BQ * LD;
+  float* ks = dos + BQ * LDV;
   float* vs = ks + BK * LD;
-  float* dss = vs + BK * LD;  // [BQ][PS]
+  float* dss = vs + BK * LDV;  // [BQ][PS]
   float* lse_s = dss + BQ * PS;
   float* d_s = lse_s + BQ;
   int* pos_s = reinterpret_cast<int*>(d_s + BQ);
@@ -439,8 +493,8 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kt_end = causal ? min(n_kt, q_last / BK + 1) : n_kt;
   const int kt_begin = window > 0 ? max(0, q_first - window + 1) / BK : 0;
 
-  load_rows<T, HD>(qs, dos, lse_s, d_s, pos_s, q, dout, lse, delta, b, kvh,
-                   g, h, tq, r0, scale);
+  load_rows<T, HD, DV>(qs, dos, lse_s, d_s, pos_s, q, dout, lse, delta, b,
+                       kvh, g, h, tq, r0, scale);
   double acc[4][NC];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -450,11 +504,11 @@ attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the last tile's K and dS are read
-    load_keys<T, HD>(ks, vs, k, v, b, kvh, kv, tk, k0);
+    load_keys<T, HD, DV>(ks, vs, k, v, b, kvh, kv, tk, k0);
     __syncthreads();
     float p[4][4], ds[4][4];
-    p_and_ds<HD>(qs, dos, ks, vs, lse_s, d_s, pos_s, a, bc, k0, tk, causal,
-                 window, p, ds);
+    p_and_ds<HD, DV>(qs, dos, ks, vs, lse_s, d_s, pos_s, a, bc, k0, tk,
+                     causal, window, p, ds);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -511,18 +565,20 @@ constexpr int TC_PAD = 8;        // bf16 a shared row is padded by: 16 bytes
 template <int HD>
 constexpr int DKV_ROWS = HD > 64 ? 32 : 64;
 
-template <int HD>
+template <int HD, int DV>
 constexpr size_t dkv_smem_bytes() {
-  // K, V; 2 stages of Q and dO; 2 stages of lse and D
-  return sizeof(bf16_t) * (size_t)(2 * TC_KEYS + 4 * DKV_ROWS<HD>) *
-             (HD + TC_PAD) +
+  // K, V; 2 stages of Q and dO; 2 stages of lse and D (Q and K rows HD
+  // wide, dO and V rows DV wide: 86,528 bytes at (192, 128))
+  return sizeof(bf16_t) * (size_t)(TC_KEYS + 2 * DKV_ROWS<HD>) *
+             (HD + DV + 2 * TC_PAD) +
          sizeof(float) * 4 * DKV_ROWS<HD>;
 }
 
-template <int HD>
+template <int HD, int DV>
 constexpr size_t dq_smem_bytes() {
-  // Q, dO; 2 stages of K and of V
-  return sizeof(bf16_t) * (size_t)(2 * TC_ROWS + 4 * TC_KEYS) * (HD + TC_PAD);
+  // Q, dO; 2 stages of K and of V (129,024 bytes at (192, 128))
+  return sizeof(bf16_t) * (size_t)(TC_ROWS + 2 * TC_KEYS) *
+         (HD + DV + 2 * TC_PAD);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -599,35 +655,40 @@ __device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi,
 }
 
 // A warp's two score-shaped products, s = A_s·B_sᵀ and d = A_d·B_dᵀ: A the
-// warp's 16 rows at a_s, a_d, B the tile's 8·N8 rows at b_s, b_d, each
-// HD wide, row-major in shared memory; s and d are 16 × 8·N8 accumulator
-// fragments. s accumulates on the tensor cores, as the forward's S does;
-// each k16 chunk of d is summed from 0 and added by an f32 add (see the
-// header: dP − D).
-template <int HD, int N8>
+// warp's 16 rows at a_s, a_d, B the tile's 8·N8 rows at b_s, b_d,
+// row-major in shared memory, A_s and B_s HD wide, A_d and B_d DV wide;
+// s and d are 16 × 8·N8 accumulator fragments. s accumulates on the
+// tensor cores, as the forward's S does; each k16 chunk of d is summed
+// from 0 and added by an f32 add (see the header: dP − D).
+template <int HD, int DV, int N8>
 __device__ __forceinline__ void two_products(
     float (&s)[N8][4], float (&d)[N8][4], const bf16_t* a_s, const bf16_t* a_d,
     const bf16_t* b_s, const bf16_t* b_d, int lane) {
-  constexpr int S = HD + TC_PAD;
+  constexpr int SS = HD + TC_PAD, SD = DV + TC_PAD;
+  constexpr int KS = HD / 16, KD = DV / 16, KM = KS > KD ? KS : KD;
 #pragma unroll
   for (int j = 0; j < N8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = d[j][e] = 0.f;
 #pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
+  for (int kk = 0; kk < KM; ++kk) {
     uint32_t as[4], ad[4];
-    const int a_off = (lane % 16) * S + kk * 16 + lane / 16 * 8;
-    ldmatrix_x4(as, a_s + a_off);
-    ldmatrix_x4(ad, a_d + a_off);
+    const int a_row = lane % 16, a_col = kk * 16 + lane / 16 * 8;
+    if (kk < KS) ldmatrix_x4(as, a_s + a_row * SS + a_col);
+    if (kk < KD) ldmatrix_x4(ad, a_d + a_row * SD + a_col);
 #pragma unroll
     for (int jp = 0; jp < N8 / 2; ++jp) {
-      uint32_t bs[4], bd[4];
-      const int b_off =
-          (jp * 16 + lane / 16 * 8 + lane % 8) * S + kk * 16 + (lane / 8) % 2 * 8;
-      ldmatrix_x4(bs, b_s + b_off);
-      ldmatrix_x4(bd, b_d + b_off);
-      mma_bf16(s[2 * jp], as, bs[0], bs[1]);
-      mma_bf16(s[2 * jp + 1], as, bs[2], bs[3]);
+      const int b_row = jp * 16 + lane / 16 * 8 + lane % 8;
+      const int b_col = kk * 16 + (lane / 8) % 2 * 8;
+      if (kk < KS) {
+        uint32_t bs[4];
+        ldmatrix_x4(bs, b_s + b_row * SS + b_col);
+        mma_bf16(s[2 * jp], as, bs[0], bs[1]);
+        mma_bf16(s[2 * jp + 1], as, bs[2], bs[3]);
+      }
+      if (kk >= KD) continue;
+      uint32_t bd[4];
+      ldmatrix_x4(bd, b_d + b_row * SD + b_col);
       if (kk == 0) {
         mma_bf16(d[2 * jp], ad, bd[0], bd[1]);
         mma_bf16(d[2 * jp + 1], ad, bd[2], bd[3]);
@@ -645,16 +706,16 @@ __device__ __forceinline__ void two_products(
   }
 }
 
-// acc (16 × HD, the warp's rows of a gradient) += x·B: x the accumulator
+// acc (16 × W, the warp's rows of a gradient) += x·B: x the accumulator
 // fragments of a 16 × (8·N8) tile, contracted over its 8·N8 columns, split
-// into three bf16 terms; B the (8·N8) × HD row-major shared tile at `b`
-// (ldmatrix.trans). Each pair of HD's n8 blocks takes the tile's product
-// from 0, then adds it to acc.
-template <int HD, int N8>
-__device__ __forceinline__ void add_product(float (&acc)[HD / 8][4],
+// into three bf16 terms; B the (8·N8) × W row-major shared tile at `b`
+// (ldmatrix.trans; W = HD for dK and dQ, DV for dV). Each pair of W's n8
+// blocks takes the tile's product from 0, then adds it to acc.
+template <int W, int N8>
+__device__ __forceinline__ void add_product(float (&acc)[W / 8][4],
                                             const float (&x)[N8][4],
                                             const bf16_t* b, int lane) {
-  constexpr int S = HD + TC_PAD;
+  constexpr int S = W + TC_PAD;
   uint32_t hi[N8 / 2][4], mid[N8 / 2][4], lo[N8 / 2][4];
 #pragma unroll
   for (int kk = 0; kk < N8 / 2; ++kk) {
@@ -666,7 +727,7 @@ __device__ __forceinline__ void add_product(float (&acc)[HD / 8][4],
            lo[kk][3]);
   }
 #pragma unroll
-  for (int np = 0; np < HD / 16; ++np) {
+  for (int np = 0; np < W / 16; ++np) {
     float t[2][4];
 #pragma unroll
     for (int e = 0; e < 4; ++e) t[0][e] = t[1][e] = 0.f;
@@ -700,45 +761,44 @@ __device__ __forceinline__ void p_and_ds_tc(float& s, float& d, float l,
   d = p * (d - dd);
 }
 
-// rows [r0, r0 + n) of kv head `kvh`'s group into shared rows of stride S
-// (bf16, 16-byte cp.async; rows past the last read 0): row r is position
-// r / g of query head kvh·g + r % g
-template <int HD>
-__device__ __forceinline__ void copy_rows(bf16_t* dst_q, bf16_t* dst_do,
-                                          const bf16_t* __restrict__ q,
-                                          const bf16_t* __restrict__ dout,
+// rows [r0, r0 + n) of kv head `kvh`'s group of the (B, Tq, H, W) tensor
+// `src` into shared rows of stride W + TC_PAD (bf16, 16-byte cp.async;
+// rows past the last read 0): row r is position r / g of query head
+// kvh·g + r % g
+template <int W>
+__device__ __forceinline__ void copy_rows(bf16_t* dst,
+                                          const bf16_t* __restrict__ src,
                                           int n, int b, int kvh, int g,
                                           int h, int tq, int r0) {
-  constexpr int S = HD + TC_PAD, C = HD / 8;
+  constexpr int S = W + TC_PAD, C = W / 8;
   const int rows = tq * g;
   for (int c = threadIdx.x; c < n * C; c += TC_THREADS) {
     const int row = c / C, col = c % C * 8, r = r0 + row;
     const bool ok = r < rows;
     const size_t off =
-        ok ? (((size_t)b * tq + r / g) * h + kvh * g + r % g) * HD + col : 0;
-    cp_async16(dst_q + row * S + col, q + off, ok);
-    cp_async16(dst_do + row * S + col, dout + off, ok);
+        ok ? (((size_t)b * tq + r / g) * h + kvh * g + r % g) * W + col : 0;
+    cp_async16(dst + row * S + col, src + off, ok);
   }
 }
 
-// keys [k0, k0 + TC_KEYS) of kv head `kvh`; keys at or past Tk read 0
-template <int HD>
-__device__ __forceinline__ void copy_keys(bf16_t* dst_k, bf16_t* dst_v,
-                                          const bf16_t* __restrict__ k,
-                                          const bf16_t* __restrict__ v, int b,
-                                          int kvh, int kv, int tk, int k0) {
-  constexpr int S = HD + TC_PAD, C = HD / 8;
+// keys [k0, k0 + TC_KEYS) of kv head `kvh` of the (B, Tk, KV, W) tensor
+// `src`; keys at or past Tk read 0
+template <int W>
+__device__ __forceinline__ void copy_keys(bf16_t* dst,
+                                          const bf16_t* __restrict__ src,
+                                          int b, int kvh, int kv, int tk,
+                                          int k0) {
+  constexpr int S = W + TC_PAD, C = W / 8;
   for (int c = threadIdx.x; c < TC_KEYS * C; c += TC_THREADS) {
     const int row = c / C, col = c % C * 8, kpos = k0 + row;
     const bool ok = kpos < tk;
     const size_t off =
-        (((size_t)b * tk + (ok ? kpos : 0)) * kv + kvh) * HD + col;
-    cp_async16(dst_k + row * S + col, k + off, ok);
-    cp_async16(dst_v + row * S + col, v + off, ok);
+        (((size_t)b * tk + (ok ? kpos : 0)) * kv + kvh) * W + col;
+    cp_async16(dst + row * S + col, src + off, ok);
   }
 }
 
-template <int HD>
+template <int HD, int DV>
 __global__ void __launch_bounds__(TC_THREADS)
 attn_bwd_dkv_bf16_kernel(const bf16_t* __restrict__ q,
                          const bf16_t* __restrict__ k,
@@ -749,17 +809,20 @@ attn_bwd_dkv_bf16_kernel(const bf16_t* __restrict__ q,
                          bf16_t* __restrict__ dk, bf16_t* __restrict__ dv,
                          int tq, int tk, int h, int kv, int nb, int causal,
                          int window, float scale) {
-  static_assert(HD % 16 == 0, "head dim in k16 steps and pairs of n8 blocks");
+  static_assert(HD % 16 == 0 && DV % 16 == 0,
+                "head dims in k16 steps and pairs of n8 blocks");
   constexpr int R = DKV_ROWS<HD>;  // rows a tile
-  constexpr int S = HD + TC_PAD;     // bf16 per shared row
+  constexpr int SQ = HD + TC_PAD;    // bf16 per shared row of Q and K
+  constexpr int SV = DV + TC_PAD;    // of dO and V
   constexpr int NR = R / 8;          // n8 blocks of a tile's rows
-  constexpr int NB = HD / 8;         // n8 blocks of the gradient's columns
+  constexpr int NB = HD / 8;         // n8 blocks of dK's columns
+  constexpr int NBV = DV / 8;        // of dV's
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16_t* ks = reinterpret_cast<bf16_t*>(smem_raw);
-  bf16_t* vs = ks + TC_KEYS * S;
-  bf16_t* qs = vs + TC_KEYS * S;  // 2 stages of R rows
-  bf16_t* dos = qs + 2 * R * S;   // 2 stages
-  float* lse_s = reinterpret_cast<float*>(dos + 2 * R * S);  // 2 stages
+  bf16_t* vs = ks + TC_KEYS * SQ;
+  bf16_t* qs = vs + TC_KEYS * SV;  // 2 stages of R rows
+  bf16_t* dos = qs + 2 * R * SQ;   // 2 stages
+  float* lse_s = reinterpret_cast<float*>(dos + 2 * R * SV);  // 2 stages
   float* d_s = lse_s + 2 * R;                                // 2 stages
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -776,8 +839,8 @@ attn_bwd_dkv_bf16_kernel(const bf16_t* __restrict__ q,
 
   auto copy_tile = [&](int i, int stage) {
     const int r0 = r_begin + i * R;
-    copy_rows<HD>(qs + stage * R * S, dos + stage * R * S, q, dout, R, b,
-                  kvh, g, h, tq, r0);
+    copy_rows<HD>(qs + stage * R * SQ, q, R, b, kvh, g, h, tq, r0);
+    copy_rows<DV>(dos + stage * R * SV, dout, R, b, kvh, g, h, tq, r0);
     for (int row = tid; row < R; row += TC_THREADS) {
       const int r = r0 + row;
       const bool ok = r < rows;
@@ -788,17 +851,21 @@ attn_bwd_dkv_bf16_kernel(const bf16_t* __restrict__ q,
     }
   };
 
-  copy_keys<HD>(ks, vs, k, v, b, kvh, kv, tk, k0);
+  copy_keys<HD>(ks, k, b, kvh, kv, tk, k0);
+  copy_keys<DV>(vs, v, b, kvh, kv, tk, k0);
   if (n_rt > 0) copy_tile(0, 0);
   cp_async_commit();  // with K and V
 
   // this thread's keys of the warp's 16: lane/4 and lane/4 + 8
   const int key0 = k0 + warp * 16 + lane / 4;
-  float acc_k[NB][4], acc_v[NB][4];
+  float acc_k[NB][4], acc_v[NBV][4];
 #pragma unroll
-  for (int n = 0; n < NB; ++n)
+  for (int e = 0; e < 4; ++e) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+    for (int n = 0; n < NB; ++n) acc_k[n][e] = 0.f;
+#pragma unroll
+    for (int n = 0; n < NBV; ++n) acc_v[n][e] = 0.f;
+  }
 
   for (int i = 0; i < n_rt; ++i) {
     const int stage = i & 1;
@@ -806,16 +873,16 @@ attn_bwd_dkv_bf16_kernel(const bf16_t* __restrict__ q,
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and K, V) landed, the next in flight
     __syncthreads();
-    const bf16_t* qst = qs + stage * R * S;
-    const bf16_t* dost = dos + stage * R * S;
+    const bf16_t* qst = qs + stage * R * SQ;
+    const bf16_t* dost = dos + stage * R * SV;
     const float* ls = lse_s + stage * R;
     const float* dls = d_s + stage * R;
     const int r0 = r_begin + i * R;
 
     // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: the warp's 16 keys × R rows
     float s[NR][4], dp[NR][4];
-    two_products<HD, NR>(s, dp, ks + warp * 16 * S, vs + warp * 16 * S, qst,
-                         dost, lane);
+    two_products<HD, DV, NR>(s, dp, ks + warp * 16 * SQ, vs + warp * 16 * SV,
+                             qst, dost, lane);
 
     // element e of block j: key key0 + 8·(e/2), row r0 + 8j + 2·(lane%4)
     // + e%2. A tile whose every pair is valid skips the mask.
@@ -845,7 +912,7 @@ attn_bwd_dkv_bf16_kernel(const bf16_t* __restrict__ q,
     }
 
     // dV += Pᵀ·dO, dK += dSᵀ·Q (scaled at the end)
-    add_product<HD, NR>(acc_v, s, dost, lane);
+    add_product<DV, NR>(acc_v, s, dost, lane);
     add_product<HD, NR>(acc_k, dp, qst, lane);
     __syncthreads();  // this stage is read; the next prefetch may land here
   }
@@ -855,20 +922,21 @@ attn_bwd_dkv_bf16_kernel(const bf16_t* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     const int kpos = key0 + 8 * i;
     if (kpos >= tk) continue;
-    const size_t base =
-        (((size_t)b * tk + kpos) * kv + kvh) * HD + 2 * (lane % 4);
+    const size_t row = ((size_t)b * tk + kpos) * kv + kvh;
+    const int col = 2 * (lane % 4);
 #pragma unroll
-    for (int n = 0; n < NB; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dk + base + 8 * n) =
+    for (int n = 0; n < NB; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dk + row * HD + col + 8 * n) =
           __floats2bfloat162_rn(scale * acc_k[n][2 * i],
                                 scale * acc_k[n][2 * i + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(dv + base + 8 * n) =
+#pragma unroll
+    for (int n = 0; n < NBV; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dv + row * DV + col + 8 * n) =
           __floats2bfloat162_rn(acc_v[n][2 * i], acc_v[n][2 * i + 1]);
-    }
   }
 }
 
-template <int HD>
+template <int HD, int DV>
 __global__ void __launch_bounds__(TC_THREADS)
 attn_bwd_dq_bf16_kernel(const bf16_t* __restrict__ q,
                         const bf16_t* __restrict__ k,
@@ -878,15 +946,17 @@ attn_bwd_dq_bf16_kernel(const bf16_t* __restrict__ q,
                         const float* __restrict__ delta,
                         bf16_t* __restrict__ dq, int tq, int tk, int h, int kv,
                         int nb, int causal, int window, float scale) {
-  static_assert(HD % 16 == 0, "head dim in k16 steps and pairs of n8 blocks");
-  constexpr int S = HD + TC_PAD;       // bf16 per shared row
+  static_assert(HD % 16 == 0 && DV % 16 == 0,
+                "head dims in k16 steps and pairs of n8 blocks");
+  constexpr int SQ = HD + TC_PAD;      // bf16 per shared row of Q and K
+  constexpr int SV = DV + TC_PAD;      // of dO and V
   constexpr int NK = TC_KEYS / 8;      // n8 blocks of a tile's keys
   constexpr int NB = HD / 8;           // n8 blocks of the gradient's columns
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16_t* qs = reinterpret_cast<bf16_t*>(smem_raw);
-  bf16_t* dos = qs + TC_ROWS * S;
-  bf16_t* ks = dos + TC_ROWS * S;  // 2 stages
-  bf16_t* vs = ks + 2 * TC_KEYS * S;  // 2 stages
+  bf16_t* dos = qs + TC_ROWS * SQ;
+  bf16_t* ks = dos + TC_ROWS * SV;     // 2 stages
+  bf16_t* vs = ks + 2 * TC_KEYS * SQ;  // 2 stages
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = h / kv, rows = tq * g;
@@ -901,9 +971,12 @@ attn_bwd_dq_bf16_kernel(const bf16_t* __restrict__ q,
   const int kt_begin =
       window > 0 ? max(0, q_first - window + 1) / TC_KEYS : 0;
 
-  copy_rows<HD>(qs, dos, q, dout, TC_ROWS, b, kvh, g, h, tq, r0);
-  if (kt_begin < kt_end)
-    copy_keys<HD>(ks, vs, k, v, b, kvh, kv, tk, kt_begin * TC_KEYS);
+  copy_rows<HD>(qs, q, TC_ROWS, b, kvh, g, h, tq, r0);
+  copy_rows<DV>(dos, dout, TC_ROWS, b, kvh, g, h, tq, r0);
+  if (kt_begin < kt_end) {
+    copy_keys<HD>(ks, k, b, kvh, kv, tk, kt_begin * TC_KEYS);
+    copy_keys<DV>(vs, v, b, kvh, kv, tk, kt_begin * TC_KEYS);
+  }
   cp_async_commit();  // with Q and dO
 
   // this thread's two rows of the warp's 16: lane/4 and lane/4 + 8; lse
@@ -927,20 +1000,22 @@ attn_bwd_dq_bf16_kernel(const bf16_t* __restrict__ q,
 
   for (int kt = kt_begin; kt < kt_end; ++kt) {
     const int stage = (kt - kt_begin) & 1;
-    if (kt + 1 < kt_end)
-      copy_keys<HD>(ks + (stage ^ 1) * TC_KEYS * S,
-                    vs + (stage ^ 1) * TC_KEYS * S, k, v, b, kvh, kv, tk,
+    if (kt + 1 < kt_end) {
+      copy_keys<HD>(ks + (stage ^ 1) * TC_KEYS * SQ, k, b, kvh, kv, tk,
                     (kt + 1) * TC_KEYS);
+      copy_keys<DV>(vs + (stage ^ 1) * TC_KEYS * SV, v, b, kvh, kv, tk,
+                    (kt + 1) * TC_KEYS);
+    }
     cp_async_commit();
     cp_async_wait<1>();  // this tile (and Q, dO) landed, the next in flight
     __syncthreads();
-    const bf16_t* kst = ks + stage * TC_KEYS * S;
-    const bf16_t* vst = vs + stage * TC_KEYS * S;
+    const bf16_t* kst = ks + stage * TC_KEYS * SQ;
+    const bf16_t* vst = vs + stage * TC_KEYS * SV;
 
     // S = Q·Kᵀ and dP = dO·Vᵀ: the warp's 16 rows × 64 keys
     float s[NK][4], dp[NK][4];
-    two_products<HD, NK>(s, dp, qs + warp * 16 * S, dos + warp * 16 * S, kst,
-                         vst, lane);
+    two_products<HD, DV, NK>(s, dp, qs + warp * 16 * SQ, dos + warp * 16 * SV,
+                             kst, vst, lane);
 
     // element e of block j: row lane/4 + 8·(e/2), key k0 + 8j +
     // 2·(lane%4) + e%2
@@ -1000,18 +1075,19 @@ cudaError_t allow_smem(K kernel, size_t bytes, uint64_t& configured) {
   return err;
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int DV>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int64_t b, int64_t tq, int64_t tk, int64_t h,
            int64_t kv, int causal, int64_t window, float scale,
            cudaStream_t st) {
   static uint64_t dkv_configured = 0, dq_configured = 0;
-  const size_t dkv_smem = Tiles<HD>::bytes(2), dq_smem = Tiles<HD>::bytes(1);
-  cudaError_t err = allow_smem(attn_bwd_dkv_kernel<T, HD>, dkv_smem,
+  const size_t dkv_smem = Tiles<HD, DV>::bytes(2),
+               dq_smem = Tiles<HD, DV>::bytes(1);
+  cudaError_t err = allow_smem(attn_bwd_dkv_kernel<T, HD, DV>, dkv_smem,
                                dkv_configured);
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem(attn_bwd_dq_kernel<T, HD>, dq_smem, dq_configured);
+  err = allow_smem(attn_bwd_dq_kernel<T, HD, DV>, dq_smem, dq_configured);
   if (err != cudaSuccess) return (int)err;
 
   const T* qt = static_cast<const T*>(q);
@@ -1019,7 +1095,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const T* vt = static_cast<const T*>(v);
   const T* dot = static_cast<const T*>(dout);
   const int64_t n_rows = b * tq * h;
-  attn_bwd_delta_kernel<T, HD>
+  attn_bwd_delta_kernel<T, DV>
       <<<(unsigned)((n_rows + DELTA_ROWS - 1) / DELTA_ROWS), THREADS, 0, st>>>(
           static_cast<const T*>(o), dot, delta, (int)tq, (int)h, n_rows);
   err = cudaGetLastError();
@@ -1027,7 +1103,7 @@ int launch(const void* q, const void* k, const void* v, const void* o,
 
   const dim3 dkv_grid((unsigned)((tk + BK - 1) / BK), (unsigned)kv,
                       (unsigned)b);
-  attn_bwd_dkv_kernel<T, HD><<<dkv_grid, THREADS, dkv_smem, st>>>(
+  attn_bwd_dkv_kernel<T, HD, DV><<<dkv_grid, THREADS, dkv_smem, st>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
       (int)tq, (int)tk, (int)h, (int)kv, causal, (int)window, scale);
   err = cudaGetLastError();
@@ -1036,25 +1112,25 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   const int64_t rows = tq * (h / kv);
   const dim3 dq_grid((unsigned)((rows + BQ - 1) / BQ), (unsigned)kv,
                      (unsigned)b);
-  attn_bwd_dq_kernel<T, HD><<<dq_grid, THREADS, dq_smem, st>>>(
+  attn_bwd_dq_kernel<T, HD, DV><<<dq_grid, THREADS, dq_smem, st>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), (int)tq, (int)tk,
       (int)h, (int)kv, causal, (int)window, scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int DV>
 int launch_bf16(const void* q, const void* k, const void* v, const void* o,
                 const void* dout, const float* lse, float* delta, void* dq,
                 void* dk, void* dv, int64_t b, int64_t tq, int64_t tk,
                 int64_t h, int64_t kv, int causal, int64_t window,
                 float scale, cudaStream_t st) {
   static uint64_t dkv_configured = 0, dq_configured = 0;
-  constexpr size_t dkv_smem = dkv_smem_bytes<HD>(),
-                   dq_smem = dq_smem_bytes<HD>();
-  cudaError_t err = allow_smem(attn_bwd_dkv_bf16_kernel<HD>, dkv_smem,
+  constexpr size_t dkv_smem = dkv_smem_bytes<HD, DV>(),
+                   dq_smem = dq_smem_bytes<HD, DV>();
+  cudaError_t err = allow_smem(attn_bwd_dkv_bf16_kernel<HD, DV>, dkv_smem,
                                dkv_configured);
   if (err != cudaSuccess) return (int)err;
-  err = allow_smem(attn_bwd_dq_bf16_kernel<HD>, dq_smem, dq_configured);
+  err = allow_smem(attn_bwd_dq_bf16_kernel<HD, DV>, dq_smem, dq_configured);
   if (err != cudaSuccess) return (int)err;
   // one-dimensional grids, the (kv head, batch) pair fastest
   const int64_t pairs = kv * b;
@@ -1068,39 +1144,39 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o,
   const bf16_t* vt = static_cast<const bf16_t*>(v);
   const bf16_t* dot = static_cast<const bf16_t*>(dout);
   const int64_t n_rows = b * tq * h;
-  attn_bwd_delta_kernel<bf16_t, HD>
+  attn_bwd_delta_kernel<bf16_t, DV>
       <<<(unsigned)((n_rows + DELTA_ROWS - 1) / DELTA_ROWS), THREADS, 0, st>>>(
           static_cast<const bf16_t*>(o), dot, delta, (int)tq, (int)h, n_rows);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  attn_bwd_dkv_bf16_kernel<HD><<<(unsigned)dkv_blocks, TC_THREADS, dkv_smem,
-                                 st>>>(
+  attn_bwd_dkv_bf16_kernel<HD, DV><<<(unsigned)dkv_blocks, TC_THREADS,
+                                     dkv_smem, st>>>(
       qt, kt, vt, dot, lse, delta, static_cast<bf16_t*>(dk),
       static_cast<bf16_t*>(dv), (int)tq, (int)tk, (int)h, (int)kv, (int)b,
       causal, (int)window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  attn_bwd_dq_bf16_kernel<HD><<<(unsigned)dq_blocks, TC_THREADS, dq_smem,
-                                st>>>(
+  attn_bwd_dq_bf16_kernel<HD, DV><<<(unsigned)dq_blocks, TC_THREADS,
+                                    dq_smem, st>>>(
       qt, kt, vt, dot, lse, delta, static_cast<bf16_t*>(dq), (int)tq, (int)tk,
       (int)h, (int)kv, (int)b, causal, (int)window, scale);
   return (int)cudaGetLastError();
 }
 
-template <int HD>
+template <int HD, int DV>
 int launch_dtype(int bf16, const void* q, const void* k, const void* v,
                  const void* o, const void* dout, const float* lse,
                  float* delta, void* dq, void* dk, void* dv, int64_t b,
                  int64_t tq, int64_t tk, int64_t h, int64_t kv, int causal,
                  int64_t window, float scale, cudaStream_t st) {
-  return bf16 ? launch_bf16<HD>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                   b, tq, tk, h, kv, causal, window, scale,
-                                   st)
-                 : launch<float, HD>(q, k, v, o, dout, lse, delta, dq, dk,
-                                     dv, b, tq, tk, h, kv, causal, window,
-                                     scale, st);
+  return bf16 ? launch_bf16<HD, DV>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                    b, tq, tk, h, kv, causal, window, scale,
+                                    st)
+              : launch<float, HD, DV>(q, k, v, o, dout, lse, delta, dq, dk,
+                                      dv, b, tq, tk, h, kv, causal, window,
+                                      scale, st);
 }
 
 }  // namespace
@@ -1111,24 +1187,33 @@ extern "C" int flash_attn_bwd_f32(const void* q, const void* k,
                                   void* delta, void* dq, void* dk, void* dv,
                                   int bf16, int64_t b, int64_t tq,
                                   int64_t tk, int64_t h, int64_t kv,
-                                  int64_t hd, int causal, int64_t window,
-                                  float scale, void* stream) {
+                                  int64_t hd, int64_t dv_dim, int causal,
+                                  int64_t window, float scale,
+                                  void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   float* d = static_cast<float*>(delta);
+  if (hd == 192 && dv_dim == 128)  // MLA: q/k nope 128 + rope 64, v 128
+    return launch_dtype<192, 128>(bf16, q, k, v, o, dout, l, d, dq, dk, dv, b,
+                                  tq, tk, h, kv, causal, window, scale, st);
+  if (hd != dv_dim) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:
-      return launch_dtype<32>(bf16, q, k, v, o, dout, l, d, dq, dk, dv, b,
-                              tq, tk, h, kv, causal, window, scale, st);
+      return launch_dtype<32, 32>(bf16, q, k, v, o, dout, l, d, dq, dk,
+                                  dv, b, tq, tk, h, kv, causal, window, scale,
+                                  st);
     case 64:
-      return launch_dtype<64>(bf16, q, k, v, o, dout, l, d, dq, dk, dv, b,
-                              tq, tk, h, kv, causal, window, scale, st);
+      return launch_dtype<64, 64>(bf16, q, k, v, o, dout, l, d, dq, dk,
+                                  dv, b, tq, tk, h, kv, causal, window, scale,
+                                  st);
     case 112:
-      return launch_dtype<112>(bf16, q, k, v, o, dout, l, d, dq, dk, dv, b,
-                               tq, tk, h, kv, causal, window, scale, st);
+      return launch_dtype<112, 112>(bf16, q, k, v, o, dout, l, d, dq, dk,
+                                    dv, b, tq, tk, h, kv, causal, window, scale,
+                                    st);
     case 128:
-      return launch_dtype<128>(bf16, q, k, v, o, dout, l, d, dq, dk, dv, b,
-                               tq, tk, h, kv, causal, window, scale, st);
+      return launch_dtype<128, 128>(bf16, q, k, v, o, dout, l, d, dq, dk,
+                                    dv, b, tq, tk, h, kv, causal, window, scale,
+                                    st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

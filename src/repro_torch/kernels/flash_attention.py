@@ -17,17 +17,16 @@ With ``return_lse=True`` it also returns each row's log-sum-exp (B, H,
 Tq) in f32, +inf on a row with no valid key. `flash_attn_bwd_f32`
 launches the backward ``csrc/flash_attn_bwd_f32.cu`` (Δ, dK/dV, dQ:
 three deterministic kernels, no atomics; bf16 on the tensor cores, with
-P and dS in three bf16 terms, f32 in FFMA; dv = hd only). Their plain
-versions are
-`ref.attention_ref`, `ref.attention_lse_ref` and `ref.attention_bwd_ref`.
+P and dS in three bf16 terms, f32 in FFMA; the same `DIM_PAIRS`). Their
+plain versions are `ref.attention_ref`, `ref.attention_lse_ref` and `ref.attention_bwd_ref`.
 
 `FlashAttention` is the autograd Function over the two: its forward
 saves q, k, v, out and lse, its backward launches the backward kernel,
 with the forward's masks: causal or non-causal, Tq = Tk or not (the
 encoder-decoder trains through both: its encoder's self-attention and
-every cross-attention are non-causal, the latter with Tq ≠ Tk). Its
-forward raises for dv ≠ hd (MLA training: the backward kernel has no
-such instance yet). It syncs nothing and allocates
+every cross-attention are non-causal, the latter with Tq ≠ Tk), and
+values as wide as the queries or, for MLA, narrower (deepseek-v2-lite's
+(192, 128)). It syncs nothing and allocates
 with `torch.empty` on the current stream, so a training step through it
 can be captured in a CUDA graph; under `torch.func.vmap` it raises
 (batched LM sweeps are not ported). The model reaches them through
@@ -46,9 +45,10 @@ import torch
 
 from repro_torch.kernels import build
 
-HEAD_DIMS = (32, 64, 112, 128)   # the backward kernel's instances (dv = hd)
-# the forward kernel's template instances (hd, dv): dv = hd, and MLA's
-# q/k head dim 192 (nope 128 + rope 64) with values of 128
+HEAD_DIMS = (32, 64, 112, 128)   # the kernels' instances with dv = hd
+# the template instances (hd, dv) of the forward and the backward kernel:
+# dv = hd, and MLA's q/k head dim 192 (nope 128 + rope 64) with values
+# of 128
 DIM_PAIRS = tuple((hd, hd) for hd in HEAD_DIMS) + ((192, 128),)
 _MAX_GRID_YZ = 65535
 
@@ -70,7 +70,7 @@ def _bwd_lib() -> ctypes.CDLL:
     p, i64 = ctypes.c_void_p, ctypes.c_int64
     lib.flash_attn_bwd_f32.argtypes = [p, p, p, p, p, p, p, p, p, p,
                                        ctypes.c_int, i64, i64, i64, i64,
-                                       i64, i64, ctypes.c_int, i64,
+                                       i64, i64, i64, ctypes.c_int, i64,
                                        ctypes.c_float, p]
     lib.flash_attn_bwd_f32.restype = ctypes.c_int
     return lib
@@ -173,23 +173,24 @@ def flash_attn_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (dq, dk, dv) of the forward at q, k, v for the output gradient
     `dout`, given the forward's `out` and `lse` (`flash_attn_f32(...,
     return_lse=True)`). q, k, v, out, dout: one dtype (f32 or bf16),
-    contiguous, on one CUDA device; lse f32 (B, H, Tq). The gradients come
-    in the inputs' dtype, each rounded once from f32. One call counts one
-    launch in `flash_attn_bwd_f32.launches` (its three kernels)."""
+    contiguous, on one CUDA device, head dims (hd, dv) one of
+    `DIM_PAIRS`, out and dout (B, Tq, H, dv); lse f32 (B, H, Tq). The
+    gradients come in the inputs' dtype, each rounded once from f32. One
+    call counts one launch in `flash_attn_bwd_f32.launches` (its three
+    kernels)."""
     build.refuse_vmapped("flash_attn_bwd_f32", q, k, v, out, lse, dout)
     _check_shapes(q, k, v)
-    if out.shape != q.shape or dout.shape != q.shape:
-        raise ValueError(f"flash_attn_bwd_f32: out {tuple(out.shape)} and "
-                         f"dout {tuple(dout.shape)} must be q's "
-                         f"{tuple(q.shape)}")
     b, tq, h, hd = q.shape
-    tk, kv = k.shape[1], k.shape[2]
+    tk, kv, dv_dim = k.shape[1], k.shape[2], v.shape[3]
+    if out.shape != (b, tq, h, dv_dim) or dout.shape != out.shape:
+        raise ValueError(f"flash_attn_bwd_f32: out {tuple(out.shape)} and "
+                         f"dout {tuple(dout.shape)} must be "
+                         f"{(b, tq, h, dv_dim)}, q's with v's head dim")
     if lse.shape != (b, h, tq) or lse.dtype != torch.float32:
         raise ValueError(f"flash_attn_bwd_f32: lse must be f32 "
                          f"{(b, h, tq)}; got {lse.dtype} "
                          f"{tuple(lse.shape)}")
-    _check_kernel_shape("flash_attn_bwd_f32", q, k, v,
-                        tuple((hd, hd) for hd in HEAD_DIMS))
+    _check_kernel_shape("flash_attn_bwd_f32", q, k, v, DIM_PAIRS)
     _check_launch("flash_attn_bwd_f32",
                   (("q", q), ("k", k), ("v", v), ("out", out),
                    ("dout", dout)), q.dtype, q.device)
@@ -203,7 +204,7 @@ def flash_attn_bwd_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, tq, tk, h, kv, hd,
+            int(q.dtype == torch.bfloat16), b, tq, tk, h, kv, hd, dv_dim,
             int(causal), int(window), _scale(hd), stream)
     if err != 0:
         raise RuntimeError(f"flash_attn_bwd_f32: launch failed with CUDA "
@@ -219,17 +220,13 @@ class FlashAttention(torch.autograd.Function):
     """Attention through the forward kernel with the backward kernel as
     its gradient: ``FlashAttention.apply(q, k, v, causal, window)`` on
     contiguous CUDA tensors (the launchers' conditions), causal or not,
-    with any Tq and Tk, and v as wide as q and k: MLA's narrower values
-    raise (the backward kernel has no such instance). Capturable; under
-    `torch.func.vmap` it raises."""
+    with any Tq and Tk, (hd, dv) one of `DIM_PAIRS` (MLA's narrower
+    values too). Capturable; under `torch.func.vmap` it raises."""
 
     @staticmethod
     def forward(q, k, v, causal, window):
-        if v.shape[-1] != q.shape[-1]:
-            raise NotImplementedError(
-                f"FlashAttention: values of head dim {v.shape[-1]} under "
-                f"queries and keys of {q.shape[-1]} (MLA training) have no "
-                "backward kernel yet")
+        _check_shapes(q, k, v)
+        _check_kernel_shape("FlashAttention", q, k, v, DIM_PAIRS)
         return flash_attn_f32(q, k, v, causal=causal, window=window,
                               return_lse=True)
 

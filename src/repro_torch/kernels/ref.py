@@ -113,7 +113,8 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         dV = Σ_group Pᵀ·dO,  dP = dO·Vᵀ,  dS = P∘(dP − D),
         dQ = scale·dS·K,  dK = scale·Σ_group dSᵀ·Q,
 
-    with S the scaled scores and scale = hd^-1/2. In f32 (f64 for f64
+    with S the scaled scores and scale = hd^-1/2 (hd q's and k's head
+    dim; v, out and dout may be narrower, dv, as MLA's). In f32 (f64 for f64
     inputs), returned in that type; a row with no valid key (lse = +inf)
     has P = 0, so its dq is 0 and it adds nothing to dk and dv."""
     dt = torch.float64 if q.dtype == torch.float64 else torch.float32
@@ -135,7 +136,7 @@ def attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = scale * torch.einsum("bhts,bshd->bthd", ds, kf)
     dk = scale * torch.einsum("bhts,bthd->bshd", ds, q.to(dt))
     return (dq, dk.reshape(b, tk, n_kv, g, hd).sum(3),
-            dv.reshape(b, tk, n_kv, g, hd).sum(3))
+            dv.reshape(b, tk, n_kv, g, v.shape[3]).sum(3))
 
 
 def abs_ref(x: torch.Tensor) -> torch.Tensor:

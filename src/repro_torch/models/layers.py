@@ -60,17 +60,18 @@ def _he(gen: torch.Generator, shape, dtype, fan_in=None) -> torch.Tensor:
 
 
 class _MatmulF32Out(torch.autograd.Function):
-    """x @ w of two bf16 CUDA matrices, accumulated and returned in f32
-    (cuBLAS with an f32 output, which has no derivative of its own). The
-    backward multiplies the f32 cotangent g as the reference does, on the
-    tensor cores: g is split into two bf16 terms, hi = bf16(g) and lo =
-    bf16(g − hi), which hold g to ~2⁻¹⁷ of itself, and dx = g·wᵀ and dw =
-    xᵀ·g are each the f32 sum of both terms' products, rounded once to
-    the operands' dtype."""
+    """x @ w of two bf16 CUDA matrices, or of two stacks of them (E, C, K)
+    @ (E, K, N), product by product (the experts'), accumulated and
+    returned in f32 (cuBLAS with an f32 output, which has no derivative
+    of its own). The backward multiplies the f32 cotangent g as the
+    reference does, on the tensor cores: g is split into two bf16 terms,
+    hi = bf16(g) and lo = bf16(g − hi), which hold g to ~2⁻¹⁷ of itself,
+    and dx = g·wᵀ and dw = xᵀ·g are each the f32 sum of both terms'
+    products, rounded once to the operands' dtype."""
 
     @staticmethod
     def forward(x, w):
-        return torch.mm(x, w, out_dtype=ACC)
+        return _mm(x)(x, w, out_dtype=ACC)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -79,41 +80,49 @@ class _MatmulF32Out(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
+        mm = _mm(x)
         hi = g.to(x.dtype)
         lo = (g - hi.to(ACC)).to(x.dtype)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            wt = w.T
-            dx = torch.mm(hi, wt, out_dtype=ACC)
-            dx += torch.mm(lo, wt, out_dtype=ACC)
+            wt = w.mT
+            dx = mm(hi, wt, out_dtype=ACC)
+            dx += mm(lo, wt, out_dtype=ACC)
             dx = dx.to(x.dtype)
         if ctx.needs_input_grad[1]:
-            xt = x.T
-            dw = torch.mm(xt, hi, out_dtype=ACC)
-            dw += torch.mm(xt, lo, out_dtype=ACC)
+            xt = x.mT
+            dw = mm(xt, hi, out_dtype=ACC)
+            dw += mm(xt, lo, out_dtype=ACC)
             dw = dw.to(w.dtype)
         return dx, dw
 
 
+def _mm(x: torch.Tensor):
+    """The product of x's rank: `torch.bmm` for a stack, else `torch.mm`."""
+    return torch.bmm if x.dim() == 3 else torch.mm
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x (…, d_in) @ w (d_in, d_out) accumulated in f32, returned in f32:
-    the reference's ``einsum(..., preferred_element_type=f32)``. f32
-    operands multiply as they are (TF32 must be off on the card); bf16
-    operands go through cuBLAS with an f32 output on the card (under grad
-    through `_MatmulF32Out`); anything else is widened to f32 first, which
-    computes the same products."""
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
+    """x (…, d_in) @ w (d_in, d_out), or stack by stack x (E, C, d_in) @
+    w (E, d_in, d_out) (the experts' products), accumulated in f32,
+    returned in f32: the reference's ``einsum(...,
+    preferred_element_type=f32)``. f32 operands multiply as they are (TF32
+    must be off on the card); bf16 operands go through cuBLAS with an f32
+    output on the card (under grad through `_MatmulF32Out`); anything else
+    is widened to f32 first, which computes the same products."""
+    stacked = w.dim() == 3
+    x2 = x if stacked else x.reshape(-1, x.shape[-1])
+    mm = _mm(x2)
     if x.dtype == ACC and w.dtype == ACC:
-        y = x2 @ w
+        y = mm(x2, w)
     elif x.device.type == "cuda" and x.dtype == w.dtype:
         if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
             y = _MatmulF32Out.apply(x2, w)
         else:
-            y = torch.mm(x2, w, out_dtype=ACC)
+            y = mm(x2, w, out_dtype=ACC)
     else:
-        y = x2.to(ACC) @ w.to(ACC)
-    return y.reshape(*lead, w.shape[-1])
+        y = mm(x2.to(ACC), w.to(ACC))
+    return y if stacked else y.reshape(*x.shape[:-1], w.shape[-1])
 
 
 # ---------------------------------------------------------------------------

@@ -14,16 +14,23 @@ accumulation, `silu(g)·u` cast to x's dtype, the down product cast to
 x's dtype), and each token sums its kept outputs times their gates in
 f32, plus the shared experts' MLP.
 
-Two choices keep the step deterministic on the card, where scatters with
-float atomics are not: the buffer is filled by a copy whose only
-duplicate index is the dump row, and the combine gathers each token's k
-outputs (zero where dropped) and sums them over j, never adding into a
-shared buffer. Nothing reads a device value on the host, so a decode
-step through this layer can be captured in a CUDA graph. The products
-are library calls (the reference computes them outside any Pallas
-kernel): `torch.bmm` with an f32 output on bf16 CUDA tensors, the f32
-product on f32 ones, and on the CPU the operands widened to f32 first,
-as `layers.matmul_f32` does."""
+Two choices keep the step deterministic forward and backward, on the
+card (no float atomics) and on the CPU (no sums in the threads' order).
+The buffer is filled from x repeated k times, so that each (token, j)
+assignment has a row of its own, gathered by the dispatch's order, a
+permutation: that gather's backward writes each row once, and the
+repeat's sums each token's k rows. The copy into the buffer has its
+only duplicate index at the dump row, which is discarded. The combine
+gathers each token's k outputs (zero where dropped) and sums them over
+j, never adding into a shared buffer; its backward adds into one row
+twice only at the clamped dump index, where every dropped assignment's
+cotangent is an exact zero. The router's gradient flows through the
+gates (top-k's values, their renormalisation) and the aux loss's mean
+probabilities, not through the indices, the top-1 one-hot or the
+dispatch, as in the reference. Nothing reads a device value on the
+host, so a decode step through this layer can be captured in a CUDA
+graph. The products are library calls (the reference computes them
+outside any Pallas kernel) through `layers.matmul_f32`, stack by stack."""
 from __future__ import annotations
 
 from typing import Tuple
@@ -72,15 +79,6 @@ def _capacity(n_tokens: int, cfg) -> int:
     return max(8, -(-c // 8) * 8)
 
 
-def _bmm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(E, C, K) @ (E, K, N) accumulated and returned in f32."""
-    if a.dtype == ACC and b.dtype == ACC:
-        return torch.bmm(a, b)
-    if a.device.type == "cuda" and a.dtype == b.dtype:
-        return torch.bmm(a, b, out_dtype=ACC)
-    return torch.bmm(a.to(ACC), b.to(ACC))
-
-
 def route(p: Params, cfg, xf: torch.Tensor):
     """The router on the flat tokens (N, D): the top-k experts (N, k)
     int64, their renormalised gates (N, k) f32, and the aux loss
@@ -98,14 +96,13 @@ def route(p: Params, cfg, xf: torch.Tensor):
 
 def dispatch(experts: torch.Tensor, cap: int, n_experts: int):
     """The sort-based dispatch of the (N, k) assignments: `order` (the
-    stable sort by expert of the flat assignments), their tokens `st` in
-    that order, `keep` (rank within the expert below `cap`) and `slot`
-    (expert·cap + rank, or the dump row E·cap)."""
+    stable sort by expert of the flat assignments), and in that order
+    `keep` (rank within the expert below `cap`) and `slot` (expert·cap +
+    rank, or the dump row E·cap)."""
     n, k = experts.shape
     flat = experts.reshape(-1)
     order = torch.argsort(flat, stable=True)
     se = flat[order]
-    st = torch.div(order, k, rounding_mode="floor")      # token of each
     pos = torch.arange(n * k, device=flat.device)
     seg_start = torch.searchsorted(
         se, torch.arange(n_experts, device=flat.device))
@@ -113,7 +110,7 @@ def dispatch(experts: torch.Tensor, cap: int, n_experts: int):
     keep = rank < cap
     slot = torch.where(keep, se * cap + rank,
                        torch.full_like(se, n_experts * cap))
-    return order, st, keep, slot
+    return order, keep, slot
 
 
 def moe_ffn(p: Params, cfg, x: torch.Tensor
@@ -127,15 +124,17 @@ def moe_ffn(p: Params, cfg, x: torch.Tensor
     xf = x.reshape(n, d)
     cap = _capacity(n, cfg)
     experts, gates, aux = route(p, cfg, xf)
-    order, st, keep, slot = dispatch(experts, cap, e)
+    order, keep, slot = dispatch(experts, cap, e)
 
+    # each (token, j) assignment's row once, in the dispatch's order
+    rows = xf[:, None].expand(n, k, d).reshape(n * k, d)[order]
     buf = torch.zeros((e * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf.index_copy_(0, slot, xf[st])       # duplicates only at the dump row
+    buf.index_copy_(0, slot, rows)       # duplicates only at the dump row
     buf = buf[:-1].reshape(e, cap, d)
-    g = _bmm_f32(buf, p["w_gate"])
-    u = _bmm_f32(buf, p["w_up"])
+    g = L.matmul_f32(buf, p["w_gate"])
+    u = L.matmul_f32(buf, p["w_up"])
     h = (F.silu(g) * u).to(x.dtype)
-    out = _bmm_f32(h, p["w_down"]).to(x.dtype).reshape(e * cap, d)
+    out = L.matmul_f32(h, p["w_down"]).to(x.dtype).reshape(e * cap, d)
 
     # the combine: each token gathers its k outputs, in (token, j) order
     inv = torch.empty_like(order)
@@ -157,5 +156,5 @@ def drops(p: Params, cfg, x: torch.Tensor) -> torch.Tensor:
     a 0-d int64 count (a reading, not part of the layer)."""
     n = x.shape[0] * x.shape[1]
     experts, _, _ = route(p, cfg, x.reshape(n, -1))
-    _, _, keep, _ = dispatch(experts, _capacity(n, cfg), cfg.moe.n_experts)
+    _, keep, _ = dispatch(experts, _capacity(n, cfg), cfg.moe.n_experts)
     return (~keep).sum()

@@ -463,15 +463,20 @@ def test_flash_attention_function_refuses_noncausal_and_tq_ne_tk(causal, tq,
 @pytest.mark.parametrize("causal,tq,tk", [(False, 8, 20), (True, 8, 8)])
 def test_flash_attention_function_still_refuses_narrow_values(causal, tq,
                                                               tk):
-    """dv ≠ hd (MLA training) still raises NotImplementedError in the
-    Function before any launch: the backward kernel has no such
-    instance."""
+    """Narrow values with no backward instance ((192, 64)) are still
+    refused in the Function before any launch; MLA's (192, 128), which
+    the backward kernel now has (MLA training, ROADMAP 8b-train), gets
+    past the Function's checks and stops at the forward launcher's
+    device check, non-causal and with Tq ≠ Tk too."""
     q = torch.zeros(1, tq, 2, 192, requires_grad=True)
-    k, v = torch.zeros(1, tk, 2, 192), torch.zeros(1, tk, 2, 128)
-    launches = FA.flash_attn_f32.launches
-    with pytest.raises(NotImplementedError, match="MLA training"):
-        FA.FlashAttention.apply(q, k, v, causal, 0)
-    assert FA.flash_attn_f32.launches == launches
+    k = torch.zeros(1, tk, 2, 192)
+    launches = (FA.flash_attn_f32.launches, FA.flash_attn_bwd_f32.launches)
+    with pytest.raises(ValueError, match="instances"):
+        FA.FlashAttention.apply(q, k, torch.zeros(1, tk, 2, 64), causal, 0)
+    with pytest.raises(ValueError, match="not CUDA"):
+        FA.FlashAttention.apply(q, k, torch.zeros(1, tk, 2, 128), causal, 0)
+    assert (FA.flash_attn_f32.launches,
+            FA.flash_attn_bwd_f32.launches) == launches
 
 
 def test_encdec_trains_through_the_chunked_route_on_the_cpu(models):

@@ -219,10 +219,11 @@ def test_attention_with_narrow_values_matches_reference(b, t, h, hd, dv,
 
 
 def test_attention_wrapper_checks_head_dims():
-    """On CPU tensors (no launch): (192, 128) passes the shape checks and
-    stops at the device check; a pair without an instance is refused;
-    `FlashAttention` refuses dv ≠ hd (MLA training: no backward kernel)
-    before any launch; the backward launcher refuses (192, 128)."""
+    """On CPU tensors (no launch): (192, 128) passes the forward's and
+    the backward's shape checks and stops at the device check, in the
+    launchers and in `FlashAttention` (MLA training, which the backward
+    kernel's (192, 128) instance carries); a pair without an instance is
+    refused by all three before any launch."""
     assert (192, 128) in FA.DIM_PAIRS and (128, 128) in FA.DIM_PAIRS
     q, k = torch.zeros(1, 8, 2, 192), torch.zeros(1, 8, 2, 192)
     v = torch.zeros(1, 8, 2, 128)
@@ -235,12 +236,25 @@ def test_attention_wrapper_checks_head_dims():
                               torch.zeros(1, 8, 2, dv))
     with pytest.raises(ValueError, match="dv"):
         FA.flash_attn_f32(q, k, torch.zeros(1, 7, 2, 128))
-    launches = FA.flash_attn_f32.launches
-    with pytest.raises(NotImplementedError, match="MLA training"):
-        FA.FlashAttention.apply(q.requires_grad_(True), k, v, True, 0)
-    with pytest.raises(ValueError, match="instances"):
-        FA.flash_attn_bwd_f32(q, k, v, q, torch.zeros(1, 2, 8), q)
-    assert FA.flash_attn_f32.launches == launches
+    launches = (FA.flash_attn_f32.launches, FA.flash_attn_bwd_f32.launches)
+    out, lse = torch.zeros(1, 8, 2, 128), torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="not CUDA"):
+        FA.FlashAttention.apply(q.clone().requires_grad_(True), k, v, True,
+                                0)
+    with pytest.raises(ValueError, match="not CUDA"):
+        FA.flash_attn_bwd_f32(q, k, v, out, lse, out)
+    with pytest.raises(ValueError, match="must be"):
+        FA.flash_attn_bwd_f32(q, k, v, q, lse, q)    # out at q's width
+    narrow = torch.zeros(1, 8, 2, 64)
+    for hd, dv in ((128, 64), (192, 64)):
+        qq = torch.zeros(1, 8, 2, hd)
+        with pytest.raises(ValueError, match="instances"):
+            FA.flash_attn_bwd_f32(qq, qq, narrow, narrow, lse, narrow)
+        with pytest.raises(ValueError, match="instances"):
+            FA.FlashAttention.apply(qq.clone().requires_grad_(True), qq,
+                                    narrow, True, 0)
+    assert (FA.flash_attn_f32.launches,
+            FA.flash_attn_bwd_f32.launches) == launches
 
 
 # ---------------------------------------------------------------------------

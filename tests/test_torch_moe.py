@@ -132,7 +132,7 @@ def _jax_routing(jp, jcfg, x):
 def _port_routing(tp, tcfg, x):
     xf = torch.from_numpy(x).reshape(-1, x.shape[-1])
     experts, gates, _ = TM.route(tp, tcfg, xf)
-    order, _, keep, _ = TM.dispatch(experts, TM._capacity(xf.shape[0], tcfg),
+    order, keep, _ = TM.dispatch(experts, TM._capacity(xf.shape[0], tcfg),
                                     tcfg.moe.n_experts)
     kept = torch.empty_like(keep)
     kept[order] = keep
