@@ -52,7 +52,9 @@ Phases, each failing the run with a nonzero exit:
              attention, at every head dim the kernel has: 32, 64, 112,
              128, and at groups of query heads a kv head up to 16; MLA's
              q/k 192 over v 128 at phase 28's heads, 2 × 512 and 2 ×
-             2,048, beside each fused SDPA backend that takes it;
+             2,048, and its `reduced()` q/k 48 over v 32 (phase 32's) at
+             2 × 128 and 2 × 512, beside each fused SDPA backend that
+             takes it;
              non-causal with Tq ≠ Tk at phase 29's shapes: the encoder
              over 1,000 frames, 16 target queries over them, 512 over 300,
              and a group of 4 query heads over 333 keys; the
@@ -68,7 +70,8 @@ Phases, each failing the run with a nonzero exit:
              at phase 30's encoder and cross-attention, 4,096 over 4,096,
              and phase 29's shapes; phase 31's MLA at (q/k 192, v 128),
              one row of 4,096 and a ragged 777, and qwen3-moe's causal
-             group of 16 at 4,096) in f32 (normwise against
+             group of 16 at 4,096; phase 32's (48, 32) at 2 × 128 and
+             2 × 512) in f32 (normwise against
              the f64 plain version) and bf16 (elementwise within one bf16
              rounding; the bf16 route on the tensor cores, its time
              printed beside its earlier FFMA route's), launched twice and
@@ -354,6 +357,26 @@ Phases, each failing the run with a nonzero exit:
              normwise, task 5e-3); before (a), the expert products'
              backward (`_MatmulF32Out`) against f64 at one microbatch's
              shapes
+32. LM training through the CLI — `repro_torch.launch.train.main`, as
+             a user calls it, for every language-model family (every LM
+             arch at `reduced()`, f32, as the reference's CLI takes it):
+             (a) in process with the CLI's defaults (4 clients, pool 3,
+             e_warmup 10, e_local 20, batch 48, 4,000 sequences of 128
+             tokens) for llama3.2-1b, qwen3-moe-235b-a22b,
+             deepseek-v2-lite-16b (MLA at the attention kernels' (48, 32)
+             instances), chameleon-34b, rwkv6-7b and zamba2-7b, and
+             llama3.2-1b through the low-rank pool: -nll finite, each
+             client's own-stream loss falling over its visit, exactly the
+             launches the steps imply of every kernel (attention, GLA,
+             sweep; none of the others), 2 captures and steps − 2
+             replays a run; (b) deepseek-v2-lite-16b at a small size on
+             the card and the CPU from one init: the first step's router
+             calls alike, task losses, -nll and every final leaf within
+             1e-4 plus 3× two one-ulp CPU controls' distance; (c) `python
+             -m repro_torch.launch.train --arch llama3.2-1b` as a
+             subprocess with `--handoff-dir`: exit 0, its -nll= line, the
+             handoff read back bitwise and loaded onto the card; (d)
+             seamless-m4t-medium refused with the named ValueError
 
 Every phase prints its wall time ("phase N: … s"), and a table of them
 comes before the total. Before the last lines it prints every
@@ -1705,7 +1728,12 @@ ATTN_SHAPES = [("serve", 10, 16, 16, 32, 8, 64, True, 8192),
 # 2 × 512 prompt and at 2 × 2,048: (name, B, Tq, Tk, H, KV, hd, causal,
 # window, dv); the rows above have dv = hd
 MLA_ATTN_SHAPES = [("dsv2lite", 2, 512, 512, 16, 16, 192, True, 0, 128),
-                   ("dsv2lite2k", 2, 2048, 2048, 16, 16, 192, True, 0, 128)]
+                   ("dsv2lite2k", 2, 2048, 2048, 16, 16, 192, True, 0, 128),
+                   # phase 32's: its `reduced()` MLA (4 heads, q/k 48 =
+                   # nope 32 + rope 16 over v 32), at the training CLI's
+                   # 128 tokens and at 512
+                   ("dsv2lite_cli", 2, 128, 128, 4, 4, 48, True, 0, 32),
+                   ("dsv2lite_cli512", 2, 512, 512, 4, 4, 48, True, 0, 32)]
 # the factor stacks lowrank_pairwise_sq hands the Gram kernel at full
 # width, C·r = 40 rows: (name, B, P, stacks of this shape a call)
 GRAM_SHAPES = [("embed.u", 1, 128256, 1), ("embed.v", 1, 2048, 1),
@@ -2080,7 +2108,11 @@ BWD_SHAPES = [("llama_train", 16, 128, 128, 32, 8, 64, True, 8192),
               # causal group of 16 (64 / 4 heads), one row
               ("dsv2lite_train", 1, 4096, 4096, 16, 16, 192, True, 0, 128),
               ("dsv2lite_ragged", 2, 777, 777, 16, 16, 192, True, 0, 128),
-              ("qwen3moe_g16_train", 1, 4096, 4096, 64, 4, 128, True, 0)]
+              ("qwen3moe_g16_train", 1, 4096, 4096, 64, 4, 128, True, 0),
+              # phase 32's: deepseek-v2-lite-16b's `reduced()` MLA, (48,
+              # 32), at the training CLI's 128 tokens and at 512
+              ("dsv2lite_cli", 2, 128, 128, 4, 4, 48, True, 0, 32),
+              ("dsv2lite_cli512", 2, 512, 512, 4, 4, 48, True, 0, 32)]
 # the bf16 route's times at BWD_SHAPES when it ran in FFMA on f32 shared
 # tiles, before its tensor-core design (chip_smoke.py phase 10, NVIDIA
 # H100 80GB HBM3, 700 W; PERF.md §6 row 6b), printed beside this run's
@@ -7361,7 +7393,13 @@ def attention_bwd_entry(serving, lm):
             "t", "h", "kv", "hd", "dv", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "max_abs_err", "worst_share_of_limit")}
             for r in serving["attention_bwd"]
-            if r["shape"] in MOE_TRAIN_BWD_SHAPES}}
+            if r["shape"] in MOE_TRAIN_BWD_SHAPES},
+        # phase 32's: the (48, 32) instance
+        "mla_reduced": {f"{r['shape']}_{r['dtype'][6:]}": {key: r[key] for
+                                                           key in (
+            "t", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err", "worst_share_of_limit")}
+            for r in serving["attention_bwd"] if r["hd"] == 48}}
     if not entry["launches"]:
         fail("flash_attn_bwd_f32 was launched no time on its main path")
     return entry
@@ -8918,6 +8956,385 @@ def moe_train_launches(moe_train):
     return _launches_by_wrapper(moe_train["full_width"]["steps"])
 
 
+# ---------------------------------------------------------------------------
+# phase 32: language-model training through launch.train
+# ---------------------------------------------------------------------------
+
+# (a): one in-process `launch.train.main` run per language-model family
+# with the CLI's defaults (4 clients, pool 3, e_warmup 10, e_local 20,
+# batch 48, 4,000 samples of 128 tokens; every LM arch at `reduced()`,
+# f32), and llama3.2-1b through the low-rank factor pool
+CLI_RUNS = (("llama3.2-1b", ()), ("qwen3-moe-235b-a22b", ()),
+            ("deepseek-v2-lite-16b", ()), ("chameleon-34b", ()),
+            ("rwkv6-7b", ()), ("zamba2-7b", ()),
+            ("llama3.2-1b", ("--pool-backend", "lowrank")))
+# the sequences of a client's own stream its fit is read on, before and
+# after its visit
+CLI_FIT_SEQS = 16
+# the held-out set's rows (`launch.train.build_clients`)
+CLI_HELD = 64
+# (b): deepseek-v2-lite-16b (MLA at (48, 32)) through `main` at a small
+# size on the card and on the CPU from one init, and twice more on the
+# CPU from that init nudged by one ulp up and down (the controls). At the
+# CLI's lr 1e-3 Adam turns a gradient element whose sign f32 rounding
+# decides into ±lr, so two summation orders end a run a few such flips a
+# leaf apart (tests/_train_cli_parity.py: the port from a one-ulp nudge
+# lies as far from itself as from the reference). Task losses, the
+# held-out -nll and each final leaf (normwise) must lie within
+# CLI_CVC_TOL (phase 31 (a)'s limit for one step) plus CLI_CONTROL_FACTOR
+# times the larger control's distance from the CPU run; the first step's
+# router calls (one init, one batch) route alike on both devices.
+CLI_CVC_ARGV = ("--arch", "deepseek-v2-lite-16b", "--clients", "2",
+                "--pool", "2", "--e-warmup", "2", "--e-local", "2",
+                "--samples", "256", "--seq-len", "64", "--batch", "8")
+CLI_CVC_TOL = SSM_CVC_TOL
+CLI_CONTROL_FACTOR = 3.0
+
+
+def _cli_wrappers():
+    """Every kernel wrapper by name: a CLI run launches exactly the ones
+    its model's steps imply, and no other."""
+    from repro_torch.kernels import (bgmv, chunk_scan, flash_attention,
+                                     local_step, pool_distance)
+    return {"flash_attn_f32": flash_attention.flash_attn_f32,
+            "flash_attn_bwd_f32": flash_attention.flash_attn_bwd_f32,
+            "pool_distance_f32": pool_distance.pool_distance_f32,
+            "pool_distance_bwd_f32": pool_distance.pool_distance_bwd_f32,
+            "gla_chunk_f32": chunk_scan.gla_chunk_f32,
+            "gla_chunk_bwd_f32": chunk_scan.gla_chunk_bwd_f32,
+            "factor_gram_f32": pool_distance.factor_gram_f32,
+            "gemm_f32": local_step.gemm_f32, "sgd_f32": local_step.sgd_f32,
+            "bgmv_f32": bgmv.bgmv_f32}
+
+
+def _cli_want(cfg, args):
+    """Launches of a CLI run of fedelmy: every step (e_warmup + clients ×
+    pool × e_local) one forward and one backward of each attention
+    application and GLA layer call, the held-out scoring after each
+    client (EVAL_ROWS rows a forward) one forward of each; every pool
+    step one forward and one backward of the sweep (d1 and d2 together
+    for the stacked pool; for the low-rank pool d2's one-member sweep, d1
+    in factor form). Nothing else: the LMs' products are not the GEMM
+    kernel's, Adam is not the SGD kernel, and the training step never
+    asks for a pool's pairwise Gram."""
+    from repro_torch.models.transformer import EVAL_ROWS
+    pool_steps = args.clients * args.pool * args.e_local
+    steps = args.e_warmup + pool_steps
+    evals = args.clients * -(-CLI_HELD // EVAL_ROWS)
+    attn = {"ssm": 0, "hybrid": cfg.n_layers // max(1, cfg.shared_attn_every)
+            }.get(cfg.family, cfg.n_layers)
+    gla = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    want = dict.fromkeys(_cli_wrappers(), 0)
+    want.update(flash_attn_f32=attn * (steps + evals),
+                flash_attn_bwd_f32=attn * steps,
+                gla_chunk_f32=gla * (steps + evals),
+                gla_chunk_bwd_f32=gla * steps,
+                pool_distance_f32=pool_steps,
+                pool_distance_bwd_f32=pool_steps)
+    return want, steps
+
+
+def _cli_main(torch, argv, init=None, fit=None):
+    """`launch.train.main(argv)` with its `launch` handed `init` as the
+    experiment's init params; with `fit` (a dict), each client's task
+    loss on its own stream's first CLI_FIT_SEQS sequences before and
+    after its visit is put there, read outside the launch counters.
+    Returns (main's dict, the RunResult)."""
+    import dataclasses
+    from unittest import mock
+
+    from repro_torch.api.engine import Callbacks
+    from repro_torch.launch import train as cli
+    launch, held = cli.launch, {}
+
+    def uncounted(fn):
+        saved = {k: w.launches for k, w in _cli_wrappers().items()}
+        try:
+            with torch.no_grad():
+                return fn()
+        finally:
+            for k, w in _cli_wrappers().items():
+                w.launches = saved[k]
+
+    def patched(exp):
+        start = init if init is not None else \
+            exp.model.init(exp.resolved_seed())
+        callbacks = Callbacks()
+        if fit is not None:
+            own = [{k: a[:CLI_FIT_SEQS] for k, a in p.arrays.items()}
+                   for p in exp.client_iters]
+
+            def loss(params, i):
+                return uncounted(lambda: float(exp.model.loss_fn(params,
+                                                                 own[i])))
+            order = exp.resolved_order()
+            fit.update(before=[None] * len(own), after=[None] * len(own))
+            fit["before"][order[0]] = loss(start, order[0])
+
+            def after_client(rec, m):
+                fit["after"][rec.client] = loss(m, rec.client)
+                if rec.rank + 1 < len(order):
+                    nxt = order[rec.rank + 1]
+                    fit["before"][nxt] = loss(m, nxt)
+            callbacks = Callbacks(on_client_end=after_client)
+        held["res"] = launch(dataclasses.replace(
+            exp, init_params=start, callbacks=callbacks))
+        return held["res"]
+    with mock.patch.object(cli, "launch", patched):
+        out = cli.main(list(argv))
+    return out, held["res"]
+
+
+def cli_runs(torch, smi_line):
+    """(a): see CLI_RUNS. Each run's -nll finite, every client's own-stream
+    loss lower after its visit than before, every final parameter finite,
+    exactly `_cli_want`'s launches of every kernel, 2 captures (the
+    plain and the pool step kinds) and steps − 2 replays."""
+    from repro_torch.api.trainer import ScannedPhase
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as cli
+
+    runs = []
+    for arch, extra in CLI_RUNS:
+        _release()
+        argv = ("--arch", arch) + extra
+        cfg = get_arch(arch).reduced()
+        want, steps = _cli_want(cfg, cli.parse_args(list(argv)))
+        for w in _cli_wrappers().values():
+            w.launches = 0
+        c0, r0 = ScannedPhase.total_captures, ScannedPhase.total_replays
+        fit = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, res = _cli_main(torch, argv, fit=fit)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {k: w.launches for k, w in _cli_wrappers().items()}
+        run = dict(arch=arch, family=cfg.family, options=list(extra),
+                   nll=-out["-nll"], wall_s=wall, train_wall_s=out["wall_s"],
+                   steps=steps, steps_per_s=steps / out["wall_s"],
+                   captures=ScannedPhase.total_captures - c0,
+                   replays=ScannedPhase.total_replays - r0,
+                   launches=got, want=want, fit=fit,
+                   finite=_finite(res.params) and math.isfinite(out["-nll"]))
+        del res
+        runs.append(run)
+        how = ", ".join((cfg.family,) + (" ".join(extra),) * bool(extra))
+        print(f"  (a) {arch} ({how}): -nll {out['-nll']:.4f} (ln V "
+              f"{math.log(cfg.vocab_size):.4f}), {steps} steps in "
+              f"{out['wall_s']:.2f} s ({run['steps_per_s']:.1f} steps/s; "
+              f"{wall:.2f} s with the data), {run['captures']} "
+              f"captures, {run['replays']} replays; own-stream loss before → "
+              f"after each visit: " + ", ".join(
+                  f"{b:.3f} → {a:.3f}" for b, a in zip(fit["before"],
+                                                       fit["after"]))
+              + "; launches " + ", ".join(f"{k} {v}" for k, v in got.items()
+                                           if v or want[k])
+              + f" ({smi_line})")
+        if not run["finite"]:
+            fail(f"phase 32 (a) {arch}: a non-finite -nll or parameter")
+        if not all(a < b for b, a in zip(fit["before"], fit["after"])):
+            fail(f"phase 32 (a) {arch}: a client's own-stream loss did not "
+                 f"fall over its visit: {fit}")
+        if got != want:
+            fail(f"phase 32 (a) {arch}: launches {got}, want {want}")
+        if run["captures"] != 2 or run["replays"] != steps - 2:
+            fail(f"phase 32 (a) {arch}: {run['captures']} captures and "
+                 f"{run['replays']} replays, want 2 and {steps - 2}")
+    return runs
+
+
+def _cli_tasks(out):
+    return [m["task_loss"] for c in out["history"] for m in c["models"]]
+
+
+def _cli_nlls(out):
+    return [c["global_acc"] for c in out["history"]] + [out["-nll"]]
+
+
+def _cli_rel(got, want):
+    return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+
+def cli_card_vs_cpu(torch, smi_line):
+    """(b): see CLI_CVC_ARGV."""
+    from unittest import mock
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    from repro_torch.models import moe as MOE
+
+    _release()
+    cfg = get_arch(CLI_CVC_ARGV[1]).reduced()
+    init = build_model(cfg, "cpu").init(0)
+    n_moe = init["layers.ffn.router"].shape[0]     # router calls a forward
+    route = MOE.route
+    calls, first = [], []        # every router call; each run's first step's
+    spy = _route_spy(torch, calls)
+
+    def eager_spy(p, c, xf):
+        # a captured step's router call runs nothing to record
+        if xf.is_cuda and torch.cuda.is_current_stream_capturing():
+            return route(p, c, xf)
+        return spy(p, c, xf)
+    def nudged(to):
+        return {k: torch.nextafter(v, torch.full_like(v, to))
+                for k, v in init.items()}
+    runs = {}
+    with mock.patch.object(MOE, "route", eager_spy):
+        for name, device, start in (
+                (CARD, CARD, init), ("cpu", "cpu", init),
+                ("up", "cpu", nudged(math.inf)),
+                ("down", "cpu", nudged(-math.inf))):
+            calls.clear()
+            t0 = time.perf_counter()
+            out, res = _cli_main(torch, CLI_CVC_ARGV + ("--device", device),
+                                 init={k: v.to(device)
+                                       for k, v in start.items()})
+            runs[name] = dict(out=out, wall_s=time.perf_counter() - t0,
+                              params={k: v.detach().cpu()
+                                      for k, v in res.params.items()})
+            if name in (CARD, "cpu"):
+                first += calls[:n_moe]
+            del res
+    n_calls, ties, margin = _hold_routes(cfg, first, "32 (b)")
+    card, cpu = runs[CARD], runs["cpu"]
+    controls = [runs["up"], runs["down"]]
+    errs = {}
+    for what, get in (("task", _cli_tasks), ("nll", _cli_nlls)):
+        errs[what] = (_cli_rel(get(card["out"]), get(cpu["out"])),
+                      max(_cli_rel(get(c["out"]), get(cpu["out"]))
+                          for c in controls))
+    card_errs = _leaf_errs(card["params"], cpu["params"])[0]
+    control_errs = [_leaf_errs(c["params"], cpu["params"])[0]
+                    for c in controls]
+    for k in cpu["params"]:
+        errs[k] = (card_errs[k], max(e[k] for e in control_errs))
+    worst = max(errs, key=lambda k: errs[k][0] - CLI_CONTROL_FACTOR *
+                errs[k][1])
+    mla = cfg.mla
+    print(f"  (b) {cfg.name} reduced (MLA q/k "
+          f"{mla.qk_nope_dim + mla.qk_rope_dim}, v {mla.v_head_dim}) through "
+          f"main({' '.join(CLI_CVC_ARGV[2:])}): card {card['wall_s']:.2f} s, "
+          f"CPU {cpu['wall_s']:.2f} s; the first step's {n_calls} router "
+          f"calls routed alike (margins ≥ {margin:.3e}, {ties} near-ties); "
+          f"card vs CPU (one-ulp controls vs CPU): task "
+          f"{errs['task'][0]:.3e} ({errs['task'][1]:.3e}), -nll "
+          f"{errs['nll'][0]:.3e} ({errs['nll'][1]:.3e}), worst leaf against "
+          f"its limit {worst} {errs[worst][0]:.3e} ({errs[worst][1]:.3e}); "
+          f"limit {CLI_CVC_TOL:g} + {CLI_CONTROL_FACTOR:g} × control "
+          f"({smi_line})")
+    bad = {k: e for k, e in errs.items()
+           if not e[0] <= CLI_CVC_TOL + CLI_CONTROL_FACTOR * e[1]}
+    if bad:
+        fail(f"phase 32 (b): card vs CPU beyond {CLI_CVC_TOL:g} + "
+             f"{CLI_CONTROL_FACTOR:g} × the one-ulp controls' distance: "
+             f"{bad}")
+    return dict(errs=errs, router_calls=n_calls, near_ties=ties,
+                smallest_margin=margin, card_wall_s=card["wall_s"],
+                cpu_wall_s=cpu["wall_s"], nll_card=-card["out"]["-nll"],
+                nll_cpu=-cpu["out"]["-nll"])
+
+
+def cli_subprocess(torch, tmp):
+    """(c) `python -m repro_torch.launch.train --arch llama3.2-1b` with the
+    CLI's defaults and `--handoff-dir`, as phase 21 (c) runs the CNN's:
+    exit 0, its -nll= line, the handoff read back bitwise there and loaded
+    onto the card here as finite params."""
+    from repro_torch.checkpoint import load_pytree
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+
+    handoff = os.path.join(tmp, "handoff_lm")
+    report = os.path.join(tmp, "train_lm.json")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(SRC)] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+         "llama3.2-1b", "--handoff-dir", handoff, "--out", report],
+        capture_output=True, text=True, timeout=600, env=env, cwd=str(ROOT))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"phase 32 (c): launch.train exited {proc.returncode}:\n"
+             f"{proc.stderr[-3000:]}")
+    lines = proc.stdout.splitlines()
+    nll = [ln for ln in lines if "-nll=" in ln]
+    if not nll or not any("read back bitwise" in ln for ln in lines):
+        fail(f"phase 32 (c): launch.train printed no -nll= line or no "
+             f"bitwise handoff:\n{proc.stdout[-3000:]}")
+    model = build_model(get_arch("llama3.2-1b").reduced())
+    params = load_pytree(os.path.join(handoff, "m_final.npz"),
+                         model.init(0))
+    if not all(v.is_cuda and bool(torch.isfinite(v).all())
+               for v in params.values()):
+        fail("phase 32 (c): the handoff file does not load onto the card "
+             "as finite params")
+    with open(report) as f:
+        result = json.load(f)
+    held = next((ln for ln in lines if ln.startswith("held-out set")), "")
+    print(f"  (c) launch.train: {nll[0].strip()} ({wall:.1f} s with the "
+          f"process's start); {held}; the handoff file loads onto the card")
+    return dict(wall_s=wall, nll=-result["-nll"],
+                train_wall_s=result["wall_s"])
+
+
+def cli_encdec_refused():
+    """(d) seamless-m4t-medium: the named ValueError on the card too."""
+    from repro_torch.launch import train as cli
+    try:
+        cli.main(["--arch", ENCDEC_NAME])
+    except ValueError as e:
+        if "src_embeds" not in str(e):
+            fail(f"phase 32 (d): {ENCDEC_NAME} raised another error: {e}")
+        print(f"  (d) {ENCDEC_NAME}: ValueError ({str(e)[:80]}…)")
+        return str(e)
+    fail(f"phase 32 (d): {ENCDEC_NAME} trained through launch.train")
+
+
+def cli_phase(torch, smi_line):
+    """Phase 32; returns its measurements by part."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        out = dict(runs=cli_runs(torch, smi_line),
+                   card_vs_cpu=cli_card_vs_cpu(torch, smi_line),
+                   subprocess=cli_subprocess(torch, tmp),
+                   encdec=cli_encdec_refused())
+    out["wall_s"] = time.perf_counter() - t0
+    return out
+
+
+def cli_launches(cli):
+    """Phase 32's main-path launches by wrapper name: (a)'s runs."""
+    total = {}
+    for run in cli["runs"]:
+        for k, v in run["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _ptxas_lines(log, tag):
+    """(kernel, line) of `nvcc -Xptxas -v`'s register and spill lines for
+    each entry whose mangled name holds `tag`; the kernel named by the
+    mangled name's length-prefixed identifier that ends in `kernel`."""
+    import re
+    out, kernel = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line or \
+                "Function properties for" in line:
+            name = line.split("'")[1] if "'" in line else line.split()[-1]
+            # every digit run's suffixes, read as an identifier's length
+            words = [name[m.end():m.end() + int(name[i:m.end()])]
+                     for m in re.finditer(r"\d+", name)
+                     for i in range(m.start(), m.end())]
+            words = [w for w in words if w.endswith("kernel")]
+            kernel = words[-1] if tag in name and words else None
+        elif kernel and ("registers" in line or "spill" in line):
+            out.append((kernel, line.strip()))
+    return out
+
+
 def main(argv):
     """No arguments: every phase. ``--planted-faults``: phases 1-2, then
     `planted_faults` (a calibration of phase 5's checks; no result line)."""
@@ -8964,6 +9381,10 @@ def main(argv):
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    # the attention kernels' (48, 32) instances (phase 32's), by kernel
+    for name in ("flash_attn_f32", "flash_attn_bwd_f32"):
+        for kernel, line in _ptxas_lines(logs.get(name, ""), "Li48ELi32E"):
+            print(f"  {name} (48, 32) {kernel}: {line}")
 
     if planted:
         print("[5] every agreement check with each planted fault")
@@ -9114,6 +9535,13 @@ def main(argv):
           f"{MLA_NAME} in bf16 at full width ({MOE_TRAIN_LAYERS} layers), "
           "16 × 4,096 tokens a step; bf16 vs its f32 twin")
     moe_train = moe_train_phase(torch, smi_line)
+
+    # phase 32: the language models through the training CLI
+    phase("32", "language-model training through launch.train: one run per "
+          "family with the CLI's defaults (dense, MoE, MLA at (48, 32), vlm, "
+          "RWKV6, hybrid; dense through the low-rank pool); deepseek card vs "
+          "CPU; the CLI as a subprocess; the encoder-decoder refused")
+    cli = cli_phase(torch, smi_line)
     phase(None)
 
     step_rows = [r for r in rows if r["main_path"]]
@@ -9186,6 +9614,12 @@ def main(argv):
             entry["mla_dsv2lite_bf16"] = {k: row[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                 "max_abs_err", "hd", "dv")}
+            # the (48, 32) instance (phase 32's reduced MLA), both dtypes
+            entry["mla_reduced"] = {
+                f"{r['shape']}_{r['dtype'][6:]}": {k: r[k] for k in (
+                    "tq", "ms", "plain_ms", "bound_ms", "bound_by",
+                    "library_ms", "max_abs_err")}
+                for r in serving["attention"] if r["hd"] == 48}
     # phase 25's train steps: (b)'s first run and (c)
     # and phase 26's SSM train steps ((b) and (c)'s first runs; the GLA
     # backward's entry counts them already) and phase 30's encoder-decoder
@@ -9194,11 +9628,15 @@ def main(argv):
     ssm_launches = ssm_train_launches(ssm_train)
     encdec_launches = encdec_train_launches(encdec_train)
     moe_launches = moe_train_launches(moe_train)
+    # and phase 32's CLI runs ((a))
+    cli_share = cli_launches(cli)
     for entry in kernels["kernels"]:
         entry["launches"] += train_step_launches(train).get(entry["name"],
                                                             0)
         entry["launches"] += encdec_launches.get(entry["name"], 0)
         entry["launches"] += moe_launches.get(entry["name"], 0)
+        entry["cli_launches"] = cli_share.get(entry["name"], 0)
+        entry["launches"] += entry["cli_launches"]
         if entry["name"] != "gla_chunk_bwd_f32":
             entry["launches"] += ssm_launches.get(entry["name"], 0)
         if entry["name"] == "pool_distance_bwd_f32":
@@ -9219,7 +9657,7 @@ def main(argv):
         dense_serving=dense, lm_training=lm, train_step=train,
         ssm_training=ssm_train, moe_serving=moe, mla_serving=mla,
         encdec_serving=encdec, encdec_training=encdec_train,
-        moe_training=moe_train, phase_s=PHASE_S,
+        moe_training=moe_train, cli_training=cli, phase_s=PHASE_S,
         total_s=time.perf_counter() - t_start)))
     phase_table()
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -11,7 +11,8 @@
 //
 // Instances (HD, DV): (32, 32), (64, 64), (112, 112), (128, 128), and
 // MLA's (192, 128) (deepseek-v2-lite-16b: q/k = nope 128 + rope 64, v
-// 128), the forward's. Δ, dP = dO·Vᵀ and dV = Pᵀ·dO run over DV columns;
+// 128) and (48, 32) (its `reduced()` heads, which the training CLI runs),
+// the forward's. Δ, dP = dO·Vᵀ and dV = Pᵀ·dO run over DV columns;
 // S, dQ and dK over HD; scale = hd^-1/2 of the q/k head dim.
 //
 // Replaces no TPU kernel: the reference has no Pallas backward. Its LM
@@ -1196,6 +1197,9 @@ extern "C" int flash_attn_bwd_f32(const void* q, const void* k,
   if (hd == 192 && dv_dim == 128)  // MLA: q/k nope 128 + rope 64, v 128
     return launch_dtype<192, 128>(bf16, q, k, v, o, dout, l, d, dq, dk, dv, b,
                                   tq, tk, h, kv, causal, window, scale, st);
+  if (hd == 48 && dv_dim == 32)  // MLA at deepseek-v2-lite-16b's reduced()
+    return launch_dtype<48, 32>(bf16, q, k, v, o, dout, l, d, dq, dk, dv, b,
+                                tq, tk, h, kv, causal, window, scale, st);
   if (hd != dv_dim) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:

@@ -6,7 +6,9 @@
 //   reads kv head h / (H / KV); out (B, Tq, H, dv) in q's dtype
 //
 // Instances (HD, DV): (32, 32), (64, 64), (112, 112), (128, 128), and MLA's
-// (192, 128) (deepseek-v2-lite-16b: q/k = nope 128 + rope 64, v 128). The
+// (192, 128) (deepseek-v2-lite-16b: q/k = nope 128 + rope 64, v 128) and
+// (48, 32) (its `reduced()` heads, nope 32 + rope 16 over v 32, which the
+// training CLI runs: three k16 steps of S, two n16 pairs of P·V). The
 // Pallas kernel has one head dim; at dv != hd what this computes is the
 // reference's jnp `layers.flash_attention` (src/repro/models/layers.py:84),
 // whose value width is v's own.
@@ -586,6 +588,9 @@ extern "C" int flash_attn_f32(const void* q, const void* k, const void* v,
   if (hd == 192 && dv == 128)  // MLA: deepseek-v2-lite-16b's heads
     return launch<192, 128>(q, k, v, o, l, bf16, b, tq, tk, h, kv, causal,
                             window, scale, st);
+  if (hd == 48 && dv == 32)  // MLA at deepseek-v2-lite-16b's reduced()
+    return launch<48, 32>(q, k, v, o, l, bf16, b, tq, tk, h, kv, causal,
+                          window, scale, st);
   if (hd != dv) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 32:

@@ -11,7 +11,8 @@ cross-attention of T target queries over them).
 `flash_attn_f32` launches the hand-written forward kernel
 ``csrc/flash_attn_f32.cu`` (bf16 or f32, contiguous CUDA tensors; (hd,
 dv) one of `DIM_PAIRS`: dv = hd at 32, 64, 112 or 128, and MLA's (192,
-128) for deepseek-v2-lite-16b; anything else raises): bf16 on the tensor cores
+128) for deepseek-v2-lite-16b and (48, 32) for its `reduced()`; anything
+else raises): bf16 on the tensor cores
 (mma.sync, P·V with P in three bf16 terms), f32 in FFMA; see its header.
 With ``return_lse=True`` it also returns each row's log-sum-exp (B, H,
 Tq) in f32, +inf on a row with no valid key. `flash_attn_bwd_f32`
@@ -48,8 +49,9 @@ from repro_torch.kernels import build
 HEAD_DIMS = (32, 64, 112, 128)   # the kernels' instances with dv = hd
 # the template instances (hd, dv) of the forward and the backward kernel:
 # dv = hd, and MLA's q/k head dim 192 (nope 128 + rope 64) with values
-# of 128
-DIM_PAIRS = tuple((hd, hd) for hd in HEAD_DIMS) + ((192, 128),)
+# of 128, and 48 (nope 32 + rope 16) with values of 32 (deepseek's
+# `reduced()` heads, which `launch.train` trains)
+DIM_PAIRS = tuple((hd, hd) for hd in HEAD_DIMS) + ((192, 128), (48, 32))
 _MAX_GRID_YZ = 65535
 
 

@@ -17,7 +17,8 @@
   narrow CNN stacked pool and a tiny llama factor pool (f32 and a bf16
   base written by the reference).
 * `python -m repro_torch.launch.train` on the CPU at a tiny size; its
-  handoff file loads in the reference's `load_pytree`."""
+  handoff file loads in the reference's `load_pytree` (the LM archs:
+  `test_torch_train_cli.py`)."""
 import dataclasses
 
 import jax
@@ -346,5 +347,6 @@ def test_train_cli_handoff_loads_in_the_reference(jax_cnn, tmp_path,
     port = TC.load_pytree(path, from_jax_params(wide, "cpu"))
     _assert_torch_equal(from_jax_params(jax.tree.map(np.asarray, ref),
                                         "cpu"), port)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        train_cli.main(["--arch", "llama3.2-1b", "--device", "cpu"])
+    # the encoder-decoder is the one arch the CLI refuses (ROADMAP C22)
+    with pytest.raises(ValueError, match="src_embeds"):
+        train_cli.main(["--arch", "seamless-m4t-medium", "--device", "cpu"])

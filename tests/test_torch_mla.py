@@ -218,26 +218,63 @@ def test_attention_with_narrow_values_matches_reference(b, t, h, hd, dv,
         np.testing.assert_allclose(got.numpy(), want, **ATTN_TOL)
 
 
-def test_attention_wrapper_checks_head_dims():
-    """On CPU tensors (no launch): (192, 128) passes the forward's and
-    the backward's shape checks and stops at the device check, in the
-    launchers and in `FlashAttention` (MLA training, which the backward
-    kernel's (192, 128) instance carries); a pair without an instance is
-    refused by all three before any launch."""
-    assert (192, 128) in FA.DIM_PAIRS and (128, 128) in FA.DIM_PAIRS
-    q, k = torch.zeros(1, 8, 2, 192), torch.zeros(1, 8, 2, 192)
-    v = torch.zeros(1, 8, 2, 128)
+@pytest.mark.parametrize("b,t", [(4, 32), (2, 128)])
+def test_plain_attention_at_the_cli_mla_dims_matches_jax_grad(b, t):
+    """deepseek-v2-lite-16b's `reduced()` heads (q/k 48, v 32), causal, at
+    the training CLI's shapes (its tests' 4 × 32 tokens and its default 2
+    × 128): `ref.attention_ref` and `ref.attention_bwd_ref` (the (48, 32)
+    instances' plain versions) against the reference's jnp
+    `flash_attention` and `jax.grad` of ⟨out, dO⟩, at the (192, 128)
+    cases' tolerances (`test_torch_moe_train.py`: rtol 1e-5, atol 1e-6 of
+    the largest magnitude)."""
+    from repro_torch.kernels.ref import attention_bwd_ref, attention_lse_ref
+    rng = np.random.default_rng(48 * t + b)
+    q = rng.normal(size=(b, t, 4, 48)).astype(np.float32)
+    k = rng.normal(size=(b, t, 4, 48)).astype(np.float32)
+    v = rng.normal(size=(b, t, 4, 32)).astype(np.float32)
+    do = rng.normal(size=(b, t, 4, 32)).astype(np.float32)
+
+    def inner(q, k, v):
+        return jnp.sum(JL.flash_attention(q, k, v, causal=True) * do)
+    want = jax.grad(inner, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    out = np.asarray(JL.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                        causal=True))
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    t_out = attention_ref(tq, tk, tv, causal=True)
+    np.testing.assert_allclose(t_out.numpy(), out, rtol=1e-5,
+                               atol=1e-6 * float(np.abs(out).max()))
+    got = attention_bwd_ref(tq, tk, tv, t_out,
+                            attention_lse_ref(tq, tk, causal=True), tdo,
+                            causal=True)
+    for g, w, x in zip(got, want, (q, k, v)):
+        w = np.asarray(w)
+        assert g.shape == x.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                   atol=1e-6 * float(np.abs(w).max()))
+
+
+@pytest.mark.parametrize("hd,dv", [(192, 128), (48, 32)])
+def test_attention_wrapper_checks_head_dims(hd, dv):
+    """On CPU tensors (no launch): MLA's (192, 128) and its reduced (48,
+    32) pass the forward's and the backward's shape checks and stop at the
+    device check, in the launchers and in `FlashAttention` (MLA training,
+    which the backward kernel's instances carry); a pair without an
+    instance is refused by all three before any launch."""
+    assert (hd, dv) in FA.DIM_PAIRS and (128, 128) in FA.DIM_PAIRS
+    q, k = torch.zeros(1, 8, 2, hd), torch.zeros(1, 8, 2, hd)
+    v = torch.zeros(1, 8, 2, dv)
     with pytest.raises(ValueError, match="not CUDA"):
         FA.flash_attn_f32(q, k, v)
-    for hd, dv in ((192, 64), (128, 64), (96, 96), (64, 128)):
+    for bad_hd, bad_dv in ((192, 64), (128, 64), (96, 96), (64, 128),
+                           (48, 48), (48, 16), (32, 48)):
         with pytest.raises(ValueError, match="instances"):
-            FA.flash_attn_f32(torch.zeros(1, 8, 2, hd),
-                              torch.zeros(1, 8, 2, hd),
-                              torch.zeros(1, 8, 2, dv))
+            FA.flash_attn_f32(torch.zeros(1, 8, 2, bad_hd),
+                              torch.zeros(1, 8, 2, bad_hd),
+                              torch.zeros(1, 8, 2, bad_dv))
     with pytest.raises(ValueError, match="dv"):
-        FA.flash_attn_f32(q, k, torch.zeros(1, 7, 2, 128))
+        FA.flash_attn_f32(q, k, torch.zeros(1, 7, 2, dv))
     launches = (FA.flash_attn_f32.launches, FA.flash_attn_bwd_f32.launches)
-    out, lse = torch.zeros(1, 8, 2, 128), torch.zeros(1, 2, 8)
+    out, lse = torch.zeros(1, 8, 2, dv), torch.zeros(1, 2, 8)
     with pytest.raises(ValueError, match="not CUDA"):
         FA.FlashAttention.apply(q.clone().requires_grad_(True), k, v, True,
                                 0)
@@ -245,9 +282,9 @@ def test_attention_wrapper_checks_head_dims():
         FA.flash_attn_bwd_f32(q, k, v, out, lse, out)
     with pytest.raises(ValueError, match="must be"):
         FA.flash_attn_bwd_f32(q, k, v, q, lse, q)    # out at q's width
-    narrow = torch.zeros(1, 8, 2, 64)
-    for hd, dv in ((128, 64), (192, 64)):
-        qq = torch.zeros(1, 8, 2, hd)
+    for bad_hd, bad_dv in ((128, 64), (192, 64), (48, 16)):
+        qq, narrow = torch.zeros(1, 8, 2, bad_hd), torch.zeros(1, 8, 2,
+                                                               bad_dv)
         with pytest.raises(ValueError, match="instances"):
             FA.flash_attn_bwd_f32(qq, qq, narrow, narrow, lse, narrow)
         with pytest.raises(ValueError, match="instances"):
